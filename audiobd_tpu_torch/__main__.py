@@ -1,0 +1,27 @@
+"""CLI dispatcher: ``python -m audiobd_tpu_torch <command> [flags]``.
+
+Ported commands so far: badnets. The reference's other commands
+(``python -m audiobd_tpu``) are listed in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+COMMANDS = {
+    "badnets": "audiobd_tpu_torch.cli.badnets",
+}
+
+
+def main(argv: list[str] | None = None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help") or argv[0] not in COMMANDS:
+        print(__doc__)
+        print("available commands:", ", ".join(COMMANDS))
+        raise SystemExit(0 if argv and argv[0] in ("-h", "--help") else 1)
+    return importlib.import_module(COMMANDS[argv[0]]).main(argv[1:])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,185 @@
+"""Typed, YAML-loadable, CLI-overridable configuration.
+
+An own copy of the reference's config tree (audiobd_tpu/configs.py:47-356),
+trimmed to the fields the ported BadNets + SmallCNN path reads, plus the
+``device`` the entry points run on. YAML is parsed only when ``--config`` is
+given (PyYAML is imported there and nowhere else).
+"""
+
+from __future__ import annotations
+
+import argparse
+from dataclasses import dataclass, field
+from typing import Any
+
+# Label sets per dataset (reference prepare_dataset.py:88-97).
+DATASET_LABELS: dict[str, list[str]] = {
+    "SCDv1-10": ["yes", "no", "up", "down", "left", "right", "on", "off", "stop", "go"],
+    "SCDv1-30": [
+        "bed", "bird", "cat", "dog", "down", "eight", "five", "four", "go",
+        "happy", "house", "left", "marvin", "nine", "no", "off", "on", "one",
+        "right", "seven", "sheila", "six", "stop", "three", "tree", "two",
+        "up", "wow", "yes", "zero",
+    ],
+    "SCDv2-10": ["zero", "one", "two", "three", "four", "five", "six", "seven", "eight", "nine"],
+    "SCDv2-26": [
+        "zero", "backward", "bed", "bird", "cat", "dog", "down", "follow",
+        "forward", "go", "happy", "house", "learn", "left", "marvin", "no",
+        "off", "on", "right", "sheila", "stop", "tree", "up", "visual",
+        "wow", "yes",
+    ],
+}
+
+
+@dataclass
+class DSPConfig:
+    """Audio front-end parameters (reference attack_config.txt:1-9)."""
+
+    sample_rate: int = 16000
+    n_mfcc: int = 40
+    n_fft: int = 400
+    hop_length: int = 160
+    n_mels: int = 128
+    # "torchaudio": htk mel / no filterbank norm / reflect pad / amplitude_to_DB
+    #   with per-clip top_db=80. "librosa": slaney mel + slaney norm /
+    #   constant pad / power_to_db.
+    parity: str = "torchaudio"
+
+
+@dataclass
+class TrainConfig:
+    learning_rate: float = 1e-4
+    batch_size: int = 256
+    num_epochs: int = 300
+    patience: int = 20
+    seed: int = 35
+    # First SmallCNN block through ops/conv1_bn_pool (CUDA-kernel backward).
+    # "auto" = on for CUDA, off elsewhere.
+    fused_conv_block: str = "auto"
+
+
+@dataclass
+class AttackConfig:
+    name: str = "badnets"
+    model: str = "smallcnn"
+    dataset: str = "SCDv1-10"
+    num_classes: int = 10
+    target_label: int = 2          # hardcoded torch.tensor(2) in reference
+    poisoning_rate: float = 0.1
+    result: str = "badnets_smallcnn"
+    load_clean_data: bool = True
+    trigger_size: int = 5
+    # None = CUDA (raises if there is none); "cpu" or "cuda:N" to choose.
+    device: str | None = None
+
+    dsp: DSPConfig = field(default_factory=DSPConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    @property
+    def labels(self) -> list[str]:
+        return DATASET_LABELS[self.dataset]
+
+    @property
+    def record_dir(self) -> str:
+        return f"record/{self.result}"
+
+
+# The badnets row of the reference's per-attack DSP + model-shape table
+# (attack_config.txt:1-23; audiobd_tpu/configs.py:205-213).
+ATTACK_PRESETS: dict[str, dict[str, Any]] = {
+    "badnets": {
+        "dsp": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
+        "linear_features": {
+            "smallcnn": 3072, "largecnn": 12288, "smalllstm": 128,
+            "lstmwithattention": 101, "rnn": 40, "resnet": 384,
+        },
+        "result": "badnets_smallcnn",
+    },
+}
+
+
+def linear_features_for(attack: str, model: str) -> int:
+    """Flatten/seq size the model constructor needs for this attack's shapes."""
+    return ATTACK_PRESETS[attack]["linear_features"][model.lower()]
+
+
+def make_config(attack: str, **overrides: Any) -> AttackConfig:
+    """Build an AttackConfig from the attack preset plus keyword overrides."""
+    preset = ATTACK_PRESETS[attack]
+    cfg = AttackConfig(name=attack, result=preset["result"])
+    cfg.dsp = DSPConfig(**preset["dsp"])
+    for key, value in overrides.items():
+        if value is None:
+            continue
+        for target in (cfg, cfg.dsp, cfg.train):
+            if hasattr(target, key):
+                setattr(target, key, value)
+                break
+        else:
+            raise KeyError(f"Unknown config key: {key}")
+    return cfg
+
+
+def config_from_yaml(path: str, attack: str | None = None, **cli_overrides: Any) -> AttackConfig:
+    """YAML first, then CLI overrides on top (CLI wins)."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    named = raw.pop("attack", None) or raw.pop("name", None)
+    attack = attack or named
+    if attack is None:
+        raise ValueError(f"YAML {path} must name an 'attack'")
+    nested = {}
+    for section in ("dsp", "train"):
+        nested.update(raw.pop(section, None) or {})
+    raw.update(nested)
+    raw.update({k: v for k, v in cli_overrides.items() if v is not None})
+    return make_config(attack, **raw)
+
+
+def add_common_args(parser: argparse.ArgumentParser) -> None:
+    """Flags mirroring the reference scripts' argparse (badnets.py:17-36)."""
+    parser.add_argument("--config", type=str, default=None, help="YAML config path")
+    parser.add_argument("--model", type=str, default=None)
+    parser.add_argument("--dataset", type=str, default=None)
+    parser.add_argument("--load_clean_data", type=lambda s: s.lower() != "false", default=None)
+    parser.add_argument("--sample_rate", type=int, default=None)
+    parser.add_argument("--n_mfcc", type=int, default=None)
+    parser.add_argument("--n_fft", type=int, default=None)
+    parser.add_argument("--hop_length", type=int, default=None)
+    parser.add_argument("--poisoning_rate", type=float, default=None)
+    parser.add_argument("--learning_rate", type=float, default=None)
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--num_classes", type=int, default=None)
+    parser.add_argument("--num_epochs", type=int, default=None)
+    parser.add_argument("--patience", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--result", type=str, default=None)
+    parser.add_argument(
+        "--fused_conv_block", type=str, default=None, choices=["auto", "on", "off"],
+        help="CUDA-kernel-backward first conv block (TrainConfig.fused_conv_block)",
+    )
+    parser.add_argument(
+        "--device", type=str, default=None,
+        help="torch device to run on (default: cuda; raises if CUDA is missing)",
+    )
+
+
+def _is_config_key(key: str) -> bool:
+    probe = AttackConfig()
+    return hasattr(probe, key) or hasattr(probe.dsp, key) or hasattr(probe.train, key)
+
+
+def config_from_args(attack: str, args: argparse.Namespace, **extra: Any) -> AttackConfig:
+    """Config keys from argparse (CLI-only flags like --synthetic are
+    ignored here and handled by the entry script itself)."""
+    cli = {
+        k: v for k, v in vars(args).items()
+        if k != "config" and v is not None and _is_config_key(k)
+    }
+    cli.update({k: v for k, v in extra.items() if v is not None})
+    if getattr(args, "config", None):
+        return config_from_yaml(args.config, attack=attack, **cli)
+    return make_config(attack, **cli)
+

@@ -1,0 +1,69 @@
+"""Waveform → MFCC in plain torch (port of audiobd_tpu/dsp/mfcc.py).
+
+    frames → @ windowed-DFT bases → |.|² → @ mel fb → dB → @ DCT
+
+Differentiable end to end (FlowMur's trigger synthesis backprops through
+it), and the plain version that the MFCC kernel (ops/mfcc.py) is held
+against.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from audiobd_tpu_torch.dsp import mel as _mel
+from audiobd_tpu_torch.dsp import stft as _stft
+
+
+@dataclass(frozen=True)
+class MFCCParams:
+    sample_rate: int = 16000
+    n_mfcc: int = 40
+    n_fft: int = 400
+    hop_length: int = 160
+    n_mels: int = 128
+    parity: str = "torchaudio"  # or "librosa"
+    top_db: float | None = 80.0
+
+    @property
+    def pad_mode(self) -> str:
+        # torch.stft center-pads with 'reflect'; librosa.stft (>=0.10) with 'constant'.
+        return "reflect" if self.parity == "torchaudio" else "constant"
+
+    @property
+    def mel_scale(self) -> str:
+        return "htk" if self.parity == "torchaudio" else "slaney"
+
+    @property
+    def mel_norm(self) -> str | None:
+        return None if self.parity == "torchaudio" else "slaney"
+
+    def mel_fb(self):
+        return _mel.mel_filterbank(
+            self.sample_rate, self.n_fft, n_mels=self.n_mels,
+            scale=self.mel_scale, norm=self.mel_norm,
+        )
+
+    def dct(self):
+        return _mel.dct_matrix(self.n_mfcc, self.n_mels)
+
+
+def mfcc(x: torch.Tensor, params: MFCCParams) -> torch.Tensor:
+    """MFCC of float ``x`` (..., T) → (..., n_frames, n_mfcc), time-major."""
+    spec = _stft.power_spectrogram(
+        x, params.n_fft, params.hop_length, center=True, pad_mode=params.pad_mode
+    )
+    fb = torch.from_numpy(params.mel_fb()).to(x.device)
+    db = _mel.amplitude_to_db(torch.matmul(spec, fb), top_db=params.top_db)
+    dct = torch.from_numpy(params.dct()).to(x.device)
+    return torch.matmul(db, dct)
+
+
+def mfcc_features(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
+    """Batched model-input features: (B, T) or (B, 1, T) → (B, 1, frames, n_mfcc),
+    the framework's NCHW feature layout."""
+    if wavs.ndim >= 3 and wavs.shape[-2] == 1:
+        wavs = wavs.squeeze(-2)
+    return mfcc(wavs, params)[..., None, :, :]

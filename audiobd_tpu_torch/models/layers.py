@@ -1,0 +1,93 @@
+"""Building blocks with the reference's semantics (port of the pieces of
+audiobd_tpu/models/layers.py that SmallCNN uses).
+
+torch already is the reference's framework for these: ``F.max_pool2d`` is
+floor mode with implicit −inf padding, NCHW flatten is (C, H, W) order, and
+``nn.Conv2d`` / ``nn.Linear`` compute what flax's Conv/Dense do. Two things
+differ and are written out here:
+  * init draws from an explicit ``torch.Generator`` (U(±1/√fan_in) for
+    weights and biases, torch's own defaults);
+  * BatchNorm keeps flax's statistics: the fast variance E[x²] − E[x]²
+    clamped at 0, and a running variance updated with that *biased* batch
+    variance at momentum 0.9 (``nn.BatchNorm2d`` would use the unbiased one
+    and drift from the reference at every step).
+Dropout takes a generator too, since ``F.dropout`` cannot.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from audiobd_tpu_torch.ops import conv1_bn_pool as fused
+
+BN_MOMENTUM = 0.9  # flax convention: the running average's decay
+BN_EPS = 1e-5
+
+
+def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:
+    """U(±1/√fan_in) for weight and bias: torch's default Conv/Linear init,
+    drawn from ``generator``."""
+    fan_in = module.weight[0].numel()
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        for p in (module.weight, module.bias):
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm over the channel axis of NCHW with flax's statistics."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+        self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            self.update_running(mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - c(mean)) * c(mul) + c(self.bias)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (flax nn.Dropout semantics) with an explicit generator."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def conv_bn_pool_block1(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused_block: bool) -> torch.Tensor:
+    """First SmallCNN block: maxpool_{1,3}(BN(relu(conv2x2(x)))).
+
+    With ``fused_block`` (and the shape guard of the reference,
+    layers.py:309) the block goes through ops/conv1_bn_pool, whose backward
+    is the CUDA kernel pair; in training mode the running statistics are
+    updated from the op's batch μ and σ² (clamped at 0, as the reference's
+    two-sample update does). Otherwise the unfused chain runs."""
+    if not fused_block or not fused.supports(x):
+        return F.max_pool2d(bn(F.relu(conv(x))), (1, 3))
+    if bn.training:
+        out, mu, var = fused.conv1_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, train=True)
+        bn.update_running(mu, torch.clamp(var, min=0.0))
+        return out
+    return fused.conv1_bn_pool(
+        x, conv.weight, conv.bias, bn.weight, bn.bias, train=False,
+        running_mean=bn.running_mean, running_var=bn.running_var,
+    )

@@ -1,0 +1,133 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/*.cu`` has a plain C interface. It is compiled by ``nvcc`` for
+``sm_90a`` into its own shared library under ``_build/`` (git-ignored),
+named by a digest of its source and flags so an edited source is rebuilt,
+and loaded with ``ctypes``. Every source is compiled in parallel on the first
+use of any kernel; nothing is built when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("mfcc.cu", "conv1_bn_pool.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libraries: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
+    return found
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source whose library is missing, all at once. Returns
+    {source: library path}; the compiler's output (registers, spills) is kept
+    beside each library as ``<stem>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {src: library_path(src) for src in SOURCES}
+    todo = [src for src, path in paths.items() if not path.exists()]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = []
+    for src in todo:
+        tmp = paths[src].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        procs.append((src, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failures = []
+    for src, tmp, proc in procs:
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"{Path(src).stem}.log").write_bytes(out)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {src}:\n{out.decode(errors='replace')}")
+        else:
+            os.replace(tmp, paths[src])
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    with _lock:
+        if source not in _libraries:
+            _libraries[source] = ctypes.CDLL(str(build_all()[source]))
+        return _libraries[source]
+
+
+class CudaKernel:
+    """One C entry point of a kernel library, with the count of its launches.
+
+    The entry point takes device pointers and the current CUDA stream,
+    allocates nothing, and returns ``cudaGetLastError()``; a non-zero code
+    raises here. ``launches`` goes up by one per successful call."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes: list):
+        self.name = name
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+        self._error_string = None
+        self._use_device = None
+
+    def _bind(self):
+        lib = load_library(self.source)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes = [*self.argtypes, ctypes.c_void_p]  # + the stream
+        fn.restype = ctypes.c_int
+        err = lib.error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        use = lib.use_device
+        use.argtypes = [ctypes.c_int]
+        use.restype = ctypes.c_int
+        self._fn, self._error_string, self._use_device = fn, err, use
+
+    def _check(self, code: int) -> None:
+        if code != 0:
+            raise RuntimeError(
+                f"CUDA kernel {self.symbol} failed: {self._error_string(code).decode()} ({code})"
+            )
+
+    def __call__(self, device: torch.device, *args) -> None:
+        if self._fn is None:
+            self._bind()
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        # The library has its own CUDA runtime: point it at the tensors' card.
+        self._check(self._use_device(index))
+        self._check(self._fn(*args, torch.cuda.current_stream(device).cuda_stream))
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

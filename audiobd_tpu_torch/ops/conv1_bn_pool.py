@@ -1,0 +1,266 @@
+"""maxpool_{1,3}(BN(relu(conv2x2_{1→C}(x)))) with a hand-written CUDA backward.
+
+Port of audiobd_tpu/ops/fused_conv_block.py::conv1_bn_pool, the first
+SmallCNN block. The forward is plain torch (conv2d, relu, batch statistics
+with the fast variance E[r²] − μ², normalize, max_pool2d), as the reference's
+forward is stock XLA. The backward never materializes the pre-pool
+activation: kernel B (``conv1_bn_pool_bwd_params``) recomputes each pool
+window from x and accumulates the parameter gradients; kernel C
+(``conv1_bn_pool_bwd_input``) forms dx when x requires a gradient. The math
+and the first-match tie rule are described in ``csrc/conv1_bn_pool.cu``.
+
+Layout is the port's NCHW: x (B, 1, H, W), weight (C, 1, 2, 2), out
+(B, C, H-1, (W-1)//3). On a CUDA tensor the backward launches the kernels or
+raises; on a CPU tensor it runs ``conv1_bn_pool_backward_plain``, the same
+recompute in plain torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from audiobd_tpu_torch.ops.build import CudaKernel, ptr
+
+EPS = 1e-5
+_I, _P = ctypes.c_int, ctypes.c_void_p
+BWD_PARAMS_KERNEL = CudaKernel(
+    "conv1_bn_pool_bwd_params", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_params",
+    [_P] * 9 + [_I] * 6,
+)
+BWD_INPUT_KERNEL = CudaKernel(
+    "conv1_bn_pool_bwd_input", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_input",
+    [_P] * 10 + [_I] * 5,
+)
+
+
+def supports(x: torch.Tensor) -> bool:
+    """The fused block's shape guard (audiobd_tpu/models/layers.py:309):
+    one input channel, at least two rows, and (W-1) divisible by the pool."""
+    return x.ndim == 4 and x.shape[1] == 1 and x.shape[2] >= 2 and (x.shape[3] - 1) % 3 == 0
+
+
+def _w5(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """(C, 5): the four 2x2 taps in row-major order, then the bias."""
+    return torch.cat([weight.reshape(weight.shape[0], 4), bias[:, None]], dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def _windows(x, w5, scale, shift):
+    """Taps p (5, B, H', Wp, 3) and the recomputed r, z (B, C, H', Wp, 3), in
+    the kernel's order of operations (no FMA), so ties route identically."""
+    b, _, h, w = x.shape
+    hp, wp = h - 1, (w - 1) // 3
+    x2 = x[:, 0]
+    taps = [x2[:, :-1, :-1], x2[:, :-1, 1:], x2[:, 1:, :-1], x2[:, 1:, 1:]]
+    taps = [t.reshape(b, hp, wp, 3) for t in taps]
+    cw = [w5[:, k].reshape(1, -1, 1, 1, 1) for k in range(5)]
+    y = cw[0] * taps[0][:, None]
+    for k in range(1, 4):
+        y = y + cw[k] * taps[k][:, None]
+    y = y + cw[4]
+    r = torch.clamp(y, min=0.0)
+    z = r * scale.reshape(1, -1, 1, 1, 1) + shift.reshape(1, -1, 1, 1, 1)
+    p = torch.stack(taps + [torch.ones_like(taps[0])])
+    return p, r, z
+
+
+def _first_match(z: torch.Tensor) -> torch.Tensor:
+    """One-hot over the last (phase) axis of the first element equal to the max."""
+    hit = z == z.amax(dim=-1, keepdim=True)
+    return hit & (torch.cumsum(hit.to(torch.int8), dim=-1) == 1)
+
+
+def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx):
+    """Plain torch version of kernels B and C: (dx or None, dweight, dbias,
+    dgamma, dbeta) for upstream gradient ``g`` (B, C, H', Wp)."""
+    w5 = _w5(weight, bias)
+    c = w5.shape[0]
+    p, r, z = _windows(x, w5, scale, shift)
+    m_valid = g.numel() // c
+    dz = torch.where(_first_match(z), g[..., None], torch.zeros((), dtype=g.dtype, device=g.device))
+    c5 = lambda v: v.reshape(1, -1, 1, 1, 1)  # noqa: E731
+    xhat = (r - c5(mu)) * c5(inv)
+    rp = r > 0
+    t1 = torch.where(rp, dz, torch.zeros_like(dz))
+    dwa = torch.einsum("kbhwt,bchwt->kc", p, t1)
+    s1 = dz.sum(dim=(0, 2, 3, 4))
+    s2 = (dz * xhat).sum(dim=(0, 2, 3, 4))
+    dw = dwa * scale
+    if train_bn:
+        rpf = rp.to(x.dtype)
+        dwb = torch.einsum("kbhwt,bchwt->kc", p, rpf)
+        dwc = torch.einsum("kbhwt,bchwt->kc", p, rpf * xhat)
+        n_total = 3 * m_valid
+        h1 = scale * s1 / n_total
+        h2 = scale * s2 / n_total
+        dw = dw - dwb * h1 - dwc * h2
+    else:
+        h1 = h2 = torch.zeros_like(s1)
+    dx = None
+    if need_dx:
+        dr = c5(scale) * dz - c5(h1) - xhat * c5(h2)
+        dy = torch.where(rp, dr, torch.zeros_like(dr))
+        dp = torch.einsum("ck,bchwt->kbhwt", w5[:, :4], dy)
+        b, _, h, w = x.shape
+        dp = dp.reshape(4, b, h - 1, w - 1)
+        dx = (
+            F.pad(dp[0], (0, 1, 0, 1)) + F.pad(dp[1], (1, 0, 0, 1))
+            + F.pad(dp[2], (0, 1, 1, 0)) + F.pad(dp[3], (1, 0, 1, 0))
+        )[:, None]
+    return dx, dw[:4].t().reshape(weight.shape), dw[4], s2, s1
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check_cuda(x, g, w5, *vecs, h12=None):
+    """The kernels' contract: contiguous float32 tensors on one CUDA device,
+    x (B, 1, H, W) with (W-1) % 3 == 0, g (B, C, H-1, (W-1)//3), w5 (C, 5),
+    the per-channel vectors (C,), h12 (2, C)."""
+    if not supports(x):
+        raise ValueError(f"conv1_bn_pool needs x (B, 1, H, W) with (W-1) % 3 == 0, got {tuple(x.shape)}")
+    b, _, h, w = x.shape
+    c = w5.shape[0]
+    expected = [("x", x, x.shape), ("g", g, (b, c, h - 1, (w - 1) // 3)), ("w5", w5, (c, 5))]
+    expected += [(f"vector {i}", v, (c,)) for i, v in enumerate(vecs)]
+    if h12 is not None:
+        expected.append(("h12", h12, (2, c)))
+    for name, t, shape in expected:
+        if not t.is_cuda or t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"conv1_bn_pool kernels take contiguous float32 tensors on x's CUDA device ({name})")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"conv1_bn_pool: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _splits(m_valid: int) -> int:
+    """Blocks per channel for kernel B: about 32 positions per thread."""
+    return max(1, min(128, -(-m_valid // (256 * 32))))
+
+
+def conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, *, train_bn: bool) -> torch.Tensor:
+    """Kernel B: (9, C) = dw taps (4 rows), dbias, dgamma, dbeta, h1, h2."""
+    _check_cuda(x, g, w5, mu, inv, scale, shift)
+    b, _, h, w = x.shape
+    c = w5.shape[0]
+    splits = _splits(b * (h - 1) * ((w - 1) // 3))
+    partial = torch.empty((splits, 17, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((9, c), dtype=torch.float32, device=x.device)
+    BWD_PARAMS_KERNEL(
+        x.device, ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
+        ptr(partial), ptr(out), b, h, w, c, splits, int(train_bn),
+    )
+    return out
+
+
+def conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12, *, train_bn: bool) -> torch.Tensor:
+    """Kernel C: dx (B, 1, H, W); ``h12`` is rows 7-8 of kernel B's output."""
+    _check_cuda(x, g, w5, mu, inv, scale, shift, h12=h12)
+    b, _, h, w = x.shape
+    c = w5.shape[0]
+    dp = torch.empty((4, b, h - 1, w - 1), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    BWD_INPUT_KERNEL(
+        x.device, ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
+        ptr(h12), ptr(dp), ptr(dx), b, h, w, c, int(train_bn),
+    )
+    return dx
+
+
+def conv1_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx):
+    """(dx or None, dweight, dbias, dgamma, dbeta): the kernels on CUDA
+    tensors, the plain version on CPU tensors."""
+    if not x.is_cuda:
+        return conv1_bn_pool_backward_plain(
+            x, g, weight, bias, mu, inv, scale, shift, train_bn=train_bn, need_dx=need_dx
+        )
+    x, g = x.contiguous(), g.contiguous()
+    w5 = _w5(weight, bias)
+    out = conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train_bn)
+    dx = None
+    if need_dx:
+        dx = conv1_bn_pool_bwd_input(
+            x, g, w5, mu, inv, scale, shift, out[7:9].contiguous(), train_bn=train_bn
+        )
+    return dx, out[:4].t().reshape(weight.shape), out[4], out[5], out[6]
+
+
+# ---------------------------------------------------------------------------
+# forward (plain torch) and autograd
+
+
+def _conv_relu(x, weight, bias):
+    return torch.clamp(F.conv2d(x, weight, bias), min=0.0)
+
+
+def _norm_pool(r, gamma, beta, mu, inv):
+    c = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+    z = (r - c(mu)) * c(inv) * c(gamma) + c(beta)
+    return F.max_pool2d(z, (1, 3))
+
+
+class _TrainBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta):
+        r = _conv_relu(x, weight, bias)
+        mu = r.mean(dim=(0, 2, 3))
+        var = (r * r).mean(dim=(0, 2, 3)) - mu * mu
+        inv = torch.rsqrt(var + EPS)
+        out = _norm_pool(r, gamma, beta, mu, inv)
+        scale = gamma * inv
+        shift = beta - mu * scale
+        ctx.save_for_backward(x, weight, bias, mu, inv, scale, shift)
+        ctx.mark_non_differentiable(mu, var)
+        return out, mu, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mu, _g_var):
+        # μ and σ² feed only the running statistics, which take no gradient.
+        x, weight, bias, mu, inv, scale, shift = ctx.saved_tensors
+        return conv1_bn_pool_backward(
+            x, g, weight, bias, mu, inv, scale, shift,
+            train_bn=True, need_dx=ctx.needs_input_grad[0],
+        )
+
+
+class _EvalBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, gamma, beta, running_mean, running_var):
+        r = _conv_relu(x, weight, bias)
+        inv = torch.rsqrt(running_var + EPS)
+        out = _norm_pool(r, gamma, beta, running_mean, inv)
+        scale = gamma * inv
+        shift = beta - running_mean * scale
+        ctx.save_for_backward(x, weight, bias, running_mean, inv, scale, shift)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, mu, inv, scale, shift = ctx.saved_tensors
+        grads = conv1_bn_pool_backward(
+            x, g, weight, bias, mu, inv, scale, shift,
+            train_bn=False, need_dx=ctx.needs_input_grad[0],
+        )
+        return (*grads, None, None)
+
+
+def conv1_bn_pool(x, weight, bias, gamma, beta, *, train: bool, running_mean=None, running_var=None):
+    """maxpool_{1,3}(BN(relu(conv2x2(x)))) with the kernel backward.
+
+    Training mode normalizes with the batch statistics and returns
+    (out, batch_mean, batch_var), the variance biased (E[r²] − μ², flax's
+    fast variance). Eval mode normalizes with the running statistics and
+    returns out. dx is computed whenever x requires a gradient (the
+    reference needed a ``need_input_grad`` flag for that; autograd knows).
+    """
+    if train:
+        return _TrainBlock.apply(x, weight, bias, gamma, beta)
+    if running_mean is None or running_var is None:
+        raise ValueError("eval mode needs running_mean and running_var")
+    return _EvalBlock.apply(x, weight, bias, gamma, beta, running_mean, running_var)

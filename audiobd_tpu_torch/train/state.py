@@ -1,0 +1,41 @@
+"""Optimizer state (port of the optax.adam the reference trains with,
+audiobd_tpu/train/trainer.py:91-96)."""
+
+from __future__ import annotations
+
+import torch
+
+
+class Adam:
+    """optax.adam(lr) with its defaults (b1 0.9, b2 0.999, eps 1e-8,
+    eps_root 0) and its formula:
+
+        mu ← (1−b1)·g + b1·mu,  nu ← (1−b2)·g² + b2·nu,  t ← t+1
+        p  ← p − lr · (mu/(1−b1ᵗ)) / (√(nu/(1−b2ᵗ)) + eps)
+
+    torch.optim.Adam divides √nu and the bias correction in another order.
+    The update is in place, with multi-tensor (foreach) ops.
+    """
+
+    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor]) -> None:
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - b1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+        mu_hat = torch._foreach_div(self.mu, 1.0 - b1 ** self.count)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1.0 - b2 ** self.count))
+        torch._foreach_add_(denom, self.eps)
+        updates = torch._foreach_div(mu_hat, denom)
+        torch._foreach_mul_(updates, -self.lr)
+        torch._foreach_add_(self.params, updates)
+

@@ -1,0 +1,38 @@
+"""CSV metric logging with the reference's file/column contract
+(audiobd_tpu/utils/logging.py): ``loss_result.csv`` and ``acc_result.csv``
+under ``record/<result>/``."""
+
+from __future__ import annotations
+
+import csv
+import os
+from typing import Sequence
+
+
+def write_csv(path: str, header: Sequence[str], rows: Sequence[Sequence]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        writer.writerows(rows)
+
+
+def save_attack_csvs(record_dir: str, history: dict[str, list]) -> None:
+    """loss_result.csv + acc_result.csv, reference column order."""
+    write_csv(
+        os.path.join(record_dir, "loss_result.csv"),
+        ["train_loss", "test_clean_loss", "test_bd_loss"],
+        list(zip(history["train_loss"], history["test_clean_loss"], history["test_bd_loss"])),
+    )
+    write_csv(
+        os.path.join(record_dir, "acc_result.csv"),
+        ["train_acc", "train_asr", "test_clean_acc", "test_asr"],
+        list(
+            zip(
+                history["train_mix_acc"],
+                history["train_asr"],
+                history["test_clean_acc"],
+                history["test_asr"],
+            )
+        ),
+    )

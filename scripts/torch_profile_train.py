@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Where a training epoch of the PyTorch/CUDA port spends its time.
+
+    python3 scripts/torch_profile_train.py [--per_class 2000] [--batch_size 256] [--trace PATH]
+
+Builds the main path's data on the card (synthetic clips → MFCC kernel →
+BadNets patch), runs one warm-up epoch of SmallCNN training + the two eval
+passes exactly as train_attack does, then times one more such epoch under
+torch.profiler. Prints the epoch's wall time, the device's busy and idle
+share (union of kernel intervals over the wall time), and device time by
+kernel; ``--trace`` also writes the Chrome trace. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+from collections import defaultdict
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.data.speech_commands import make_synthetic_clean_data
+    from audiobd_tpu_torch.poison import badnets
+    from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_eval_epoch, run_train_epoch
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.train.trainer import build_attack_model
+    from audiobd_tpu_torch.utils import random as rnd
+    from audiobd_tpu_torch.utils.device import resolve_device
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--per_class", type=int, default=2000)
+    parser.add_argument("--batch_size", type=int, default=256)
+    parser.add_argument("--trace", type=str, default=None, help="write the Chrome trace here")
+    args = parser.parse_args()
+
+    cfg = make_config("badnets", batch_size=args.batch_size)
+    device = resolve_device(cfg.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        clean = make_synthetic_clean_data(cfg, n_per_class=args.per_class)
+        poisoned = badnets.poison(cfg, clean, save=False)
+        os.chdir(REPO)
+    model = build_attack_model(cfg, device)
+    opt = Adam(model.parameters(), cfg.train.learning_rate)
+    sets = [DeviceDataset(s, device) for s in (poisoned.bd_train, poisoned.clean_test, poisoned.bd_test)]
+    np_rng = rnd.np_rng(cfg.train.seed, "shuffle")
+
+    def epoch():
+        run_train_epoch(model, opt, sets[0], cfg.train.batch_size, np_rng)
+        run_eval_epoch(model, sets[1], cfg.train.batch_size)
+        run_eval_epoch(model, sets[2], cfg.train.batch_size)
+
+    epoch()  # warm-up: cuDNN algorithm choice, allocator, kernel binding
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("torch.profiler recorded no device kernels: no breakdown", file=sys.stderr)
+        return 1
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    first = min(s for s, _ in spans)
+    last = max(e for _, e in spans)
+    by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.end - e.time_range.start
+        by_name[e.name][1] += 1
+    total = sum(v[0] for v in by_name.values())
+
+    n_train = len(sets[0])
+    print(f"device {torch.cuda.get_device_name(0)}; batch {cfg.train.batch_size}; "
+          f"train clips {n_train}, eval clips {len(sets[1]) + len(sets[2])}")
+    print(f"epoch wall (no profiler) {plain_wall * 1e3:.1f} ms = {n_train / plain_wall:.0f} train clips/s")
+    print(f"epoch wall (profiled) {wall * 1e3:.1f} ms; device busy {busy / 1e3:.1f} ms "
+          f"({100 * busy / 1e3 / (wall * 1e3):.1f}% of wall, idle {100 - 100 * busy / 1e3 / (wall * 1e3):.1f}%); "
+          f"first-to-last kernel {(last - first) / 1e3:.1f} ms; {len(kernels)} kernel launches")
+    print(f"device time by kernel (sum {total / 1e3:.1f} ms):")
+    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {us / 1e3:9.3f} ms {100 * us / total:5.1f}% {count:6d}x  {name[:110]}")
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

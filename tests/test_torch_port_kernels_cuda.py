@@ -1,0 +1,103 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+The kernels have no CPU mode, so every test here is marked ``cuda`` and skips
+without a CUDA device. The file imports no JAX, so it runs on a GPU machine
+without it (tests/conftest.py imports JAX, hence ``--noconftest``):
+
+    python -m pytest --noconftest tests/test_torch_port_kernels_cuda.py -q -m cuda
+
+Tolerances: MFCC rtol 1e-4, atol 1e-3 (tests/test_pallas_mfcc.py's; f32
+sums in another order). Block-1 backward rtol 1e-4, atol 1e-5: the kernels
+and the plain version recompute y and z bit-identically and route every
+pool tie the same way, so only the order of the f32 sums differs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
+from audiobd_tpu_torch.ops import conv1_bn_pool as op
+from audiobd_tpu_torch.ops.mfcc import MFCC_KERNEL, fused_mfcc
+from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
+
+pytestmark = pytest.mark.cuda
+
+SETTINGS = {
+    "torchaudio": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
+    "librosa": dict(sample_rate=16000, n_mfcc=40, n_fft=2048, hop_length=512, parity="librosa"),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("setting", sorted(SETTINGS))
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_mfcc_kernel_matches_plain(cuda, setting, dtype):
+    x = (np.random.default_rng(11).standard_normal((5, 16000)) * 0.1).astype(np.float32)
+    if dtype == "int16":
+        x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+    params = MFCCParams(**SETTINGS[setting])
+    wavs = torch.from_numpy(x).to(cuda)
+    before = MFCC_KERNEL.launches
+    out = fused_mfcc(wavs, params)
+    assert MFCC_KERNEL.launches == before + 1
+    ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+
+
+def test_mfcc_kernel_rejects_other_dtypes(cuda):
+    with pytest.raises(ValueError, match="float32 or int16"):
+        fused_mfcc(torch.zeros(2, 16000, dtype=torch.float64, device=cuda), MFCCParams())
+
+
+def _block_inputs(shape, seed):
+    b, h, w, c = shape
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    x = t(rng.normal(size=(b, 1, h, w)))
+    weight = t(rng.normal(size=(c, 1, 2, 2)) * 0.5)
+    bias = t(rng.normal(size=(c,)) * 0.1 - 0.8)  # many relu zeros: exact pool ties
+    gamma = t(1.0 + 0.3 * rng.normal(size=(c,)))
+    gamma[0] = -gamma[0].abs()
+    beta = t(0.1 * rng.normal(size=(c,)))
+    g = t(rng.normal(size=(b, c, h - 1, (w - 1) // 3)))
+    mu = t(0.3 * rng.random(c))
+    inv = torch.rsqrt(t(rng.random(c)) + 0.5)
+    return x, g, weight, bias, mu, inv, gamma * inv, beta - mu * gamma * inv
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 13, 8), (16, 101, 40, 64)])
+@pytest.mark.parametrize("train_bn", [True, False])
+def test_block1_backward_kernels_match_plain(cuda, shape, train_bn):
+    args = _block_inputs(shape, seed=sum(shape))
+    ref = op.conv1_bn_pool_backward_plain(*args, train_bn=train_bn, need_dx=True)
+    got = op.conv1_bn_pool_backward(*(a.to(cuda) for a in args), train_bn=train_bn, need_dx=True)
+    for name, a, e in zip(("dx", "dweight", "dbias", "dgamma", "dbeta"), got, ref):
+        torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_block1_autograd_on_card_matches_cpu(cuda):
+    x, _, weight, bias, _, _, _, _ = _block_inputs((8, 21, 31, 16), seed=3)
+    gamma = torch.linspace(-1.0, 1.5, 16)
+    beta = torch.linspace(-0.2, 0.3, 16)
+    wts = torch.randn(8, 16, 20, 10, generator=torch.Generator().manual_seed(0))
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True) for t in (x, weight, bias, gamma, beta)]
+        out, mu, var = op.conv1_bn_pool(*leaves, train=True)
+        (torch.tanh(out) * wts.to(device)).sum().backward()
+        return [out, mu, var] + [t.grad for t in leaves]
+
+    before = op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches
+    got = run(cuda)
+    assert (op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    for a, e in zip(got, run(torch.device("cpu"))):
+        torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5)
