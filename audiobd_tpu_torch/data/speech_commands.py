@@ -17,7 +17,7 @@ import torch
 
 from audiobd_tpu_torch.configs import AttackConfig
 from audiobd_tpu_torch.dsp import MFCCParams
-from audiobd_tpu_torch.poison.device_prep import make_block_fn, run_prep
+from audiobd_tpu_torch.ops.mfcc import fused_mfcc_features
 from audiobd_tpu_torch.utils.device import resolve_device
 
 _CLEAN_FILES = (
@@ -56,10 +56,24 @@ def mfcc_params(cfg: AttackConfig) -> MFCCParams:
 
 
 def batched_mfcc_device(wavs, params: MFCCParams, device: torch.device, chunk: int = 2048) -> torch.Tensor:
-    """(N, 1, T) or (N, T) f32 or int16 PCM → (N, 1, frames, n_mfcc) on
-    ``device``: the MFCC kernel on CUDA, its plain version on the CPU, one
-    chunk of clips per launch."""
-    return run_prep(make_block_fn(params), wavs, None, chunk, device)
+    """(N, 1, T) or (N, T) f32 or int16 PCM, host numpy or a tensor →
+    (N, 1, frames, n_mfcc) on ``device``: the MFCC kernel on CUDA, its plain
+    version on the CPU, one chunk of clips per launch. Integer PCM goes to
+    the device as is (half the bytes of f32) and is scaled on load."""
+    if isinstance(wavs, torch.Tensor):
+        w = wavs.to(device)
+    else:
+        arr = np.asarray(wavs)
+        if not np.issubdtype(arr.dtype, np.integer):
+            arr = arr.astype(np.float32, copy=False)
+        w = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if w.is_floating_point():
+        w = w.to(torch.float32)
+    if w.ndim == 3 and w.shape[-2] == 1:
+        w = w.squeeze(-2)
+    if w.shape[0] == 0:
+        return fused_mfcc_features(w, params)
+    return torch.cat([fused_mfcc_features(w[s : s + chunk], params) for s in range(0, w.shape[0], chunk)])
 
 
 def split_indices(n: int, test_size: float = 0.2, seed: int = 35) -> tuple[np.ndarray, np.ndarray]:

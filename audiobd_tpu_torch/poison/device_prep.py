@@ -1,21 +1,16 @@
-"""Device-resident prep shared by the attack entries (port of
+"""PCM handling of the device-resident prep (port of
 audiobd_tpu/poison/device_prep.py).
 
-The pass (dequantize int16 PCM) → MFCC → [feature injection] runs on the
-device chunk by chunk; the reference's ``lax.map`` over chunks is a Python
-loop over chunks here. int16 PCM goes to the device as is (half the bytes of
-f32) and the MFCC kernel scales it on load.
-
-Not ported: ``padded_size`` and the wrap-pad in ``run_prep``. They quantize
-XLA program shapes so compiled programs are reused; the CUDA kernel takes any
-batch size, so padding would only add work.
+Only ``dequantize_pcm`` is kept here. The reference's chunked prep
+(``make_block_fn``/``run_prep``: dequantize → MFCC → optional feature
+injection, ``lax.map`` over chunks, wrap-padded to quantized XLA shapes) is
+a plain loop over chunks in ``data.speech_commands.batched_mfcc_device``:
+the CUDA kernel takes any batch size, so no padding is needed, and BadNets
+patches the device-resident clean features instead of recomputing them.
 """
 
 from __future__ import annotations
 
-from collections.abc import Callable
-
-import numpy as np
 import torch
 
 
@@ -28,51 +23,3 @@ def dequantize_pcm(w: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"integer wavs must be int16 PCM, got {w.dtype}")
         return w.to(torch.float32) * (1.0 / 32768.0)
     return w
-
-
-def make_block_fn(params, *, feat_fn: Callable | None = None) -> Callable:
-    """Build the (chunk, T) wavs + (chunk,) indicators → (chunk, 1, F, M) body.
-
-    ``feat_fn``: feature-domain injection applied to indicator==1 rows after
-    the MFCC (BadNets' patch)."""
-    from audiobd_tpu_torch.ops.mfcc import fused_mfcc_features
-
-    def block(w: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:
-        feats = fused_mfcc_features(w, params)
-        if feat_fn is not None:
-            feats = torch.where(ind[:, None, None, None] == 1, feat_fn(feats), feats)
-        return feats
-
-    return block
-
-
-def host_wav_cast(wavs) -> np.ndarray:
-    """Host wavs → transfer dtype: integer PCM as is, everything else f32."""
-    arr = np.asarray(wavs)
-    return arr if np.issubdtype(arr.dtype, np.integer) else arr.astype(np.float32, copy=False)
-
-
-def run_prep(block: Callable, wavs, indicators, chunk: int, device: torch.device) -> torch.Tensor:
-    """Run ``block`` over chunk-sized row blocks of ``wavs`` on ``device``.
-
-    wavs: (N, T) or (N, 1, T), host numpy or a tensor, f32 or int16 PCM.
-    indicators: (N,) ints or None. Returns the blocks' outputs concatenated.
-    """
-    if isinstance(wavs, torch.Tensor):
-        w = wavs.to(device)
-        if w.is_floating_point():
-            w = w.to(torch.float32)
-    else:
-        w = torch.from_numpy(np.ascontiguousarray(host_wav_cast(wavs))).to(device)
-    if w.ndim >= 3 and w.shape[-2] == 1:
-        w = w.squeeze(-2)
-    n = w.shape[0]
-    ind = (
-        torch.zeros(n, dtype=torch.int64, device=device)
-        if indicators is None
-        else torch.as_tensor(np.asarray(indicators), dtype=torch.int64).to(device)
-    )
-    outs = [block(w[s : s + chunk], ind[s : s + chunk]) for s in range(0, n, chunk)]
-    if not outs:
-        return block(w[:0], ind[:0])
-    return outs[0] if len(outs) == 1 else torch.cat(outs)

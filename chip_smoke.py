@@ -70,6 +70,33 @@ def max_err(torch, got, ref, rtol: float, atol: float) -> tuple[float, float, bo
     return mx, mx / max(float(scale.max()), 1e-30), ok
 
 
+def mfcc_bound(wav, params) -> tuple[float, str, float, float]:
+    """Least time for waveform → MFCC on ``wav`` (B, T): (ms, by, flops, bytes).
+
+    Operations per frame of the function, not of the kernel's matrix DFT:
+    the window (n_fft multiplies); a real-input FFT of size n_fft at the
+    conventional 2.5·n·log2(n) (half of a complex FFT's 5·n·log2(n)); the
+    power (3 per bin); the mel product over the filterbank's nonzeros only
+    (2 each: the triangles overlap at most pairwise, so the dense product
+    would count ~65x too much); the dB scale and top_db floor (3 per mel);
+    the dense DCT (2·n_mels·n_mfcc). Bytes: the PCM read, the MFCCs written,
+    the mel and DCT tables read.
+    """
+    from audiobd_tpu_torch.dsp.stft import num_frames
+
+    batch, n_samples = wav.shape
+    frames = num_frames(n_samples, params.n_fft, params.hop_length)
+    n, bins = params.n_fft, params.n_fft // 2 + 1
+    mel = params.mel_fb()
+    per_frame = (n + 2.5 * n * math.log2(n) + 3 * bins + 2 * int((mel != 0).sum())
+                 + 3 * params.n_mels + 2 * params.n_mels * params.n_mfcc)
+    flops = batch * frames * per_frame
+    nbytes = (wav.numel() * wav.element_size() + 4 * batch * frames * params.n_mfcc
+              + 4 * (mel.size + params.n_mels * params.n_mfcc))
+    ms, by = bound(flops, nbytes)
+    return ms, by, flops, nbytes
+
+
 def phase_mfcc(torch, ctx) -> dict:
     from audiobd_tpu_torch.dsp import MFCCParams, mfcc
     from audiobd_tpu_torch.dsp.mel import amplitude_to_db
@@ -80,16 +107,21 @@ def phase_mfcc(torch, ctx) -> dict:
           "(f32 both; sums in another order)", flush=True)
     rtol, atol = 1e-4, 1e-3
     gen = torch.Generator(device="cuda").manual_seed(0)
-    wav = torch.randn(256, 16000, device="cuda", generator=gen) * 0.1
-    pcm = torch.clamp(torch.round(wav * 32768.0), -32768, 32767).to(torch.int16)
+    # The main path's prep launches A on f32 chunks of 2048 clips and one
+    # 1568-clip tail (20,000 clips); the other cases cover int16 PCM, librosa
+    # parity and a batch that is not a multiple of anything.
+    wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
+    tail = wav[:1568]
+    pcm = torch.clamp(torch.round(wav[:256] * 32768.0), -32768, 32767).to(torch.int16)
     ta = MFCCParams()
     lib = MFCCParams(n_fft=2048, hop_length=512, parity="librosa")
     worst = 0.0
     for name, w, params in (
-        ("torchaudio f32 (256, 16000)", wav, ta),
+        ("torchaudio f32 (2048, 16000), main-path chunk", wav, ta),
+        ("torchaudio f32 (1568, 16000), main-path tail", tail, ta),
         ("torchaudio int16 (256, 16000)", pcm, ta),
         ("librosa f32 (64, 16000) n_fft 2048", wav[:64], lib),
-        ("torchaudio f32 ragged (257, 16000)", torch.cat([wav, wav[:1] * 0.5]), ta),
+        ("torchaudio f32 ragged (257, 16000)", torch.cat([wav[:256], wav[:1] * 0.5]), ta),
     ):
         got = fused_mfcc(w, params)
         torch.cuda.synchronize()
@@ -98,29 +130,31 @@ def phase_mfcc(torch, ctx) -> dict:
         worst = max(worst, err)
         check(ok and tuple(got.shape) == tuple(ref.shape),
               f"{name}: shape {tuple(got.shape)} max abs err {err:.3e} (rel to max {rel:.3e})")
+        del got, ref
 
     mel_fb = torch.from_numpy(ta.mel_fb()).cuda()
     dct = torch.from_numpy(ta.dct()).cuda()
-    window = torch.hann_window(400, periodic=True, device="cuda")
+    window = torch.hann_window(ta.n_fft, periodic=True, device="cuda")
 
     def library():
-        spec = torch.stft(wav, 400, 160, window=window, center=True, pad_mode="reflect",
-                          return_complex=True).abs().pow(2)
+        spec = torch.stft(wav, ta.n_fft, ta.hop_length, window=window, center=True,
+                          pad_mode="reflect", return_complex=True).abs().pow(2)
         return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb) @ dct
 
     err_lib, _, ok_lib = max_err(torch, library(), mfcc(wav, ta), rtol, atol)
     check(ok_lib, f"yardstick torch.stft+matmul agrees: max abs err {err_lib:.3e}")
-    ms = time_ms(torch, lambda: fused_mfcc(wav, ta), 20)
-    plain_ms = time_ms(torch, lambda: mfcc(wav, ta), 10)
-    library_ms = time_ms(torch, library, 20)
-    b, t, fr, bins, mels, nm, nfft = 256, 16000, 101, 201, 128, 40, 400
-    flops = b * fr * (4 * nfft * bins + 3 * bins + 2 * bins * mels + mels + 2 * mels * nm)
-    nbytes = 4 * (b * t + b * fr * nm + 2 * nfft * bins + bins * mels + mels * nm)
-    bms, by = bound(flops, nbytes)
-    print(f"  MFCC (256, 16000) f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    ms = time_ms(torch, lambda: fused_mfcc(wav, ta), 10)
+    tail_ms = time_ms(torch, lambda: fused_mfcc(tail, ta), 10)
+    plain_ms = time_ms(torch, lambda: mfcc(wav, ta), 5, warmup=1)
+    library_ms = time_ms(torch, library, 10)
+    bms, by, flops, nbytes = mfcc_bound(wav, ta)
+    tail_bms = mfcc_bound(tail, ta)[0]
+    print(f"  MFCC (2048, 16000) f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"torch.stft yardstick {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-          f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
-    ctx["feats"] = fused_mfcc(wav, ta)[:, None]
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    print(f"  MFCC (1568, 16000) f32 tail: kernel {tail_ms:.4f} ms, bound {tail_bms:.4f} ms",
+          flush=True)
+    ctx["feats"] = fused_mfcc(wav[:256], ta)[:, None]
     return {"name": "mfcc", "route": "cuda", "source": "audiobd_tpu_torch/csrc/mfcc.cu",
             "replaces": "audiobd_tpu/ops/pallas_mfcc.py:129", "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
@@ -204,18 +238,29 @@ def phase_conv1(torch, ctx) -> list[dict]:
     lib_b = time_ms(torch, lambda: torch.autograd.grad(pooled, params, g, retain_graph=True), 20)
     lib_c = time_ms(torch, lambda: torch.autograd.grad(pooled, xg, g, retain_graph=True), 20)
 
-    bsz, _, hh, ww = x.shape
-    c = w.shape[0]
-    m_pos = bsz * (hh - 1) * ((ww - 1) // 3)
+    # Bounds from this run's data (train mode, as timed). Per (pooled
+    # position, channel): recompute the 3 conv outputs (4 mul + 4 add, relu,
+    # z mul + add: 11 each) and pick the winner (2 compares). Only the
+    # winning phase carries dz, so S1, S2 (3) and x̂ (2) are counted there,
+    # and dwA (4 multiply-adds + 1 add) only where the winner's relu is
+    # active. The BN-mean terms dwB (5 adds) and dwC (4 multiply-adds + 1
+    # add) and their x̂ run on every active phase.
+    _, r_win, z_win = op._windows(x, w5, scale, shift)
+    winner, active = op._first_match(z_win), r_win > 0
+    n_pc = winner.numel() // 3
+    n_active = int(active.sum())
+    n_win_active = int((winner & active).sum())
+    n_xhat = int((winner | active).sum())
+    del r_win, z_win, winner, active
     x_bytes, g_bytes = 4 * x.numel(), 4 * g.numel()
-    # Per (pooled position, channel): recompute 3 conv outputs (4 mul + 4 add,
-    # relu, z mul + add = 11 each) and, per phase, x̂ (2), the five dwA, five
-    # dwB and five dwC multiply-adds (30 + 1 for relu'·x̂) and S1, S2 (3).
-    flops_b = m_pos * c * (3 * 11 + 3 * (2 + 31 + 3))
-    # Per (pooled position, channel): the same recompute, then per phase dr
-    # (5), the relu' select (1) and four dp multiply-adds (8); plus the
-    # three adds per x element of the gather.
-    flops_c = m_pos * c * (3 * 11 + 3 * (5 + 1 + 8)) + 3 * x.numel()
+    c = w.shape[0]
+    flops_b = n_pc * (33 + 2 + 3) + 2 * n_xhat + 9 * n_win_active + 14 * n_active
+    # Kernel C: the same recompute, then per active phase x̂ (2), dr =
+    # [scale·dz] − h1 − x̂·h2 (3, and 1 more on the winner) and four dp
+    # multiply-adds (8); plus at most three adds per x element in the gather.
+    flops_c = n_pc * (33 + 2) + 13 * n_active + n_win_active + 3 * x.numel()
+    print(f"  data: {n_pc} (position, channel) pairs, {n_active} active phases of "
+          f"{3 * n_pc}, {n_win_active} active winners", flush=True)
     bb, byb = bound(flops_b, x_bytes + g_bytes + 4 * 11 * c)
     bc, byc = bound(flops_c, 2 * x_bytes + g_bytes + 4 * 13 * c)
     print(f"  B params bwd: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, autograd yardstick "
