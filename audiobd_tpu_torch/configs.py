@@ -56,6 +56,11 @@ class TrainConfig:
     # First SmallCNN block through ops/conv1_bn_pool (CUDA-kernel backward).
     # "auto" = on for CUDA, off elsewhere.
     fused_conv_block: str = "auto"
+    # Second/third SmallCNN/SmallLSTM blocks through ops/conv2_bn_pool
+    # (train mode only; CUDA-kernel backward). "auto" = off everywhere, as in
+    # the reference (audiobd_tpu/configs.py:112-117); "on" turns it on.
+    fused_block2: str = "auto"
+    fused_block3: str = "auto"
 
 
 @dataclass
@@ -159,6 +164,14 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--fused_conv_block", type=str, default=None, choices=["auto", "on", "off"],
         help="CUDA-kernel-backward first conv block (TrainConfig.fused_conv_block)",
+    )
+    parser.add_argument(
+        "--fused_block2", type=str, default=None, choices=["auto", "on", "off"],
+        help="CUDA-kernel-backward second conv block (TrainConfig.fused_block2)",
+    )
+    parser.add_argument(
+        "--fused_block3", type=str, default=None, choices=["auto", "on", "off"],
+        help="CUDA-kernel-backward third conv block (TrainConfig.fused_block3)",
     )
     parser.add_argument(
         "--device", type=str, default=None,

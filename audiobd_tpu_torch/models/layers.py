@@ -1,5 +1,5 @@
 """Building blocks with the reference's semantics (port of the pieces of
-audiobd_tpu/models/layers.py that SmallCNN uses).
+audiobd_tpu/models/layers.py that SmallCNN and SmallLSTM use).
 
 torch already is the reference's framework for these: ``F.max_pool2d`` is
 floor mode with implicit −inf padding, NCHW flatten is (C, H, W) order, and
@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from audiobd_tpu_torch.ops import conv1_bn_pool as fused
+from audiobd_tpu_torch.ops import conv2_bn_pool as fused2
 
 BN_MOMENTUM = 0.9  # flax convention: the running average's decay
 BN_EPS = 1e-5
@@ -91,3 +92,21 @@ def conv_bn_pool_block1(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused
         x, conv.weight, conv.bias, bn.weight, bn.bias, train=False,
         running_mean=bn.running_mean, running_var=bn.running_var,
     )
+
+
+def conv_bn_pool_block2(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused_block: bool,
+                        pool_padding: tuple[int, int]) -> torch.Tensor:
+    """Second and third SmallCNN/SmallLSTM blocks:
+    maxpool_{2,2,pad pool_padding}(BN(relu(conv2x2(x)))), pool padding (1, 1)
+    in block 2 and (0, 1) in block 3 (reference layers.py:342-381).
+
+    With ``fused_block``, in training mode and for x of at least 2 rows and
+    2 columns, the block goes through ops/conv2_bn_pool, whose backward is
+    the CUDA kernel pair D, E; the running statistics are updated from the
+    op's batch μ and σ² (clamped at 0). Eval calls always take the unfused
+    chain: the fused op is train mode only."""
+    if not fused_block or not bn.training or x.shape[2] < 2 or x.shape[3] < 2:
+        return F.max_pool2d(bn(F.relu(conv(x))), (2, 2), padding=pool_padding)
+    out, mu, var = fused2.conv2_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, pool_padding=pool_padding)
+    bn.update_running(mu, torch.clamp(var, min=0.0))
+    return out

@@ -1,5 +1,5 @@
-"""SmallCNN (port of audiobd_tpu/models/zoo.py:36-88; reference
-utils/models.py:17-65).
+"""SmallCNN and SmallLSTM (port of audiobd_tpu/models/zoo.py:36-88 and
+122-165; reference utils/models.py:17-65 and 121-178).
 
 Input NCHW MFCC features (B, 1, frames, n_mfcc), raw logits out (the
 reference's log_softmax is a no-op under cross-entropy).
@@ -7,24 +7,32 @@ reference's log_softmax is a no-op under cross-entropy).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from audiobd_tpu_torch.models.layers import BatchNorm2d, conv_bn_pool_block1, dropout, init_uniform_
+from audiobd_tpu_torch.models.layers import (
+    BatchNorm2d,
+    conv_bn_pool_block1,
+    conv_bn_pool_block2,
+    dropout,
+    init_uniform_,
+)
 from audiobd_tpu_torch.utils.random import torch_generator
 
 
-class SmallCNN(nn.Module):
-    """3 × (conv2x2 → relu → BN → maxpool) + dropout + 2 FC.
+class ConvStack(nn.Module):
+    """The three (conv2x2 → relu → BN → maxpool) blocks SmallCNN and
+    SmallLSTM share.
 
-    ``fused_block1`` routes block 1 through ops/conv1_bn_pool (same
-    parameters and forward, CUDA-kernel backward). ``dropout_generator``
-    draws the dropout masks; ``dropout_rates`` may be zeroed to compare with
-    a deterministic reference."""
+    ``fused_block1`` routes block 1 through ops/conv1_bn_pool and
+    ``fused_block2`` / ``fused_block3`` route blocks 2 and 3 through
+    ops/conv2_bn_pool in training mode: the same parameters and forward, a
+    CUDA-kernel backward. ``dropout_generator`` draws the dropout masks."""
 
-    def __init__(self, num_classes: int, linear_features: int, fused_block1: bool = False,
-                 dropout_rates: tuple[float, float] = (0.4, 0.5)):
+    def __init__(self, fused_block1: bool = False, fused_block2: bool = False, fused_block3: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(1, 64, 2)
         self.bn1 = BatchNorm2d(64)
@@ -32,12 +40,33 @@ class SmallCNN(nn.Module):
         self.bn2 = BatchNorm2d(64)
         self.conv3 = nn.Conv2d(64, 32, 2)
         self.bn3 = BatchNorm2d(32)
+        self.fused_block1 = fused_block1
+        self.fused_block2 = fused_block2
+        self.fused_block3 = fused_block3
+        self.dropout_generator: torch.Generator | None = None
+
+    def block1(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_bn_pool_block1(self.conv1, self.bn1, x, self.fused_block1)
+
+    def block2(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_bn_pool_block2(self.conv2, self.bn2, x, self.fused_block2, (1, 1))
+
+    def block3(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_bn_pool_block2(self.conv3, self.bn3, x, self.fused_block3, (0, 1))
+
+
+class SmallCNN(ConvStack):
+    """The conv stack + dropout + 2 FC. ``dropout_rates`` may be zeroed to
+    compare with a deterministic reference."""
+
+    def __init__(self, num_classes: int, linear_features: int, fused_block1: bool = False,
+                 fused_block2: bool = False, fused_block3: bool = False,
+                 dropout_rates: tuple[float, float] = (0.4, 0.5)):
+        super().__init__(fused_block1, fused_block2, fused_block3)
         self.fc1 = nn.Linear(linear_features, 128)
         self.fc2 = nn.Linear(128, num_classes)
         self.linear_features = linear_features
-        self.fused_block1 = fused_block1
         self.dropout_rates = dropout_rates
-        self.dropout_generator: torch.Generator | None = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in (self.conv1, self.conv2, self.conv3, self.fc1, self.fc2):
@@ -46,13 +75,12 @@ class SmallCNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.block1(x))
 
-    def block1(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_bn_pool_block1(self.conv1, self.bn1, x, self.fused_block1)
-
     def head(self, x: torch.Tensor) -> torch.Tensor:
         """Everything after block 1: blocks 2-3, dropout, the FC layers."""
-        x = F.max_pool2d(self.bn2(F.relu(self.conv2(x))), (2, 2), padding=(1, 1))
-        x = F.max_pool2d(self.bn3(F.relu(self.conv3(x))), (2, 2), padding=(0, 1))
+        return self.classifier(self.block3(self.block2(x)))
+
+    def classifier(self, x: torch.Tensor) -> torch.Tensor:
+        """Everything after block 3: dropout and the FC layers."""
         x = dropout(x, self.dropout_rates[0], self.training, self.dropout_generator)
         x = x.flatten(1)
         if x.shape[-1] != self.linear_features:
@@ -62,14 +90,53 @@ class SmallCNN(nn.Module):
         return self.fc2(x)
 
 
-def build_model(name: str, num_classes: int, feature_size: int, device: torch.device,
-                seed: int, fused: bool = False) -> nn.Module:
+class SmallLSTM(ConvStack):
+    """The conv stack → dropout → 2-layer LSTM(rnn_features → 128) → FC on
+    the last step. ``rnn_features`` = W·C after the conv stack.
+
+    ``nn.LSTM`` computes what the reference's scan LSTM does (gate order i,
+    f, g, o, both biases; tests/test_models.py holds the two equal)."""
+
+    hidden = 128
+
+    def __init__(self, num_classes: int, rnn_features: int, fused_block1: bool = False,
+                 fused_block2: bool = False, fused_block3: bool = False, dropout_rate: float = 0.4):
+        super().__init__(fused_block1, fused_block2, fused_block3)
+        self.lstm = nn.LSTM(rnn_features, self.hidden, num_layers=2, batch_first=True)
+        self.fc2 = nn.Linear(self.hidden, num_classes)
+        self.rnn_features = rnn_features
+        self.dropout_rate = dropout_rate
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for layer in (self.conv1, self.conv2, self.conv3):
+            init_uniform_(layer, generator)
+        bound = 1.0 / math.sqrt(self.hidden)  # all four tensors of each layer (reference layers.py:231-235)
+        with torch.no_grad():
+            for p in self.lstm.parameters():
+                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+        init_uniform_(self.fc2, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.block3(self.block2(self.block1(x)))
+        x = dropout(x, self.dropout_rate, self.training, self.dropout_generator)
+        b, c, h, w = x.shape
+        x = x.permute(0, 2, 3, 1).reshape(b, h, w * c)  # (B, H, W·C), the reference's NHWC order
+        if x.shape[-1] != self.rnn_features:
+            raise ValueError(f"smalllstm features {x.shape[-1]} != configured {self.rnn_features}")
+        x, _ = self.lstm(x)
+        return self.fc2(x[:, -1])
+
+
+def build_model(name: str, num_classes: int, feature_size: int, device: torch.device, seed: int,
+                fused: bool = False, fused_block2: bool = False, fused_block3: bool = False) -> nn.Module:
     """The model with weights drawn from ``torch_generator(seed, "params")``
-    and dropout from ``torch_generator(seed, "dropout", device)``. Only
-    SmallCNN is ported so far."""
-    if name.lower() != "smallcnn":
+    and dropout from ``torch_generator(seed, "dropout", device)``. ``fused``
+    is block 1's flag. SmallCNN and SmallLSTM are ported so far."""
+    classes = {"smallcnn": SmallCNN, "smalllstm": SmallLSTM}
+    if name.lower() not in classes:
         raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP queue 1)")
-    model = SmallCNN(num_classes=num_classes, linear_features=feature_size, fused_block1=fused)
+    model = classes[name.lower()](num_classes, feature_size, fused_block1=fused,
+                                  fused_block2=fused_block2, fused_block3=fused_block3)
     model.reset_parameters(torch_generator(seed, "params"))
     model.to(device)
     model.dropout_generator = torch_generator(seed, "dropout", device)

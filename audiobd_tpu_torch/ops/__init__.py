@@ -2,7 +2,12 @@
 
 KERNELS lists every kernel of the port with its launch counter."""
 
-from audiobd_tpu_torch.ops.conv1_bn_pool import BWD_INPUT_KERNEL, BWD_PARAMS_KERNEL
-from audiobd_tpu_torch.ops.mfcc import MFCC_KERNEL
+from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, mfcc
 
-KERNELS = (MFCC_KERNEL, BWD_PARAMS_KERNEL, BWD_INPUT_KERNEL)
+KERNELS = (
+    mfcc.MFCC_KERNEL,
+    conv1_bn_pool.BWD_PARAMS_KERNEL,
+    conv1_bn_pool.BWD_INPUT_KERNEL,
+    conv2_bn_pool.BWD_PARAMS_KERNEL,
+    conv2_bn_pool.BWD_INPUT_KERNEL,
+)

@@ -45,10 +45,21 @@ def resolve_fused_conv(cfg: AttackConfig, device: torch.device) -> bool:
     return mode == "on" or (mode == "auto" and device.type == "cuda")
 
 
+def resolve_fused_block2(cfg: AttackConfig, field: str = "fused_block2") -> bool:
+    """'on' → the kernel-backward second (or third, ``field="fused_block3"``)
+    block; 'auto' and 'off' → off, as the reference (trainer.py:68-76)
+    keeps it until measurements say otherwise."""
+    mode = getattr(cfg.train, field)
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"{field} must be auto, on or off, got {mode!r}")
+    return mode == "on"
+
+
 def build_attack_model(cfg: AttackConfig, device: torch.device):
     return build_model(
         cfg.model, cfg.num_classes, linear_features_for(cfg.name, cfg.model), device,
         cfg.train.seed, fused=resolve_fused_conv(cfg, device),
+        fused_block2=resolve_fused_block2(cfg), fused_block3=resolve_fused_block2(cfg, "fused_block3"),
     )
 
 

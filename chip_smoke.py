@@ -6,14 +6,18 @@
 Needs one CUDA device and the CUDA toolkit (nvcc); exits non-zero, printing
 no result, without them. Phases, each printing its own lines:
   0. the card's name and power limit; build every kernel from csrc/.
-  1. each kernel against its plain PyTorch version at the main path's
-     shapes (max abs error within the stated tolerance), with the kernel's
+  1. each kernel against its plain PyTorch version at the shapes of the
+     path that runs it (max abs error within the stated tolerance), with the kernel's
      time, the plain version's and a one-call PyTorch yardstick's, and the
      least time the card could take for the same work (bound).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
-     Kernel launch counts are zeroed just before and read just after.
+  3. the block-2/3 path: the same run with --model smalllstm --fused_block2 on
+     --fused_block3 on (blocks 2-3 backward through kernels D and E);
+     3b. the same flags on SmallCNN, its clips/s beside phase 2's.
+     Kernel launch counts are zeroed just before each CLI run and read just
+     after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -278,15 +282,154 @@ def phase_conv1(torch, ctx) -> list[dict]:
     ]
 
 
-def phase_main_path(torch, kernels) -> dict[str, int]:
+def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbytes_e):
+    """Least times for kernels D and E on this run's data: (D ms, by, E ms,
+    by). Per (conv position, channel) the recompute: 4·Cin products and sums,
+    the bias, relu, z (8·Cin + 4). Per (window, channel) 3 compares for the
+    winner. Only windows with output carry dz: S1, S2 (3) there. xhat (2)
+    where it is used: active phases and winners. D's dwA (2K, K = 4·Cin + 1
+    taps with the bias) only on active winners; dwB (K) and dwC (2K) on every
+    active phase. E: the recompute and routing, then per active phase xhat,
+    dy (4) and the transposed product's 4·Cin multiply-adds."""
+    cin = x.shape[1]
+    k = 4 * cin + 1
+    p = op2._phase_patches(x, pool_padding)
+    r, z = op2._recompute(p, w257, scale, shift)
+    del p
+    valid = torch.isfinite(z)
+    winner = op2._first_match(z) & valid
+    active = r > 0
+    _, _, ho, wo, hc, wc = op2.pool_dims(x.shape[2], x.shape[3], pool_padding)
+    has_out = torch.zeros((hc, wc), dtype=torch.bool, device=x.device)
+    has_out[:ho, :wo] = True
+    n_valid = int(valid.sum())
+    n_win = winner.numel() // 4
+    n_out = int((winner & has_out[None, None, :, :, None]).sum())
+    n_active = int(active.sum())
+    n_win_active = int((winner & active & has_out[None, None, :, :, None]).sum())
+    n_xhat = int((winner | active).sum())
+    del r, z, valid, winner, active
+    recompute = n_valid * (8 * cin + 4) + 3 * n_win
+    flops_d = recompute + 3 * n_out + 2 * n_xhat + 2 * k * n_win_active + 3 * k * n_active
+    flops_e = recompute + n_active * (2 + 4 + 8 * cin)
+    print(f"  data: {n_valid} (position, channel) pairs, {n_active} active, {n_win_active} active "
+          f"winners with output; D {flops_d / 1e9:.3f} GFLOP, E {flops_e / 1e9:.3f} GFLOP", flush=True)
+    return (*bound(flops_d, nbytes_d), *bound(flops_e, nbytes_e))
+
+
+def phase_conv2(torch, ctx) -> list[dict]:
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv2_bn_pool as op2
+
+    print("phase 1c: block-2/3 backward kernels (D, E) vs plain; tolerance max abs err <= "
+          "1e-3 * max|ref| + 1e-6 per output (f32 sums of ~3e5 terms per entry in another order; "
+          "dw is a difference of such sums)", flush=True)
+    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True,
+                        fused_block2=True, fused_block3=True)
+    model.train()
+    labels = torch.randint(0, 10, (ctx["feats"].shape[0],), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        x2 = model.block1(ctx["feats"]).contiguous()
+        x3 = model.block2(x2).contiguous()
+    x3d = x3.clone().requires_grad_(True)
+    out3 = model.block3(x3d)
+    out3d = out3.detach().requires_grad_(True)
+    g3 = torch.autograd.grad(F.cross_entropy(model.classifier(out3d), labels), out3d)[0].contiguous()
+    g2 = torch.autograd.grad(out3, x3d, g3)[0].contiguous()
+    del x3d, out3, out3d
+    names = ("dx", "dweight", "dbias", "dgamma", "dbeta")
+    results = []
+    for label, x, g, conv, bn, pad in (("block 2", x2, g2, model.conv2, model.bn2, (1, 1)),
+                                       ("block 3", x3, g3, model.conv3, model.bn3, (0, 1))):
+        w, b = conv.weight.detach(), conv.bias.detach()
+        gamma, beta = bn.weight.detach(), bn.bias.detach()
+        r = torch.clamp(F.conv2d(x, w, b), min=0.0)
+        mu = r.mean(dim=(0, 2, 3))
+        var = (r * r).mean(dim=(0, 2, 3)) - mu * mu
+        inv = torch.rsqrt(var + op2.EPS)
+        scale = gamma * inv
+        shift = beta - mu * scale
+        del r
+        vecs = (mu, inv, scale, shift)
+        got = op2.conv2_bn_pool_backward(x, g, w, b, *vecs, pool_padding=pad)  # kernels D, E
+        torch.cuda.synchronize()
+        ref = op2.conv2_bn_pool_backward_plain(x, g, w, b, *vecs, pool_padding=pad)
+        errs = {}
+        for n, a, e in zip(names, got, ref):
+            errs[n], rel, _ = max_err(torch, a, e, 0.0, 0.0)
+            check(errs[n] <= 1e-3 * float(e.abs().max()) + 1e-6,
+                  f"{label} {n} {tuple(a.shape)}: max abs err {errs[n]:.3e} (rel to max {rel:.3e})")
+        del got, ref
+
+        w257 = op2.w257(w, b)
+        k4 = 4 * x.shape[1]
+        h12 = op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad)[k4 + 3 : k4 + 5].contiguous()
+        ms_d = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad), 20)
+        ms_e = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_input(x, g, w257, *vecs, h12, pool_padding=pad), 20)
+        plain_d = time_ms(torch, lambda: op2.conv2_bn_pool_backward_plain(
+            x, g, w, b, *vecs, pool_padding=pad, need_dx=False), 3, warmup=1)
+        plain_de = time_ms(torch, lambda: op2.conv2_bn_pool_backward_plain(
+            x, g, w, b, *vecs, pool_padding=pad), 3, warmup=1)
+        # Yardstick: autograd through conv2d → relu → BN (batch stats) → max_pool2d.
+        xg = x.detach().clone().requires_grad_(True)
+        params = [t.detach().clone().requires_grad_(True) for t in (w, b, gamma, beta)]
+        rr = torch.clamp(F.conv2d(xg, params[0], params[1]), min=0.0)
+        m_ = rr.mean(dim=(0, 2, 3))
+        v_ = (rr * rr).mean(dim=(0, 2, 3)) - m_ * m_
+        c4 = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+        pooled = F.max_pool2d((rr - c4(m_)) * c4(torch.rsqrt(v_ + op2.EPS)) * c4(params[2]) + c4(params[3]),
+                              (2, 2), padding=pad)
+        lib_d = time_ms(torch, lambda: torch.autograd.grad(pooled, params, g, retain_graph=True), 20)
+        lib_e = time_ms(torch, lambda: torch.autograd.grad(pooled, xg, g, retain_graph=True), 20)
+        del xg, params, rr, pooled
+
+        # Bytes: x, g, the taps and the per-channel vectors read once; D's
+        # (4·Cin + 5, C) result or E's dx written once.
+        c = w.shape[0]
+        nbytes_d = 4 * (x.numel() + g.numel() + w257.numel() + 4 * c + (k4 + 5) * c)
+        nbytes_e = 4 * (2 * x.numel() + g.numel() + w257.numel() + 6 * c)
+        bd, byd, be, bye = conv2_bound(torch, op2, x, w257, scale, shift, pad, nbytes_d, nbytes_e)
+        print(f"  {label} x {tuple(x.shape)}, g {tuple(g.shape)}, pool pad {pad}:", flush=True)
+        print(f"    D params bwd: kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms, autograd yardstick "
+              f"{lib_d:.4f} ms, bound {bd:.4f} ms ({byd})", flush=True)
+        print(f"    E input bwd: kernel {ms_e:.4f} ms, plain (D+E) {plain_de:.4f} ms, autograd dx "
+              f"yardstick {lib_e:.4f} ms, bound {be:.4f} ms ({bye})", flush=True)
+        results.append(dict(err_d=max(errs[n] for n in names[1:]), err_e=errs["dx"], ms_d=ms_d, ms_e=ms_e,
+                            plain_d=plain_d, plain_de=plain_de, lib_d=lib_d, lib_e=lib_e,
+                            bd=bd, byd=byd, be=be, bye=bye))
+    # The row's times are block 2's, the larger of the two launches of each kernel a step.
+    b2, src = results[0], "audiobd_tpu_torch/csrc/conv2_bn_pool.cu"
+    return [
+        {"name": "conv2_bn_pool_bwd_params", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block2.py:247",
+         "max_abs_err": max(r["err_d"] for r in results), "ms": b2["ms_d"], "plain_ms": b2["plain_d"],
+         "bound_ms": b2["bd"], "bound_by": b2["byd"], "library_ms": b2["lib_d"]},
+        {"name": "conv2_bn_pool_bwd_input", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block2.py:265",
+         "max_abs_err": max(r["err_e"] for r in results), "ms": b2["ms_e"], "plain_ms": b2["plain_de"],
+         "bound_ms": b2["be"], "bound_by": b2["bye"], "library_ms": b2["lib_e"]},
+    ]
+
+
+TRAIN_CLIPS = 16_000  # 80% of 20,000 synthetic clips
+BATCH = 256
+
+
+def run_cli(torch, kernels, label: str, flags: list[str]) -> tuple[dict[str, int], float, int]:
+    """One CLI run of 2 epochs on 20,000 synthetic clips with ``flags``;
+    checks its losses, CSV and checkpoint. Returns (launches, clips/s,
+    train steps)."""
     import numpy as np
 
     from audiobd_tpu_torch.cli import badnets as cli
-    from audiobd_tpu_torch.models import SmallCNN
+    from audiobd_tpu_torch.models import build_model
     from audiobd_tpu_torch.train.checkpoint import load_checkpoint
 
-    print("phase 2: main path: python -m audiobd_tpu_torch badnets --synthetic "
-          "--synthetic_per_class 2000 --num_epochs 2 (20,000 clips, batch 256, f32)", flush=True)
+    print(f"{label}: python -m audiobd_tpu_torch badnets --synthetic --synthetic_per_class 2000 "
+          f"--num_epochs 2 {' '.join(flags)} (20,000 clips, batch {BATCH}, f32)", flush=True)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -295,7 +438,7 @@ def phase_main_path(torch, kernels) -> dict[str, int]:
                 k.launches = 0
             t0 = time.perf_counter()
             result = cli.main(["--synthetic", "--synthetic_per_class", "2000", "--num_epochs", "2",
-                               "--patience", "20", "--result", "chip_smoke"])
+                               "--patience", "20", "--result", "chip_smoke", *flags])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels}
@@ -306,27 +449,53 @@ def phase_main_path(torch, kernels) -> dict[str, int]:
                       f"{h['test_clean_loss'][e]:.5f} bd loss {h['test_bd_loss'][e]:.5f} "
                       f"clean acc {h['test_clean_acc'][e]:.2f} ASR {h['test_asr'][e]:.2f} "
                       f"train ASR {h['train_asr'][e]:.2f}", flush=True)
-            print(f"  launches on the main path: {launches}", flush=True)
+            print(f"  launches: {launches}", flush=True)
             check(result.epochs_ran == 2, "2 epochs ran")
             losses = h["train_loss"] + h["test_clean_loss"] + h["test_bd_loss"]
             check(all(math.isfinite(v) for v in losses), "every loss is finite")
-            check(launches["mfcc"] > 0, f"MFCC kernel launched {launches['mfcc']} times")
-            check(launches["conv1_bn_pool_bwd_params"] > 0,
-                  f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
             rec = os.path.join("record", "chip_smoke")
             with open(os.path.join(rec, "loss_result.csv")) as f:
                 check(len(f.read().strip().splitlines()) == 3, "loss_result.csv has a header and 2 rows")
             sd, spec = load_checkpoint(rec)
-            reloaded = SmallCNN(spec["num_classes"], spec["feature_size"])
+            reloaded = build_model(spec["model"], spec["num_classes"], spec["feature_size"],
+                                   torch.device("cpu"), seed=0)
             reloaded.load_state_dict(sd)
             feats = torch.from_numpy(np.load(os.path.join(rec, "SCDv1-10", "bd", "bd_test_mfcc.npy"))[:64])
             check(tuple(feats.shape[1:]) == (1, 101, 40), f"bd features shaped {tuple(feats.shape)}")
             with torch.no_grad():
                 logits = reloaded.eval()(feats)
             check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (64, 10),
-                  "checkpoint reloads on the CPU and gives finite (64, 10) logits")
+                  f"checkpoint reloads as {type(reloaded).__name__} on the CPU and gives finite "
+                  f"(64, 10) logits")
+            steps = result.epochs_ran * -(-TRAIN_CLIPS // BATCH)
         finally:
             os.chdir(cwd)
+    return launches, result.clips_per_sec, steps
+
+
+def phase_main_path(torch, kernels) -> tuple[dict[str, int], float]:
+    launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [])
+    check(launches["mfcc"] > 0, f"MFCC kernel launched {launches['mfcc']} times")
+    check(launches["conv1_bn_pool_bwd_params"] > 0,
+          f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
+    return launches, clips
+
+
+def phase_block23_paths(torch, kernels, main_clips: float) -> dict[str, int]:
+    flags = ["--fused_block2", "on", "--fused_block3", "on"]
+    launches, lstm_clips, steps = run_cli(
+        torch, kernels, "phase 3: block-2/3 path, SmallLSTM", ["--model", "smalllstm", *flags])
+    for name in ("conv2_bn_pool_bwd_params", "conv2_bn_pool_bwd_input"):
+        check(launches[name] == 2 * steps,
+              f"{name} launched {launches[name]} times (2 blocks x {steps} steps)")
+    check(launches["conv1_bn_pool_bwd_params"] > 0,
+          f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
+    cnn_launches, cnn_clips, cnn_steps = run_cli(
+        torch, kernels, "phase 3b: block-2/3 kernels on SmallCNN", flags)
+    check(cnn_launches["conv2_bn_pool_bwd_params"] == 2 * cnn_steps,
+          f"conv2_bn_pool_bwd_params launched {cnn_launches['conv2_bn_pool_bwd_params']} times on SmallCNN")
+    print(f"  train clips/s: SmallCNN default {main_clips:.1f} (phase 2), SmallCNN blocks 2-3 on D/E "
+          f"{cnn_clips:.1f} (phase 3b), SmallLSTM blocks 2-3 on D/E {lstm_clips:.1f} (phase 3)", flush=True)
     return launches
 
 
@@ -362,12 +531,15 @@ def main() -> int:
                 print(f"  {log.stem}: {line.strip()}")
 
     ctx: dict = {}
-    rows = [phase_mfcc(torch, ctx), *phase_conv1(torch, ctx)]
+    rows = [phase_mfcc(torch, ctx), *phase_conv1(torch, ctx), *phase_conv2(torch, ctx)]
     del ctx
     torch.cuda.empty_cache()
-    launches = phase_main_path(torch, KERNELS)
-    for row in rows:
+    launches, main_clips = phase_main_path(torch, KERNELS)
+    for row in rows[:3]:
         row["launches"] = launches[row["name"]]
+    block23 = phase_block23_paths(torch, KERNELS, main_clips)
+    for row in rows[3:]:
+        row["launches"] = block23[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

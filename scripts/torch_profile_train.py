@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where a training epoch of the PyTorch/CUDA port spends its time.
 
-    python3 scripts/torch_profile_train.py [--per_class 2000] [--batch_size 256] [--trace PATH]
+    python3 scripts/torch_profile_train.py [--model smallcnn|smalllstm]
+        [--fused_block2 auto|on|off] [--fused_block3 auto|on|off]
+        [--per_class 2000] [--batch_size 256] [--trace PATH]
 
 Builds the main path's data on the card (synthetic clips → MFCC kernel →
-BadNets patch), runs one warm-up epoch of SmallCNN training + the two eval
-passes exactly as train_attack does, then times one more such epoch under
-torch.profiler. Prints the epoch's wall time, the device's busy and idle
+BadNets patch), runs one warm-up epoch of training (SmallCNN by default;
+``--fused_block2/3 on`` puts blocks 2-3's backward on kernels D and E) + the
+two eval passes exactly as train_attack does, then times one more such epoch
+under torch.profiler. Prints the epoch's wall time, the device's busy and idle
 share (union of kernel intervals over the wall time), and device time by
 kernel; ``--trace`` also writes the Chrome trace. Needs a CUDA device.
 """
@@ -38,12 +41,16 @@ def main() -> int:
     from audiobd_tpu_torch.utils.device import resolve_device
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", type=str, default="smallcnn", choices=["smallcnn", "smalllstm"])
+    parser.add_argument("--fused_block2", type=str, default="auto", choices=["auto", "on", "off"])
+    parser.add_argument("--fused_block3", type=str, default="auto", choices=["auto", "on", "off"])
     parser.add_argument("--per_class", type=int, default=2000)
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--trace", type=str, default=None, help="write the Chrome trace here")
     args = parser.parse_args()
 
-    cfg = make_config("badnets", batch_size=args.batch_size)
+    cfg = make_config("badnets", batch_size=args.batch_size, model=args.model,
+                      fused_block2=args.fused_block2, fused_block3=args.fused_block3)
     device = resolve_device(cfg.device)
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -97,7 +104,8 @@ def main() -> int:
     total = sum(v[0] for v in by_name.values())
 
     n_train = len(sets[0])
-    print(f"device {torch.cuda.get_device_name(0)}; batch {cfg.train.batch_size}; "
+    print(f"device {torch.cuda.get_device_name(0)}; model {cfg.model}, fused_block2 "
+          f"{cfg.train.fused_block2}, fused_block3 {cfg.train.fused_block3}; batch {cfg.train.batch_size}; "
           f"train clips {n_train}, eval clips {len(sets[1]) + len(sets[2])}")
     print(f"epoch wall (no profiler) {plain_wall * 1e3:.1f} ms = {n_train / plain_wall:.0f} train clips/s")
     print(f"epoch wall (profiled) {wall * 1e3:.1f} ms; device busy {busy / 1e3:.1f} ms "

@@ -9,7 +9,9 @@ without it (tests/conftest.py imports JAX, hence ``--noconftest``):
 Tolerances: MFCC rtol 1e-4, atol 1e-3 (tests/test_pallas_mfcc.py's; f32
 sums in another order). Block-1 backward rtol 1e-4, atol 1e-5: the kernels
 and the plain version recompute y and z bit-identically and route every
-pool tie the same way, so only the order of the f32 sums differs.
+pool tie the same way, so only the order of the f32 sums differs. Block-2/3
+backward (kernels D, E): max abs error <= 1e-4 * max|ref| + 1e-6 per output,
+the same reasoning over sums of up to ~10^4 terms per entry.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.ops import conv1_bn_pool as op
+from audiobd_tpu_torch.ops import conv2_bn_pool as op2
 from audiobd_tpu_torch.ops.mfcc import MFCC_KERNEL, fused_mfcc
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
@@ -86,7 +89,7 @@ def test_block1_backward_kernels_match_plain(cuda, shape, train_bn):
 
 def test_block1_autograd_on_card_matches_cpu(cuda):
     x, _, weight, bias, _, _, _, _ = _block_inputs((8, 21, 31, 16), seed=3)
-    gamma = torch.linspace(-1.0, 1.5, 16)
+    gamma = torch.linspace(-1.05, 1.45, 16)  # no gamma near 0: there z ties at rounding level
     beta = torch.linspace(-0.2, 0.3, 16)
     wts = torch.randn(8, 16, 20, 10, generator=torch.Generator().manual_seed(0))
 
@@ -101,3 +104,64 @@ def test_block1_autograd_on_card_matches_cpu(cuda):
     assert (op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches) == (before[0] + 1, before[1] + 1)
     for a, e in zip(got, run(torch.device("cpu"))):
         torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5)
+
+
+def _block2_inputs(shape, pool_padding, seed):
+    """x (B, Cin, H, W), g over the pooled grid, parameters with many relu
+    zeros (exact pool ties) and one negative gamma, and forward statistics."""
+    b, cin, h, w, c = shape
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    x = t(rng.normal(size=(b, cin, h, w)))
+    weight = t(rng.normal(size=(c, cin, 2, 2)) * 0.3)
+    bias = t(rng.normal(size=(c,)) * 0.1 - 0.5)
+    _, _, ho, wo, _, _ = op2.pool_dims(h, w, pool_padding)
+    g = t(rng.normal(size=(b, c, ho, wo)))
+    mu = t(0.3 * rng.random(c))
+    inv = torch.rsqrt(t(rng.random(c)) + 0.5)
+    gamma = t(1.0 + 0.3 * rng.normal(size=(c,)))
+    gamma[0] = -gamma[0].abs()
+    beta = t(0.1 * rng.normal(size=(c,)))
+    return x, g, weight, bias, mu, inv, gamma * inv, beta - mu * gamma * inv
+
+
+@pytest.mark.parametrize("shape,pool_padding", [
+    ((3, 8, 12, 13, 16), (1, 1)), ((3, 8, 12, 13, 16), (0, 1)), ((2, 8, 13, 12, 8), (0, 0)),
+    ((4, 64, 20, 13, 64), (1, 1)), ((4, 64, 11, 7, 32), (0, 1)), ((2, 24, 9, 21, 40), (1, 0)),
+])
+def test_block2_backward_kernels_match_plain(cuda, shape, pool_padding):
+    args = _block2_inputs(shape, pool_padding, seed=sum(shape))
+    ref = op2.conv2_bn_pool_backward_plain(*args, pool_padding=pool_padding)
+    before = op2.BWD_PARAMS_KERNEL.launches, op2.BWD_INPUT_KERNEL.launches
+    got = op2.conv2_bn_pool_backward(*(a.to(cuda) for a in args), pool_padding=pool_padding)
+    torch.cuda.synchronize()
+    assert (op2.BWD_PARAMS_KERNEL.launches, op2.BWD_INPUT_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, e in zip(("dx", "dweight", "dbias", "dgamma", "dbeta"), got, ref):
+        err = float((a.cpu().double() - e.double()).abs().max())
+        assert err <= 1e-4 * float(e.abs().max()) + 1e-6, (name, err)
+
+
+def test_block2_autograd_on_card_matches_cpu(cuda):
+    x, _, weight, bias, _, _, _, _ = _block2_inputs((4, 16, 14, 9, 16), (1, 1), seed=4)
+    gamma = torch.linspace(-1.05, 1.45, 16)  # no gamma near 0: there z ties at rounding level
+    beta = torch.linspace(-0.2, 0.3, 16)
+    wts = torch.randn(4, 16, 7, 5, generator=torch.Generator().manual_seed(0))
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True) for t in (x, weight, bias, gamma, beta)]
+        out, mu, var = op2.conv2_bn_pool(*leaves, pool_padding=(1, 1))
+        (torch.tanh(out) * wts.to(device)).sum().backward()
+        return [out, mu, var] + [t.grad for t in leaves]
+
+    for a, e in zip(run(cuda), run(torch.device("cpu"))):
+        torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5)
+
+
+def test_block2_kernels_reject_other_dtypes(cuda):
+    args = [a.to(cuda) for a in _block2_inputs((2, 8, 6, 5, 16), (1, 1), seed=0)]
+    w = op2.w257(args[2], args[3])
+    with pytest.raises(ValueError, match="float32"):
+        op2.conv2_bn_pool_bwd_params(args[0].double(), args[1], w, *args[4:], pool_padding=(1, 1))
+    with pytest.raises(ValueError, match="float32"):
+        op2.conv2_bn_pool_bwd_input(args[0].half(), args[1], w, *args[4:], torch.zeros(2, 16, device=cuda),
+                                    pool_padding=(1, 1))
