@@ -7,7 +7,8 @@
 //   * _bwd2_kernel (pallas_call in _run_bwd2, line 247): the parameter
 //     gradient -> conv2_bn_pool_bwd_params below (kernel D);
 //   * _dp2_kernel (pallas_call in _run_dp2, line 265) and the un-patch VJP of
-//     _bwd_common2: the input gradient -> conv2_bn_pool_bwd_input (kernel E).
+//     _bwd_common2: the input gradient -> conv2_bn_pool_bwd_input (kernel E),
+//     which reads the routing that kernel D writes instead of recomputing.
 //
 // Layout (NCHW, as the port's model): x (B, Cin, H, W) f32, the pooled
 // gradient g (B, C, ho, wo); w (4*Cin + 1, C) = the conv taps in row order
@@ -34,12 +35,19 @@
 //   h1 = scale*S1/N, h2 = scale*S2/N, N = B*hp*wp,
 //   dw = scale*dwA - h1*dwB - h2*dwC, dgamma = S2, dbeta = S1.
 //   dy = relu'*(scale*dz - h1 - xhat*h2), dx = transposed 2x2 conv of dy (E).
+// The routing D hands to E, per conv position and channel (B, C, hp, wp) f32:
+//   0 where r = 0; +r where relu is active and the position did not win its
+//   pool window; -r where it won.
+// dy is 0 wherever r = 0, and otherwise needs only r, whether the position
+// won (dz = g of its window there, 0 elsewhere) and the per-channel mu, inv,
+// scale, h1, h2, so this one f32 per position is all E reads of the forward.
 // y sums the taps k = 0, 1, ..., 4*Cin - 1 in that order, then adds the
 // bias, each product and sum rounded on its own (__fmul_rn/__fadd_rn, no FMA
 // contraction); z is __fmul_rn then __fadd_rn. The plain PyTorch version in
 // ops/conv2_bn_pool.py forms y and z in the same order, so both route every
 // tie the same way. r and z are rounded to the forward's compute dtype
-// before the compare; in f32 that is the identity (round_to_compute).
+// before the compare; in f32 that is the identity (round_to_compute). E reads
+// D's winners, so the two kernels route every tie alike by construction.
 //
 // What bounds it on the H100: operations. At block 2 (B 256, Cin 64, H 100,
 // W 13, C 64) x is 85 MB and g 23 MB, but the recompute alone is 304,128
@@ -49,7 +57,10 @@
 // the port), at 67 TFLOP/s a few tenths of a millisecond at the least.
 // Bytes are a tenth of that. The design keeps every operand of those
 // products in shared memory and never writes the (4*257, M) patch array of
-// the TPU version (368 MB a step at block 2).
+// the TPU version (368 MB a step at block 2). The recompute, a serial chain
+// of 4*Cin rounded products and sums per position and channel, is the
+// costliest part, so it is done once a step, by D; E gathers from D's
+// routing (78 MB at block 2, written once by D and read once by E).
 //
 // Design:
 //  * A tile is TW = 16 consecutive windows of the covering grid (64 conv
@@ -68,14 +79,19 @@
 //    grid step to grid step; Hopper blocks run in no order, so each block
 //    writes partial sums and a finishing pass adds the blocks in a fixed
 //    order and forms dw, dgamma, dbeta, h1, h2: deterministic, no atomics.
-//  * Kernel E: one block per (tile, channel group) recomputes and routes as
-//    D does and writes dy (B, C, hp, wp) to scratch. A gather pass then forms
-//    each dx element from the <= 4 conv outputs x C channels that read it:
-//    a block owns GR = 8 rows of x of one batch item, holds the taps of all
-//    channels and the GR + 1 rows of dy it needs in shared memory (zero-padded
-//    so the strip loop has no bounds checks), and each thread sums one
-//    (row, input channel) strip of 16 columns from a register copy of the
-//    dy row segment. No atomics.
+//    Each tile also stores its routing: thread (window, channel) puts the
+//    four encoded r in a shared (channel, position) tile, and the block
+//    writes it out position-major, so neighbouring threads write neighbouring
+//    addresses of one channel's plane.
+//  * Kernel E forms each dx element from the <= 4 conv outputs x C channels
+//    that read it, with no recompute: a block owns GR = 8 rows of x of one
+//    batch item and holds the taps of all channels and the GR + 1 rows of dy
+//    it needs in shared memory (zero-padded so the strip loop has no bounds
+//    checks). It forms those dy rows as it loads them, from D's routing, the
+//    window's pooled gradient (read only where the position won) and the
+//    per-channel mu, inv, scale, h1, h2. Each thread then sums one (row,
+//    input channel) strip of 16 columns from a register copy of the dy row
+//    segment. No atomics.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -85,6 +101,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TW = 16;                        // windows per tile
 constexpr int TP = 4 * TW;                    // conv positions per tile
+constexpr int RSTRIDE = TP + 1;               // padded row pitch of the routing tile
 constexpr int CB = 16;                        // channels per block
 constexpr int KMAX = 256;                     // 4*Cin rows of the patch tile (Cin <= 64)
 constexpr int PSTRIDE = TP + 1;               // padded row pitch of the patch tile
@@ -139,15 +156,17 @@ __device__ __forceinline__ Window decode(const Geometry& G, long long m) {
 
 // Shared patch tile: P[k*PSTRIDE + p] = x[b, ci, i + kh, j + kw] for tap
 // k = (kh*2 + kw)*Cin + ci and position p = 4*(window - m0) + t, 0 on
-// padding; base[p] = offset of x[b, 0, i, j], or -1 off the conv grid.
+// padding; base[p] = offset of x[b, 0, i, j] and rbase[p] = offset of
+// route[b, 0, i, j], both -1 off the conv grid.
 __device__ void load_tile(const float* __restrict__ x, const Geometry& G, long long m0,
-                          float* __restrict__ P, long long* __restrict__ base) {
+                          float* __restrict__ P, long long* __restrict__ base, long long* __restrict__ rbase) {
   for (int p = threadIdx.x; p < TP; p += THREADS) {
     const Window win = decode(G, m0 + p / 4);
     const int t = p % 4;
     const int i = 2 * win.io - G.ph + (t >> 1), j = 2 * win.jo - G.pw + (t & 1);
     const bool ok = win.real && i >= 0 && i < G.hp && j >= 0 && j < G.wp;
     base[p] = ok ? ((long long)win.b * G.Cin * G.H + i) * G.W + j : -1;
+    rbase[p] = ok ? ((long long)win.b * G.C * G.hp + i) * G.wp + j : -1;
   }
   __syncthreads();
   // Thread (p, k0) copies rows k0, k0 + 4, ... of every tap for position p:
@@ -215,18 +234,24 @@ __device__ __forceinline__ float pooled_grad(const float* __restrict__ g, const 
 
 constexpr size_t kTileFloats = (size_t)KMAX * PSTRIDE + (size_t)(KMAX + 1) * CB;
 
+constexpr size_t kParamsFloats = kTileFloats + (size_t)TP * NCOL + (size_t)CB * RSTRIDE;
+
 // partial (splits, 3*(4*Cin + 1) + 2, C): rows X*(4*Cin + 1) + k for
-// X = dwA, dwB, dwC (k = 4*Cin the bias), then S1, S2.
+// X = dwA, dwB, dwC (k = 4*Cin the bias), then S1, S2. route (B, C, hp, wp):
+// the encoded r for kernel E.
 __global__ void __launch_bounds__(THREADS, 2)
 conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g,
                    const float* __restrict__ w, const float* __restrict__ mu_p,
                    const float* __restrict__ inv_p, const float* __restrict__ scale_p,
-                   const float* __restrict__ shift_p, float* __restrict__ partial, Geometry G) {
+                   const float* __restrict__ shift_p, float* __restrict__ partial,
+                   float* __restrict__ route, Geometry G) {
   extern __shared__ __align__(16) float smem[];
   float* P = smem;                            // KMAX x PSTRIDE
   float* Wt = P + KMAX * PSTRIDE;             // (KMAX + 1) x CB
   float* A = smem + kTileFloats;              // TP x NCOL coefficients
-  long long* base = reinterpret_cast<long long*>(A + TP * NCOL);
+  float* Rs = A + TP * NCOL;                  // CB x RSTRIDE encoded r
+  long long* base = reinterpret_cast<long long*>(smem + kParamsFloats);
+  long long* rbase = base + TP;
 
   const int tid = threadIdx.x;
   const int k4 = 4 * G.Cin;
@@ -250,7 +275,7 @@ conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g,
   const long long n_tiles = (G.M + TW - 1) / TW;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     __syncthreads();  // the previous tile's product is done with P and A
-    load_tile(x, G, tile * TW, P, base);
+    load_tile(x, G, tile * TW, P, base, rbase);
     __syncthreads();
 
     const Window win = decode(G, tile * TW + w_);
@@ -263,6 +288,7 @@ conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g,
       const float xhat = (r[t] - mu) * inv;
       const bool rp = r[t] > 0.0f;
       const float t1 = rp ? dz : 0.0f;
+      Rs[cl * RSTRIDE + 4 * w_ + t] = rp ? (t == winner ? -r[t] : r[t]) : 0.0f;
       float* a = A + (4 * w_ + t) * NCOL + cl;
       a[0] = t1;
       a[CB] = rp ? 1.0f : 0.0f;
@@ -274,6 +300,12 @@ conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g,
       bias_c += rp ? xhat : 0.0f;
     }
     __syncthreads();
+
+    for (int e = tid; e < CB * TP; e += THREADS) {
+      const int el = e / TP, p = e % TP;
+      const long long o = rbase[p];
+      if (o >= 0 && c0 + el < G.C) route[o + (long long)(c0 + el) * G.hp * G.wp] = Rs[el * RSTRIDE + p];
+    }
 
     for (int p = 0; p < TP; ++p) {
       float av[CPT], pv[RPT];
@@ -345,52 +377,16 @@ __global__ void conv2_params_finish(const float* __restrict__ partial, const flo
   }
 }
 
-// dy (B, C, hp, wp) for one tile and channel group.
-__global__ void __launch_bounds__(THREADS)
-conv2_input_route(const float* __restrict__ x, const float* __restrict__ g,
-                const float* __restrict__ w, const float* __restrict__ mu_p,
-                const float* __restrict__ inv_p, const float* __restrict__ scale_p,
-                const float* __restrict__ shift_p, const float* __restrict__ h_p,
-                float* __restrict__ dy, Geometry G) {
-  extern __shared__ __align__(16) float smem[];
-  float* P = smem;
-  float* Wt = P + KMAX * PSTRIDE;
-  long long* base = reinterpret_cast<long long*>(smem + kTileFloats);
-
-  const int tid = threadIdx.x;
-  const int k4 = 4 * G.Cin;
-  const int c0 = blockIdx.y * CB;
-  load_taps(w, G, c0, Wt);
-  const long long m0 = (long long)blockIdx.x * TW;
-  load_tile(x, G, m0, P, base);
-  __syncthreads();
-
-  const int w_ = tid / CB, cl = tid % CB, c = c0 + cl;
-  if (c >= G.C) return;
-  const float mu = mu_p[c], inv = inv_p[c], scale = scale_p[c], shift = shift_p[c];
-  const float h1 = h_p[c], h2 = h_p[G.C + c];
-  const Window win = decode(G, m0 + w_);
-  float r[4];
-  const int winner = recompute(P, Wt, base, k4, w_, cl, scale, shift, r);
-  const float gv = pooled_grad(g, G, win, c);
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (base[4 * w_ + t] < 0) continue;
-    const float dz = t == winner ? gv : 0.0f;
-    const float xhat = (r[t] - mu) * inv;
-    const float dr = scale * dz - h1 - xhat * h2;
-    const int i = 2 * win.io - G.ph + (t >> 1), j = 2 * win.jo - G.pw + (t & 1);
-    dy[(((long long)win.b * G.C + c) * G.hp + i) * G.wp + j] = r[t] > 0.0f ? dr : 0.0f;
-  }
-}
-
 // Row pitch of the gather's dy tile: columns -1 .. W - 1 rounded up to whole
 // GJ-column strips, so no load in the strip loop needs a bounds check.
 __host__ __device__ __forceinline__ int gather_row_pitch(int W) { return (W + GJ - 1) / GJ * GJ + 1; }
 
-// dx[b, ci, i, j] = sum_{c, kh, kw} w[(kh*2 + kw)*Cin + ci, c] * dy[b, c, i - kh, j - kw].
+// dx[b, ci, i, j] = sum_{c, kh, kw} w[(kh*2 + kw)*Cin + ci, c] * dy[b, c, i - kh, j - kw],
+// dy formed from kernel D's routing. h (2, C) = h1, h2.
 __global__ void __launch_bounds__(THREADS)
-conv2_input_gather(const float* __restrict__ dy, const float* __restrict__ w, float* __restrict__ dx,
+conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g, const float* __restrict__ w,
+                 const float* __restrict__ mu_p, const float* __restrict__ inv_p,
+                 const float* __restrict__ scale_p, const float* __restrict__ h_p, float* __restrict__ dx,
                  Geometry G) {
   extern __shared__ __align__(16) float smem[];
   const int cin = G.Cin, C = G.C, wp = G.wp;
@@ -398,15 +394,35 @@ conv2_input_gather(const float* __restrict__ dy, const float* __restrict__ w, fl
   float* Ws = smem;                  // (C, 4, Cin): Ws[(c*4 + tap)*Cin + ci]
   float* D = smem + C * 4 * cin;     // (GR + 1, C, wpad): dy rows i0 - 1 .. i0 + GR - 1,
                                      // columns -1 .. wpad - 2, zero off the conv grid
+  float* V = D + (GR + 1) * C * wpad;  // (5, C): mu, inv, scale, h1, h2
   const int b = blockIdx.y, i0 = blockIdx.x * GR;
   for (int e = threadIdx.x; e < C * 4 * cin; e += THREADS) {
     const int c = e / (4 * cin), k = e - c * 4 * cin;
     Ws[e] = w[(long long)k * C + c];
   }
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    V[c] = mu_p[c];
+    V[C + c] = inv_p[c];
+    V[2 * C + c] = scale_p[c];
+    V[3 * C + c] = h_p[c];
+    V[4 * C + c] = h_p[C + c];
+  }
+  __syncthreads();
   for (int e = threadIdx.x; e < (GR + 1) * C * wpad; e += THREADS) {
     const int j = e % wpad - 1, q = e / wpad, c = q % C, i = i0 - 1 + q / C;
-    const bool ok = i >= 0 && i < G.hp && j >= 0 && j < wp;
-    D[e] = ok ? __ldg(dy + (((long long)b * C + c) * G.hp + i) * wp + j) : 0.0f;
+    float v = 0.0f;
+    if (i >= 0 && i < G.hp && j >= 0 && j < wp) {
+      const long long plane = (long long)b * C + c;
+      const float enc = __ldg(route + (plane * G.hp + i) * wp + j);
+      if (enc != 0.0f) {
+        float dz = 0.0f;
+        const int io = (i + G.ph) >> 1, jo = (j + G.pw) >> 1;
+        if (enc < 0.0f && io < G.ho && jo < G.wo) dz = __ldg(g + (plane * G.ho + io) * G.wo + jo);
+        const float xhat = (fabsf(enc) - V[c]) * V[C + c];
+        v = V[2 * C + c] * dz - V[3 * C + c] - xhat * V[4 * C + c];
+      }
+    }
+    D[e] = v;
   }
   __syncthreads();
 
@@ -455,19 +471,20 @@ const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaE
 
 int use_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
 
-// Kernel D: partial (splits, 3*(4*Cin + 1) + 2, C) scratch, out (4*Cin + 5, C).
+// Kernel D: partial (splits, 3*(4*Cin + 1) + 2, C) scratch, out (4*Cin + 5, C),
+// route (B, C, H-1, W-1) the routing for kernel E.
 int conv2_bn_pool_bwd_params(const float* x, const float* g, const float* w, const float* mu,
                              const float* inv, const float* scale, const float* shift,
-                             float* partial, float* out, int B, int Cin, int H, int W, int C,
+                             float* partial, float* out, float* route, int B, int Cin, int H, int W, int C,
                              int ph, int pw, int splits, void* stream) {
   if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
-  const size_t smem = (kTileFloats + TP * NCOL) * sizeof(float) + TP * sizeof(long long);
+  const size_t smem = kParamsFloats * sizeof(float) + 2 * TP * sizeof(long long);
   int err = set_smem(conv2_params_partial, smem);
   if (err != 0) return err;
   const dim3 grid(splits, (C + CB - 1) / CB);
-  conv2_params_partial<<<grid, THREADS, smem, s>>>(x, g, w, mu, inv, scale, shift, partial, G);
+  conv2_params_partial<<<grid, THREADS, smem, s>>>(x, g, w, mu, inv, scale, shift, partial, route, G);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int k4 = 4 * Cin;
@@ -478,26 +495,19 @@ int conv2_bn_pool_bwd_params(const float* x, const float* g, const float* w, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel E: h (2, C) = h1, h2 from kernel D; dy (B, C, H-1, W-1) scratch; dx (B, Cin, H, W).
-int conv2_bn_pool_bwd_input(const float* x, const float* g, const float* w, const float* mu,
-                            const float* inv, const float* scale, const float* shift, const float* h,
-                            float* dy, float* dx, int B, int Cin, int H, int W, int C, int ph, int pw,
-                            void* stream) {
+// Kernel E: route (B, C, H-1, W-1) from kernel D; h (2, C) = h1, h2 from kernel D;
+// dx (B, Cin, H, W).
+int conv2_bn_pool_bwd_input(const float* route, const float* g, const float* w, const float* mu,
+                            const float* inv, const float* scale, const float* h, float* dx, int B, int Cin,
+                            int H, int W, int C, int ph, int pw, void* stream) {
   if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
-  const size_t route_smem = kTileFloats * sizeof(float) + TP * sizeof(long long);
-  int err = set_smem(conv2_input_route, route_smem);
+  const size_t smem = ((size_t)C * 4 * Cin + (size_t)(GR + 1) * C * gather_row_pitch(W) + 5 * (size_t)C) * sizeof(float);
+  const int err = set_smem(conv2_input_gather, smem);
   if (err != 0) return err;
-  const dim3 route_grid(static_cast<unsigned>((G.M + TW - 1) / TW), (C + CB - 1) / CB);
-  conv2_input_route<<<route_grid, THREADS, route_smem, s>>>(x, g, w, mu, inv, scale, shift, h, dy, G);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const size_t gather_smem = ((size_t)C * 4 * Cin + (size_t)(GR + 1) * C * gather_row_pitch(W)) * sizeof(float);
-  err = set_smem(conv2_input_gather, gather_smem);
-  if (err != 0) return err;
-  const dim3 gather_grid((H + GR - 1) / GR, B);
-  conv2_input_gather<<<gather_grid, THREADS, gather_smem, s>>>(dy, w, dx, G);
+  const dim3 grid((H + GR - 1) / GR, B);
+  conv2_input_gather<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(route, g, w, mu, inv, scale, h,
+                                                                                 dx, G);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,44 +1,66 @@
-// Waveform -> MFCC in one kernel, one thread block per clip.
+// Waveform -> MFCC in one kernel, one thread block per clip, by one of two
+// paths that ops/mfcc.py::mfcc_path picks from n_fft alone.
 //
 // Replaces: audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc (the Pallas `_kernel`,
-// pallas_call at line 129). Same function: centre-padded, Hann-windowed power
-// spectrum as a matrix-form DFT, mel filterbank, 10*log10 with a per-clip
+// pallas_call at line 129). Same function on both paths: centre-padded,
+// Hann-windowed power spectrum, mel filterbank, 10*log10 with a per-clip
 // top_db floor, orthonormal DCT-II. All float32, no TF32 (the reference runs
-// its products at Precision.HIGHEST).
+// its products at Precision.HIGHEST). Input is int16 PCM (scaled by 2^-15 on
+// load, exactly as dequantize_pcm does) or f32; reflect or constant centre
+// padding is index arithmetic, with no padded copy in device memory.
 //
-// What bounds it on the H100: arithmetic. At the BadNets shape (16 kHz, 1 s
-// clips, n_fft 400, hop 160, 101 frames, 201 bins, 128 mels, 40 MFCCs) the
-// DFT alone is 101*201*400*2 FMAs per clip (~32 MFLOP) against 64 KB of PCM
-// read and 16 KB of MFCC written, far above the f32 ridge point, and without
-// tensor cores (no TF32) the f32 FMA rate is the roof. The function itself
-// needs far less: an FFT-size DFT and the mel product over the filterbank's
-// nonzeros come to ~2 MFLOP per clip, near the ridge point, which is the
-// bound chip_smoke.py reports. The matrix DFT is kept for now because it is
-// simple and matches the reference's sums; an FFT is the way to that bound.
+// What bounds it on the H100: f32 operations. At the BadNets shape (16 kHz,
+// 1 s clips, n_fft 400, hop 160, 101 frames, 201 bins, 128 mels, 40 MFCCs)
+// the function needs ~20 kFLOP per frame: the dense 128 x 40 DCT (10,240),
+// a real FFT of 400 points (~8,600 at 2.5 n log2 n), the window, the power
+// and the mel product over the filterbank's 395 nonzeros. That is ~4.3 GFLOP
+// per 2048 clips against 131 MB of PCM read: 0.065 ms at 67 TFLOP/s, a little
+// above the 0.04 ms the bytes take.
 //
-// Design:
-//  * One block per clip. Frames are processed in tiles of FT = 16. For each
-//    tile the block stages the padded samples it spans in shared memory,
-//    doing reflect or constant centre padding by index arithmetic (no padded
-//    copy in device memory), and reads int16 PCM or f32 directly (int16 is
-//    scaled by 2^-15 on load, exactly as dequantize_pcm does).
-//  * DFT: one thread per frequency bin keeps FT real and FT imaginary sums in
-//    registers, so each basis value read (through L1/L2: the windowed bases
-//    are shared by every clip and too big for shared memory) feeds 2*FT FMAs.
-//  * The tile's power spectrum goes to shared memory; the mel product reads
-//    it from there and writes dB values into a per-clip (frames x mels) tile
-//    that stays in shared memory until the clip's maximum is known.
-//  * A block reduction takes the clip's max for the top_db floor; the DCT
-//    then writes only the (frames x n_mfcc) result.
+// FFT path (mfcc_fft_kernel), for n_fft whose prime factors are 2, 3, 5:
+//  * A mixed-radix Stockham FFT in shared memory (radices 8, 4 or 2, then
+//    3s and 5s: 8x2x5x5 at 400, 8x8x8x4 at 2048). Stockham rather than a
+//    two-level n1 x n2 split because one stage loop serves every size: each
+//    stage reads its R inputs at stride N/R, so reads are contiguous across
+//    a warp, and writes in an order that leaves the result in natural order
+//    with no bit-reversal pass. Two buffers ping-pong, one barrier a stage.
+//  * Latency, not arithmetic, is what a frame's work waits on: a few
+//    hundred butterflies between barriers, each after a global load or a
+//    shared-memory round trip. So the block's threads form independent
+//    groups (8 groups of 64 threads at n_fft 400; one group of 512 at 2048,
+//    where one pair's buffers take 32 KB), each with its own buffers and a
+//    named barrier, and each transforms its own frame pairs from load to dB
+//    values. One group's loads and barriers overlap the others' arithmetic;
+//    the block meets only once, for the top_db floor.
+//  * Two real frames are packed as one complex signal (frame 2q real, 2q + 1
+//    imaginary) and separated after: A[k] = (Z[k] + conj Z[N-k]) / 2,
+//    B[k] = (Z[k] - conj Z[N-k]) / 2i. Half the transforms of one per frame.
+//  * Twiddles exp(-2 pi i k / N) and the Hann window are tables built on the
+//    host in float64, cast to f32 and copied to shared memory per block; no
+//    sincosf per element. The small DFTs use literal constants.
+//  * The mel product reads only each band's bin range (first bin, count,
+//    offset into packed weights; at most 9 bins at n_fft 400, 48 at 2048).
+//  * The clip's (frames x mels) dB tile stays in shared memory until the
+//    top_db floor is known. The DCT table (n_mels x n_mfcc) is then copied
+//    into the free FFT buffers and each thread forms 4 frames of one
+//    coefficient, reusing every table value four times.
+//  * Occupancy: 512 threads a block and FFT buffers of at most 52 KB (8
+//    groups at n_fft 400, one at 2048) keep a block under 113 KB of shared
+//    memory (110.8 KB at n_fft 400, 83.3 KB at 2048), so two blocks (1,024
+//    threads) sit on each SM; __launch_bounds__(512, 2) holds registers to 64.
+//
+// DFT path (mfcc_dft_kernel), for every other n_fft (1103 at 44.1 kHz is
+// prime): the matrix-form DFT. Frames are processed in tiles of FT = 16, the
+// tile's padded samples staged in shared memory; one thread per frequency bin
+// keeps FT real and imaginary sums in registers, so each windowed basis value
+// read (through L1/L2) feeds 2*FT FMAs; the dense mel product and the DCT
+// follow as on the FFT path.
 
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math_constants.h>
 
 namespace {
-
-constexpr int FT = 16;        // frames per tile
-constexpr int THREADS = 256;  // threads per block
 
 __device__ __forceinline__ float load_sample(const void* wav, int is_int16, long long idx) {
   if (is_int16) {
@@ -47,15 +69,307 @@ __device__ __forceinline__ float load_sample(const void* wav, int is_int16, long
   return static_cast<const float*>(wav)[idx];
 }
 
+// Sample src of the centre-padded clip that starts at base (src counted
+// from the clip's first sample; reflect needs n_samples > n_fft / 2).
+__device__ __forceinline__ float padded_sample(const void* wav, int is_int16, long long base, int n_samples,
+                                               int src, int reflect) {
+  if (reflect) {
+    if (src < 0) src = -src;
+    if (src >= n_samples) src = 2 * (n_samples - 1) - src;
+  } else if (src < 0 || src >= n_samples) {
+    return 0.0f;
+  }
+  return load_sample(wav, is_int16, base + src);
+}
+
+// Block-wide max; every thread gets the result.
+template <int NT>
+__device__ float block_max(float v, float* red_s) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red_s[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red_s[0];
+  for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, red_s[w]);
+  return m;
+}
+
+// ---------------------------------------------------------------------------
+// FFT path
+
+constexpr int FFT_THREADS = 512;
+constexpr int MAX_STAGES = 8;
+
+struct FftPlan {
+  int n_stages;
+  int radix[MAX_STAGES];
+};
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cscale(float2 a, float s) { return make_float2(a.x * s, a.y * s); }
+__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }  // -i * a
+
+// In-place forward DFT of R points: v[s] = sum_r v[r] exp(-2 pi i r s / R).
+template <int R>
+__device__ __forceinline__ void small_dft(float2* v);
+
+template <>
+__device__ __forceinline__ void small_dft<2>(float2* v) {
+  const float2 a = cadd(v[0], v[1]);
+  v[1] = csub(v[0], v[1]);
+  v[0] = a;
+}
+
+template <>
+__device__ __forceinline__ void small_dft<3>(float2* v) {
+  const float2 t = cadd(v[1], v[2]);
+  const float2 d = mul_neg_i(cscale(csub(v[1], v[2]), 0.86602540378443865f));  // -i sin(2pi/3) (v1 - v2)
+  const float2 b = csub(v[0], cscale(t, 0.5f));
+  v[0] = cadd(v[0], t);
+  v[1] = cadd(b, d);
+  v[2] = csub(b, d);
+}
+
+template <>
+__device__ __forceinline__ void small_dft<4>(float2* v) {
+  const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+  const float2 t2 = cadd(v[1], v[3]), t3 = mul_neg_i(csub(v[1], v[3]));
+  v[0] = cadd(t0, t2);
+  v[2] = csub(t0, t2);
+  v[1] = cadd(t1, t3);
+  v[3] = csub(t1, t3);
+}
+
+template <>
+__device__ __forceinline__ void small_dft<5>(float2* v) {
+  const float c1 = 0.30901699437494742f, c2 = -0.80901699437494742f;  // cos(2pi/5), cos(4pi/5)
+  const float s1 = 0.95105651629515357f, s2 = 0.58778525229247313f;   // sin(2pi/5), sin(4pi/5)
+  const float2 a1 = cadd(v[1], v[4]), b1 = csub(v[1], v[4]);
+  const float2 a2 = cadd(v[2], v[3]), b2 = csub(v[2], v[3]);
+  const float2 p1 = cadd(v[0], cadd(cscale(a1, c1), cscale(a2, c2)));
+  const float2 p2 = cadd(v[0], cadd(cscale(a1, c2), cscale(a2, c1)));
+  const float2 q1 = mul_neg_i(cadd(cscale(b1, s1), cscale(b2, s2)));
+  const float2 q2 = mul_neg_i(csub(cscale(b1, s2), cscale(b2, s1)));
+  v[0] = cadd(v[0], cadd(a1, a2));
+  v[1] = cadd(p1, q1);
+  v[4] = csub(p1, q1);
+  v[2] = cadd(p2, q2);
+  v[3] = csub(p2, q2);
+}
+
+template <>
+__device__ __forceinline__ void small_dft<8>(float2* v) {
+  float2 e[4] = {v[0], v[2], v[4], v[6]};
+  float2 o[4] = {v[1], v[3], v[5], v[7]};
+  small_dft<4>(e);
+  small_dft<4>(o);
+  const float s = 0.70710678118654752f;
+  o[1] = cmul(o[1], make_float2(s, -s));   // exp(-i pi/4)
+  o[2] = mul_neg_i(o[2]);                  // exp(-i pi/2)
+  o[3] = cmul(o[3], make_float2(-s, -s));  // exp(-3i pi/4)
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    v[k] = cadd(e[k], o[k]);
+    v[k + 4] = csub(e[k], o[k]);
+  }
+}
+
+// One Stockham stage of one n-point transform by the `size` threads of a
+// group, `rank` the thread's place in it (ops/mfcc.py::stockham_fft walks
+// the same indices). L = the product of the earlier radices, m = n / R:
+// butterfly j reads src[j + r*m], multiplies input r by
+// W_n^{(j mod L) r n / (L R)}, and writes output s to (j - j mod L) R + j mod L + s L.
+template <int R>
+__device__ void fft_stage(const float2* __restrict__ src, float2* __restrict__ dst,
+                          const float2* __restrict__ tw, int n, int length, int rank, int size) {
+  const int m = n / R;
+  const int tw_step = n / (length * R);
+  for (int j = rank; j < m; j += size) {
+    const int k = j % length;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src[j + r * m];
+    if (length > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tw[k * r * tw_step]);
+    }
+    small_dft<R>(v);
+    float2* d = dst + (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) d[r * length] = v[r];
+  }
+}
+
+__device__ void fft_stage_radix(int radix, const float2* src, float2* dst, const float2* tw, int n, int length,
+                                int rank, int size) {
+  switch (radix) {
+    case 2: fft_stage<2>(src, dst, tw, n, length, rank, size); break;
+    case 3: fft_stage<3>(src, dst, tw, n, length, rank, size); break;
+    case 4: fft_stage<4>(src, dst, tw, n, length, rank, size); break;
+    case 5: fft_stage<5>(src, dst, tw, n, length, rank, size); break;
+    default: fft_stage<8>(src, dst, tw, n, length, rank, size); break;
+  }
+}
+
+// Barrier over one group of `size` threads (a multiple of 32): named barrier
+// group + 1, or the whole block when the group is the block.
+__device__ __forceinline__ void group_sync(int group, int size) {
+  if (size == FFT_THREADS) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(size) : "memory");
+  }
+}
+
+// The groups' ping-pong buffers, in float2: 2 * groups * n, or the DCT
+// table's size if that is larger (the table reuses them at the end).
+__host__ __device__ __forceinline__ int fft_region(int n, int groups, int n_mels, int n_mfcc) {
+  const int buffers = 2 * groups * n, table = (n_mels * n_mfcc + 1) / 2;
+  return buffers > table ? buffers : table;
+}
+
+__global__ void __launch_bounds__(FFT_THREADS, 2)
+mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
+                const float2* __restrict__ twiddles,  // (n_fft,) exp(-2 pi i k / n_fft)
+                const float* __restrict__ window,     // (n_fft,) periodic Hann
+                const int* __restrict__ mel_ranges,   // (n_mels, 3): first bin, count, offset
+                const float* __restrict__ mel_weights, int n_weights,
+                const float* __restrict__ dct,        // (n_mels, n_mfcc)
+                float* __restrict__ out,              // (batch, n_frames, n_mfcc)
+                int n, int hop, int n_mels, int n_mfcc, int n_frames, int groups, FftPlan plan,
+                int reflect, float top_db, int use_top_db) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_bins = n / 2 + 1;
+  float2* tw_s = reinterpret_cast<float2*>(smem);                      // n
+  float2* bufs = tw_s + n;                                             // groups x 2 x n
+  float* win_s = reinterpret_cast<float*>(bufs + fft_region(n, groups, n_mels, n_mfcc));  // n
+  float* db_s = win_s + n;                                             // n_frames * n_mels
+  float* wts_s = db_s + n_frames * n_mels;                             // n_weights
+  int* rng_s = reinterpret_cast<int*>(wts_s + n_weights);              // 3 * n_mels
+  __shared__ float red_s[FFT_THREADS / 32];
+
+  const int tid = threadIdx.x;
+  for (int e = tid; e < n; e += FFT_THREADS) {
+    tw_s[e] = twiddles[e];
+    win_s[e] = window[e];
+  }
+  for (int e = tid; e < n_weights; e += FFT_THREADS) wts_s[e] = mel_weights[e];
+  for (int e = tid; e < 3 * n_mels; e += FFT_THREADS) rng_s[e] = mel_ranges[e];
+  __syncthreads();
+
+  const long long clip = blockIdx.x;
+  const long long base = clip * n_samples;
+  const int pad = n / 2;
+  const int size = FFT_THREADS / groups, group = tid / size, rank = tid - group * size;
+  float2* const buf0 = bufs + 2 * group * n;
+  float2* const buf1 = buf0 + n;
+  float local_max = -CUDART_INF_F;
+
+  // Group g transforms frame pairs g, g + groups, ...: frame 2q windowed in
+  // the real part, 2q + 1 in the imaginary. Groups meet only at the end.
+  for (int f0 = 2 * group; f0 < n_frames; f0 += 2 * groups) {
+    for (int i = rank; i < n; i += size) {
+      const int src = f0 * hop + i - pad;
+      const float a = padded_sample(wav, is_int16, base, n_samples, src, reflect);
+      const float b = f0 + 1 < n_frames ? padded_sample(wav, is_int16, base, n_samples, src + hop, reflect) : 0.0f;
+      const float w = win_s[i];
+      buf0[i] = make_float2(a * w, b * w);
+    }
+    group_sync(group, size);
+    float2* src = buf0;
+    float2* dst = buf1;
+    int length = 1;
+    for (int s = 0; s < plan.n_stages; ++s) {
+      fft_stage_radix(plan.radix[s], src, dst, tw_s, n, length, rank, size);
+      group_sync(group, size);
+      length *= plan.radix[s];
+      float2* t = src;
+      src = dst;
+      dst = t;
+    }
+    // src holds the spectrum; the other buffer takes the two frames' power.
+    float* pw = reinterpret_cast<float*>(dst);
+    for (int k = rank; k < n_bins; k += size) {
+      const float2 z = src[k];
+      const float2 zc = src[k == 0 ? 0 : n - k];
+      const float ar = 0.5f * (z.x + zc.x), ai = 0.5f * (z.y - zc.y);
+      const float br = 0.5f * (z.y + zc.y), bi = 0.5f * (zc.x - z.x);
+      pw[k] = ar * ar + ai * ai;
+      pw[n_bins + k] = br * br + bi * bi;
+    }
+    group_sync(group, size);
+    const int nf = min(2, n_frames - f0);
+    for (int e = rank; e < nf * n_mels; e += size) {
+      const int h = e >= n_mels, mel = e - h * n_mels;
+      const int first = rng_s[3 * mel], count = rng_s[3 * mel + 1], off = rng_s[3 * mel + 2];
+      const float* row = pw + h * n_bins + first;
+      float acc = 0.0f;
+      for (int q = 0; q < count; ++q) acc = fmaf(row[q], wts_s[off + q], acc);
+      const float db = 10.0f * log10f(fmaxf(acc, 1e-10f));
+      db_s[(f0 + h) * n_mels + mel] = db;
+      local_max = fmaxf(local_max, db);
+    }
+    group_sync(group, size);  // the next pair's load rewrites the buffers
+  }
+  __syncthreads();  // every group is done with the buffers
+
+  const float floor_db = use_top_db ? block_max<FFT_THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
+  float* dct_s = reinterpret_cast<float*>(bufs);
+  for (int e = tid; e < n_mels * n_mfcc; e += FFT_THREADS) dct_s[e] = dct[e];
+  for (int e = tid; e < n_frames * n_mels; e += FFT_THREADS) db_s[e] = fmaxf(db_s[e], floor_db);
+  __syncthreads();
+
+  // Thread (frame quad q, coefficient j): frames 4q .. 4q + 3.
+  float* out_clip = out + clip * n_frames * n_mfcc;
+  const int quads = (n_frames + 3) / 4;
+  for (int e = tid; e < quads * n_mfcc; e += FFT_THREADS) {
+    const int q = e / n_mfcc, j = e - q * n_mfcc;
+    const float* rows[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rows[i] = db_s + min(4 * q + i, n_frames - 1) * n_mels;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int mel = 0; mel < n_mels; ++mel) {
+      const float d = dct_s[mel * n_mfcc + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(rows[i][mel], d, acc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * q + i < n_frames) out_clip[(4 * q + i) * n_mfcc + j] = acc[i];
+  }
+}
+
+size_t mfcc_fft_smem_bytes(int n, int groups, int n_mels, int n_mfcc, int n_frames, int n_weights) {
+  return sizeof(float2) * ((size_t)n + fft_region(n, groups, n_mels, n_mfcc)) +
+         sizeof(float) * ((size_t)n + (size_t)n_frames * n_mels + n_weights) + sizeof(int) * 3 * (size_t)n_mels;
+}
+
+int mfcc_fft_set_smem(size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(mfcc_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(mfcc_fft_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+}
+
+// ---------------------------------------------------------------------------
+// DFT path
+
+constexpr int FT = 16;        // frames per tile
+constexpr int THREADS = 256;  // threads per block
+
 __global__ void __launch_bounds__(THREADS)
-mfcc_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
-            const float* __restrict__ cos_b,   // (n_fft, n_bins)
-            const float* __restrict__ sin_b,   // (n_fft, n_bins)
-            const float* __restrict__ mel_fb,  // (n_bins, n_mels)
-            const float* __restrict__ dct,     // (n_mels, n_mfcc)
-            float* __restrict__ out,           // (batch, n_frames, n_mfcc)
-            int n_fft, int hop, int n_bins, int n_mels, int n_mfcc, int n_frames,
-            int reflect, float top_db, int use_top_db) {
+mfcc_dft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
+                const float* __restrict__ cos_b,   // (n_fft, n_bins)
+                const float* __restrict__ sin_b,   // (n_fft, n_bins)
+                const float* __restrict__ mel_fb,  // (n_bins, n_mels)
+                const float* __restrict__ dct,     // (n_mels, n_mfcc)
+                float* __restrict__ out,           // (batch, n_frames, n_mfcc)
+                int n_fft, int hop, int n_bins, int n_mels, int n_mfcc, int n_frames,
+                int reflect, float top_db, int use_top_db) {
   extern __shared__ float smem[];
   const int tile_len = (FT - 1) * hop + n_fft;
   float* wav_s = smem;                   // tile_len samples of the padded clip
@@ -72,20 +386,8 @@ mfcc_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
   for (int f0 = 0; f0 < n_frames; f0 += FT) {
     const int nf = min(FT, n_frames - f0);
     const int len = (nf - 1) * hop + n_fft;
-    for (int p = tid; p < tile_len; p += THREADS) {
-      float v = 0.0f;
-      if (p < len) {
-        int src = f0 * hop + p - pad;
-        if (reflect) {
-          if (src < 0) src = -src;
-          if (src >= n_samples) src = 2 * (n_samples - 1) - src;
-          v = load_sample(wav, is_int16, base + src);
-        } else if (src >= 0 && src < n_samples) {
-          v = load_sample(wav, is_int16, base + src);
-        }
-      }
-      wav_s[p] = v;
-    }
+    for (int p = tid; p < tile_len; p += THREADS)
+      wav_s[p] = p < len ? padded_sample(wav, is_int16, base, n_samples, f0 * hop + p - pad, reflect) : 0.0f;
     __syncthreads();
 
     for (int k = tid; k < n_bins; k += THREADS) {
@@ -121,16 +423,7 @@ mfcc_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
     __syncthreads();  // wav_s and pow_s are rewritten by the next tile
   }
 
-  float floor_db = -CUDART_INF_F;
-  if (use_top_db) {
-    for (int o = 16; o > 0; o >>= 1) local_max = fmaxf(local_max, __shfl_xor_sync(0xffffffffu, local_max, o));
-    if ((tid & 31) == 0) red_s[tid >> 5] = local_max;
-    __syncthreads();
-    float clip_max = red_s[0];
-    for (int w = 1; w < THREADS / 32; ++w) clip_max = fmaxf(clip_max, red_s[w]);
-    floor_db = clip_max - top_db;
-  }
-
+  const float floor_db = use_top_db ? block_max<THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
   float* out_clip = out + clip * n_frames * n_mfcc;
   for (int idx = tid; idx < n_frames * n_mfcc; idx += THREADS) {
     const int f = idx / n_mfcc, j = idx - f * n_mfcc;
@@ -141,10 +434,10 @@ mfcc_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
   }
 }
 
-// Shared memory the kernel needs for these sizes, in bytes. Above the
+// Shared memory the DFT kernel needs for these sizes, in bytes. Above the
 // 227 KB a block may use, cudaFuncSetAttribute refuses and the launch
 // reports the error.
-int mfcc_smem_bytes(int n_fft, int hop, int n_bins, int n_mels, int n_frames) {
+int mfcc_dft_smem_bytes(int n_fft, int hop, int n_bins, int n_mels, int n_frames) {
   return static_cast<int>(sizeof(float)) * ((FT - 1) * hop + n_fft + FT * n_bins + n_frames * n_mels);
 }
 
@@ -156,14 +449,54 @@ const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaE
 
 int use_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
 
-int mfcc_forward(const void* wav, int is_int16, int batch, int n_samples,
-                 const float* cos_b, const float* sin_b, const float* mel_fb, const float* dct,
-                 float* out, int n_fft, int hop, int n_bins, int n_mels, int n_mfcc, int n_frames,
-                 int reflect, float top_db, int use_top_db, void* stream) {
-  const int smem = mfcc_smem_bytes(n_fft, hop, n_bins, n_mels, n_frames);
-  cudaError_t err = cudaFuncSetAttribute(mfcc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// FFT path. radices: host array of n_stages radices in {2, 3, 4, 5, 8}
+// whose product is n_fft; groups: thread groups per block, each
+// transforming its own frame pairs (1, 2, 4 or 8: named barriers 1-8).
+int mfcc_fft_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles,
+                     const float* window, const int* mel_ranges, const float* mel_weights, int n_weights,
+                     const float* dct, float* out, int n_fft, int hop, int n_mels, int n_mfcc, int n_frames,
+                     int groups, const int* radices, int n_stages, int reflect, float top_db, int use_top_db,
+                     void* stream) {
+  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FftPlan plan;
+  plan.n_stages = n_stages;
+  long long product = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8) return static_cast<int>(cudaErrorInvalidValue);
+    plan.radix[s] = r;
+    product *= r;
+  }
+  if (product != n_fft) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mfcc_fft_smem_bytes(n_fft, groups, n_mels, n_mfcc, n_frames, n_weights);
+  int err = mfcc_fft_set_smem(smem);
+  if (err != 0) return err;
+  mfcc_fft_kernel<<<batch, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wav, is_int16, n_samples, reinterpret_cast<const float2*>(twiddles), window, mel_ranges, mel_weights,
+      n_weights, dct, out, n_fft, hop, n_mels, n_mfcc, n_frames, groups, plan, reflect, top_db, use_top_db);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the FFT kernel that fit one SM at these sizes (into *blocks),
+// and its shared memory per block in bytes (into *smem_bytes).
+int mfcc_fft_occupancy(int n_fft, int groups, int n_mels, int n_mfcc, int n_frames, int n_weights, int* blocks,
+                       int* smem_bytes) {
+  const size_t smem = mfcc_fft_smem_bytes(n_fft, groups, n_mels, n_mfcc, n_frames, n_weights);
+  *smem_bytes = static_cast<int>(smem);
+  int err = mfcc_fft_set_smem(smem);
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mfcc_fft_kernel, FFT_THREADS, smem));
+}
+
+int mfcc_dft_forward(const void* wav, int is_int16, int batch, int n_samples,
+                     const float* cos_b, const float* sin_b, const float* mel_fb, const float* dct,
+                     float* out, int n_fft, int hop, int n_bins, int n_mels, int n_mfcc, int n_frames,
+                     int reflect, float top_db, int use_top_db, void* stream) {
+  const int smem = mfcc_dft_smem_bytes(n_fft, hop, n_bins, n_mels, n_frames);
+  cudaError_t err = cudaFuncSetAttribute(mfcc_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mfcc_kernel<<<batch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  mfcc_dft_kernel<<<batch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       wav, is_int16, n_samples, cos_b, sin_b, mel_fb, dct, out, n_fft, hop, n_bins, n_mels, n_mfcc,
       n_frames, reflect, top_db, use_top_db);
   return static_cast<int>(cudaGetLastError());

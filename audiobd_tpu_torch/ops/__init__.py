@@ -5,7 +5,8 @@ KERNELS lists every kernel of the port with its launch counter."""
 from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, mfcc
 
 KERNELS = (
-    mfcc.MFCC_KERNEL,
+    mfcc.MFCC_FFT_KERNEL,
+    mfcc.MFCC_DFT_KERNEL,
     conv1_bn_pool.BWD_PARAMS_KERNEL,
     conv1_bn_pool.BWD_INPUT_KERNEL,
     conv2_bn_pool.BWD_PARAMS_KERNEL,

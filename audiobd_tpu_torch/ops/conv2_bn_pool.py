@@ -7,11 +7,13 @@ mean, batch variance). The forward is plain torch in the reference's order
 of operations (conv2d, relu, the fast variance E[r²] − μ², normalize,
 max_pool2d in floor mode with −inf padding). The backward never
 materializes the pre-pool activation or the phase patches: kernel D
-(``conv2_bn_pool_bwd_params``) recomputes each pool window from x and
-accumulates the parameter gradients, kernel E (``conv2_bn_pool_bwd_input``)
-forms dx, which is always needed since block 1 sits below. The math, the
-covering grid and the first-match tie rule are described in
-``csrc/conv2_bn_pool.cu``.
+(``conv2_bn_pool_bwd_params``) recomputes each pool window from x,
+accumulates the parameter gradients and writes the routing (``Conv2Routing``:
+per conv position and channel r, signed by whether it won its pool window),
+and kernel E (``conv2_bn_pool_bwd_input``) forms dx from that routing, with
+no recompute of its own. dx is always needed since block 1 sits below. The
+math, the covering grid, the encoding and the first-match tie rule are
+described in ``csrc/conv2_bn_pool.cu``.
 
 Layout is the port's NCHW: x (B, Cin, H, W), weight (C, Cin, 2, 2), out
 (B, C, ho, wo). On a CUDA tensor the backward launches the kernels or raises;
@@ -22,6 +24,7 @@ in plain torch.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,12 +38,22 @@ CHANNEL_BLOCK = 16  # channels per block; the .cu's CB
 _I, _P = ctypes.c_int, ctypes.c_void_p
 BWD_PARAMS_KERNEL = CudaKernel(
     "conv2_bn_pool_bwd_params", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_params",
-    [_P] * 9 + [_I] * 8,
+    [_P] * 10 + [_I] * 8,
 )
 BWD_INPUT_KERNEL = CudaKernel(
     "conv2_bn_pool_bwd_input", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_input",
-    [_P] * 10 + [_I] * 7,
+    [_P] * 8 + [_I] * 7,
 )
+
+
+class Conv2Routing(NamedTuple):
+    """What kernel D hands kernel E: ``enc`` (B, C, H − 1, W − 1) f32, per
+    conv position and channel 0 where r = 0, +r where relu is active and the
+    position did not win its pool window, −r where it won; and the pool
+    padding it was routed with."""
+
+    enc: torch.Tensor
+    pool_padding: tuple[int, int]
 
 
 def pool_dims(h: int, w: int, pool_padding: tuple[int, int]) -> tuple[int, int, int, int, int, int]:
@@ -111,6 +124,45 @@ def _first_match(z: torch.Tensor) -> torch.Tensor:
     return hit & (torch.cumsum(hit.to(torch.int8), dim=-1) == 1)
 
 
+def _windows_to_grid(a: torch.Tensor, h: int, w: int, pool_padding) -> torch.Tensor:
+    """(B, C, hc, wc, 4) per window and phase → (B, C, H − 1, W − 1) per
+    conv position (the pool padding slots dropped)."""
+    b, c, hc, wc, _ = a.shape
+    ph, pw = pool_padding
+    grid = a.reshape(b, c, hc, wc, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(b, c, 2 * hc, 2 * wc)
+    return grid[:, :, ph : ph + h - 1, pw : pw + w - 1]
+
+
+def _encode(r: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    return torch.where(r > 0, torch.where(winner, -r, r), zero)
+
+
+def conv2_routing_plain(x, w, scale, shift, *, pool_padding) -> torch.Tensor:
+    """Plain version of kernel D's routing for kernel E: ``Conv2Routing.enc``
+    (B, C, H − 1, W − 1) from x and ``w257`` taps."""
+    r, z = _recompute(_phase_patches(x, pool_padding), w, scale, shift)
+    return _windows_to_grid(_encode(r, _first_match(z)), x.shape[2], x.shape[3], pool_padding)
+
+
+def conv2_input_from_routing_plain(enc, g, weight, mu, inv, scale, h1, h2, *, pool_padding) -> torch.Tensor:
+    """Plain version of kernel E: dx (B, Cin, H, W) from the routing ``enc``,
+    the pooled gradient ``g`` and kernel D's h1, h2. dy = relu'·(scale·dz −
+    h1 − x̂·h2), dz = g of the window where the position won, then the
+    transposed 2x2 conv of dy."""
+    b, c, hp, wp = enc.shape
+    _, _, ho, wo, hc, wc = pool_dims(hp + 1, wp + 1, pool_padding)
+    ph, pw = pool_padding
+    g2 = F.pad(g, (0, wc - wo, 0, hc - ho))  # zero over the windows with no output
+    g_grid = g2.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)[:, :, ph : ph + hp, pw : pw + wp]
+    c4 = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+    zero = torch.zeros((), dtype=enc.dtype, device=enc.device)
+    dz = torch.where(enc < 0, g_grid, zero)
+    xhat = (enc.abs() - c4(mu)) * c4(inv)
+    dy = torch.where(enc != 0, c4(scale) * dz - c4(h1) - xhat * c4(h2), zero)
+    return F.conv_transpose2d(dy, weight)
+
+
 def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, pool_padding, need_dx=True):
     """Plain torch version of kernels D and E: (dx or None, dweight, dbias,
     dgamma, dbeta) for the pooled gradient ``g`` (B, C, ho, wo)."""
@@ -120,9 +172,10 @@ def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, p
     k4 = 4 * cin
     p = _phase_patches(x, pool_padding)
     r, z = _recompute(p, w, scale, shift)
+    winner = _first_match(z)
     g2 = F.pad(g, (0, wc - wo, 0, hc - ho))  # zero over the windows with no output
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
-    dz = torch.where(_first_match(z), g2[..., None], zero)
+    dz = torch.where(winner, g2[..., None], zero)
     c5 = lambda v: v.reshape(1, -1, 1, 1, 1)  # noqa: E731
     xhat = (r - c5(mu)) * c5(inv)
     rp = r > 0
@@ -140,15 +193,8 @@ def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, p
     dweight = dw[:k4].reshape(2, 2, cin, -1).permute(3, 2, 0, 1)
     dx = None
     if need_dx:
-        dy = torch.where(rp, c5(scale) * dz - c5(h1) - xhat * c5(h2), zero)
-        dp = torch.einsum("kc,bchwt->bkhwt", w[:k4], dy)  # (B, 4·Cin, hc, wc, 4)
-        dp = dp.reshape(b, k4, hc, wc, 2, 2).permute(0, 1, 2, 4, 3, 5).reshape(b, k4, 2 * hc, 2 * wc)
-        ph, pw = pool_padding
-        dp = dp[:, :, ph : ph + hp, pw : pw + wp].reshape(b, 4, cin, hp, wp)
-        dx = (
-            F.pad(dp[:, 0], (0, 1, 0, 1)) + F.pad(dp[:, 1], (1, 0, 0, 1))
-            + F.pad(dp[:, 2], (0, 1, 1, 0)) + F.pad(dp[:, 3], (1, 0, 1, 0))
-        )
+        enc = _windows_to_grid(_encode(r, winner), h, wd, pool_padding)
+        dx = conv2_input_from_routing_plain(enc, g, weight, mu, inv, scale, h1, h2, pool_padding=pool_padding)
     return dx, dweight, dw[k4], s2, s1
 
 
@@ -156,25 +202,24 @@ def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, p
 # kernel wrappers
 
 
-def _check_cuda(x, g, w, vecs, pool_padding, h12=None):
-    """The kernels' contract: contiguous float32 tensors on x's CUDA device,
-    x (B, Cin, H, W) with Cin <= 64 and H, W >= 2, g (B, C, ho, wo), w
-    (4·Cin + 1, C), the per-channel vectors (C,), h12 (2, C), pool padding
-    in {0, 1} per axis."""
-    if x.ndim != 4 or x.shape[1] > MAX_CIN or x.shape[2] < 2 or x.shape[3] < 2:
-        raise ValueError(f"conv2_bn_pool kernels need x (B, Cin <= {MAX_CIN}, H >= 2, W >= 2), got {tuple(x.shape)}")
+def _check_cuda(device, dims, g, w, vecs, pool_padding, extra=()):
+    """The kernels' contract: contiguous float32 tensors on ``device`` (a
+    CUDA device) for the block input of shape ``dims`` = (B, Cin, H, W) with
+    Cin <= 64 and H, W >= 2: g (B, C, ho, wo), w (4·Cin + 1, C), the
+    per-channel vectors (C,) and each (name, tensor, shape) of ``extra``;
+    pool padding in {0, 1} per axis."""
+    b, cin, h, wd = dims
+    if cin > MAX_CIN or h < 2 or wd < 2:
+        raise ValueError(f"conv2_bn_pool kernels need x (B, Cin <= {MAX_CIN}, H >= 2, W >= 2), got {tuple(dims)}")
     if any(pad not in (0, 1) for pad in pool_padding):
         raise ValueError(f"conv2_bn_pool kernels take pool padding 0 or 1 per axis, got {pool_padding}")
-    b, cin, h, wd = x.shape
     c = w.shape[-1]
     _, _, ho, wo, _, _ = pool_dims(h, wd, pool_padding)
-    expected = [("x", x, x.shape), ("g", g, (b, c, ho, wo)), ("w", w, (4 * cin + 1, c))]
+    expected = [("g", g, (b, c, ho, wo)), ("w", w, (4 * cin + 1, c))]
     expected += [(f"vector {i}", v, (c,)) for i, v in enumerate(vecs)]
-    if h12 is not None:
-        expected.append(("h12", h12, (2, c)))
-    for name, t, shape in expected:
-        if not t.is_cuda or t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"conv2_bn_pool kernels take contiguous float32 tensors on x's CUDA device ({name})")
+    for name, t, shape in [*expected, *extra]:
+        if not t.is_cuda or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"conv2_bn_pool kernels take contiguous float32 tensors on one CUDA device ({name})")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"conv2_bn_pool: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
@@ -185,10 +230,12 @@ def _splits(n_tiles: int, groups: int) -> int:
     return max(1, min(n_tiles, -(-264 // groups)))
 
 
-def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) -> torch.Tensor:
+def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) -> tuple[torch.Tensor, Conv2Routing]:
     """Kernel D: (4·Cin + 5, C) = dw taps (4·Cin rows, tap-major), dbias,
-    dgamma, dbeta, h1, h2."""
-    _check_cuda(x, g, w, (mu, inv, scale, shift), pool_padding)
+    dgamma, dbeta, h1, h2; and the routing for kernel E."""
+    if x.ndim != 4:
+        raise ValueError(f"conv2_bn_pool kernels need x (B, Cin, H, W), got {tuple(x.shape)}")
+    _check_cuda(x.device, x.shape, g, w, (mu, inv, scale, shift), pool_padding, extra=[("x", x, x.shape)])
     b, cin, h, wd = x.shape
     c = w.shape[1]
     _, _, _, _, hc, wc = pool_dims(h, wd, pool_padding)
@@ -196,39 +243,48 @@ def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) ->
     splits = _splits(-(-(b * hc * wc) // TILE_WINDOWS), groups)
     partial = torch.empty((splits, 3 * (4 * cin + 1) + 2, c), dtype=torch.float32, device=x.device)
     out = torch.empty((4 * cin + 5, c), dtype=torch.float32, device=x.device)
+    route = torch.empty((b, c, h - 1, wd - 1), dtype=torch.float32, device=x.device)
     BWD_PARAMS_KERNEL(
         x.device, ptr(x), ptr(g), ptr(w), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
-        ptr(partial), ptr(out), b, cin, h, wd, c, pool_padding[0], pool_padding[1], splits,
+        ptr(partial), ptr(out), ptr(route), b, cin, h, wd, c, pool_padding[0], pool_padding[1], splits,
     )
-    return out
+    return out, Conv2Routing(route, tuple(pool_padding))
 
 
-def conv2_bn_pool_bwd_input(x, g, w, mu, inv, scale, shift, h12, *, pool_padding) -> torch.Tensor:
-    """Kernel E: dx (B, Cin, H, W); ``h12`` is rows 4·Cin + 3 and + 4 of
-    kernel D's output."""
-    _check_cuda(x, g, w, (mu, inv, scale, shift), pool_padding, h12=h12)
-    b, cin, h, wd = x.shape
-    c = w.shape[1]
-    dy = torch.empty((b, c, h - 1, wd - 1), dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
+def conv2_bn_pool_bwd_input(routing, g, w, mu, inv, scale, h12, *, pool_padding) -> torch.Tensor:
+    """Kernel E: dx (B, Cin, H, W) from kernel D's ``routing`` and its
+    ``h12``, rows 4·Cin + 3 and + 4 of D's output. Raises without D's routing."""
+    if not isinstance(routing, Conv2Routing):
+        raise TypeError(f"kernel E needs the Conv2Routing that kernel D wrote, got {type(routing).__name__}")
+    if tuple(routing.pool_padding) != tuple(pool_padding):
+        raise ValueError(f"routing was written for pool padding {routing.pool_padding}, not {tuple(pool_padding)}")
+    enc = routing.enc
+    if enc.ndim != 4 or (w.shape[0] - 1) % 4:
+        raise ValueError(f"kernel E needs a (B, C, hp, wp) routing and (4·Cin + 1, C) taps, got "
+                         f"{tuple(enc.shape)} and {tuple(w.shape)}")
+    b, c, hp, wp = enc.shape
+    dims = (b, (w.shape[0] - 1) // 4, hp + 1, wp + 1)
+    _check_cuda(enc.device, dims, g, w, (mu, inv, scale), pool_padding,
+                extra=[("routing", enc, (b, w.shape[1], hp, wp)), ("h12", h12, (2, w.shape[1]))])
+    dx = torch.empty(dims, dtype=torch.float32, device=enc.device)
     BWD_INPUT_KERNEL(
-        x.device, ptr(x), ptr(g), ptr(w), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
-        ptr(h12), ptr(dy), ptr(dx), b, cin, h, wd, c, pool_padding[0], pool_padding[1],
+        enc.device, ptr(enc), ptr(g), ptr(w), ptr(mu), ptr(inv), ptr(scale), ptr(h12), ptr(dx),
+        *dims, c, pool_padding[0], pool_padding[1],
     )
     return dx
 
 
 def conv2_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, pool_padding):
-    """(dx, dweight, dbias, dgamma, dbeta): the kernels on CUDA tensors, the
-    plain version on CPU tensors."""
+    """(dx, dweight, dbias, dgamma, dbeta): the kernels on CUDA tensors, D
+    then E on D's routing; the plain version on CPU tensors."""
     if not x.is_cuda:
         return conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, pool_padding=pool_padding)
     x, g = x.contiguous(), g.contiguous()
     w = w257(weight, bias)
     k4 = 4 * x.shape[1]
-    out = conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, pool_padding=pool_padding)
+    out, routing = conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, pool_padding=pool_padding)
     dx = conv2_bn_pool_bwd_input(
-        x, g, w, mu, inv, scale, shift, out[k4 + 3 : k4 + 5].contiguous(), pool_padding=pool_padding
+        routing, g, w, mu, inv, scale, out[k4 + 3 : k4 + 5].contiguous(), pool_padding=pool_padding
     )
     dweight = out[:k4].reshape(2, 2, x.shape[1], -1).permute(3, 2, 0, 1)
     return dx, dweight, out[k4], out[k4 + 1], out[k4 + 2]

@@ -1,31 +1,214 @@
-"""Waveform → MFCC through the hand-written CUDA kernel ``csrc/mfcc.cu``.
+"""Waveform → MFCC through the hand-written CUDA kernels of ``csrc/mfcc.cu``.
 
-Port of audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc. On a CUDA tensor the
-wrapper launches the kernel (or raises); on a CPU tensor it runs the plain
-version, ``dsp.mfcc`` of the dequantized waveform.
+Port of audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc. The kernel source has
+two paths, chosen by ``n_fft`` alone (``mfcc_path``):
+
+* ``"fft"``: n_fft whose prime factors are 2, 3 and 5 (400, the main path;
+  2048, the DABA and FlowMur settings), up to ``MAX_FFT``. A mixed-radix
+  Stockham FFT in shared memory, two real frames packed into one complex
+  transform, and the mel product over each band's nonzero bins. Its host
+  tables come from ``fft_plan`` and ``mel_ranges``.
+* ``"dft"``: every other n_fft (1103, Ultrasonic's 44.1 kHz setting, is
+  prime). The matrix-form DFT against windowed bases.
+
+Either path that fails to build or launch raises; neither stands in for the
+other. Each has its own launch counter. On a CPU tensor the wrapper runs the
+plain version, ``dsp.mfcc`` of the dequantized waveform;
+``mfcc_fft_plain`` walks the FFT path's plan in plain torch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from audiobd_tpu_torch.dsp import mel as _mel
 from audiobd_tpu_torch.dsp.mfcc import MFCCParams, mfcc
-from audiobd_tpu_torch.dsp.stft import _dft_bases, num_frames
-from audiobd_tpu_torch.ops.build import CudaKernel, ptr
+from audiobd_tpu_torch.dsp.stft import _dft_bases, frame_signal, hann_window, num_frames
+from audiobd_tpu_torch.ops.build import CudaKernel, load_library, ptr
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
+MAX_FFT = 4096  # the FFT path's largest n_fft: one frame pair's buffers fit shared memory
+FFT_BUFFER_BYTES = 52 * 1024  # the thread groups' ping-pong buffers (csrc/mfcc.cu's note)
+
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-MFCC_KERNEL = CudaKernel(
-    "mfcc", "mfcc.cu", "mfcc_forward",
+MFCC_FFT_KERNEL = CudaKernel(
+    "mfcc_fft", "mfcc.cu", "mfcc_fft_forward",
+    [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _F, _I],
+)
+MFCC_DFT_KERNEL = CudaKernel(
+    "mfcc_dft", "mfcc.cu", "mfcc_dft_forward",
     [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I],
 )
 
 
+def fft_radices(n_fft: int) -> tuple[int, ...] | None:
+    """The Stockham stages for ``n_fft`` in the order they run: radix 8 while
+    three factors of 2 remain, then 4 or 2, then the 3s and 5s; None when
+    n_fft has another prime factor or exceeds ``MAX_FFT``."""
+    if n_fft < 2 or n_fft > MAX_FFT:
+        return None
+    n, twos = n_fft, 0
+    while n % 2 == 0:
+        n, twos = n // 2, twos + 1
+    radices = [8] * (twos // 3) + {0: [], 1: [2], 2: [4]}[twos % 3]
+    for p in (3, 5):
+        while n % p == 0:
+            n //= p
+            radices.append(p)
+    return tuple(radices) if n == 1 else None
+
+
+def mfcc_path(n_fft: int) -> str:
+    """"fft" when n_fft factors into 2, 3 and 5 and is at most MAX_FFT, else
+    "dft". A choice by shape: the two paths compute the same function."""
+    return "fft" if fft_radices(n_fft) is not None else "dft"
+
+
+class FftPlan(NamedTuple):
+    radices: tuple[int, ...]
+    twiddles: np.ndarray  # (n_fft, 2) f32: exp(-2πik/n_fft) as (cos, sin), built in float64
+    window: np.ndarray  # (n_fft,) f32 periodic Hann, built in float64
+
+
 @functools.lru_cache(maxsize=8)
-def _tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tensor, ...]:
+def fft_plan(n_fft: int) -> FftPlan:
+    radices = fft_radices(n_fft)
+    if radices is None:
+        raise ValueError(f"n_fft {n_fft} is not a product of 2, 3 and 5 up to {MAX_FFT}")
+    angle = -2.0 * np.pi * np.arange(n_fft) / n_fft
+    twiddles = np.stack([np.cos(angle), np.sin(angle)], axis=1).astype(np.float32)
+    return FftPlan(radices, twiddles, hann_window(n_fft).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=8)
+def mel_ranges(params: MFCCParams) -> tuple[np.ndarray, np.ndarray]:
+    """Each mel band's bins from its first to its last nonzero weight:
+    ``ranges`` (n_mels, 3) int32 rows (first bin, count, offset into
+    ``weights``), count 0 for a band with no nonzero bin, and ``weights``
+    the packed f32 weights. The dense product ``power @ mel_fb`` is the sum
+    over these ranges."""
+    fb = params.mel_fb()
+    ranges = np.zeros((fb.shape[1], 3), np.int32)
+    weights = []
+    offset = 0
+    for m in range(fb.shape[1]):
+        nz = np.flatnonzero(fb[:, m])
+        if nz.size:
+            first, count = int(nz[0]), int(nz[-1] - nz[0] + 1)
+            ranges[m] = first, count, offset
+            weights.append(fb[first : first + count, m])
+            offset += count
+    packed = np.concatenate(weights).astype(np.float32) if weights else np.zeros(1, np.float32)
+    return ranges, packed
+
+
+def fft_groups(n_fft: int) -> int:
+    """Thread groups of the FFT kernel's 512-thread block, each transforming
+    its own frame pairs: the largest power of two, at most 8 (64 threads a
+    group, one named barrier each), whose ping-pong buffers (2 × n_fft
+    complex f32 a group) fit ``FFT_BUFFER_BYTES``; at least one."""
+    groups = 1
+    while groups < 8 and 2 * groups * 16 * n_fft <= FFT_BUFFER_BYTES:
+        groups *= 2
+    return groups
+
+
+def fft_occupancy(params: MFCCParams, n_samples: int, device: torch.device) -> tuple[int, int]:
+    """(blocks of the FFT kernel that fit one SM, its shared memory per block
+    in bytes) for clips of ``n_samples``, from the CUDA runtime on ``device``."""
+    n_frames = num_frames(n_samples, params.n_fft, params.hop_length)
+    lib = load_library(MFCC_FFT_KERNEL.source)
+    blocks, smem = _I(), _I()
+    for code in (lib.use_device(device.index or 0), lib.mfcc_fft_occupancy(
+            params.n_fft, fft_groups(params.n_fft), params.n_mels, params.n_mfcc, n_frames,
+            mel_ranges(params)[1].size, ctypes.byref(blocks), ctypes.byref(smem))):
+        if code:
+            raise RuntimeError(f"mfcc_fft_occupancy failed with CUDA error {code}")
+    return blocks.value, smem.value
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def stockham_fft(z: torch.Tensor, plan: FftPlan) -> torch.Tensor:
+    """Complex DFT over the last axis of ``z`` by the kernel's Stockham
+    stages: before the stage of radix R, with L the product of the earlier
+    radices and m = N / R, butterfly j reads z[j + r·m], multiplies input r
+    by W_N^{(j mod L)·r·N/(L·R)}, takes the R-point DFT and writes output s to
+    (j − j mod L)·R + j mod L + s·L. The output is in natural order."""
+    n = z.shape[-1]
+    tw = torch.complex(*torch.from_numpy(plan.twiddles).to(z.device).unbind(-1))
+    length = 1
+    for radix in plan.radices:
+        m = n // radix
+        j = torch.arange(m, device=z.device)
+        k = j % length
+        r = torch.arange(radix, device=z.device)
+        v = z[..., j[None, :] + r[:, None] * m] * tw[(k[None, :] * r[:, None] * (n // (length * radix))) % n]
+        dft = tw[(r[:, None] * r[None, :] * (n // radix)) % n]  # W_R^{r·s}
+        out = torch.einsum("...rm,rs->...sm", v, dft)
+        dest = ((j - k) * radix + k)[None, :] + r[:, None] * length
+        y = torch.empty_like(z)
+        y[..., dest.reshape(-1)] = out.reshape(*out.shape[:-2], -1)
+        z = y
+        length *= radix
+    return z
+
+
+def mfcc_fft_plain(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
+    """The FFT path's function in plain torch, walking the same plan and mel
+    ranges: (B, T) f32 or int16 → (B, n_frames, n_mfcc). Frames 2q and 2q + 1
+    are windowed and packed as one complex signal a + ib, transformed, and
+    separated by A[k] = (Z[k] + conj Z[−k]) / 2, B[k] = (Z[k] − conj Z[−k]) / 2i."""
+    plan = fft_plan(params.n_fft)
+    x = dequantize_pcm(wavs)
+    frames = frame_signal(x, params.n_fft, params.hop_length, center=True, pad_mode=params.pad_mode)
+    frames = frames * torch.from_numpy(plan.window).to(x.device)
+    n_frames = frames.shape[-2]
+    if n_frames % 2:
+        frames = torch.cat([frames, torch.zeros_like(frames[..., :1, :])], dim=-2)
+    z = stockham_fft(torch.complex(frames[..., 0::2, :], frames[..., 1::2, :]), plan)
+    zc = torch.conj(z[..., (-torch.arange(params.n_fft, device=z.device)) % params.n_fft])
+    a, b = (z + zc) / 2, (z - zc) / 2j
+    n_bins = params.n_fft // 2 + 1
+    power = torch.stack([a.abs() ** 2, b.abs() ** 2], dim=-2)[..., :n_bins]
+    power = power.reshape(*power.shape[:-3], -1, n_bins)[..., :n_frames, :]
+    ranges, weights = mel_ranges(params)
+    mel = torch.stack(
+        [
+            power[..., first : first + count] @ torch.from_numpy(weights[off : off + count]).to(x.device)
+            if count else power.new_zeros(power.shape[:-1])
+            for first, count, off in ranges.tolist()
+        ],
+        dim=-1,
+    )
+    db = _mel.amplitude_to_db(mel, top_db=params.top_db)
+    return db @ torch.from_numpy(params.dct()).to(x.device)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """Twiddles, window, mel ranges and packed weights, DCT on ``device``."""
+    plan = fft_plan(params.n_fft)
+    ranges, weights = mel_ranges(params)
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (plan.twiddles, plan.window, ranges, weights, params.dct())
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tensor, ...]:
     """Windowed DFT bases, mel filterbank and DCT on ``device`` (float32)."""
     cos_b, sin_b = _dft_bases(params.n_fft)
     return tuple(
@@ -36,7 +219,9 @@ def _tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tensor, ...
 
 def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     """(B, T) float32 or int16 PCM → (B, n_frames, n_mfcc) float32, the
-    function of ``dsp.mfcc`` (int16 is scaled by 2⁻¹⁵ first)."""
+    function of ``dsp.mfcc`` (int16 is scaled by 2⁻¹⁵ first). On a CUDA
+    tensor it launches the FFT kernel when ``mfcc_path(params.n_fft)`` is
+    "fft" and the matrix-DFT kernel otherwise, by n_fft alone."""
     if wavs.ndim != 2:
         raise ValueError(f"fused_mfcc expects (B, T), got {tuple(wavs.shape)}")
     if not wavs.is_cuda:
@@ -54,15 +239,29 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     out = torch.empty((batch, n_frames, params.n_mfcc), dtype=torch.float32, device=wavs.device)
     if batch == 0:
         return out
-    cos_b, sin_b, mel_fb, dct = _tables(params, wavs.device)
-    MFCC_KERNEL(
-        wavs.device,
-        ptr(wavs), int(wavs.dtype == torch.int16), batch, n_samples,
-        ptr(cos_b), ptr(sin_b), ptr(mel_fb), ptr(dct), ptr(out),
-        params.n_fft, params.hop_length, params.n_fft // 2 + 1, params.n_mels, params.n_mfcc,
-        n_frames, int(params.pad_mode == "reflect"),
-        float(params.top_db or 0.0), int(params.top_db is not None),
-    )
+    is_int16 = int(wavs.dtype == torch.int16)
+    reflect = int(params.pad_mode == "reflect")
+    top_db, use_top_db = float(params.top_db or 0.0), int(params.top_db is not None)
+    if mfcc_path(params.n_fft) == "fft":
+        twiddles, window, ranges, weights, dct = _fft_tables(params, wavs.device)
+        radices = fft_plan(params.n_fft).radices
+        MFCC_FFT_KERNEL(
+            wavs.device,
+            ptr(wavs), is_int16, batch, n_samples,
+            ptr(twiddles), ptr(window), ptr(ranges), ptr(weights), weights.numel(), ptr(dct), ptr(out),
+            params.n_fft, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
+            fft_groups(params.n_fft), (_I * len(radices))(*radices), len(radices),
+            reflect, top_db, use_top_db,
+        )
+    else:
+        cos_b, sin_b, mel_fb, dct = _dft_tables(params, wavs.device)
+        MFCC_DFT_KERNEL(
+            wavs.device,
+            ptr(wavs), is_int16, batch, n_samples,
+            ptr(cos_b), ptr(sin_b), ptr(mel_fb), ptr(dct), ptr(out),
+            params.n_fft, params.hop_length, params.n_fft // 2 + 1, params.n_mels, params.n_mfcc,
+            n_frames, reflect, top_db, use_top_db,
+        )
     return out
 
 

@@ -9,9 +9,11 @@ no result, without them. Phases, each printing its own lines:
   1. each kernel against its plain PyTorch version at the shapes of the
      path that runs it (max abs error within the stated tolerance), with the kernel's
      time, the plain version's and a one-call PyTorch yardstick's, and the
-     least time the card could take for the same work (bound).
+     least time the card could take for the same work (bound): 1a kernel
+     A's FFT and matrix-DFT paths, 1b kernels B and C, 1c kernels D and E
+     (E on the routing a D call wrote).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
-     16 kHz clips → MFCC (kernel A) → BadNets patch → full-width SmallCNN
+     16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
   3. the block-2/3 path: the same run with --model smalllstm --fused_block2 on
      --fused_block3 on (blocks 2-3 backward through kernels D and E);
@@ -101,67 +103,111 @@ def mfcc_bound(wav, params) -> tuple[float, str, float, float]:
     return ms, by, flops, nbytes
 
 
-def phase_mfcc(torch, ctx) -> dict:
+def mfcc_float64(torch, wav, params):
+    """dsp.mfcc's function in float64 with torch.fft, as a reference for both
+    f32 versions."""
+    from audiobd_tpu_torch.dsp.mel import amplitude_to_db
+    from audiobd_tpu_torch.dsp.stft import frame_signal, hann_window
+
+    frames = frame_signal(wav.double(), params.n_fft, params.hop_length, pad_mode=params.pad_mode)
+    spec = torch.fft.rfft(frames * torch.from_numpy(hann_window(params.n_fft)).cuda(), dim=-1).abs() ** 2
+    mel = spec @ torch.from_numpy(params.mel_fb()).cuda().double()
+    return amplitude_to_db(mel, top_db=params.top_db) @ torch.from_numpy(params.dct()).cuda().double()
+
+
+def phase_mfcc(torch, ctx) -> list[dict]:
     from audiobd_tpu_torch.dsp import MFCCParams, mfcc
     from audiobd_tpu_torch.dsp.mel import amplitude_to_db
-    from audiobd_tpu_torch.ops.mfcc import fused_mfcc
+    from audiobd_tpu_torch.ops import mfcc as op
     from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
-    print("phase 1a: MFCC kernel (A) vs plain dsp.mfcc; tolerance rtol 1e-4, atol 1e-3 "
-          "(f32 both; sums in another order)", flush=True)
+    print("phase 1a: MFCC kernel (A), FFT and matrix-DFT paths, vs plain dsp.mfcc; tolerance "
+          "rtol 1e-4, atol 1e-3 (f32 both; sums in another order)", flush=True)
     rtol, atol = 1e-4, 1e-3
     gen = torch.Generator(device="cuda").manual_seed(0)
     # The main path's prep launches A on f32 chunks of 2048 clips and one
     # 1568-clip tail (20,000 clips); the other cases cover int16 PCM, librosa
-    # parity and a batch that is not a multiple of anything.
+    # parity and a batch that is not a multiple of anything. n_fft 1103
+    # (Ultrasonic's 44.1 kHz setting, prime) takes the matrix-DFT path.
     wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
     tail = wav[:1568]
     pcm = torch.clamp(torch.round(wav[:256] * 32768.0), -32768, 32767).to(torch.int16)
+    wav44 = torch.randn(64, 44100, device="cuda", generator=gen) * 0.1
     ta = MFCCParams()
     lib = MFCCParams(n_fft=2048, hop_length=512, parity="librosa")
-    worst = 0.0
+    us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
+    worst = {"fft": 0.0, "dft": 0.0}
     for name, w, params in (
         ("torchaudio f32 (2048, 16000), main-path chunk", wav, ta),
         ("torchaudio f32 (1568, 16000), main-path tail", tail, ta),
         ("torchaudio int16 (256, 16000)", pcm, ta),
         ("librosa f32 (64, 16000) n_fft 2048", wav[:64], lib),
         ("torchaudio f32 ragged (257, 16000)", torch.cat([wav[:256], wav[:1] * 0.5]), ta),
+        ("torchaudio f32 (64, 44100) n_fft 1103 hop 441", wav44, us),
     ):
-        got = fused_mfcc(w, params)
+        path = op.mfcc_path(params.n_fft)
+        before = op.MFCC_FFT_KERNEL.launches, op.MFCC_DFT_KERNEL.launches
+        got = op.fused_mfcc(w, params)
         torch.cuda.synchronize()
+        after = op.MFCC_FFT_KERNEL.launches, op.MFCC_DFT_KERNEL.launches
         ref = mfcc(dequantize_pcm(w), params)
         err, rel, ok = max_err(torch, got, ref, rtol, atol)
-        worst = max(worst, err)
-        check(ok and tuple(got.shape) == tuple(ref.shape),
-              f"{name}: shape {tuple(got.shape)} max abs err {err:.3e} (rel to max {rel:.3e})")
+        worst[path] = max(worst[path], err)
+        want = (before[0] + 1, before[1]) if path == "fft" else (before[0], before[1] + 1)
+        check(ok and tuple(got.shape) == tuple(ref.shape) and after == want,
+              f"{name} [{path} path, launches {after[0] - before[0]} FFT / {after[1] - before[1]} DFT]: "
+              f"shape {tuple(got.shape)} max abs err {err:.3e} (rel to max {rel:.3e})")
         del got, ref
 
-    mel_fb = torch.from_numpy(ta.mel_fb()).cuda()
-    dct = torch.from_numpy(ta.dct()).cuda()
-    window = torch.hann_window(ta.n_fft, periodic=True, device="cuda")
+    # The FFT's rounding differs from the matrix DFT's, so the card's kernel
+    # and plain version are each also held against a float64 MFCC.
+    truth = mfcc_float64(torch, wav, ta)
+    for name, got in (("FFT kernel", op.fused_mfcc(wav, ta)), ("plain dsp.mfcc", mfcc(wav, ta))):
+        err = float((got.double() - truth).abs().max())
+        check(err <= atol, f"{name} (2048, 16000) against a float64 MFCC: max abs err {err:.3e}")
+    del truth
 
-    def library():
-        spec = torch.stft(wav, ta.n_fft, ta.hop_length, window=window, center=True,
-                          pad_mode="reflect", return_complex=True).abs().pow(2)
-        return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb) @ dct
+    def yardstick(w, params):
+        mel_fb = torch.from_numpy(params.mel_fb()).cuda()
+        dct = torch.from_numpy(params.dct()).cuda()
+        window = torch.hann_window(params.n_fft, periodic=True, device="cuda")
 
-    err_lib, _, ok_lib = max_err(torch, library(), mfcc(wav, ta), rtol, atol)
-    check(ok_lib, f"yardstick torch.stft+matmul agrees: max abs err {err_lib:.3e}")
-    ms = time_ms(torch, lambda: fused_mfcc(wav, ta), 10)
-    tail_ms = time_ms(torch, lambda: fused_mfcc(tail, ta), 10)
-    plain_ms = time_ms(torch, lambda: mfcc(wav, ta), 5, warmup=1)
-    library_ms = time_ms(torch, library, 10)
-    bms, by, flops, nbytes = mfcc_bound(wav, ta)
-    tail_bms = mfcc_bound(tail, ta)[0]
-    print(f"  MFCC (2048, 16000) f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.stft yardstick {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
-          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
-    print(f"  MFCC (1568, 16000) f32 tail: kernel {tail_ms:.4f} ms, bound {tail_bms:.4f} ms",
+        def library():
+            spec = torch.stft(w, params.n_fft, params.hop_length, window=window, center=True,
+                              pad_mode=params.pad_mode, return_complex=True).abs().pow(2)
+            return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb, top_db=params.top_db) @ dct
+
+        err_lib, _, ok_lib = max_err(torch, library(), mfcc(w, params), rtol, atol)
+        check(ok_lib, f"yardstick torch.stft+matmul at n_fft {params.n_fft} agrees: max abs err {err_lib:.3e}")
+        return library
+
+    rows = []
+    for path, w, params, label in (("fft", wav, ta, "(2048, 16000) f32"), ("dft", wav44, us, "(64, 44100) f32")):
+        kernel = op.MFCC_FFT_KERNEL if path == "fft" else op.MFCC_DFT_KERNEL
+        library = yardstick(w, params)
+        ms = time_ms(torch, lambda: op.fused_mfcc(w, params), 10)
+        plain_ms = time_ms(torch, lambda: mfcc(w, params), 5, warmup=1)
+        library_ms = time_ms(torch, library, 10)
+        bms, by, flops, nbytes = mfcc_bound(w, params)
+        print(f"  MFCC {path} path {label} n_fft {params.n_fft}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.stft yardstick {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+        rows.append({"name": kernel.name, "route": "cuda", "source": "audiobd_tpu_torch/csrc/mfcc.cu",
+                     "replaces": "audiobd_tpu/ops/pallas_mfcc.py:129", "max_abs_err": worst[path], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms})
+    tail_ms = time_ms(torch, lambda: op.fused_mfcc(tail, ta), 10)
+    print(f"  MFCC fft path (1568, 16000) f32 tail: kernel {tail_ms:.4f} ms, bound {mfcc_bound(tail, ta)[0]:.4f} ms",
           flush=True)
-    ctx["feats"] = fused_mfcc(wav[:256], ta)[:, None]
-    return {"name": "mfcc", "route": "cuda", "source": "audiobd_tpu_torch/csrc/mfcc.cu",
-            "replaces": "audiobd_tpu/ops/pallas_mfcc.py:129", "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+    lib_ms = time_ms(torch, lambda: op.fused_mfcc(wav[:64], lib), 10)
+    print(f"  MFCC fft path (64, 16000) f32 n_fft 2048: kernel {lib_ms:.4f} ms, bound "
+          f"{mfcc_bound(wav[:64], lib)[0]:.4f} ms", flush=True)
+    for params in (ta, lib):
+        blocks, smem = op.fft_occupancy(params, 16000, torch.device("cuda"))
+        print(f"  FFT kernel at n_fft {params.n_fft}: {smem} B shared memory a block, {blocks} blocks "
+              f"({blocks * 512} threads) per SM", flush=True)
+        check(blocks * 512 >= 1024, f"FFT kernel at n_fft {params.n_fft} keeps >= 1024 threads per SM")
+    ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
+    return rows
 
 
 def phase_conv1(torch, ctx) -> list[dict]:
@@ -284,13 +330,13 @@ def phase_conv1(torch, ctx) -> list[dict]:
 
 def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbytes_e):
     """Least times for kernels D and E on this run's data: (D ms, by, E ms,
-    by). Per (conv position, channel) the recompute: 4·Cin products and sums,
-    the bias, relu, z (8·Cin + 4). Per (window, channel) 3 compares for the
-    winner. Only windows with output carry dz: S1, S2 (3) there. xhat (2)
+    by). D: per (conv position, channel) the recompute: 4·Cin products and
+    sums, the bias, relu, z (8·Cin + 4). Per (window, channel) 3 compares for
+    the winner. Only windows with output carry dz: S1, S2 (3) there. xhat (2)
     where it is used: active phases and winners. D's dwA (2K, K = 4·Cin + 1
     taps with the bias) only on active winners; dwB (K) and dwC (2K) on every
-    active phase. E: the recompute and routing, then per active phase xhat,
-    dy (4) and the transposed product's 4·Cin multiply-adds."""
+    active phase. E, from D's routing: per active phase xhat (2), dy (4) and
+    the transposed product's 4·Cin multiply-adds."""
     cin = x.shape[1]
     k = 4 * cin + 1
     p = op2._phase_patches(x, pool_padding)
@@ -311,7 +357,7 @@ def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbyte
     del r, z, valid, winner, active
     recompute = n_valid * (8 * cin + 4) + 3 * n_win
     flops_d = recompute + 3 * n_out + 2 * n_xhat + 2 * k * n_win_active + 3 * k * n_active
-    flops_e = recompute + n_active * (2 + 4 + 8 * cin)
+    flops_e = n_active * (2 + 4 + 8 * cin)
     print(f"  data: {n_valid} (position, channel) pairs, {n_active} active, {n_win_active} active "
           f"winners with output; D {flops_d / 1e9:.3f} GFLOP, E {flops_e / 1e9:.3f} GFLOP", flush=True)
     return (*bound(flops_d, nbytes_d), *bound(flops_e, nbytes_e))
@@ -366,9 +412,18 @@ def phase_conv2(torch, ctx) -> list[dict]:
 
         w257 = op2.w257(w, b)
         k4 = 4 * x.shape[1]
-        h12 = op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad)[k4 + 3 : k4 + 5].contiguous()
+        out_d, routing = op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad)
+        h12 = out_d[k4 + 3 : k4 + 5].contiguous()
+        enc_ref = op2.conv2_routing_plain(x, w257, scale, shift, pool_padding=pad)
+        same_pattern = bool(torch.equal(torch.sign(routing.enc), torch.sign(enc_ref)))
+        enc_err = float((routing.enc - enc_ref).abs().max())
+        check(same_pattern and enc_err <= 1e-6 * float(enc_ref.abs().max()),
+              f"{label} D's routing {tuple(routing.enc.shape)}: zero/sign pattern "
+              f"{'equal' if same_pattern else 'DIFFERS'}, max abs err {enc_err:.3e}")
+        del enc_ref
         ms_d = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad), 20)
-        ms_e = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_input(x, g, w257, *vecs, h12, pool_padding=pad), 20)
+        ms_e = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_input(routing, g, w257, mu, inv, scale, h12,
+                                                                  pool_padding=pad), 20)
         plain_d = time_ms(torch, lambda: op2.conv2_bn_pool_backward_plain(
             x, g, w, b, *vecs, pool_padding=pad, need_dx=False), 3, warmup=1)
         plain_de = time_ms(torch, lambda: op2.conv2_bn_pool_backward_plain(
@@ -387,16 +442,19 @@ def phase_conv2(torch, ctx) -> list[dict]:
         del xg, params, rr, pooled
 
         # Bytes: x, g, the taps and the per-channel vectors read once; D's
-        # (4·Cin + 5, C) result or E's dx written once.
+        # (4·Cin + 5, C) result and routing written once; E reads the
+        # routing, g, the taps and five vectors and writes dx.
         c = w.shape[0]
-        nbytes_d = 4 * (x.numel() + g.numel() + w257.numel() + 4 * c + (k4 + 5) * c)
-        nbytes_e = 4 * (2 * x.numel() + g.numel() + w257.numel() + 6 * c)
+        route_n = routing.enc.numel()
+        nbytes_d = 4 * (x.numel() + g.numel() + w257.numel() + 4 * c + (k4 + 5) * c + route_n)
+        nbytes_e = 4 * (route_n + g.numel() + w257.numel() + 5 * c + x.numel())
         bd, byd, be, bye = conv2_bound(torch, op2, x, w257, scale, shift, pad, nbytes_d, nbytes_e)
         print(f"  {label} x {tuple(x.shape)}, g {tuple(g.shape)}, pool pad {pad}:", flush=True)
         print(f"    D params bwd: kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms, autograd yardstick "
               f"{lib_d:.4f} ms, bound {bd:.4f} ms ({byd})", flush=True)
-        print(f"    E input bwd: kernel {ms_e:.4f} ms, plain (D+E) {plain_de:.4f} ms, autograd dx "
-              f"yardstick {lib_e:.4f} ms, bound {be:.4f} ms ({bye})", flush=True)
+        print(f"    E input bwd from D's routing: kernel {ms_e:.4f} ms, plain (D+E) {plain_de:.4f} ms, "
+              f"autograd dx yardstick {lib_e:.4f} ms, bound {be:.4f} ms ({bye})", flush=True)
+        del routing
         results.append(dict(err_d=max(errs[n] for n in names[1:]), err_e=errs["dx"], ms_d=ms_d, ms_e=ms_e,
                             plain_d=plain_d, plain_de=plain_de, lib_d=lib_d, lib_e=lib_e,
                             bd=bd, byd=byd, be=be, bye=bye))
@@ -475,7 +533,8 @@ def run_cli(torch, kernels, label: str, flags: list[str]) -> tuple[dict[str, int
 
 def phase_main_path(torch, kernels) -> tuple[dict[str, int], float]:
     launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [])
-    check(launches["mfcc"] > 0, f"MFCC kernel launched {launches['mfcc']} times")
+    check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
+    check(launches["mfcc_dft"] == 0, f"MFCC kernel, matrix-DFT path, launched {launches['mfcc_dft']} times (none)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
     return launches, clips
@@ -531,15 +590,17 @@ def main() -> int:
                 print(f"  {log.stem}: {line.strip()}")
 
     ctx: dict = {}
-    rows = [phase_mfcc(torch, ctx), *phase_conv1(torch, ctx), *phase_conv2(torch, ctx)]
+    main_rows = [*phase_mfcc(torch, ctx), *phase_conv1(torch, ctx)]
+    block23_rows = phase_conv2(torch, ctx)
     del ctx
     torch.cuda.empty_cache()
     launches, main_clips = phase_main_path(torch, KERNELS)
-    for row in rows[:3]:
+    for row in main_rows:
         row["launches"] = launches[row["name"]]
     block23 = phase_block23_paths(torch, KERNELS, main_clips)
-    for row in rows[3:]:
+    for row in block23_rows:
         row["launches"] = block23[row["name"]]
+    rows = main_rows + block23_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

@@ -10,8 +10,8 @@ BadNets patch), runs one warm-up epoch of training (SmallCNN by default;
 ``--fused_block2/3 on`` puts blocks 2-3's backward on kernels D and E) + the
 two eval passes exactly as train_attack does, then times one more such epoch
 under torch.profiler. Prints the epoch's wall time, the device's busy and idle
-share (union of kernel intervals over the wall time), and device time by
-kernel; ``--trace`` also writes the Chrome trace. Needs a CUDA device.
+share (union of kernel intervals over the wall time), device time by kernel,
+and the hand-written kernels' share; ``--trace`` also writes the Chrome trace. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+# Name fragments of the __global__ functions in audiobd_tpu_torch/csrc/.
+HAND_WRITTEN = ("mfcc_fft_kernel", "mfcc_dft_kernel", "bwd_params_", "bwd_input_", "conv2_params_", "conv2_input_")
 
 
 def main() -> int:
@@ -114,6 +116,10 @@ def main() -> int:
     print(f"device time by kernel (sum {total / 1e3:.1f} ms):")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / total:5.1f}% {count:6d}x  {name[:110]}")
+    own = [(n, v) for n, v in by_name.items() if any(k in n for k in HAND_WRITTEN)]
+    print(f"hand-written kernels of csrc/ (sum {sum(v[0] for _, v in own) / 1e3:.1f} ms):")
+    for name, (us, count) in sorted(own, key=lambda kv: -kv[1][0]):
+        print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:110]}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)

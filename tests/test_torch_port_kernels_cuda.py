@@ -6,12 +6,15 @@ without it (tests/conftest.py imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest tests/test_torch_port_kernels_cuda.py -q -m cuda
 
-Tolerances: MFCC rtol 1e-4, atol 1e-3 (tests/test_pallas_mfcc.py's; f32
-sums in another order). Block-1 backward rtol 1e-4, atol 1e-5: the kernels
+Tolerances: MFCC rtol 1e-4, atol 1e-3 on both paths of kernel A
+(tests/test_pallas_mfcc.py's; f32 sums in another order; the FFT's rounding
+grows like log n). Block-1 backward rtol 1e-4, atol 1e-5: the kernels
 and the plain version recompute y and z bit-identically and route every
 pool tie the same way, so only the order of the f32 sums differs. Block-2/3
 backward (kernels D, E): max abs error <= 1e-4 * max|ref| + 1e-6 per output,
-the same reasoning over sums of up to ~10^4 terms per entry.
+the same reasoning over sums of up to ~10^4 terms per entry. D's routing: the
+same zero/sign pattern as the plain routing (both form y in one fixed order)
+and magnitudes within 1e-6 relative; E from it: 1e-3 * max|ref| + 1e-6.
 """
 
 import numpy as np
@@ -21,7 +24,7 @@ import torch
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.ops import conv1_bn_pool as op
 from audiobd_tpu_torch.ops import conv2_bn_pool as op2
-from audiobd_tpu_torch.ops.mfcc import MFCC_KERNEL, fused_mfcc
+from audiobd_tpu_torch.ops.mfcc import MFCC_DFT_KERNEL, MFCC_FFT_KERNEL, fused_mfcc
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
 pytestmark = pytest.mark.cuda
@@ -49,11 +52,41 @@ def test_mfcc_kernel_matches_plain(cuda, setting, dtype):
         x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
     params = MFCCParams(**SETTINGS[setting])
     wavs = torch.from_numpy(x).to(cuda)
-    before = MFCC_KERNEL.launches
+    before = MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches
     out = fused_mfcc(wavs, params)
-    assert MFCC_KERNEL.launches == before + 1
+    assert (MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches) == (before[0] + 1, before[1])
     ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_mfcc_dft_path_matches_plain(cuda, dtype):
+    """n_fft 1103 (prime; Ultrasonic's 44.1 kHz setting) takes the matrix-DFT path."""
+    x = (np.random.default_rng(12).standard_normal((3, 44100)) * 0.1).astype(np.float32)
+    if dtype == "int16":
+        x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+    params = MFCCParams(sample_rate=44100, n_mfcc=40, n_fft=1103, hop_length=441)
+    wavs = torch.from_numpy(x).to(cuda)
+    before = MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches
+    out = fused_mfcc(wavs, params)
+    assert (MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches) == (before[0], before[1] + 1)
+    ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_fft=480, hop_length=160),  # radices 8, 4, 3, 5
+    dict(n_fft=400, hop_length=160, top_db=None),
+    dict(n_fft=2048, hop_length=512, n_mfcc=13),  # FlowMur's setting
+])
+def test_mfcc_fft_path_other_plans(cuda, kw):
+    x = (np.random.default_rng(13).standard_normal((3, 16000)) * 0.1).astype(np.float32)
+    params = MFCCParams(**kw)
+    wavs = torch.from_numpy(x).to(cuda)
+    before = MFCC_FFT_KERNEL.launches
+    out = fused_mfcc(wavs, params)
+    assert MFCC_FFT_KERNEL.launches == before + 1
+    torch.testing.assert_close(out, mfcc_features(wavs, params)[:, 0], rtol=1e-4, atol=1e-3)
 
 
 def test_mfcc_kernel_rejects_other_dtypes(cuda):
@@ -157,11 +190,40 @@ def test_block2_autograd_on_card_matches_cpu(cuda):
         torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("shape,pool_padding", [
+    ((3, 8, 12, 13, 16), (1, 1)), ((4, 64, 20, 13, 64), (1, 1)), ((4, 64, 11, 7, 32), (0, 1)),
+])
+def test_block2_routing_and_input_from_it_match_plain(cuda, shape, pool_padding):
+    x, g, weight, bias, mu, inv, scale, shift = _block2_inputs(shape, pool_padding, seed=sum(shape) + 1)
+    w = op2.w257(weight, bias)
+    dev = [t.to(cuda) for t in (x, g, w, mu, inv, scale, shift)]
+    out, routing = op2.conv2_bn_pool_bwd_params(*dev, pool_padding=pool_padding)
+    torch.cuda.synchronize()
+    enc_ref = op2.conv2_routing_plain(x, w, scale, shift, pool_padding=pool_padding)
+    enc = routing.enc.cpu()
+    assert torch.equal(torch.sign(enc), torch.sign(enc_ref))
+    assert float((enc - enc_ref).abs().max()) <= 1e-6 * float(enc_ref.abs().max())
+
+    k4 = 4 * x.shape[1]
+    before = op2.BWD_INPUT_KERNEL.launches
+    dx = op2.conv2_bn_pool_bwd_input(routing, dev[1], dev[2], *dev[3:6], out[k4 + 3 : k4 + 5].contiguous(),
+                                     pool_padding=pool_padding)
+    torch.cuda.synchronize()
+    assert op2.BWD_INPUT_KERNEL.launches == before + 1
+    ref = op2.conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, pool_padding=pool_padding)[0]
+    err = float((dx.cpu().double() - ref.double()).abs().max())
+    assert err <= 1e-3 * float(ref.abs().max()) + 1e-6, err
+
+
 def test_block2_kernels_reject_other_dtypes(cuda):
     args = [a.to(cuda) for a in _block2_inputs((2, 8, 6, 5, 16), (1, 1), seed=0)]
     w = op2.w257(args[2], args[3])
     with pytest.raises(ValueError, match="float32"):
         op2.conv2_bn_pool_bwd_params(args[0].double(), args[1], w, *args[4:], pool_padding=(1, 1))
+    _, routing = op2.conv2_bn_pool_bwd_params(args[0], args[1], w, *args[4:], pool_padding=(1, 1))
     with pytest.raises(ValueError, match="float32"):
-        op2.conv2_bn_pool_bwd_input(args[0].half(), args[1], w, *args[4:], torch.zeros(2, 16, device=cuda),
+        op2.conv2_bn_pool_bwd_input(routing._replace(enc=routing.enc.half()), args[1], w, *args[4:7],
+                                    torch.zeros(2, 16, device=cuda), pool_padding=(1, 1))
+    with pytest.raises(TypeError, match="Conv2Routing"):
+        op2.conv2_bn_pool_bwd_input(routing.enc, args[1], w, *args[4:7], torch.zeros(2, 16, device=cuda),
                                     pool_padding=(1, 1))
