@@ -53,36 +53,47 @@
 // W 13, C 64) x is 85 MB and g 23 MB, but the recompute alone is 304,128
 // conv positions x 64 channels x ~514 flops (10 GFLOP), and D's three
 // 257-row products and E's transposed product add up to 3 x 10 and 10 GFLOP
-// more where relu is active: f32 work with no tensor cores (TF32 is off in
-// the port), at 67 TFLOP/s a few tenths of a millisecond at the least.
-// Bytes are a tenth of that. The design keeps every operand of those
+// more where relu is active. The design keeps every operand of those
 // products in shared memory and never writes the (4*257, M) patch array of
 // the TPU version (368 MB a step at block 2). The recompute, a serial chain
-// of 4*Cin rounded products and sums per position and channel, is the
-// costliest part, so it is done once a step, by D; E gathers from D's
-// routing (78 MB at block 2, written once by D and read once by E).
+// of 4*Cin rounded products and sums per position and channel that no FMA
+// or tensor core may shorten, is done once a step, by D's routing pass; D's
+// product pass and E read its routing (78 MB at block 2, written once).
 //
 // Design:
-//  * A tile is TW = 16 consecutive windows of the covering grid (64 conv
-//    positions). A block loads the tile's patch column for every position,
-//    P (4*Cin, 64), from x by index into shared memory (zero on padding),
-//    and the taps of its CB = 16 channels (channel groups on blockIdx.y).
-//    Thread (window, channel) recomputes the window's four phases, routes
-//    the gradient and forms its coefficients.
-//  * Kernel D: each block walks a strided set of tiles. Per tile it writes
-//    the coefficients relu'*dz, relu', relu'*xhat (64 positions x 48
-//    columns) to shared memory and adds the product P x coefficients into
-//    256 x 48 accumulators spread over its 256 threads (8 rows x 6 columns
-//    each, rows strided by 32 over a padded row pitch: no bank conflicts).
-//    The bias row (p = 1) and S1, S2 are kept per thread and summed over the
-//    tile's windows at the end. The TPU kernel carried one accumulator from
-//    grid step to grid step; Hopper blocks run in no order, so each block
-//    writes partial sums and a finishing pass adds the blocks in a fixed
-//    order and forms dw, dgamma, dbeta, h1, h2: deterministic, no atomics.
-//    Each tile also stores its routing: thread (window, channel) puts the
-//    four encoded r in a shared (channel, position) tile, and the block
-//    writes it out position-major, so neighbouring threads write neighbouring
-//    addresses of one channel's plane.
+//  * Kernel D runs in two passes over the windows, then a finish, because
+//    the recompute and the product want different shapes of work per
+//    thread: the recompute wants many channels a thread to amortise its
+//    shared-memory loads; the product's 256 x 48 register accumulators allow
+//    only 16 channels a block at two blocks per SM.
+//  * Routing pass (conv2_route): a block holds the taps of CR = 64 channels
+//    (32 when C <= 32) and walks tiles of 32 windows (64), streaming each
+//    tile's patches one tap (kh, kw) at a time: Cin rows of 128 (256)
+//    positions, copied from x by index with cp.async, zero on padding, at a
+//    row pitch that makes a window's four phases one 16-byte word. Thread
+//    (window pair, channel quad) forms y for 2 windows x 4 channels: per tap
+//    two 16-byte loads of phases and one of the quad's taps (stored
+//    quad-interleaved at a pitch of 1028 floats, so a quarter-warp's eight
+//    quads fall in distinct banks) for 64 rounded products and sums. It
+//    stages the encoded routing in the patch chunk and writes it
+//    position-major, so neighbouring threads write neighbouring addresses.
+//  * Product pass (conv2_params_partial): blocks of CB = 16 channels, tiles
+//    of 16 windows (64 positions) with all 4*Cin patch rows. Thread (window,
+//    channel) turns the window's four routing values into the coefficients
+//    relu'*dz, relu', relu'*xhat (r = |enc|; dz = g where enc < 0) and keeps
+//    the bias rows and S1, S2 (a window whose winner has r = 0 has no
+//    enc < 0, and its dz meets xhat = -mu*inv). It stores them column-major;
+//    then each warp adds 32 rows x 48 columns of the product on the tensor
+//    cores in 3xTF32 (mma.sync m16n8k8: a*b ~ a_lo*b_hi + a_hi*b_lo +
+//    a_hi*b_hi, the middle term skipped on the 0/1 relu' columns), each
+//    product of TF32 values exact and summed in the tensor cores' f32
+//    accumulators. On the H100 at block 2 that leaves dw within ~4e-5 of
+//    max|dw| of the plain f32 version (f32 FMAs: ~2e-6): the accumulation
+//    over ~5,000 positions a block, not the split, sets it.
+//  * The TPU kernel carried one accumulator from grid step to grid step;
+//    Hopper blocks run in no order, so each product block writes partial
+//    sums and a finishing pass adds the blocks in a fixed order and forms dw,
+//    dgamma, dbeta, h1, h2: deterministic, no atomics.
 //  * Kernel E forms each dx element from the <= 4 conv outputs x C channels
 //    that read it, with no recompute: a block owns GR = 8 rows of x of one
 //    batch item and holds the taps of all channels and the GR + 1 rows of dy
@@ -99,20 +110,36 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TW = 16;                        // windows per tile
-constexpr int TP = 4 * TW;                    // conv positions per tile
-constexpr int RSTRIDE = TP + 1;               // padded row pitch of the routing tile
-constexpr int CB = 16;                        // channels per block
+constexpr int TW = 16;                        // windows per product tile
+constexpr int TP = 4 * TW;                    // conv positions per product tile
 constexpr int KMAX = 256;                     // 4*Cin rows of the patch tile (Cin <= 64)
-constexpr int PSTRIDE = TP + 1;               // padded row pitch of the patch tile
+constexpr int PSTRIDE = TP + 4;               // row pitch of the product's patch and coefficient tiles
+constexpr int P4 = PSTRIDE / 4;               // the same pitch in float4
+// The routing pass takes CR = 64 channels a block in tiles of 32 windows,
+// or (C <= 32) 32 channels in tiles of 64 windows: 256 threads either way.
+template <int CR>
+struct RouteShape {
+  static constexpr int RW = 2048 / CR;          // windows per routing tile
+  static constexpr int RP = 4 * RW;             // conv positions per routing tile
+  static constexpr int RPITCH = RP + 4;         // row pitch of the tile's patch chunk
+  static constexpr int RSTAGE = RP + 1;         // row pitch of the encoded routing, staged in the chunk
+  static constexpr int PG = THREADS / CR;       // warps per group of 8 channel quads
+  static constexpr size_t FLOATS = (size_t)(KMAX / 4) * RPITCH + (size_t)(CR / 4) * (4 * KMAX + 4) + CR;
+  static_assert((RW / 2) * (CR / 4) == THREADS && THREADS % RP == 0,
+                "one thread per (window pair, channel quad)");
+  static_assert(CR * RSTAGE <= (KMAX / 4) * RPITCH, "the routing is staged in the patch chunk");
+};
+constexpr int WPITCH = 4 * KMAX + 4;          // floats per channel quad of the routing block's taps
+constexpr int CB = 16;                        // channels per product block
 constexpr int NCOL = 3 * CB;                  // coefficient columns: relu'*dz, relu', relu'*xhat
-constexpr int RPT = KMAX / 32;                // product rows per thread
-constexpr int CPT = NCOL / (THREADS / 32);    // product columns per thread
+constexpr int MT = 2;                         // 16-row mma tiles per warp: 32 rows of the product
+constexpr int NT = NCOL / 8;                  // 8-column mma tiles: every column
 constexpr int GR = 8;                         // x rows per gather block
 constexpr int GJ = 16;                        // x columns per gather strip
-static_assert(TW * CB == THREADS, "one thread per (window, channel) of a tile");
-static_assert(CPT * (THREADS / 32) == NCOL, "columns split evenly over the warps");
-static_assert(THREADS % TP == 0, "the patch load gives each position THREADS / TP threads");
+static_assert(TW * CB == THREADS, "one product thread per (window, channel) of a tile for the coefficients");
+static_assert(16 * MT * (THREADS / 32) == KMAX && NT * 8 == NCOL, "each warp 32 rows, every column");
+static_assert(THREADS == 256 && THREADS % TP == 0, "the patch load gives each position THREADS / NP threads");
+static_assert(PSTRIDE % 4 == 0 && WPITCH % 32 == 4, "16-byte rows; channel quads 4 banks apart");
 
 // The forward's compute dtype is f32 in this build: rounding r and z to it
 // is the identity. A bf16 build rounds here, as _phase_rz2 does.
@@ -143,24 +170,25 @@ struct Window {
   bool real;  // inside the covering grid (the last tile may run past it)
 };
 
+// 32-bit division: the entry point refuses M >= 2^31.
 __device__ __forceinline__ Window decode(const Geometry& G, long long m) {
   Window win;
   win.real = m < G.M;
-  if (!win.real) m = 0;
-  win.jo = static_cast<int>(m % G.wc);
-  const long long q = m / G.wc;
-  win.io = static_cast<int>(q % G.hc);
-  win.b = static_cast<int>(q / G.hc);
+  const unsigned mm = win.real ? static_cast<unsigned>(m) : 0u;
+  const unsigned q = mm / static_cast<unsigned>(G.wc);
+  win.jo = static_cast<int>(mm - q * static_cast<unsigned>(G.wc));
+  win.b = static_cast<int>(q / static_cast<unsigned>(G.hc));
+  win.io = static_cast<int>(q - static_cast<unsigned>(win.b) * static_cast<unsigned>(G.hc));
   return win;
 }
 
-// Shared patch tile: P[k*PSTRIDE + p] = x[b, ci, i + kh, j + kw] for tap
-// k = (kh*2 + kw)*Cin + ci and position p = 4*(window - m0) + t, 0 on
-// padding; base[p] = offset of x[b, 0, i, j] and rbase[p] = offset of
-// route[b, 0, i, j], both -1 off the conv grid.
-__device__ void load_tile(const float* __restrict__ x, const Geometry& G, long long m0,
-                          float* __restrict__ P, long long* __restrict__ base, long long* __restrict__ rbase) {
-  for (int p = threadIdx.x; p < TP; p += THREADS) {
+// base[p] = offset of x[b, 0, i, j] and rbase[p] = offset of route[b, 0, i,
+// j] for position p = 4*(window - m0) + t of the tile, both -1 off the conv
+// grid, for the NP positions of a tile.
+template <int NP>
+__device__ void tile_bases(const Geometry& G, long long m0, long long* __restrict__ base,
+                           long long* __restrict__ rbase) {
+  for (int p = threadIdx.x; p < NP; p += THREADS) {
     const Window win = decode(G, m0 + p / 4);
     const int t = p % 4;
     const int i = 2 * win.io - G.ph + (t >> 1), j = 2 * win.jo - G.pw + (t & 1);
@@ -168,60 +196,59 @@ __device__ void load_tile(const float* __restrict__ x, const Geometry& G, long l
     base[p] = ok ? ((long long)win.b * G.Cin * G.H + i) * G.W + j : -1;
     rbase[p] = ok ? ((long long)win.b * G.C * G.hp + i) * G.wp + j : -1;
   }
-  __syncthreads();
-  // Thread (p, k0) copies rows k0, k0 + 4, ... of every tap for position p:
-  // neighbouring threads read neighbouring positions, and no division.
+}
+
+// Asynchronous 4-byte copy from global to shared memory; zero-fills when
+// !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// f32 -> TF32 (10 mantissa bits), rounded to nearest with ties away from
+// zero, as a b32 bit pattern.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row-major fragment) * b (8 x 8, column-major fragment) on
+// the tensor cores, TF32 inputs, f32 accumulation.
+__device__ __forceinline__ void mma_tf32(float d[4], const unsigned a[4], const unsigned b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Shared patch tile: P[k*PITCH + p] = x[b, ci, i + kh, j + kw] for tap
+// k = (kh*2 + kw)*Cin + ci and position p, 0 on padding (base[p] < 0); taps
+// (kh*2 + kw) from tap0 to tap1 - 1 only, rows counted from tap0's first.
+// Thread (p, k0) copies rows k0, k0 + 4, ... of every tap for position p:
+// neighbouring threads read neighbouring positions, and no division. The
+// copies are asynchronous, all in flight at once; the caller waits
+// (cp_async_wait_all, then a barrier) before reading P.
+template <int NP, int PITCH>
+__device__ void load_patches(const float* __restrict__ x, const Geometry& G, const long long* __restrict__ base,
+                             float* __restrict__ P, int tap0 = 0, int tap1 = 4) {
   const long long plane = (long long)G.H * G.W;
-  const int p = threadIdx.x % TP;
+  const int p = threadIdx.x % NP;
   const long long o = base[p];
-  for (int tap = 0; tap < 4; ++tap) {
-    float* dst = P + tap * G.Cin * PSTRIDE + p;
-    if (o < 0) {
-      for (int ci = threadIdx.x / TP; ci < G.Cin; ci += THREADS / TP) dst[ci * PSTRIDE] = 0.0f;
-    } else {
-      const float* src = x + o + (tap >> 1) * G.W + (tap & 1);
-      for (int ci = threadIdx.x / TP; ci < G.Cin; ci += THREADS / TP) dst[ci * PSTRIDE] = __ldg(src + ci * plane);
-    }
+  const bool ok = o >= 0;
+  for (int tap = tap0; tap < tap1; ++tap) {
+    float* dst = P + (tap - tap0) * G.Cin * PITCH + p;
+    const float* src = ok ? x + o + (tap >> 1) * G.W + (tap & 1) : x;
+    const long long step = ok ? plane : 0;
+    for (int ci = threadIdx.x / NP; ci < G.Cin; ci += THREADS / NP) cp_async4(dst + ci * PITCH, src + ci * step, ok);
   }
-}
-
-// The block's taps: Wt[k*CB + cl] = w[k, c0 + cl] (k <= 4*Cin, the last row
-// the bias), 0 past the last channel.
-__device__ void load_taps(const float* __restrict__ w, const Geometry& G, int c0, float* __restrict__ Wt) {
-  const int rows = 4 * G.Cin + 1;
-  for (int e = threadIdx.x; e < rows * CB; e += THREADS) {
-    const int k = e / CB, c = c0 + e % CB;
-    Wt[e] = c < G.C ? w[(long long)k * G.C + c] : 0.0f;
-  }
-}
-
-// Thread (window w_, channel cl): the four phases' r and z, and the winner.
-__device__ __forceinline__ int recompute(const float* __restrict__ P, const float* __restrict__ Wt,
-                                         const long long* __restrict__ base, int k4, int w_, int cl,
-                                         float scale, float shift, float r[4]) {
-  const float* col = P + 4 * w_;
-  float y[4];
-  float wk = Wt[cl];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) y[t] = __fmul_rn(wk, col[t]);
-#pragma unroll 8
-  for (int k = 1; k < k4; ++k) {
-    wk = Wt[k * CB + cl];
-    const float* row = col + k * PSTRIDE;
-#pragma unroll
-    for (int t = 0; t < 4; ++t) y[t] = __fadd_rn(y[t], __fmul_rn(wk, row[t]));
-  }
-  const float bias = Wt[k4 * CB + cl];
-  float z[4];
-  float zmax = -CUDART_INF_F;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const bool ok = base[4 * w_ + t] >= 0;
-    r[t] = ok ? round_to_compute(fmaxf(__fadd_rn(y[t], bias), 0.0f)) : 0.0f;
-    z[t] = ok ? round_to_compute(__fadd_rn(__fmul_rn(r[t], scale), shift)) : -CUDART_INF_F;
-    zmax = fmaxf(zmax, z[t]);
-  }
-  return z[0] == zmax ? 0 : (z[1] == zmax ? 1 : (z[2] == zmax ? 2 : 3));
 }
 
 // The pooled gradient of the window for channel c; 0 for windows with no
@@ -232,24 +259,144 @@ __device__ __forceinline__ float pooled_grad(const float* __restrict__ g, const 
   return __ldg(g + (((long long)win.b * G.C + c) * G.ho + win.io) * G.wo + win.jo);
 }
 
-constexpr size_t kTileFloats = (size_t)KMAX * PSTRIDE + (size_t)(KMAX + 1) * CB;
+// y[t] += w * p.t for the four phases, each product and sum rounded on its own.
+__device__ __forceinline__ void tap_add(float y[4], float w, const float4& p) {
+  y[0] = __fadd_rn(y[0], __fmul_rn(w, p.x));
+  y[1] = __fadd_rn(y[1], __fmul_rn(w, p.y));
+  y[2] = __fadd_rn(y[2], __fmul_rn(w, p.z));
+  y[3] = __fadd_rn(y[3], __fmul_rn(w, p.w));
+}
 
-constexpr size_t kParamsFloats = kTileFloats + (size_t)TP * NCOL + (size_t)CB * RSTRIDE;
+// The window's four phases for one channel from its tap sums y: r (0 off
+// the conv grid), the winner (the first phase with the largest z), and the
+// encoded routing into enc[t]: 0 where r = 0, -r at the winner, else +r.
+__device__ __forceinline__ void encode(const float y[4], float bias, float scale, float shift,
+                                       const long long* __restrict__ base, float* __restrict__ enc) {
+  float r[4], z[4];
+  float zmax = -CUDART_INF_F;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const bool ok = base[t] >= 0;
+    r[t] = ok ? round_to_compute(fmaxf(__fadd_rn(y[t], bias), 0.0f)) : 0.0f;
+    z[t] = ok ? round_to_compute(__fadd_rn(__fmul_rn(r[t], scale), shift)) : -CUDART_INF_F;
+    zmax = fmaxf(zmax, z[t]);
+  }
+  const int winner = z[0] == zmax ? 0 : (z[1] == zmax ? 1 : (z[2] == zmax ? 2 : 3));
+#pragma unroll
+  for (int t = 0; t < 4; ++t) enc[t] = r[t] > 0.0f ? (t == winner ? -r[t] : r[t]) : 0.0f;
+}
 
-// partial (splits, 3*(4*Cin + 1) + 2, C): rows X*(4*Cin + 1) + k for
-// X = dwA, dwB, dwC (k = 4*Cin the bias), then S1, S2. route (B, C, hp, wp):
-// the encoded r for kernel E.
+constexpr size_t kParamsFloats = (size_t)KMAX * PSTRIDE + (size_t)NCOL * PSTRIDE;
+static_assert(NCOL * PSTRIDE >= 5 * THREADS, "the final reduction reuses the coefficient tile");
+
+// Kernel D, first pass: the routing (B, C, hp, wp) for kernel E and the
+// product pass. A block holds all taps of its CR channels and walks tiles
+// of RW windows, streaming each tile's patches one tap (kh, kw) at a time:
+// Cin rows of 4*RW positions. Thread (window pair, channel quad) forms y for
+// 2 windows x 4 channels, taps k = 0 .. 4*Cin - 1 in order: per tap two
+// 16-byte loads of the windows' phases (one address per quarter-warp) and
+// one of the quad's taps, for 64 rounded products and sums, so the pass is
+// bound by f32 issue. The encoded routing is staged in the patch chunk and
+// written position-major.
+template <int CR>
 __global__ void __launch_bounds__(THREADS, 2)
-conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ w, const float* __restrict__ mu_p,
-                   const float* __restrict__ inv_p, const float* __restrict__ scale_p,
-                   const float* __restrict__ shift_p, float* __restrict__ partial,
-                   float* __restrict__ route, Geometry G) {
+conv2_route(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ scale_p,
+            const float* __restrict__ shift_p, float* __restrict__ route, Geometry G) {
+  using S = RouteShape<CR>;
+  constexpr int RW = S::RW, RP = S::RP, RPITCH = S::RPITCH, RSTAGE = S::RSTAGE;
+  extern __shared__ __align__(16) float smem[];
+  float* Pc = smem;                               // Cin x RPITCH: one tap's patch rows
+  float* Wq = Pc + (KMAX / 4) * RPITCH;           // (CR / 4) x WPITCH: Wq[cq*WPITCH + 4k + e] = w[k, c0 + 4cq + e]
+  float* bias_s = Wq + (CR / 4) * WPITCH;         // CR
+  long long* base = reinterpret_cast<long long*>(smem + S::FLOATS);
+  long long* rbase = base + RP;
+
+  const int tid = threadIdx.x;
+  const int k4 = 4 * G.Cin;
+  const int c0 = blockIdx.y * CR;
+  for (int e = tid; e < k4 * CR; e += THREADS) {
+    const int k = e / CR, cl = e % CR, c = c0 + cl;
+    Wq[(cl >> 2) * WPITCH + 4 * k + (cl & 3)] = c < G.C ? w[(long long)k * G.C + c] : 0.0f;
+  }
+  for (int cl = tid; cl < CR; cl += THREADS) bias_s[cl] = c0 + cl < G.C ? w[(long long)k4 * G.C + c0 + cl] : 0.0f;
+
+  // Warp q: window pairs 4*(q % PG) .. + 3 (lane / 8), quads 8*(q / PG) .. + 7 (lane % 8).
+  const int lane = tid & 31, wq = tid >> 5;
+  const int w0 = 2 * (4 * (wq % S::PG) + (lane >> 3)), cq = 8 * (wq / S::PG) + (lane & 7);
+  float scale[4], shift[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int c = c0 + 4 * cq + e;
+    scale[e] = c < G.C ? scale_p[c] : 0.0f;
+    shift[e] = c < G.C ? shift_p[c] : 0.0f;
+  }
+  const float4* col = reinterpret_cast<const float4*>(Pc) + w0;
+  const float4* wt = reinterpret_cast<const float4*>(Wq + cq * WPITCH);
+
+  const long long n_tiles = (G.M + RW - 1) / RW;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    __syncthreads();  // the previous tile is done with the chunk and the bases
+    tile_bases<RP>(G, tile * RW, base, rbase);
+    float y[2][4][4];  // [window][channel][phase]
+    for (int tap = 0; tap < 4; ++tap) {
+      __syncthreads();  // the bases are visible; the previous chunk is consumed
+      load_patches<RP, RPITCH>(x, G, base, Pc, tap, tap + 1);
+      cp_async_wait_all();
+      __syncthreads();
+      const float4* wk_row = wt + tap * G.Cin;
+      int ci = 0;
+      if (tap == 0) {
+        const float4 p0 = col[0], p1 = col[1], wk = wk_row[0];
+        const float wv[4] = {wk.x, wk.y, wk.z, wk.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          y[0][e][0] = __fmul_rn(wv[e], p0.x); y[0][e][1] = __fmul_rn(wv[e], p0.y);
+          y[0][e][2] = __fmul_rn(wv[e], p0.z); y[0][e][3] = __fmul_rn(wv[e], p0.w);
+          y[1][e][0] = __fmul_rn(wv[e], p1.x); y[1][e][1] = __fmul_rn(wv[e], p1.y);
+          y[1][e][2] = __fmul_rn(wv[e], p1.z); y[1][e][3] = __fmul_rn(wv[e], p1.w);
+        }
+        ci = 1;
+      }
+#pragma unroll 4
+      for (; ci < G.Cin; ++ci) {
+        const float4 p0 = col[ci * (RPITCH / 4)], p1 = col[ci * (RPITCH / 4) + 1], wk = wk_row[ci];
+        tap_add(y[0][0], wk.x, p0); tap_add(y[1][0], wk.x, p1);
+        tap_add(y[0][1], wk.y, p0); tap_add(y[1][1], wk.y, p1);
+        tap_add(y[0][2], wk.z, p0); tap_add(y[1][2], wk.z, p1);
+        tap_add(y[0][3], wk.w, p0); tap_add(y[1][3], wk.w, p1);
+      }
+    }
+    __syncthreads();  // every thread is done with the last chunk: it takes the encoded routing
+    float* Rs = Pc;   // CR x RSTAGE
+#pragma unroll
+    for (int v = 0; v < 2; ++v)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        encode(y[v][e], bias_s[4 * cq + e], scale[e], shift[e], base + 4 * (w0 + v),
+               Rs + (4 * cq + e) * RSTAGE + 4 * (w0 + v));
+    __syncthreads();
+
+    for (int e = tid; e < CR * RP; e += THREADS) {
+      const int el = e / RP, p = e % RP;
+      const long long o = rbase[p];
+      if (o >= 0 && c0 + el < G.C) route[o + (long long)(c0 + el) * G.hp * G.wp] = Rs[el * RSTAGE + p];
+    }
+  }
+}
+
+// Kernel D, second pass: partial (splits, 3*(4*Cin + 1) + 2, C) sums from x,
+// g and the routing: rows X*(4*Cin + 1) + k for X = dwA, dwB, dwC (k = 4*Cin
+// the bias), then S1, S2. Thread (window, channel) turns the window's four
+// routing values into its coefficients, column-major, and keeps the bias
+// rows and S1, S2; then warp q adds rows 32q .. 32q + 31 times all 48
+// columns in 3xTF32 mma tiles of 16 x 8 x 8.
+__global__ void __launch_bounds__(THREADS, 2)
+conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ route,
+                     const float* __restrict__ mu_p, const float* __restrict__ inv_p,
+                     float* __restrict__ partial, Geometry G) {
   extern __shared__ __align__(16) float smem[];
   float* P = smem;                            // KMAX x PSTRIDE
-  float* Wt = P + KMAX * PSTRIDE;             // (KMAX + 1) x CB
-  float* A = smem + kTileFloats;              // TP x NCOL coefficients
-  float* Rs = A + TP * NCOL;                  // CB x RSTRIDE encoded r
+  float* A = P + KMAX * PSTRIDE;              // NCOL x PSTRIDE coefficients, column-major
   long long* base = reinterpret_cast<long long*>(smem + kParamsFloats);
   long long* rbase = base + TP;
 
@@ -257,80 +404,99 @@ conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g,
   const int k4 = 4 * G.Cin;
   const int c0 = blockIdx.y * CB;
   for (int e = tid; e < (KMAX - k4) * PSTRIDE; e += THREADS) P[k4 * PSTRIDE + e] = 0.0f;
-  load_taps(w, G, c0, Wt);
 
   const int w_ = tid / CB, cl = tid % CB, c = c0 + cl;
   const bool cok = c < G.C;
   const float mu = cok ? mu_p[c] : 0.0f, inv = cok ? inv_p[c] : 0.0f;
-  const float scale = cok ? scale_p[c] : 0.0f, shift = cok ? shift_p[c] : 0.0f;
+  const long long cplane = (long long)c * G.hp * G.wp;
   float s1 = 0.0f, s2 = 0.0f, bias_a = 0.0f, bias_b = 0.0f, bias_c = 0.0f;
 
-  const int lane = tid & 31, cg = tid >> 5;
-  float acc[RPT][CPT];
+  // mma fragments: lane = 4*gq + tq. Warp q owns rows 32q .. 32q + 31.
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3, row0 = 32 * (tid >> 5);
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int q = 0; q < RPT; ++q)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[q][j] = 0.0f;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
   const long long n_tiles = (G.M + TW - 1) / TW;
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    __syncthreads();  // the previous tile's product is done with P and A
-    load_tile(x, G, tile * TW, P, base, rbase);
+    __syncthreads();  // the previous tile's product is done with P, A and the bases
+    tile_bases<TP>(G, tile * TW, base, rbase);
     __syncthreads();
+    load_patches<TP, PSTRIDE>(x, G, base, P);  // in flight while the coefficients form
 
+    // dz goes to the window's winner: the phase with enc < 0 if any (relu
+    // active), else a phase with r = 0, where only S1, S2 see it.
     const Window win = decode(G, tile * TW + w_);
-    float r[4];
-    const int winner = recompute(P, Wt, base, k4, w_, cl, scale, shift, r);
     const float gv = pooled_grad(g, G, win, c);
+    float a[3][4];
+    float r_win = 0.0f;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const float dz = t == winner ? gv : 0.0f;
-      const float xhat = (r[t] - mu) * inv;
-      const bool rp = r[t] > 0.0f;
-      const float t1 = rp ? dz : 0.0f;
-      Rs[cl * RSTRIDE + 4 * w_ + t] = rp ? (t == winner ? -r[t] : r[t]) : 0.0f;
-      float* a = A + (4 * w_ + t) * NCOL + cl;
-      a[0] = t1;
-      a[CB] = rp ? 1.0f : 0.0f;
-      a[2 * CB] = rp ? xhat : 0.0f;
-      s1 += dz;
-      s2 = fmaf(dz, xhat, s2);
+      const long long o = rbase[4 * w_ + t];
+      const float enc = o >= 0 && cok ? __ldg(route + o + cplane) : 0.0f;
+      const bool rp = enc != 0.0f;
+      const float r = fabsf(enc);
+      const float xhat = (r - mu) * inv;
+      const float t1 = enc < 0.0f ? gv : 0.0f;
+      if (enc < 0.0f) r_win = r;
+      a[0][t] = t1;
+      a[1][t] = rp ? 1.0f : 0.0f;
+      a[2][t] = rp ? xhat : 0.0f;
       bias_a += t1;
       bias_b += rp ? 1.0f : 0.0f;
       bias_c += rp ? xhat : 0.0f;
     }
+    s1 += gv;
+    s2 = fmaf(gv, (r_win - mu) * inv, s2);
+    float4* a4 = reinterpret_cast<float4*>(A) + cl * P4 + w_;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) a4[v * CB * P4] = make_float4(a[v][0], a[v][1], a[v][2], a[v][3]);
+    cp_async_wait_all();
     __syncthreads();
 
-    for (int e = tid; e < CB * TP; e += THREADS) {
-      const int el = e / TP, p = e % TP;
-      const long long o = rbase[p];
-      if (o >= 0 && c0 + el < G.C) route[o + (long long)(c0 + el) * G.hp * G.wp] = Rs[el * RSTRIDE + p];
-    }
-
-    for (int p = 0; p < TP; ++p) {
-      float av[CPT], pv[RPT];
+    // 3xTF32 (TF32 alone keeps ~3 digits and is never used on its own).
+    for (int kk = 0; kk < TP; kk += 8) {
+      unsigned ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) av[j] = A[p * NCOL + cg * CPT + j];
+      for (int i = 0; i < MT; ++i) {
+        const float* pr = P + (row0 + 16 * i + gq) * PSTRIDE + kk + tq;
+        split_tf32(pr[0], ah[i][0], al[i][0]);
+        split_tf32(pr[8 * PSTRIDE], ah[i][1], al[i][1]);
+        split_tf32(pr[4], ah[i][2], al[i][2]);
+        split_tf32(pr[8 * PSTRIDE + 4], ah[i][3], al[i][3]);
+      }
 #pragma unroll
-      for (int q = 0; q < RPT; ++q) pv[q] = P[(lane + 32 * q) * PSTRIDE + p];
+      for (int j = 0; j < NT; ++j) {
+        const float* ar = A + (8 * j + gq) * PSTRIDE + kk + tq;
+        unsigned bh[2], bl[2];
+        split_tf32(ar[0], bh[0], bl[0]);
+        split_tf32(ar[4], bh[1], bl[1]);
+        const bool exact = 8 * j >= CB && 8 * j < 2 * CB;  // relu' columns are 0 or 1: no low part
 #pragma unroll
-      for (int q = 0; q < RPT; ++q)
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[q][j] = fmaf(pv[q], av[j], acc[q][j]);
+        for (int i = 0; i < MT; ++i) {
+          mma_tf32(acc[i][j], al[i], bh);
+          if (!exact) mma_tf32(acc[i][j], ah[i], bl);
+          mma_tf32(acc[i][j], ah[i], bh);
+        }
+      }
     }
   }
 
   const int rows = 3 * (k4 + 1) + 2;
   float* out = partial + (long long)blockIdx.x * rows * G.C;
 #pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int k = lane + 32 * q;
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = cg * CPT + j, cc = c0 + col % CB;
-      if (k < k4 && cc < G.C) out[((col / CB) * (k4 + 1) + k) * G.C + cc] = acc[q][j];
-    }
-  }
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = row0 + 16 * i + gq + 8 * (e >> 1), col = 8 * j + 2 * tq + (e & 1), cc = c0 + col % CB;
+        if (k < k4 && cc < G.C) out[((col / CB) * (k4 + 1) + k) * G.C + cc] = acc[i][j][e];
+      }
 
   // Bias rows and S1, S2: sum over the tile's windows in a fixed order.
   __syncthreads();
@@ -459,8 +625,21 @@ conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g,
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+}
+
+template <int CR>
+int launch_route(const float* x, const float* w, const float* scale, const float* shift, float* route,
+                 const Geometry& G, int splits, cudaStream_t s) {
+  const size_t smem = RouteShape<CR>::FLOATS * sizeof(float) + 2 * RouteShape<CR>::RP * sizeof(long long);
+  const int err = set_smem(conv2_route<CR>, smem);
+  if (err != 0) return err;
+  conv2_route<CR><<<dim3(splits, (G.C + CR - 1) / CR), THREADS, smem, s>>>(x, w, scale, shift, route, G);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -471,20 +650,25 @@ const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaE
 
 int use_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
 
-// Kernel D: partial (splits, 3*(4*Cin + 1) + 2, C) scratch, out (4*Cin + 5, C),
-// route (B, C, H-1, W-1) the routing for kernel E.
+// Kernel D: the routing pass, the product pass and the finish. partial
+// (splits, 3*(4*Cin + 1) + 2, C) scratch, out (4*Cin + 5, C), route (B, C,
+// H-1, W-1) the routing for kernel E; route_splits and splits blocks along
+// the window tiles for the two passes.
 int conv2_bn_pool_bwd_params(const float* x, const float* g, const float* w, const float* mu,
                              const float* inv, const float* scale, const float* shift,
                              float* partial, float* out, float* route, int B, int Cin, int H, int W, int C,
-                             int ph, int pw, int splits, void* stream) {
+                             int ph, int pw, int splits, int route_splits, void* stream) {
   if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
-  const size_t smem = kParamsFloats * sizeof(float) + 2 * TP * sizeof(long long);
-  int err = set_smem(conv2_params_partial, smem);
+  if (G.M + TW >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  int err = C <= 32 ? launch_route<32>(x, w, scale, shift, route, G, route_splits, s)
+                    : launch_route<64>(x, w, scale, shift, route, G, route_splits, s);
   if (err != 0) return err;
-  const dim3 grid(splits, (C + CB - 1) / CB);
-  conv2_params_partial<<<grid, THREADS, smem, s>>>(x, g, w, mu, inv, scale, shift, partial, route, G);
+  const size_t smem = kParamsFloats * sizeof(float) + 2 * TP * sizeof(long long);
+  err = set_smem(conv2_params_partial, smem);
+  if (err != 0) return err;
+  conv2_params_partial<<<dim3(splits, (C + CB - 1) / CB), THREADS, smem, s>>>(x, g, route, mu, inv, partial, G);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int k4 = 4 * Cin;

@@ -1,8 +1,8 @@
-// Waveform -> MFCC in one kernel, one thread block per clip, by one of two
+// Waveform -> MFCC in one kernel, one thread block per clip, by one of three
 // paths that ops/mfcc.py::mfcc_path picks from n_fft alone.
 //
 // Replaces: audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc (the Pallas `_kernel`,
-// pallas_call at line 129). Same function on both paths: centre-padded,
+// pallas_call at line 129). Same function on every path: centre-padded,
 // Hann-windowed power spectrum, mel filterbank, 10*log10 with a per-clip
 // top_db floor, orthonormal DCT-II. All float32, no TF32 (the reference runs
 // its products at Precision.HIGHEST). Input is int16 PCM (scaled by 2^-15 on
@@ -49,8 +49,29 @@
 //    memory (110.8 KB at n_fft 400, 83.3 KB at 2048), so two blocks (1,024
 //    threads) sit on each SM; __launch_bounds__(512, 2) holds registers to 64.
 //
-// DFT path (mfcc_dft_kernel), for every other n_fft (1103 at 44.1 kHz is
-// prime): the matrix-form DFT. Frames are processed in tiles of FT = 16, the
+// Bluestein path (mfcc_fft_kernel<true>, the FFT kernel's chirp mode), for
+// every other n_fft whose Bluestein size L (a product of 2, 3, 5 of at least
+// 2 n_fft - 1, ops/mfcc.py::bluestein_size) is at most 4096: every n_fft up
+// to 2048, such as 1103 (prime; Ultrasonic's 44.1 kHz setting, L = 2304 =
+// 8x8x4x3x3). With the chirp c_n = exp(-i pi n^2 / N) the DFT is
+// X_k = c_k sum_n (x_n c_n) conj(c_{k-n}), a circular convolution at L:
+//  * the packed frame pair times pre = hann * c (zero from N to L), then the
+//    same Stockham stages at L; times the table H = FFT_L(h) / L (h the
+//    conjugate chirp wrapped to L); the inverse transform as the forward
+//    stages on conjugates; Z_k = c_k conj(y_k) in the power step, then the
+//    FFT path's separation, power, mel, dB and DCT unchanged.
+//  * pre, post = c and H come from float64 host tables (n^2 reduced mod 2N
+//    in integers) and are read through the read-only cache rather than
+//    staged. The clip's dB tile goes to a device-memory scratch (read back,
+//    floored, for the DCT) instead of shared memory: that leaves room for
+//    two thread groups of 256 with their L-point buffers (98 KB a block at
+//    L = 2304, two blocks per SM), and a stage's latency is hidden by the
+//    other groups, as on the FFT path.
+//  * It does about 2 L log L / (N log N) ~ 4.5x the FFT work of a power-of-
+//    two frame of N points; the bound still counts the function's FFT at N.
+//
+// DFT path (mfcc_dft_kernel), for anything larger (n_fft above 2048 with a
+// prime factor other than 2, 3, 5, or above 4096): the matrix-form DFT. Frames are processed in tiles of FT = 16, the
 // tile's padded samples staged in shared memory; one thread per frequency bin
 // keeps FT real and imaginary sums in registers, so each windowed basis value
 // read (through L1/L2) feeds 2*FT FMAs; the dense mel product and the DCT
@@ -224,37 +245,65 @@ __device__ __forceinline__ void group_sync(int group, int size) {
   }
 }
 
-// The groups' ping-pong buffers, in float2: 2 * groups * n, or the DCT
-// table's size if that is larger (the table reuses them at the end).
-__host__ __device__ __forceinline__ int fft_region(int n, int groups, int n_mels, int n_mfcc) {
-  const int buffers = 2 * groups * n, table = (n_mels * n_mfcc + 1) / 2;
+// The groups' ping-pong buffers, in float2: 2 * groups * nt (nt the
+// transform size), or the DCT table's size if that is larger (the table
+// reuses them at the end).
+__host__ __device__ __forceinline__ int fft_region(int nt, int groups, int n_mels, int n_mfcc) {
+  const int buffers = 2 * groups * nt, table = (n_mels * n_mfcc + 1) / 2;
   return buffers > table ? buffers : table;
 }
 
+// The plan's stages over one group's buffers, one barrier a stage; returns
+// the buffer that holds the result.
+__device__ __forceinline__ float2* run_stages(FftPlan plan, float2* src, float2* dst,
+                                              const float2* __restrict__ tw, int nt, int rank, int size,
+                                              int group) {
+  int length = 1;
+  for (int s = 0; s < plan.n_stages; ++s) {
+    fft_stage_radix(plan.radix[s], src, dst, tw, nt, length, rank, size);
+    group_sync(group, size);
+    length *= plan.radix[s];
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+// CHIRP = false: the FFT path, transform size nt = n. CHIRP = true: the
+// Bluestein path, nt = L >= 2n - 1, with pre = hann * c, post = c and
+// ck = FFT_L(h) / L read through the read-only cache (window unused), and
+// the clip's dB tile in db_out (batch, n_frames, n_mels) in device memory
+// rather than shared memory, which leaves room for more thread groups.
+template <bool CHIRP>
 __global__ void __launch_bounds__(FFT_THREADS, 2)
 mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
-                const float2* __restrict__ twiddles,  // (n_fft,) exp(-2 pi i k / n_fft)
-                const float* __restrict__ window,     // (n_fft,) periodic Hann
+                const float2* __restrict__ twiddles,  // (nt,) exp(-2 pi i k / nt)
+                const float* __restrict__ window,     // (n,) periodic Hann (FFT path)
+                const float2* __restrict__ pre,       // (n,) hann_n c_n (chirp mode)
+                const float2* __restrict__ post,      // (n,) c_k (chirp mode)
+                const float2* __restrict__ ck,        // (nt,) FFT_L(h) / L (chirp mode)
                 const int* __restrict__ mel_ranges,   // (n_mels, 3): first bin, count, offset
                 const float* __restrict__ mel_weights, int n_weights,
                 const float* __restrict__ dct,        // (n_mels, n_mfcc)
+                float* __restrict__ db_out,           // (batch, n_frames, n_mels) scratch (chirp mode)
                 float* __restrict__ out,              // (batch, n_frames, n_mfcc)
-                int n, int hop, int n_mels, int n_mfcc, int n_frames, int groups, FftPlan plan,
+                int n, int nt, int hop, int n_mels, int n_mfcc, int n_frames, int groups, FftPlan plan,
                 int reflect, float top_db, int use_top_db) {
   extern __shared__ __align__(16) float smem[];
   const int n_bins = n / 2 + 1;
-  float2* tw_s = reinterpret_cast<float2*>(smem);                      // n
-  float2* bufs = tw_s + n;                                             // groups x 2 x n
-  float* win_s = reinterpret_cast<float*>(bufs + fft_region(n, groups, n_mels, n_mfcc));  // n
-  float* db_s = win_s + n;                                             // n_frames * n_mels
-  float* wts_s = db_s + n_frames * n_mels;                             // n_weights
+  float2* tw_s = reinterpret_cast<float2*>(smem);                      // nt
+  float2* bufs = tw_s + nt;                                            // groups x 2 x nt
+  float* win_s = reinterpret_cast<float*>(bufs + fft_region(nt, groups, n_mels, n_mfcc));  // n (FFT path)
+  float* db_s = CHIRP ? db_out + blockIdx.x * (long long)n_frames * n_mels : win_s + n;     // n_frames * n_mels
+  float* wts_s = CHIRP ? win_s : db_s + n_frames * n_mels;             // n_weights
   int* rng_s = reinterpret_cast<int*>(wts_s + n_weights);              // 3 * n_mels
   __shared__ float red_s[FFT_THREADS / 32];
 
   const int tid = threadIdx.x;
-  for (int e = tid; e < n; e += FFT_THREADS) {
-    tw_s[e] = twiddles[e];
-    win_s[e] = window[e];
+  for (int e = tid; e < nt; e += FFT_THREADS) tw_s[e] = twiddles[e];
+  if constexpr (!CHIRP) {
+    for (int e = tid; e < n; e += FFT_THREADS) win_s[e] = window[e];
   }
   for (int e = tid; e < n_weights; e += FFT_THREADS) wts_s[e] = mel_weights[e];
   for (int e = tid; e < 3 * n_mels; e += FFT_THREADS) rng_s[e] = mel_ranges[e];
@@ -264,37 +313,50 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
   const long long base = clip * n_samples;
   const int pad = n / 2;
   const int size = FFT_THREADS / groups, group = tid / size, rank = tid - group * size;
-  float2* const buf0 = bufs + 2 * group * n;
-  float2* const buf1 = buf0 + n;
+  float2* const buf0 = bufs + 2 * group * nt;
+  float2* const buf1 = buf0 + nt;
   float local_max = -CUDART_INF_F;
 
   // Group g transforms frame pairs g, g + groups, ...: frame 2q windowed in
   // the real part, 2q + 1 in the imaginary. Groups meet only at the end.
   for (int f0 = 2 * group; f0 < n_frames; f0 += 2 * groups) {
-    for (int i = rank; i < n; i += size) {
-      const int src = f0 * hop + i - pad;
-      const float a = padded_sample(wav, is_int16, base, n_samples, src, reflect);
-      const float b = f0 + 1 < n_frames ? padded_sample(wav, is_int16, base, n_samples, src + hop, reflect) : 0.0f;
-      const float w = win_s[i];
-      buf0[i] = make_float2(a * w, b * w);
+    for (int i = rank; i < nt; i += size) {
+      float2 u = make_float2(0.0f, 0.0f);
+      if (CHIRP ? i < n : true) {
+        const int src = f0 * hop + i - pad;
+        const float a = padded_sample(wav, is_int16, base, n_samples, src, reflect);
+        const float b =
+            f0 + 1 < n_frames ? padded_sample(wav, is_int16, base, n_samples, src + hop, reflect) : 0.0f;
+        if constexpr (CHIRP) {
+          u = cmul(make_float2(a, b), __ldg(pre + i));
+        } else {
+          const float w = win_s[i];
+          u = make_float2(a * w, b * w);
+        }
+      }
+      buf0[i] = u;
     }
     group_sync(group, size);
-    float2* src = buf0;
-    float2* dst = buf1;
-    int length = 1;
-    for (int s = 0; s < plan.n_stages; ++s) {
-      fft_stage_radix(plan.radix[s], src, dst, tw_s, n, length, rank, size);
+    float2* spec = run_stages(plan, buf0, buf1, tw_s, nt, rank, size, group);
+    if constexpr (CHIRP) {
+      // V = U * H; the inverse transform is the forward one on conjugates.
+      for (int k = rank; k < nt; k += size) {
+        const float2 v = cmul(spec[k], __ldg(ck + k));
+        spec[k] = make_float2(v.x, -v.y);
+      }
       group_sync(group, size);
-      length *= plan.radix[s];
-      float2* t = src;
-      src = dst;
-      dst = t;
+      spec = run_stages(plan, spec, spec == buf0 ? buf1 : buf0, tw_s, nt, rank, size, group);
     }
-    // src holds the spectrum; the other buffer takes the two frames' power.
-    float* pw = reinterpret_cast<float*>(dst);
+    // spec holds the spectrum (chirp mode: Z_k = c_k conj(spec_k)); the other
+    // buffer takes the two frames' power.
+    float* pw = reinterpret_cast<float*>(spec == buf0 ? buf1 : buf0);
     for (int k = rank; k < n_bins; k += size) {
-      const float2 z = src[k];
-      const float2 zc = src[k == 0 ? 0 : n - k];
+      const int kc = k == 0 ? 0 : n - k;
+      float2 z = spec[k], zc = spec[kc];
+      if constexpr (CHIRP) {
+        z = cmul(__ldg(post + k), make_float2(z.x, -z.y));
+        zc = cmul(__ldg(post + kc), make_float2(zc.x, -zc.y));
+      }
       const float ar = 0.5f * (z.x + zc.x), ai = 0.5f * (z.y - zc.y);
       const float br = 0.5f * (z.y + zc.y), bi = 0.5f * (zc.x - z.x);
       pw[k] = ar * ar + ai * ai;
@@ -319,7 +381,9 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
   const float floor_db = use_top_db ? block_max<FFT_THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
   float* dct_s = reinterpret_cast<float*>(bufs);
   for (int e = tid; e < n_mels * n_mfcc; e += FFT_THREADS) dct_s[e] = dct[e];
-  for (int e = tid; e < n_frames * n_mels; e += FFT_THREADS) db_s[e] = fmaxf(db_s[e], floor_db);
+  if constexpr (!CHIRP) {
+    for (int e = tid; e < n_frames * n_mels; e += FFT_THREADS) db_s[e] = fmaxf(db_s[e], floor_db);
+  }
   __syncthreads();
 
   // Thread (frame quad q, coefficient j): frames 4q .. 4q + 3.
@@ -334,7 +398,7 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
     for (int mel = 0; mel < n_mels; ++mel) {
       const float d = dct_s[mel * n_mfcc + j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(rows[i][mel], d, acc[i]);
+      for (int i = 0; i < 4; ++i) acc[i] = fmaf(CHIRP ? fmaxf(rows[i][mel], floor_db) : rows[i][mel], d, acc[i]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -342,17 +406,36 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
   }
 }
 
-size_t mfcc_fft_smem_bytes(int n, int groups, int n_mels, int n_mfcc, int n_frames, int n_weights) {
-  return sizeof(float2) * ((size_t)n + fft_region(n, groups, n_mels, n_mfcc)) +
-         sizeof(float) * ((size_t)n + (size_t)n_frames * n_mels + n_weights) + sizeof(int) * 3 * (size_t)n_mels;
+size_t mfcc_fft_smem_bytes(int n, int nt, bool chirp, int groups, int n_mels, int n_mfcc, int n_frames,
+                           int n_weights) {
+  return sizeof(float2) * ((size_t)nt + fft_region(nt, groups, n_mels, n_mfcc)) +
+         sizeof(float) * ((chirp ? 0 : (size_t)n + (size_t)n_frames * n_mels) + n_weights) +
+         sizeof(int) * 3 * (size_t)n_mels;
 }
 
+template <bool CHIRP>
 int mfcc_fft_set_smem(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(mfcc_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(mfcc_fft_kernel<CHIRP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaFuncSetAttribute(mfcc_fft_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  return static_cast<int>(cudaFuncSetAttribute(mfcc_fft_kernel<CHIRP>,
+                                               cudaFuncAttributePreferredSharedMemoryCarveout,
                                                static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+}
+
+// The stage plan from the host's radices: their product must be nt.
+int make_plan(const int* radices, int n_stages, int nt, int groups, FftPlan* plan) {
+  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan->n_stages = n_stages;
+  long long product = 1;
+  for (int s = 0; s < n_stages; ++s) {
+    const int r = radices[s];
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8) return static_cast<int>(cudaErrorInvalidValue);
+    plan->radix[s] = r;
+    product *= r;
+  }
+  return product == nt && nt <= 4096 ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -457,36 +540,59 @@ int mfcc_fft_forward(const void* wav, int is_int16, int batch, int n_samples, co
                      const float* dct, float* out, int n_fft, int hop, int n_mels, int n_mfcc, int n_frames,
                      int groups, const int* radices, int n_stages, int reflect, float top_db, int use_top_db,
                      void* stream) {
-  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
   FftPlan plan;
-  plan.n_stages = n_stages;
-  long long product = 1;
-  for (int s = 0; s < n_stages; ++s) {
-    const int r = radices[s];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8) return static_cast<int>(cudaErrorInvalidValue);
-    plan.radix[s] = r;
-    product *= r;
-  }
-  if (product != n_fft) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = mfcc_fft_smem_bytes(n_fft, groups, n_mels, n_mfcc, n_frames, n_weights);
-  int err = mfcc_fft_set_smem(smem);
+  int err = make_plan(radices, n_stages, n_fft, groups, &plan);
   if (err != 0) return err;
-  mfcc_fft_kernel<<<batch, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      wav, is_int16, n_samples, reinterpret_cast<const float2*>(twiddles), window, mel_ranges, mel_weights,
-      n_weights, dct, out, n_fft, hop, n_mels, n_mfcc, n_frames, groups, plan, reflect, top_db, use_top_db);
+  const size_t smem = mfcc_fft_smem_bytes(n_fft, n_fft, false, groups, n_mels, n_mfcc, n_frames, n_weights);
+  err = mfcc_fft_set_smem<false>(smem);
+  if (err != 0) return err;
+  mfcc_fft_kernel<false><<<batch, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wav, is_int16, n_samples, reinterpret_cast<const float2*>(twiddles), window, nullptr, nullptr, nullptr,
+      mel_ranges, mel_weights, n_weights, dct, nullptr, out, n_fft, n_fft, hop, n_mels, n_mfcc, n_frames, groups,
+      plan, reflect, top_db, use_top_db);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the FFT kernel that fit one SM at these sizes (into *blocks),
-// and its shared memory per block in bytes (into *smem_bytes).
-int mfcc_fft_occupancy(int n_fft, int groups, int n_mels, int n_mfcc, int n_frames, int n_weights, int* blocks,
-                       int* smem_bytes) {
-  const size_t smem = mfcc_fft_smem_bytes(n_fft, groups, n_mels, n_mfcc, n_frames, n_weights);
-  *smem_bytes = static_cast<int>(smem);
-  int err = mfcc_fft_set_smem(smem);
+// Bluestein path: the FFT kernel's chirp mode at transform size nt (>= 2 n_fft
+// - 1; radices multiply to nt). pre, post (n_fft, 2) and kernel (nt, 2) are
+// ops/mfcc.py::bluestein_plan's tables; db (batch, n_frames, n_mels) scratch.
+int mfcc_bluestein_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles,
+                           const float* pre, const float* post, const float* kernel, const int* mel_ranges,
+                           const float* mel_weights, int n_weights, const float* dct, float* db, float* out, int n_fft,
+                           int nt, int hop, int n_mels, int n_mfcc, int n_frames, int groups, const int* radices,
+                           int n_stages, int reflect, float top_db, int use_top_db, void* stream) {
+  if (nt < 2 * n_fft - 1) return static_cast<int>(cudaErrorInvalidValue);
+  FftPlan plan;
+  int err = make_plan(radices, n_stages, nt, groups, &plan);
   if (err != 0) return err;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mfcc_fft_kernel, FFT_THREADS, smem));
+  const size_t smem = mfcc_fft_smem_bytes(n_fft, nt, true, groups, n_mels, n_mfcc, n_frames, n_weights);
+  err = mfcc_fft_set_smem<true>(smem);
+  if (err != 0) return err;
+  mfcc_fft_kernel<true><<<batch, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wav, is_int16, n_samples, reinterpret_cast<const float2*>(twiddles), nullptr,
+      reinterpret_cast<const float2*>(pre), reinterpret_cast<const float2*>(post),
+      reinterpret_cast<const float2*>(kernel), mel_ranges, mel_weights, n_weights, dct, db, out, n_fft, nt, hop,
+      n_mels, n_mfcc, n_frames, groups, plan, reflect, top_db, use_top_db);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the FFT kernel (chirp mode if chirp) that fit one SM at these
+// sizes (into *blocks), and its shared memory per block in bytes (into
+// *smem_bytes); nt is the transform size (n_fft on the FFT path).
+int mfcc_fft_occupancy(int n_fft, int nt, int chirp, int groups, int n_mels, int n_mfcc, int n_frames,
+                       int n_weights, int* blocks, int* smem_bytes) {
+  const size_t smem = mfcc_fft_smem_bytes(n_fft, nt, chirp != 0, groups, n_mels, n_mfcc, n_frames, n_weights);
+  *smem_bytes = static_cast<int>(smem);
+  if (chirp) {
+    const int err = mfcc_fft_set_smem<true>(smem);
+    if (err != 0) return err;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mfcc_fft_kernel<true>, FFT_THREADS, smem));
+  }
+  const int err = mfcc_fft_set_smem<false>(smem);
+  if (err != 0) return err;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mfcc_fft_kernel<false>, FFT_THREADS, smem));
 }
 
 int mfcc_dft_forward(const void* wav, int is_int16, int batch, int n_samples,

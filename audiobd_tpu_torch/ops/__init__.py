@@ -6,6 +6,7 @@ from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, mfcc
 
 KERNELS = (
     mfcc.MFCC_FFT_KERNEL,
+    mfcc.MFCC_BLUESTEIN_KERNEL,
     mfcc.MFCC_DFT_KERNEL,
     conv1_bn_pool.BWD_PARAMS_KERNEL,
     conv1_bn_pool.BWD_INPUT_KERNEL,

@@ -7,11 +7,13 @@ mean, batch variance). The forward is plain torch in the reference's order
 of operations (conv2d, relu, the fast variance E[r²] − μ², normalize,
 max_pool2d in floor mode with −inf padding). The backward never
 materializes the pre-pool activation or the phase patches: kernel D
-(``conv2_bn_pool_bwd_params``) recomputes each pool window from x,
-accumulates the parameter gradients and writes the routing (``Conv2Routing``:
-per conv position and channel r, signed by whether it won its pool window),
-and kernel E (``conv2_bn_pool_bwd_input``) forms dx from that routing, with
-no recompute of its own. dx is always needed since block 1 sits below. The
+(``conv2_bn_pool_bwd_params``) recomputes each pool window from x and writes
+the routing (``Conv2Routing``: per conv position and channel r, signed by
+whether it won its pool window) in one pass, then accumulates the parameter
+gradients from x, g and that routing in a second, on the tensor cores in
+3xTF32 (``product_3xtf32`` is its plain emulation); kernel E
+(``conv2_bn_pool_bwd_input``) forms dx from that routing, with no recompute
+of its own. dx is always needed since block 1 sits below. The
 math, the covering grid, the encoding and the first-match tie rule are
 described in ``csrc/conv2_bn_pool.cu``.
 
@@ -34,11 +36,11 @@ from audiobd_tpu_torch.ops.build import CudaKernel, ptr
 EPS = 1e-5
 MAX_CIN = 64  # 4·Cin taps fit the kernels' 256-row patch tile
 TILE_WINDOWS = 16  # windows per tile (64 conv positions); csrc/conv2_bn_pool.cu's TW
-CHANNEL_BLOCK = 16  # channels per block; the .cu's CB
+CHANNEL_BLOCK = 16  # channels per block of kernel D's product pass; the .cu's CB
 _I, _P = ctypes.c_int, ctypes.c_void_p
 BWD_PARAMS_KERNEL = CudaKernel(
     "conv2_bn_pool_bwd_params", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_params",
-    [_P] * 10 + [_I] * 8,
+    [_P] * 10 + [_I] * 9,
 )
 BWD_INPUT_KERNEL = CudaKernel(
     "conv2_bn_pool_bwd_input", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_input",
@@ -82,6 +84,24 @@ def w257(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # plain versions
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 → the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds it for kernel D's product pass."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def product_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b (f32) as kernel D's product pass forms it on the tensor cores:
+    each operand split x = hi + lo, hi = tf32(x), lo = tf32(x − hi), and
+    lo_a·hi_b + hi_a·lo_b + hi_a·hi_b summed in f32. Each product of two TF32
+    values is exact in f32; the dropped lo_a·lo_b and the split's residue are
+    ~2⁻²¹ of |a·b|, f32 level. TF32 alone (hi_a·hi_b) keeps ~3 digits."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
 
 
 def _phase_patches(x: torch.Tensor, pool_padding) -> torch.Tensor:
@@ -225,9 +245,15 @@ def _check_cuda(device, dims, g, w, vecs, pool_padding, extra=()):
 
 
 def _splits(n_tiles: int, groups: int) -> int:
-    """Blocks along the window tiles for kernel D: about two blocks per SM
-    of an H100 (132 SMs) over all channel groups."""
+    """Blocks along the window tiles for a pass of kernel D: about two
+    blocks per SM of an H100 (132 SMs) over all channel groups."""
     return max(1, min(n_tiles, -(-264 // groups)))
+
+
+def _route_block(c: int) -> tuple[int, int]:
+    """(channels a block, windows a tile) of kernel D's routing pass: 32 and
+    64 for C <= 32, else 64 and 32 (the .cu's RouteShape)."""
+    return (32, 64) if c <= 32 else (64, 32)
 
 
 def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) -> tuple[torch.Tensor, Conv2Routing]:
@@ -239,14 +265,15 @@ def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) ->
     b, cin, h, wd = x.shape
     c = w.shape[1]
     _, _, _, _, hc, wc = pool_dims(h, wd, pool_padding)
-    groups = -(-c // CHANNEL_BLOCK)
-    splits = _splits(-(-(b * hc * wc) // TILE_WINDOWS), groups)
+    splits = _splits(-(-(b * hc * wc) // TILE_WINDOWS), -(-c // CHANNEL_BLOCK))
+    route_channels, route_windows = _route_block(c)
     partial = torch.empty((splits, 3 * (4 * cin + 1) + 2, c), dtype=torch.float32, device=x.device)
     out = torch.empty((4 * cin + 5, c), dtype=torch.float32, device=x.device)
     route = torch.empty((b, c, h - 1, wd - 1), dtype=torch.float32, device=x.device)
     BWD_PARAMS_KERNEL(
         x.device, ptr(x), ptr(g), ptr(w), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
         ptr(partial), ptr(out), ptr(route), b, cin, h, wd, c, pool_padding[0], pool_padding[1], splits,
+        _splits(-(-(b * hc * wc) // route_windows), -(-c // route_channels)),
     )
     return out, Conv2Routing(route, tuple(pool_padding))
 

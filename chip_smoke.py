@@ -10,8 +10,8 @@ no result, without them. Phases, each printing its own lines:
      path that runs it (max abs error within the stated tolerance), with the kernel's
      time, the plain version's and a one-call PyTorch yardstick's, and the
      least time the card could take for the same work (bound): 1a kernel
-     A's FFT and matrix-DFT paths, 1b kernels B and C, 1c kernels D and E
-     (E on the routing a D call wrote).
+     A's FFT, Bluestein and matrix-DFT paths, 1b kernels B and C, 1c kernels
+     D and E (E on the routing a D call wrote).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
@@ -121,51 +121,61 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     from audiobd_tpu_torch.ops import mfcc as op
     from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
-    print("phase 1a: MFCC kernel (A), FFT and matrix-DFT paths, vs plain dsp.mfcc; tolerance "
+    print("phase 1a: MFCC kernel (A), FFT, Bluestein and matrix-DFT paths, vs plain dsp.mfcc; tolerance "
           "rtol 1e-4, atol 1e-3 (f32 both; sums in another order)", flush=True)
     rtol, atol = 1e-4, 1e-3
     gen = torch.Generator(device="cuda").manual_seed(0)
     # The main path's prep launches A on f32 chunks of 2048 clips and one
     # 1568-clip tail (20,000 clips); the other cases cover int16 PCM, librosa
     # parity and a batch that is not a multiple of anything. n_fft 1103
-    # (Ultrasonic's 44.1 kHz setting, prime) takes the matrix-DFT path.
+    # (Ultrasonic's 44.1 kHz setting, prime) takes the Bluestein path, at the
+    # 2048-clip chunk that Ultrasonic's prep will launch; n_fft 2205 (3²·5·7²,
+    # whose Bluestein size would pass 4096) the matrix-DFT path.
     wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
     tail = wav[:1568]
     pcm = torch.clamp(torch.round(wav[:256] * 32768.0), -32768, 32767).to(torch.int16)
-    wav44 = torch.randn(64, 44100, device="cuda", generator=gen) * 0.1
+    wav44 = torch.randn(2048, 44100, device="cuda", generator=gen) * 0.1
     ta = MFCCParams()
     lib = MFCCParams(n_fft=2048, hop_length=512, parity="librosa")
     us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
-    worst = {"fft": 0.0, "dft": 0.0}
+    wide = MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)
+    kernels = {"fft": op.MFCC_FFT_KERNEL, "bluestein": op.MFCC_BLUESTEIN_KERNEL, "dft": op.MFCC_DFT_KERNEL}
+    worst = dict.fromkeys(kernels, 0.0)
     for name, w, params in (
         ("torchaudio f32 (2048, 16000), main-path chunk", wav, ta),
         ("torchaudio f32 (1568, 16000), main-path tail", tail, ta),
         ("torchaudio int16 (256, 16000)", pcm, ta),
         ("librosa f32 (64, 16000) n_fft 2048", wav[:64], lib),
         ("torchaudio f32 ragged (257, 16000)", torch.cat([wav[:256], wav[:1] * 0.5]), ta),
-        ("torchaudio f32 (64, 44100) n_fft 1103 hop 441", wav44, us),
+        ("torchaudio f32 (2048, 44100) n_fft 1103 hop 441, Ultrasonic's chunk", wav44, us),
+        ("torchaudio int16 (64, 44100) n_fft 1103 hop 441",
+         torch.clamp(torch.round(wav44[:64] * 32768.0), -32768, 32767).to(torch.int16), us),
+        ("torchaudio f32 (64, 44100) n_fft 2205 hop 441", wav44[:64], wide),
     ):
         path = op.mfcc_path(params.n_fft)
-        before = op.MFCC_FFT_KERNEL.launches, op.MFCC_DFT_KERNEL.launches
+        before = {p: k.launches for p, k in kernels.items()}
         got = op.fused_mfcc(w, params)
         torch.cuda.synchronize()
-        after = op.MFCC_FFT_KERNEL.launches, op.MFCC_DFT_KERNEL.launches
+        ran = {p: k.launches - before[p] for p, k in kernels.items()}
         ref = mfcc(dequantize_pcm(w), params)
         err, rel, ok = max_err(torch, got, ref, rtol, atol)
         worst[path] = max(worst[path], err)
-        want = (before[0] + 1, before[1]) if path == "fft" else (before[0], before[1] + 1)
-        check(ok and tuple(got.shape) == tuple(ref.shape) and after == want,
-              f"{name} [{path} path, launches {after[0] - before[0]} FFT / {after[1] - before[1]} DFT]: "
-              f"shape {tuple(got.shape)} max abs err {err:.3e} (rel to max {rel:.3e})")
+        check(ok and tuple(got.shape) == tuple(ref.shape) and ran == {p: int(p == path) for p in kernels},
+              f"{name} [{path} path, launches {ran}]: shape {tuple(got.shape)} max abs err {err:.3e} "
+              f"(rel to max {rel:.3e})")
         del got, ref
 
-    # The FFT's rounding differs from the matrix DFT's, so the card's kernel
-    # and plain version are each also held against a float64 MFCC.
-    truth = mfcc_float64(torch, wav, ta)
-    for name, got in (("FFT kernel", op.fused_mfcc(wav, ta)), ("plain dsp.mfcc", mfcc(wav, ta))):
-        err = float((got.double() - truth).abs().max())
-        check(err <= atol, f"{name} (2048, 16000) against a float64 MFCC: max abs err {err:.3e}")
-    del truth
+    # The FFT's rounding differs from the matrix DFT's, so the card's kernels
+    # and the plain version are each also held against a float64 MFCC.
+    for w, params, label in ((wav, ta, "FFT kernel (2048, 16000)"),
+                             (wav44, us, "Bluestein kernel (2048, 44100) n_fft 1103")):
+        truth = mfcc_float64(torch, w, params)
+        for name, got in ((label, op.fused_mfcc(w, params)), (f"plain dsp.mfcc at n_fft {params.n_fft}",
+                                                               mfcc(w, params))):
+            err = float((got.double() - truth).abs().max())
+            check(err <= atol, f"{name} against a float64 MFCC: max abs err {err:.3e}")
+            del got
+        del truth
 
     def yardstick(w, params):
         mel_fb = torch.from_numpy(params.mel_fb()).cuda()
@@ -182,8 +192,10 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         return library
 
     rows = []
-    for path, w, params, label in (("fft", wav, ta, "(2048, 16000) f32"), ("dft", wav44, us, "(64, 44100) f32")):
-        kernel = op.MFCC_FFT_KERNEL if path == "fft" else op.MFCC_DFT_KERNEL
+    for path, w, params, label in (("fft", wav, ta, "(2048, 16000) f32"),
+                                   ("bluestein", wav44, us, "(2048, 44100) f32"),
+                                   ("dft", wav44[:64], wide, "(64, 44100) f32")):
+        kernel = kernels[path]
         library = yardstick(w, params)
         ms = time_ms(torch, lambda: op.fused_mfcc(w, params), 10)
         plain_ms = time_ms(torch, lambda: mfcc(w, params), 5, warmup=1)
@@ -201,11 +213,13 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     lib_ms = time_ms(torch, lambda: op.fused_mfcc(wav[:64], lib), 10)
     print(f"  MFCC fft path (64, 16000) f32 n_fft 2048: kernel {lib_ms:.4f} ms, bound "
           f"{mfcc_bound(wav[:64], lib)[0]:.4f} ms", flush=True)
-    for params in (ta, lib):
-        blocks, smem = op.fft_occupancy(params, 16000, torch.device("cuda"))
-        print(f"  FFT kernel at n_fft {params.n_fft}: {smem} B shared memory a block, {blocks} blocks "
-              f"({blocks * 512} threads) per SM", flush=True)
-        check(blocks * 512 >= 1024, f"FFT kernel at n_fft {params.n_fft} keeps >= 1024 threads per SM")
+    for params, n_samples in ((ta, 16000), (lib, 16000), (us, 44100)):
+        blocks, smem = op.fft_occupancy(params, n_samples, torch.device("cuda"))
+        mode = op.mfcc_path(params.n_fft)
+        size = op.bluestein_size(params.n_fft) if mode == "bluestein" else params.n_fft
+        print(f"  FFT kernel ({mode}) at n_fft {params.n_fft}, transform {size}: {smem} B shared memory a "
+              f"block, {blocks} blocks ({blocks * 512} threads) per SM", flush=True)
+        check(blocks * 512 >= 1024, f"FFT kernel ({mode}) at n_fft {params.n_fft} keeps >= 1024 threads per SM")
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
     return rows
 
@@ -534,7 +548,8 @@ def run_cli(torch, kernels, label: str, flags: list[str]) -> tuple[dict[str, int
 def phase_main_path(torch, kernels) -> tuple[dict[str, int], float]:
     launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [])
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
-    check(launches["mfcc_dft"] == 0, f"MFCC kernel, matrix-DFT path, launched {launches['mfcc_dft']} times (none)")
+    for name in ("mfcc_bluestein", "mfcc_dft"):
+        check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none: no caller yet)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
     return launches, clips
@@ -586,8 +601,10 @@ def main() -> int:
           f"{', '.join(p.name for p in libs.values())}", flush=True)
     for log in sorted(BUILD_DIR.glob("*.log")):
         for line in log.read_text(errors="replace").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {log.stem}: {line.strip()}")
+            if "Compiling entry function" in line:
+                print(f"  {log.stem}: {line.split('entry function')[-1].split(' for ')[0].strip()}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {log.stem}:   {line.strip()}")
 
     ctx: dict = {}
     main_rows = [*phase_mfcc(torch, ctx), *phase_conv1(torch, ctx)]

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where kernel A's FFT path spends its time, by varying one knob at a time.
+"""Where kernel A's FFT and Bluestein paths spend their time, by varying one
+knob at a time.
 
     python3 scripts/mfcc_fft_experiments.py
 
@@ -11,6 +12,12 @@ kernel (CUDA events, 20 launches after warm-up) while changing:
   * the batch (264 clips = one wave of 2 blocks on each of 132 SMs, 2048);
   * the input type (f32, int16): the load's share;
   * n_fft 2048 at hop 512 (DABA's and FlowMur's settings).
+At Ultrasonic's chunk, (2048, 44100) f32 clips at n_fft 1103, hop 441:
+  * the Bluestein size L (2250, 2304, 2400, 2560), with each one's shared
+    memory and blocks per SM: the measurement behind ops/mfcc.py's rule;
+  * thread groups (1, 2, 4) at the chosen L;
+  * the matrix-DFT kernel at the same shape (the path n_fft 1103 took before
+    the Bluestein path) and the torch.stft + matmul yardstick.
 Prints the card's name and power limit first. Needs a CUDA device.
 """
 
@@ -59,7 +66,7 @@ def main() -> int:
     chosen = op.fft_groups
     try:
         for groups in (4, 2, 1):
-            op.fft_groups = lambda n_fft, groups=groups: groups
+            op.fft_groups = lambda n_fft, budget=None, groups=groups: groups
             print(f"{groups} thread groups: {time_ms(lambda: op.fused_mfcc(wav, base)):.4f} ms", flush=True)
     finally:
         op.fft_groups = chosen
@@ -67,6 +74,45 @@ def main() -> int:
     print(f"int16 input: {time_ms(lambda: op.fused_mfcc(pcm, base)):.4f} ms", flush=True)
     lib = MFCCParams(n_fft=2048, hop_length=512, parity="librosa")
     print(f"n_fft 2048 hop 512 (2048, 16000): {time_ms(lambda: op.fused_mfcc(wav, lib)):.4f} ms", flush=True)
+    del pcm
+
+    from audiobd_tpu_torch.dsp.mel import amplitude_to_db
+
+    wav44 = torch.randn(2048, 44100, device="cuda", generator=gen) * 0.1
+    us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
+    chosen_size, chosen_groups = op.bluestein_size, op.fft_groups
+    try:
+        for size in (2250, 2304, 2400, 2560):
+            op.bluestein_size = lambda n_fft, size=size: size
+            blocks, smem = op.fft_occupancy(us, 44100, torch.device("cuda"))
+            print(f"Bluestein n_fft 1103 (2048, 44100), L {size} = {'x'.join(map(str, op.fft_radices(size)))}: "
+                  f"{time_ms(lambda: op.fused_mfcc(wav44, us), 10):.4f} ms ({smem} B a block, {blocks} blocks "
+                  f"per SM)", flush=True)
+        op.bluestein_size = chosen_size
+        for groups in (1, 2, 4):
+            op.fft_groups = lambda n_fft, budget=None, groups=groups: groups
+            print(f"Bluestein L {chosen_size(1103)}, {groups} thread groups: "
+                  f"{time_ms(lambda: op.fused_mfcc(wav44, us), 10):.4f} ms", flush=True)
+    finally:
+        op.bluestein_size, op.fft_groups = chosen_size, chosen_groups
+    print(f"Bluestein (chosen L {op.bluestein_size(1103)}) (2048, 44100): "
+          f"{time_ms(lambda: op.fused_mfcc(wav44, us), 10):.4f} ms", flush=True)
+    chosen_path = op.mfcc_path
+    try:
+        op.mfcc_path = lambda n_fft: "dft"
+        print(f"matrix-DFT kernel n_fft 1103 (2048, 44100): {time_ms(lambda: op.fused_mfcc(wav44, us), 3):.4f} ms",
+              flush=True)
+    finally:
+        op.mfcc_path = chosen_path
+    mel_fb, dct = torch.from_numpy(us.mel_fb()).cuda(), torch.from_numpy(us.dct()).cuda()
+    window = torch.hann_window(us.n_fft, periodic=True, device="cuda")
+
+    def library():
+        spec = torch.stft(wav44, us.n_fft, us.hop_length, window=window, center=True, pad_mode=us.pad_mode,
+                          return_complex=True).abs().pow(2)
+        return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb, top_db=us.top_db) @ dct
+
+    print(f"torch.stft + matmul yardstick n_fft 1103 (2048, 44100): {time_ms(library, 10):.4f} ms", flush=True)
     return 0
 
 

@@ -6,13 +6,14 @@ without it (tests/conftest.py imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest tests/test_torch_port_kernels_cuda.py -q -m cuda
 
-Tolerances: MFCC rtol 1e-4, atol 1e-3 on both paths of kernel A
+Tolerances: MFCC rtol 1e-4, atol 1e-3 on every path of kernel A
 (tests/test_pallas_mfcc.py's; f32 sums in another order; the FFT's rounding
 grows like log n). Block-1 backward rtol 1e-4, atol 1e-5: the kernels
 and the plain version recompute y and z bit-identically and route every
 pool tie the same way, so only the order of the f32 sums differs. Block-2/3
 backward (kernels D, E): max abs error <= 1e-4 * max|ref| + 1e-6 per output,
-the same reasoning over sums of up to ~10^4 terms per entry. D's routing: the
+the same reasoning over sums of up to ~10^4 terms per entry (D's parameter
+sums in 3xTF32 on the tensor cores, each product exact, f32 accumulation). D's routing: the
 same zero/sign pattern as the plain routing (both form y in one fixed order)
 and magnitudes within 1e-6 relative; E from it: 1e-3 * max|ref| + 1e-6.
 """
@@ -24,7 +25,7 @@ import torch
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.ops import conv1_bn_pool as op
 from audiobd_tpu_torch.ops import conv2_bn_pool as op2
-from audiobd_tpu_torch.ops.mfcc import MFCC_DFT_KERNEL, MFCC_FFT_KERNEL, fused_mfcc
+from audiobd_tpu_torch.ops.mfcc import MFCC_BLUESTEIN_KERNEL, MFCC_DFT_KERNEL, MFCC_FFT_KERNEL, fused_mfcc
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
 pytestmark = pytest.mark.cuda
@@ -52,24 +53,60 @@ def test_mfcc_kernel_matches_plain(cuda, setting, dtype):
         x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
     params = MFCCParams(**SETTINGS[setting])
     wavs = torch.from_numpy(x).to(cuda)
-    before = MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches
+    before = _launches()
     out = fused_mfcc(wavs, params)
-    assert (MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches) == (before[0] + 1, before[1])
+    assert _launches() == (before[0] + 1, before[1], before[2])
     ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "int16"])
-def test_mfcc_dft_path_matches_plain(cuda, dtype):
-    """n_fft 1103 (prime; Ultrasonic's 44.1 kHz setting) takes the matrix-DFT path."""
-    x = (np.random.default_rng(12).standard_normal((3, 44100)) * 0.1).astype(np.float32)
+def _launches():
+    return MFCC_FFT_KERNEL.launches, MFCC_BLUESTEIN_KERNEL.launches, MFCC_DFT_KERNEL.launches
+
+
+def _wavs44(cuda, dtype, seed, n=3):
+    x = (np.random.default_rng(seed).standard_normal((n, 44100)) * 0.1).astype(np.float32)
     if dtype == "int16":
         x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+    return torch.from_numpy(x).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_mfcc_bluestein_path_matches_plain(cuda, dtype):
+    """n_fft 1103 (prime; Ultrasonic's 44.1 kHz setting) takes the Bluestein
+    path (the FFT kernel's chirp mode at L = 2304), not the matrix DFT."""
+    wavs = _wavs44(cuda, dtype, seed=12)
     params = MFCCParams(sample_rate=44100, n_mfcc=40, n_fft=1103, hop_length=441)
-    wavs = torch.from_numpy(x).to(cuda)
-    before = MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches
+    before = _launches()
     out = fused_mfcc(wavs, params)
-    assert (MFCC_FFT_KERNEL.launches, MFCC_DFT_KERNEL.launches) == (before[0], before[1] + 1)
+    assert _launches() == (before[0], before[1] + 1, before[2])
+    ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_fft=882, hop_length=441, top_db=None),  # 2 · 3² · 7², L = 1800
+    dict(n_fft=97, hop_length=441, n_mels=40, n_mfcc=13),  # L = 200: 8 thread groups
+    dict(n_fft=2039, hop_length=512),  # prime, L = 4096 = MAX_FFT
+])
+def test_mfcc_bluestein_path_other_sizes(cuda, kw):
+    wavs = _wavs44(cuda, "float32", seed=14, n=2)
+    params = MFCCParams(sample_rate=44100, **kw)
+    before = _launches()
+    out = fused_mfcc(wavs, params)
+    assert _launches() == (before[0], before[1] + 1, before[2])
+    torch.testing.assert_close(out, mfcc_features(wavs, params)[:, 0], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_mfcc_dft_path_matches_plain(cuda, dtype):
+    """n_fft 2205 (3² · 5 · 7²: its Bluestein size would pass 4096) takes the
+    matrix-DFT path."""
+    wavs = _wavs44(cuda, dtype, seed=12)
+    params = MFCCParams(sample_rate=44100, n_mfcc=40, n_fft=2205, hop_length=441)
+    before = _launches()
+    out = fused_mfcc(wavs, params)
+    assert _launches() == (before[0], before[1], before[2] + 1)
     ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
 
@@ -161,6 +198,10 @@ def _block2_inputs(shape, pool_padding, seed):
 @pytest.mark.parametrize("shape,pool_padding", [
     ((3, 8, 12, 13, 16), (1, 1)), ((3, 8, 12, 13, 16), (0, 1)), ((2, 8, 13, 12, 8), (0, 0)),
     ((4, 64, 20, 13, 64), (1, 1)), ((4, 64, 11, 7, 32), (0, 1)), ((2, 24, 9, 21, 40), (1, 0)),
+    # Kernel D's routing pass takes 32 channels a block in pairs, its product
+    # pass 16: C 48 and 40 leave a partial group of each, C 3 an odd pair.
+    ((3, 16, 12, 13, 32), (1, 1)), ((2, 16, 11, 7, 48), (0, 1)), ((2, 64, 9, 13, 48), (1, 1)),
+    ((3, 16, 10, 9, 64), (1, 1)), ((2, 4, 5, 6, 3), (1, 1)),
 ])
 def test_block2_backward_kernels_match_plain(cuda, shape, pool_padding):
     args = _block2_inputs(shape, pool_padding, seed=sum(shape))
@@ -192,6 +233,7 @@ def test_block2_autograd_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("shape,pool_padding", [
     ((3, 8, 12, 13, 16), (1, 1)), ((4, 64, 20, 13, 64), (1, 1)), ((4, 64, 11, 7, 32), (0, 1)),
+    ((2, 16, 11, 7, 48), (0, 1)), ((3, 16, 10, 9, 64), (1, 1)),
 ])
 def test_block2_routing_and_input_from_it_match_plain(cuda, shape, pool_padding):
     x, g, weight, bias, mu, inv, scale, shift = _block2_inputs(shape, pool_padding, seed=sum(shape) + 1)

@@ -4,7 +4,8 @@ against numpy and the JAX package.
 The CUDA kernel runs only on the card; what it reads from the host is
 checked here: the Stockham plan (radices, twiddles, window), the per-band
 mel ranges and packed weights, the thread groups, and the choice of path by
-n_fft. ``mfcc_fft_plain`` walks the same plan and ranges in plain torch and
+n_fft (the Bluestein path's own tables: test_torch_port_mfcc_bluestein.py).
+``mfcc_fft_plain`` walks the same plan and ranges in plain torch and
 is held against audiobd_tpu.ops.pallas_mfcc.fused_mfcc (interpret mode) and
 audiobd_tpu.dsp.mfcc_features.
 
@@ -34,18 +35,20 @@ SETTINGS = {
 @pytest.mark.parametrize("n_fft,path,radices", [
     (400, "fft", (8, 2, 5, 5)),
     (2048, "fft", (8, 8, 8, 4)),
-    (1103, "dft", None),  # prime: Ultrasonic's 44.1 kHz setting
+    (1103, "bluestein", None),  # prime: Ultrasonic's 44.1 kHz setting
     (480, "fft", (8, 4, 3, 5)),
     (4096, "fft", (8, 8, 8, 8)),
-    (4097, "dft", None),
+    (4097, "dft", None),  # 17 · 241: its Bluestein size would pass MAX_FFT
     (8192, "dft", None),  # beyond MAX_FFT
-    (882, "dft", None),  # 2 · 3² · 7²
+    (882, "bluestein", None),  # 2 · 3² · 7²
 ])
 def test_path_chosen_by_n_fft(n_fft, path, radices):
     assert op.mfcc_path(n_fft) == path
     assert op.fft_radices(n_fft) == radices
     if radices is not None:
         assert int(np.prod(radices)) == n_fft
+    if path != "fft":
+        assert (op.bluestein_size(n_fft) is not None) == (path == "bluestein")
 
 
 @pytest.mark.parametrize("n_fft", [400, 2048])
