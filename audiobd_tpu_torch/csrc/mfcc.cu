@@ -1,5 +1,6 @@
-// Waveform -> MFCC in one kernel, one thread block per clip, by one of three
-// paths that ops/mfcc.py::mfcc_path picks from n_fft alone.
+// Waveform -> MFCC in one kernel, one thread block per clip, by one of two
+// paths that ops/mfcc.py::mfcc_path picks from n_fft alone, each a Stockham
+// FFT; where its buffers live is a choice by size (MODE, below).
 //
 // Replaces: audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc (the Pallas `_kernel`,
 // pallas_call at line 129). Same function on every path: centre-padded,
@@ -17,13 +18,17 @@
 // per 2048 clips against 131 MB of PCM read: 0.065 ms at 67 TFLOP/s, a little
 // above the 0.04 ms the bytes take.
 //
-// FFT path (mfcc_fft_kernel), for n_fft whose prime factors are 2, 3, 5:
-//  * A mixed-radix Stockham FFT in shared memory (radices 8, 4 or 2, then
-//    3s and 5s: 8x2x5x5 at 400, 8x8x8x4 at 2048). Stockham rather than a
-//    two-level n1 x n2 split because one stage loop serves every size: each
-//    stage reads its R inputs at stride N/R, so reads are contiguous across
-//    a warp, and writes in an order that leaves the result in natural order
-//    with no bit-reversal pass. Two buffers ping-pong, one barrier a stage.
+// FFT path (mfcc_fft_kernel<false, MODE>), for n_fft whose prime factors
+// are 2, 3, 5 and 7:
+//  * A mixed-radix Stockham FFT (radices 8, 4 or 2, then 3s, 5s and 7s:
+//    8x2x5x5 at 400, 8x8x8x4 at 2048, 3x3x5x7x7 at 2205). Stockham rather
+//    than a two-level n1 x n2 split because one stage loop serves every
+//    size: each stage reads its R inputs at stride N/R, so reads are
+//    contiguous across a warp, and writes in an order that leaves the
+//    result in natural order with no bit-reversal pass. Two buffers
+//    ping-pong, one barrier a stage. An odd radix's first-stage stores (stride
+//    R float2 across a half-warp) fall in distinct banks; radix 8's land 16 to
+//    a bank.
 //  * Latency, not arithmetic, is what a frame's work waits on: a few
 //    hundred butterflies between barriers, each after a global load or a
 //    shared-memory round trip. So the block's threads form independent
@@ -31,51 +36,57 @@
 //    where one pair's buffers take 32 KB), each with its own buffers and a
 //    named barrier, and each transforms its own frame pairs from load to dB
 //    values. One group's loads and barriers overlap the others' arithmetic;
-//    the block meets only once, for the top_db floor.
+//    the block meets only once a clip, for the top_db floor.
 //  * Two real frames are packed as one complex signal (frame 2q real, 2q + 1
 //    imaginary) and separated after: A[k] = (Z[k] + conj Z[N-k]) / 2,
 //    B[k] = (Z[k] - conj Z[N-k]) / 2i. Half the transforms of one per frame.
 //  * Twiddles exp(-2 pi i k / N) and the Hann window are tables built on the
-//    host in float64, cast to f32 and copied to shared memory per block; no
-//    sincosf per element. The small DFTs use literal constants.
+//    host in float64 and cast to f32; no sincosf per element. The small DFTs
+//    use literal constants.
 //  * The mel product reads only each band's bin range (first bin, count,
 //    offset into packed weights; at most 9 bins at n_fft 400, 48 at 2048).
-//  * The clip's (frames x mels) dB tile stays in shared memory until the
-//    top_db floor is known. The DCT table (n_mels x n_mfcc) is then copied
-//    into the free FFT buffers and each thread forms 4 frames of one
-//    coefficient, reusing every table value four times.
-//  * Occupancy: 512 threads a block and FFT buffers of at most 52 KB (8
-//    groups at n_fft 400, one at 2048) keep a block under 113 KB of shared
-//    memory (110.8 KB at n_fft 400, 83.3 KB at 2048), so two blocks (1,024
-//    threads) sit on each SM; __launch_bounds__(512, 2) holds registers to 64.
+//  * The clip's (frames x mels) dB tile waits for the top_db floor; the DCT
+//    table (n_mels x n_mfcc) then goes into the free FFT buffers and each
+//    thread forms 4 frames of one coefficient, reusing every table value
+//    four times.
 //
-// Bluestein path (mfcc_fft_kernel<true>, the FFT kernel's chirp mode), for
-// every other n_fft whose Bluestein size L (a product of 2, 3, 5 of at least
-// 2 n_fft - 1, ops/mfcc.py::bluestein_size) is at most 4096: every n_fft up
-// to 2048, such as 1103 (prime; Ultrasonic's 44.1 kHz setting, L = 2304 =
-// 8x8x4x3x3). With the chirp c_n = exp(-i pi n^2 / N) the DFT is
-// X_k = c_k sum_n (x_n c_n) conj(c_{k-n}), a circular convolution at L:
+// Bluestein path (mfcc_fft_kernel<true, MODE>, the chirp mode), for every
+// other n_fft, at a transform size L (a product of 2, 3, 5, 7 of at least
+// 2 n_fft - 1, ops/mfcc.py::bluestein_size), such as n_fft 1103 (prime;
+// Ultrasonic's 44.1 kHz setting, L = 2240 = 8x8x5x7). With the chirp
+// c_n = exp(-i pi n^2 / N) the DFT is X_k = c_k sum_n (x_n c_n) conj(c_{k-n}),
+// a circular convolution at L:
 //  * the packed frame pair times pre = hann * c (zero from N to L), then the
 //    same Stockham stages at L; times the table H = FFT_L(h) / L (h the
 //    conjugate chirp wrapped to L); the inverse transform as the forward
 //    stages on conjugates; Z_k = c_k conj(y_k) in the power step, then the
 //    FFT path's separation, power, mel, dB and DCT unchanged.
 //  * pre, post = c and H come from float64 host tables (n^2 reduced mod 2N
-//    in integers) and are read through the read-only cache rather than
-//    staged. The clip's dB tile goes to a device-memory scratch (read back,
-//    floored, for the DCT) instead of shared memory: that leaves room for
-//    two thread groups of 256 with their L-point buffers (98 KB a block at
-//    L = 2304, two blocks per SM), and a stage's latency is hidden by the
-//    other groups, as on the FFT path.
+//    in integers) and are read through the read-only cache.
 //  * It does about 2 L log L / (N log N) ~ 4.5x the FFT work of a power-of-
 //    two frame of N points; the bound still counts the function's FFT at N.
 //
-// DFT path (mfcc_dft_kernel), for anything larger (n_fft above 2048 with a
-// prime factor other than 2, 3, 5, or above 4096): the matrix-form DFT. Frames are processed in tiles of FT = 16, the
-// tile's padded samples staged in shared memory; one thread per frequency bin
-// keeps FT real and imaginary sums in registers, so each windowed basis value
-// read (through L1/L2) feeds 2*FT FMAs; the dense mel product and the DCT
-// follow as on the FFT path.
+// Where the buffers live (MODE, chosen on the host from the sizes,
+// ops/mfcc.py::mfcc_route), one stage loop for all three:
+//  * 0, shared: twiddles staged in shared memory beside the groups' buffers;
+//    the FFT path keeps its window and the clip's dB tile there too, the
+//    chirp mode its dB tile in a device-memory scratch (read back, floored,
+//    for the DCT), which leaves room for two groups of 256 at L = 2240.
+//    Sizes whose layout fits two blocks an SM (113 KB): n_fft 400 (110.8 KB),
+//    2048 (83.3 KB), Bluestein L 2240 (95.5 KB).
+//  * 1, large: only the buffers, packed mel weights and ranges in shared
+//    memory; twiddles and window read through the read-only cache, the dB
+//    tile in device memory. Every transform up to MAX_SMEM_FFT = 8192 points
+//    (128 KB of buffers for one group of 512, one block an SM; at n_fft 2205
+//    two groups, 80 KB, two blocks an SM).
+//  * 2, device: the buffers too in a device-memory scratch, 2 x nt float2 a
+//    block, for any larger transform (n_fft 4097, whose L = 8232 passes 8192,
+//    or 16384); the grid is as many blocks as are resident, each looping over
+//    clips, so the scratch stays L2-sized.
+//
+// Occupancy: 512 threads a block, __launch_bounds__(512, 2) holds registers
+// to 64, so two blocks (1,024 threads) sit on an SM where shared memory
+// allows.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -182,6 +193,28 @@ __device__ __forceinline__ void small_dft<5>(float2* v) {
 }
 
 template <>
+__device__ __forceinline__ void small_dft<7>(float2* v) {
+  const float c1 = 0.62348980185873353f, c2 = -0.22252093395631440f, c3 = -0.90096886790241913f;  // cos(2pi k/7)
+  const float s1 = 0.78183148246802981f, s2 = 0.97492791218182361f, s3 = 0.43388373911755812f;   // sin(2pi k/7)
+  const float2 a1 = cadd(v[1], v[6]), b1 = csub(v[1], v[6]);
+  const float2 a2 = cadd(v[2], v[5]), b2 = csub(v[2], v[5]);
+  const float2 a3 = cadd(v[3], v[4]), b3 = csub(v[3], v[4]);
+  const float2 p1 = cadd(v[0], cadd(cscale(a1, c1), cadd(cscale(a2, c2), cscale(a3, c3))));
+  const float2 p2 = cadd(v[0], cadd(cscale(a1, c2), cadd(cscale(a2, c3), cscale(a3, c1))));
+  const float2 p3 = cadd(v[0], cadd(cscale(a1, c3), cadd(cscale(a2, c1), cscale(a3, c2))));
+  const float2 q1 = mul_neg_i(cadd(cscale(b1, s1), cadd(cscale(b2, s2), cscale(b3, s3))));
+  const float2 q2 = mul_neg_i(csub(cscale(b1, s2), cadd(cscale(b2, s3), cscale(b3, s1))));
+  const float2 q3 = mul_neg_i(cadd(csub(cscale(b1, s3), cscale(b2, s1)), cscale(b3, s2)));
+  v[0] = cadd(v[0], cadd(a1, cadd(a2, a3)));
+  v[1] = cadd(p1, q1);
+  v[6] = csub(p1, q1);
+  v[2] = cadd(p2, q2);
+  v[5] = csub(p2, q2);
+  v[3] = cadd(p3, q3);
+  v[4] = csub(p3, q3);
+}
+
+template <>
 __device__ __forceinline__ void small_dft<8>(float2* v) {
   float2 e[4] = {v[0], v[2], v[4], v[6]};
   float2 o[4] = {v[1], v[3], v[5], v[7]};
@@ -203,7 +236,8 @@ __device__ __forceinline__ void small_dft<8>(float2* v) {
 // the same indices). L = the product of the earlier radices, m = n / R:
 // butterfly j reads src[j + r*m], multiplies input r by
 // W_n^{(j mod L) r n / (L R)}, and writes output s to (j - j mod L) R + j mod L + s L.
-template <int R>
+// TW_LDG: the twiddles are read through the read-only cache, not staged.
+template <int R, bool TW_LDG>
 __device__ void fft_stage(const float2* __restrict__ src, float2* __restrict__ dst,
                           const float2* __restrict__ tw, int n, int length, int rank, int size) {
   const int m = n / R;
@@ -215,7 +249,7 @@ __device__ void fft_stage(const float2* __restrict__ src, float2* __restrict__ d
     for (int r = 0; r < R; ++r) v[r] = src[j + r * m];
     if (length > 1) {
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], tw[k * r * tw_step]);
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], TW_LDG ? __ldg(tw + k * r * tw_step) : tw[k * r * tw_step]);
     }
     small_dft<R>(v);
     float2* d = dst + (j - k) * R + k;
@@ -224,14 +258,16 @@ __device__ void fft_stage(const float2* __restrict__ src, float2* __restrict__ d
   }
 }
 
+template <bool TW_LDG>
 __device__ void fft_stage_radix(int radix, const float2* src, float2* dst, const float2* tw, int n, int length,
                                 int rank, int size) {
   switch (radix) {
-    case 2: fft_stage<2>(src, dst, tw, n, length, rank, size); break;
-    case 3: fft_stage<3>(src, dst, tw, n, length, rank, size); break;
-    case 4: fft_stage<4>(src, dst, tw, n, length, rank, size); break;
-    case 5: fft_stage<5>(src, dst, tw, n, length, rank, size); break;
-    default: fft_stage<8>(src, dst, tw, n, length, rank, size); break;
+    case 2: fft_stage<2, TW_LDG>(src, dst, tw, n, length, rank, size); break;
+    case 3: fft_stage<3, TW_LDG>(src, dst, tw, n, length, rank, size); break;
+    case 4: fft_stage<4, TW_LDG>(src, dst, tw, n, length, rank, size); break;
+    case 5: fft_stage<5, TW_LDG>(src, dst, tw, n, length, rank, size); break;
+    case 7: fft_stage<7, TW_LDG>(src, dst, tw, n, length, rank, size); break;
+    default: fft_stage<8, TW_LDG>(src, dst, tw, n, length, rank, size); break;
   }
 }
 
@@ -255,12 +291,13 @@ __host__ __device__ __forceinline__ int fft_region(int nt, int groups, int n_mel
 
 // The plan's stages over one group's buffers, one barrier a stage; returns
 // the buffer that holds the result.
+template <bool TW_LDG>
 __device__ __forceinline__ float2* run_stages(FftPlan plan, float2* src, float2* dst,
                                               const float2* __restrict__ tw, int nt, int rank, int size,
                                               int group) {
   int length = 1;
   for (int s = 0; s < plan.n_stages; ++s) {
-    fft_stage_radix(plan.radix[s], src, dst, tw, nt, length, rank, size);
+    fft_stage_radix<TW_LDG>(plan.radix[s], src, dst, tw, nt, length, rank, size);
     group_sync(group, size);
     length *= plan.radix[s];
     float2* t = src;
@@ -270,14 +307,19 @@ __device__ __forceinline__ float2* run_stages(FftPlan plan, float2* src, float2*
   return src;
 }
 
+constexpr int MODE_SHARED = 0, MODE_LARGE = 1, MODE_DEVICE = 2;  // where the buffers live (header)
+constexpr int MAX_SMEM_FFT = 8192;                                // the largest transform in shared memory
+
 // CHIRP = false: the FFT path, transform size nt = n. CHIRP = true: the
 // Bluestein path, nt = L >= 2n - 1, with pre = hann * c, post = c and
-// ck = FFT_L(h) / L read through the read-only cache (window unused), and
-// the clip's dB tile in db_out (batch, n_frames, n_mels) in device memory
-// rather than shared memory, which leaves room for more thread groups.
-template <bool CHIRP>
+// ck = FFT_L(h) / L read through the read-only cache (window unused). MODE:
+// the header's. db_out (batch, n_frames, n_mels) takes the dB tile unless
+// the FFT path keeps it in shared memory (MODE_SHARED); scratch holds the
+// buffers in MODE_DEVICE, 2 * groups * nt float2 for each block of the grid.
+// Block b transforms clips b, b + gridDim.x, ...
+template <bool CHIRP, int MODE>
 __global__ void __launch_bounds__(FFT_THREADS, 2)
-mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
+mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_samples,
                 const float2* __restrict__ twiddles,  // (nt,) exp(-2 pi i k / nt)
                 const float* __restrict__ window,     // (n,) periodic Hann (FFT path)
                 const float2* __restrict__ pre,       // (n,) hann_n c_n (chirp mode)
@@ -286,242 +328,195 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
                 const int* __restrict__ mel_ranges,   // (n_mels, 3): first bin, count, offset
                 const float* __restrict__ mel_weights, int n_weights,
                 const float* __restrict__ dct,        // (n_mels, n_mfcc)
-                float* __restrict__ db_out,           // (batch, n_frames, n_mels) scratch (chirp mode)
+                float* __restrict__ db_out,           // (batch, n_frames, n_mels) scratch
+                float2* __restrict__ scratch,         // (gridDim.x, 2 * groups * nt) (MODE_DEVICE)
                 float* __restrict__ out,              // (batch, n_frames, n_mfcc)
                 int n, int nt, int hop, int n_mels, int n_mfcc, int n_frames, int groups, FftPlan plan,
                 int reflect, float top_db, int use_top_db) {
+  constexpr bool TW_LDG = MODE != MODE_SHARED;
+  constexpr bool DB_GLOBAL = CHIRP || MODE != MODE_SHARED;  // else the window and the dB tile are staged too
   extern __shared__ __align__(16) float smem[];
   const int n_bins = n / 2 + 1;
-  float2* tw_s = reinterpret_cast<float2*>(smem);                      // nt
-  float2* bufs = tw_s + nt;                                            // groups x 2 x nt
-  float* win_s = reinterpret_cast<float*>(bufs + fft_region(nt, groups, n_mels, n_mfcc));  // n (FFT path)
-  float* db_s = CHIRP ? db_out + blockIdx.x * (long long)n_frames * n_mels : win_s + n;     // n_frames * n_mels
-  float* wts_s = CHIRP ? win_s : db_s + n_frames * n_mels;             // n_weights
-  int* rng_s = reinterpret_cast<int*>(wts_s + n_weights);              // 3 * n_mels
+  float2* tw_s = reinterpret_cast<float2*>(smem);  // nt (MODE_SHARED)
+  float2* bufs;                                    // groups x 2 x nt
+  float* tail;                                     // the shared floats after them
+  if constexpr (MODE == MODE_DEVICE) {
+    bufs = scratch + static_cast<size_t>(blockIdx.x) * 2 * groups * nt;
+    tail = smem;
+  } else {
+    bufs = tw_s + (TW_LDG ? 0 : nt);
+    tail = reinterpret_cast<float*>(bufs + fft_region(nt, groups, n_mels, n_mfcc));
+  }
+  float* win_s = tail;                                                // n (staged window)
+  float* db_tile = DB_GLOBAL ? nullptr : win_s + n;                   // n_frames * n_mels (staged tile)
+  float* wts_s = DB_GLOBAL ? tail : db_tile + n_frames * n_mels;      // n_weights
+  int* rng_s = reinterpret_cast<int*>(wts_s + n_weights);             // 3 * n_mels
+  const float2* tw = TW_LDG ? twiddles : tw_s;
   __shared__ float red_s[FFT_THREADS / 32];
 
   const int tid = threadIdx.x;
-  for (int e = tid; e < nt; e += FFT_THREADS) tw_s[e] = twiddles[e];
-  if constexpr (!CHIRP) {
+  if constexpr (!TW_LDG) {
+    for (int e = tid; e < nt; e += FFT_THREADS) tw_s[e] = twiddles[e];
+  }
+  if constexpr (!DB_GLOBAL) {
     for (int e = tid; e < n; e += FFT_THREADS) win_s[e] = window[e];
   }
   for (int e = tid; e < n_weights; e += FFT_THREADS) wts_s[e] = mel_weights[e];
   for (int e = tid; e < 3 * n_mels; e += FFT_THREADS) rng_s[e] = mel_ranges[e];
   __syncthreads();
 
-  const long long clip = blockIdx.x;
-  const long long base = clip * n_samples;
   const int pad = n / 2;
   const int size = FFT_THREADS / groups, group = tid / size, rank = tid - group * size;
   float2* const buf0 = bufs + 2 * group * nt;
   float2* const buf1 = buf0 + nt;
-  float local_max = -CUDART_INF_F;
 
-  // Group g transforms frame pairs g, g + groups, ...: frame 2q windowed in
-  // the real part, 2q + 1 in the imaginary. Groups meet only at the end.
-  for (int f0 = 2 * group; f0 < n_frames; f0 += 2 * groups) {
-    for (int i = rank; i < nt; i += size) {
-      float2 u = make_float2(0.0f, 0.0f);
-      if (CHIRP ? i < n : true) {
-        const int src = f0 * hop + i - pad;
-        const float a = padded_sample(wav, is_int16, base, n_samples, src, reflect);
-        const float b =
-            f0 + 1 < n_frames ? padded_sample(wav, is_int16, base, n_samples, src + hop, reflect) : 0.0f;
-        if constexpr (CHIRP) {
-          u = cmul(make_float2(a, b), __ldg(pre + i));
-        } else {
-          const float w = win_s[i];
-          u = make_float2(a * w, b * w);
+  for (int clip = blockIdx.x; clip < batch; clip += gridDim.x) {
+    const long long base = static_cast<long long>(clip) * n_samples;
+    float* db_s = DB_GLOBAL ? db_out + static_cast<long long>(clip) * n_frames * n_mels : db_tile;
+    float local_max = -CUDART_INF_F;
+
+    // Group g transforms frame pairs g, g + groups, ...: frame 2q windowed in
+    // the real part, 2q + 1 in the imaginary. Groups meet only at the end.
+    for (int f0 = 2 * group; f0 < n_frames; f0 += 2 * groups) {
+      for (int i = rank; i < nt; i += size) {
+        float2 u = make_float2(0.0f, 0.0f);
+        if (CHIRP ? i < n : true) {
+          const int src = f0 * hop + i - pad;
+          const float a = padded_sample(wav, is_int16, base, n_samples, src, reflect);
+          const float b =
+              f0 + 1 < n_frames ? padded_sample(wav, is_int16, base, n_samples, src + hop, reflect) : 0.0f;
+          if constexpr (CHIRP) {
+            u = cmul(make_float2(a, b), __ldg(pre + i));
+          } else {
+            const float w = DB_GLOBAL ? __ldg(window + i) : win_s[i];
+            u = make_float2(a * w, b * w);
+          }
         }
-      }
-      buf0[i] = u;
-    }
-    group_sync(group, size);
-    float2* spec = run_stages(plan, buf0, buf1, tw_s, nt, rank, size, group);
-    if constexpr (CHIRP) {
-      // V = U * H; the inverse transform is the forward one on conjugates.
-      for (int k = rank; k < nt; k += size) {
-        const float2 v = cmul(spec[k], __ldg(ck + k));
-        spec[k] = make_float2(v.x, -v.y);
+        buf0[i] = u;
       }
       group_sync(group, size);
-      spec = run_stages(plan, spec, spec == buf0 ? buf1 : buf0, tw_s, nt, rank, size, group);
-    }
-    // spec holds the spectrum (chirp mode: Z_k = c_k conj(spec_k)); the other
-    // buffer takes the two frames' power.
-    float* pw = reinterpret_cast<float*>(spec == buf0 ? buf1 : buf0);
-    for (int k = rank; k < n_bins; k += size) {
-      const int kc = k == 0 ? 0 : n - k;
-      float2 z = spec[k], zc = spec[kc];
+      float2* spec = run_stages<TW_LDG>(plan, buf0, buf1, tw, nt, rank, size, group);
       if constexpr (CHIRP) {
-        z = cmul(__ldg(post + k), make_float2(z.x, -z.y));
-        zc = cmul(__ldg(post + kc), make_float2(zc.x, -zc.y));
+        // V = U * H; the inverse transform is the forward one on conjugates.
+        for (int k = rank; k < nt; k += size) {
+          const float2 v = cmul(spec[k], __ldg(ck + k));
+          spec[k] = make_float2(v.x, -v.y);
+        }
+        group_sync(group, size);
+        spec = run_stages<TW_LDG>(plan, spec, spec == buf0 ? buf1 : buf0, tw, nt, rank, size, group);
       }
-      const float ar = 0.5f * (z.x + zc.x), ai = 0.5f * (z.y - zc.y);
-      const float br = 0.5f * (z.y + zc.y), bi = 0.5f * (zc.x - z.x);
-      pw[k] = ar * ar + ai * ai;
-      pw[n_bins + k] = br * br + bi * bi;
+      // spec holds the spectrum (chirp mode: Z_k = c_k conj(spec_k)); the other
+      // buffer takes the two frames' power.
+      float* pw = reinterpret_cast<float*>(spec == buf0 ? buf1 : buf0);
+      for (int k = rank; k < n_bins; k += size) {
+        const int kc = k == 0 ? 0 : n - k;
+        float2 z = spec[k], zc = spec[kc];
+        if constexpr (CHIRP) {
+          z = cmul(__ldg(post + k), make_float2(z.x, -z.y));
+          zc = cmul(__ldg(post + kc), make_float2(zc.x, -zc.y));
+        }
+        const float ar = 0.5f * (z.x + zc.x), ai = 0.5f * (z.y - zc.y);
+        const float br = 0.5f * (z.y + zc.y), bi = 0.5f * (zc.x - z.x);
+        pw[k] = ar * ar + ai * ai;
+        pw[n_bins + k] = br * br + bi * bi;
+      }
+      group_sync(group, size);
+      const int nf = min(2, n_frames - f0);
+      for (int e = rank; e < nf * n_mels; e += size) {
+        const int h = e >= n_mels, mel = e - h * n_mels;
+        const int first = rng_s[3 * mel], count = rng_s[3 * mel + 1], off = rng_s[3 * mel + 2];
+        const float* row = pw + h * n_bins + first;
+        float acc = 0.0f;
+        for (int q = 0; q < count; ++q) acc = fmaf(row[q], wts_s[off + q], acc);
+        const float db = 10.0f * log10f(fmaxf(acc, 1e-10f));
+        db_s[(f0 + h) * n_mels + mel] = db;
+        local_max = fmaxf(local_max, db);
+      }
+      group_sync(group, size);  // the next pair's load rewrites the buffers
     }
-    group_sync(group, size);
-    const int nf = min(2, n_frames - f0);
-    for (int e = rank; e < nf * n_mels; e += size) {
-      const int h = e >= n_mels, mel = e - h * n_mels;
-      const int first = rng_s[3 * mel], count = rng_s[3 * mel + 1], off = rng_s[3 * mel + 2];
-      const float* row = pw + h * n_bins + first;
-      float acc = 0.0f;
-      for (int q = 0; q < count; ++q) acc = fmaf(row[q], wts_s[off + q], acc);
-      const float db = 10.0f * log10f(fmaxf(acc, 1e-10f));
-      db_s[(f0 + h) * n_mels + mel] = db;
-      local_max = fmaxf(local_max, db);
-    }
-    group_sync(group, size);  // the next pair's load rewrites the buffers
-  }
-  __syncthreads();  // every group is done with the buffers
+    __syncthreads();  // every group is done with the buffers
 
-  const float floor_db = use_top_db ? block_max<FFT_THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
-  float* dct_s = reinterpret_cast<float*>(bufs);
-  for (int e = tid; e < n_mels * n_mfcc; e += FFT_THREADS) dct_s[e] = dct[e];
-  if constexpr (!CHIRP) {
-    for (int e = tid; e < n_frames * n_mels; e += FFT_THREADS) db_s[e] = fmaxf(db_s[e], floor_db);
-  }
-  __syncthreads();
-
-  // Thread (frame quad q, coefficient j): frames 4q .. 4q + 3.
-  float* out_clip = out + clip * n_frames * n_mfcc;
-  const int quads = (n_frames + 3) / 4;
-  for (int e = tid; e < quads * n_mfcc; e += FFT_THREADS) {
-    const int q = e / n_mfcc, j = e - q * n_mfcc;
-    const float* rows[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) rows[i] = db_s + min(4 * q + i, n_frames - 1) * n_mels;
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int mel = 0; mel < n_mels; ++mel) {
-      const float d = dct_s[mel * n_mfcc + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(CHIRP ? fmaxf(rows[i][mel], floor_db) : rows[i][mel], d, acc[i]);
+    const float floor_db = use_top_db ? block_max<FFT_THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
+    const float* dct_t = dct;
+    if constexpr (MODE != MODE_DEVICE) {
+      float* dct_s = reinterpret_cast<float*>(bufs);
+      for (int e = tid; e < n_mels * n_mfcc; e += FFT_THREADS) dct_s[e] = dct[e];
+      dct_t = dct_s;
     }
+    if constexpr (!DB_GLOBAL) {
+      for (int e = tid; e < n_frames * n_mels; e += FFT_THREADS) db_s[e] = fmaxf(db_s[e], floor_db);
+    }
+    __syncthreads();
+
+    // Thread (frame quad q, coefficient j): frames 4q .. 4q + 3.
+    float* out_clip = out + static_cast<long long>(clip) * n_frames * n_mfcc;
+    const int quads = (n_frames + 3) / 4;
+    for (int e = tid; e < quads * n_mfcc; e += FFT_THREADS) {
+      const int q = e / n_mfcc, j = e - q * n_mfcc;
+      const float* rows[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (4 * q + i < n_frames) out_clip[(4 * q + i) * n_mfcc + j] = acc[i];
+      for (int i = 0; i < 4; ++i) rows[i] = db_s + min(4 * q + i, n_frames - 1) * n_mels;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int mel = 0; mel < n_mels; ++mel) {
+        const float d = dct_t[mel * n_mfcc + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[i] = fmaf(DB_GLOBAL ? fmaxf(rows[i][mel], floor_db) : rows[i][mel], d, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * q + i < n_frames) out_clip[(4 * q + i) * n_mfcc + j] = acc[i];
+    }
+    __syncthreads();  // the next clip rewrites the buffers and the dB tile
   }
 }
 
-size_t mfcc_fft_smem_bytes(int n, int nt, bool chirp, int groups, int n_mels, int n_mfcc, int n_frames,
-                           int n_weights) {
-  return sizeof(float2) * ((size_t)nt + fft_region(nt, groups, n_mels, n_mfcc)) +
-         sizeof(float) * ((chirp ? 0 : (size_t)n + (size_t)n_frames * n_mels) + n_weights) +
-         sizeof(int) * 3 * (size_t)n_mels;
+using MfccKernel = decltype(&mfcc_fft_kernel<false, MODE_SHARED>);
+
+MfccKernel pick_kernel(int chirp, int mode) {
+  static const MfccKernel table[2][3] = {
+      {mfcc_fft_kernel<false, MODE_SHARED>, mfcc_fft_kernel<false, MODE_LARGE>, mfcc_fft_kernel<false, MODE_DEVICE>},
+      {mfcc_fft_kernel<true, MODE_SHARED>, mfcc_fft_kernel<true, MODE_LARGE>, mfcc_fft_kernel<true, MODE_DEVICE>},
+  };
+  return table[chirp != 0][mode];
 }
 
-template <bool CHIRP>
-int mfcc_fft_set_smem(size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(mfcc_fft_kernel<CHIRP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// Shared memory of one block, in bytes (ops/mfcc.py::smem_bytes mirrors it).
+size_t mfcc_smem_bytes(int mode, bool chirp, int n, int nt, int groups, int n_mels, int n_mfcc, int n_frames,
+                       int n_weights) {
+  size_t bytes = sizeof(float) * (size_t)n_weights + sizeof(int) * 3 * (size_t)n_mels;
+  if (mode == MODE_DEVICE) return bytes;
+  bytes += sizeof(float2) * (size_t)fft_region(nt, groups, n_mels, n_mfcc);
+  if (mode == MODE_LARGE) return bytes;
+  bytes += sizeof(float2) * (size_t)nt;
+  if (!chirp) bytes += sizeof(float) * ((size_t)n + (size_t)n_frames * n_mels);
+  return bytes;
+}
+
+int set_smem(MfccKernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaFuncSetAttribute(mfcc_fft_kernel<CHIRP>,
-                                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                                               static_cast<int>(cudaSharedmemCarveoutMaxShared)));
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           static_cast<int>(cudaSharedmemCarveoutMaxShared)));
 }
 
-// The stage plan from the host's radices: their product must be nt.
-int make_plan(const int* radices, int n_stages, int nt, int groups, FftPlan* plan) {
-  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)))
+// The stage plan from the host's radices: their product must be nt, at most
+// MAX_SMEM_FFT unless the buffers live in device memory.
+int make_plan(const int* radices, int n_stages, int nt, int groups, int mode, FftPlan* plan) {
+  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)) ||
+      mode < MODE_SHARED || mode > MODE_DEVICE)
     return static_cast<int>(cudaErrorInvalidValue);
   plan->n_stages = n_stages;
   long long product = 1;
   for (int s = 0; s < n_stages; ++s) {
     const int r = radices[s];
-    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 8) return static_cast<int>(cudaErrorInvalidValue);
+    if (r != 2 && r != 3 && r != 4 && r != 5 && r != 7 && r != 8) return static_cast<int>(cudaErrorInvalidValue);
     plan->radix[s] = r;
     product *= r;
   }
-  return product == nt && nt <= 4096 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
-// DFT path
-
-constexpr int FT = 16;        // frames per tile
-constexpr int THREADS = 256;  // threads per block
-
-__global__ void __launch_bounds__(THREADS)
-mfcc_dft_kernel(const void* __restrict__ wav, int is_int16, int n_samples,
-                const float* __restrict__ cos_b,   // (n_fft, n_bins)
-                const float* __restrict__ sin_b,   // (n_fft, n_bins)
-                const float* __restrict__ mel_fb,  // (n_bins, n_mels)
-                const float* __restrict__ dct,     // (n_mels, n_mfcc)
-                float* __restrict__ out,           // (batch, n_frames, n_mfcc)
-                int n_fft, int hop, int n_bins, int n_mels, int n_mfcc, int n_frames,
-                int reflect, float top_db, int use_top_db) {
-  extern __shared__ float smem[];
-  const int tile_len = (FT - 1) * hop + n_fft;
-  float* wav_s = smem;                   // tile_len samples of the padded clip
-  float* pow_s = wav_s + tile_len;       // FT x n_bins power spectrum
-  float* db_s = pow_s + FT * n_bins;     // n_frames x n_mels dB values
-  __shared__ float red_s[THREADS / 32];
-
-  const int tid = threadIdx.x;
-  const long long clip = blockIdx.x;
-  const long long base = clip * n_samples;
-  const int pad = n_fft / 2;
-  float local_max = -CUDART_INF_F;
-
-  for (int f0 = 0; f0 < n_frames; f0 += FT) {
-    const int nf = min(FT, n_frames - f0);
-    const int len = (nf - 1) * hop + n_fft;
-    for (int p = tid; p < tile_len; p += THREADS)
-      wav_s[p] = p < len ? padded_sample(wav, is_int16, base, n_samples, f0 * hop + p - pad, reflect) : 0.0f;
-    __syncthreads();
-
-    for (int k = tid; k < n_bins; k += THREADS) {
-      float re[FT], im[FT];
-#pragma unroll
-      for (int f = 0; f < FT; ++f) { re[f] = 0.0f; im[f] = 0.0f; }
-      for (int n = 0; n < n_fft; ++n) {
-        const float c = __ldg(cos_b + n * n_bins + k);
-        const float s = __ldg(sin_b + n * n_bins + k);
-#pragma unroll
-        for (int f = 0; f < FT; ++f) {
-          const float v = wav_s[f * hop + n];
-          re[f] = fmaf(v, c, re[f]);
-          im[f] = fmaf(v, s, im[f]);
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < FT; ++f) {
-        if (f < nf) pow_s[f * n_bins + k] = re[f] * re[f] + im[f] * im[f];
-      }
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < nf * n_mels; idx += THREADS) {
-      const int f = idx / n_mels, m = idx - f * n_mels;
-      const float* pw = pow_s + f * n_bins;
-      float acc = 0.0f;
-      for (int k = 0; k < n_bins; ++k) acc = fmaf(pw[k], __ldg(mel_fb + k * n_mels + m), acc);
-      const float db = 10.0f * log10f(fmaxf(acc, 1e-10f));
-      db_s[(f0 + f) * n_mels + m] = db;
-      local_max = fmaxf(local_max, db);
-    }
-    __syncthreads();  // wav_s and pow_s are rewritten by the next tile
-  }
-
-  const float floor_db = use_top_db ? block_max<THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
-  float* out_clip = out + clip * n_frames * n_mfcc;
-  for (int idx = tid; idx < n_frames * n_mfcc; idx += THREADS) {
-    const int f = idx / n_mfcc, j = idx - f * n_mfcc;
-    const float* row = db_s + f * n_mels;
-    float acc = 0.0f;
-    for (int m = 0; m < n_mels; ++m) acc = fmaf(fmaxf(row[m], floor_db), __ldg(dct + m * n_mfcc + j), acc);
-    out_clip[idx] = acc;
-  }
-}
-
-// Shared memory the DFT kernel needs for these sizes, in bytes. Above the
-// 227 KB a block may use, cudaFuncSetAttribute refuses and the launch
-// reports the error.
-int mfcc_dft_smem_bytes(int n_fft, int hop, int n_bins, int n_mels, int n_frames) {
-  return static_cast<int>(sizeof(float)) * ((FT - 1) * hop + n_fft + FT * n_bins + n_frames * n_mels);
+  const bool fits = mode == MODE_DEVICE || nt <= MAX_SMEM_FFT;
+  return product == nt && fits ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -532,80 +527,52 @@ const char* error_string(int code) { return cudaGetErrorString(static_cast<cudaE
 
 int use_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
 
-// FFT path. radices: host array of n_stages radices in {2, 3, 4, 5, 8}
-// whose product is n_fft; groups: thread groups per block, each
-// transforming its own frame pairs (1, 2, 4 or 8: named barriers 1-8).
-int mfcc_fft_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles,
-                     const float* window, const int* mel_ranges, const float* mel_weights, int n_weights,
-                     const float* dct, float* out, int n_fft, int hop, int n_mels, int n_mfcc, int n_frames,
-                     int groups, const int* radices, int n_stages, int reflect, float top_db, int use_top_db,
-                     void* stream) {
+// Kernel A on `grid` blocks of 512 threads. FFT path (chirp 0): nt = n_fft,
+// window read, pre/post/kernel unused. Bluestein path (chirp 1): nt >= 2
+// n_fft - 1, pre, post (n_fft, 2) and kernel (nt, 2) from
+// ops/mfcc.py::bluestein_plan, window unused. radices: host array of
+// n_stages radices in {2, 3, 4, 5, 7, 8} whose product is nt; groups: thread
+// groups per block (1, 2, 4 or 8: named barriers 1-8); mode: where the
+// buffers live (MODE_*). db (batch, n_frames, n_mels) unless mode 0 on the
+// FFT path; scratch (grid, 2 * groups * nt, 2) in mode 2.
+int mfcc_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles, const float* window,
+                 const float* pre, const float* post, const float* kernel, const int* mel_ranges,
+                 const float* mel_weights, int n_weights, const float* dct, float* db, float* scratch, float* out,
+                 int n_fft, int nt, int hop, int n_mels, int n_mfcc, int n_frames, int groups, int grid,
+                 const int* radices, int n_stages, int chirp, int mode, int reflect, float top_db, int use_top_db,
+                 void* stream) {
+  if (chirp ? nt < 2 * n_fft - 1 : nt != n_fft) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid < 1 || (mode != MODE_DEVICE && grid != batch)) return static_cast<int>(cudaErrorInvalidValue);
+  if ((db == nullptr && (chirp || mode != MODE_SHARED)) || (scratch == nullptr && mode == MODE_DEVICE))
+    return static_cast<int>(cudaErrorInvalidValue);
   FftPlan plan;
-  int err = make_plan(radices, n_stages, n_fft, groups, &plan);
+  int err = make_plan(radices, n_stages, nt, groups, mode, &plan);
   if (err != 0) return err;
-  const size_t smem = mfcc_fft_smem_bytes(n_fft, n_fft, false, groups, n_mels, n_mfcc, n_frames, n_weights);
-  err = mfcc_fft_set_smem<false>(smem);
+  const MfccKernel fn = pick_kernel(chirp, mode);
+  const size_t smem = mfcc_smem_bytes(mode, chirp != 0, n_fft, nt, groups, n_mels, n_mfcc, n_frames, n_weights);
+  err = set_smem(fn, smem);
   if (err != 0) return err;
-  mfcc_fft_kernel<false><<<batch, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      wav, is_int16, n_samples, reinterpret_cast<const float2*>(twiddles), window, nullptr, nullptr, nullptr,
-      mel_ranges, mel_weights, n_weights, dct, nullptr, out, n_fft, n_fft, hop, n_mels, n_mfcc, n_frames, groups,
-      plan, reflect, top_db, use_top_db);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Bluestein path: the FFT kernel's chirp mode at transform size nt (>= 2 n_fft
-// - 1; radices multiply to nt). pre, post (n_fft, 2) and kernel (nt, 2) are
-// ops/mfcc.py::bluestein_plan's tables; db (batch, n_frames, n_mels) scratch.
-int mfcc_bluestein_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles,
-                           const float* pre, const float* post, const float* kernel, const int* mel_ranges,
-                           const float* mel_weights, int n_weights, const float* dct, float* db, float* out, int n_fft,
-                           int nt, int hop, int n_mels, int n_mfcc, int n_frames, int groups, const int* radices,
-                           int n_stages, int reflect, float top_db, int use_top_db, void* stream) {
-  if (nt < 2 * n_fft - 1) return static_cast<int>(cudaErrorInvalidValue);
-  FftPlan plan;
-  int err = make_plan(radices, n_stages, nt, groups, &plan);
-  if (err != 0) return err;
-  const size_t smem = mfcc_fft_smem_bytes(n_fft, nt, true, groups, n_mels, n_mfcc, n_frames, n_weights);
-  err = mfcc_fft_set_smem<true>(smem);
-  if (err != 0) return err;
-  mfcc_fft_kernel<true><<<batch, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      wav, is_int16, n_samples, reinterpret_cast<const float2*>(twiddles), nullptr,
+  fn<<<grid, FFT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      wav, is_int16, batch, n_samples, reinterpret_cast<const float2*>(twiddles), window,
       reinterpret_cast<const float2*>(pre), reinterpret_cast<const float2*>(post),
-      reinterpret_cast<const float2*>(kernel), mel_ranges, mel_weights, n_weights, dct, db, out, n_fft, nt, hop,
-      n_mels, n_mfcc, n_frames, groups, plan, reflect, top_db, use_top_db);
+      reinterpret_cast<const float2*>(kernel), mel_ranges, mel_weights, n_weights, dct, db,
+      reinterpret_cast<float2*>(scratch), out, n_fft, nt, hop, n_mels, n_mfcc, n_frames, groups, plan, reflect,
+      top_db, use_top_db);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the FFT kernel (chirp mode if chirp) that fit one SM at these
-// sizes (into *blocks), and its shared memory per block in bytes (into
-// *smem_bytes); nt is the transform size (n_fft on the FFT path).
-int mfcc_fft_occupancy(int n_fft, int nt, int chirp, int groups, int n_mels, int n_mfcc, int n_frames,
-                       int n_weights, int* blocks, int* smem_bytes) {
-  const size_t smem = mfcc_fft_smem_bytes(n_fft, nt, chirp != 0, groups, n_mels, n_mfcc, n_frames, n_weights);
+// Blocks of kernel A (chirp mode if chirp, buffers where mode says) that fit
+// one SM at these sizes (into *blocks), and its shared memory per block in
+// bytes (into *smem_bytes); nt is the transform size (n_fft on the FFT path).
+int mfcc_occupancy(int n_fft, int nt, int chirp, int mode, int groups, int n_mels, int n_mfcc, int n_frames,
+                   int n_weights, int* blocks, int* smem_bytes) {
+  if (mode < MODE_SHARED || mode > MODE_DEVICE) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = mfcc_smem_bytes(mode, chirp != 0, n_fft, nt, groups, n_mels, n_mfcc, n_frames, n_weights);
   *smem_bytes = static_cast<int>(smem);
-  if (chirp) {
-    const int err = mfcc_fft_set_smem<true>(smem);
-    if (err != 0) return err;
-    return static_cast<int>(
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mfcc_fft_kernel<true>, FFT_THREADS, smem));
-  }
-  const int err = mfcc_fft_set_smem<false>(smem);
+  const MfccKernel fn = pick_kernel(chirp, mode);
+  const int err = set_smem(fn, smem);
   if (err != 0) return err;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mfcc_fft_kernel<false>, FFT_THREADS, smem));
-}
-
-int mfcc_dft_forward(const void* wav, int is_int16, int batch, int n_samples,
-                     const float* cos_b, const float* sin_b, const float* mel_fb, const float* dct,
-                     float* out, int n_fft, int hop, int n_bins, int n_mels, int n_mfcc, int n_frames,
-                     int reflect, float top_db, int use_top_db, void* stream) {
-  const int smem = mfcc_dft_smem_bytes(n_fft, hop, n_bins, n_mels, n_frames);
-  cudaError_t err = cudaFuncSetAttribute(mfcc_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mfcc_dft_kernel<<<batch, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      wav, is_int16, n_samples, cos_b, sin_b, mel_fb, dct, out, n_fft, hop, n_bins, n_mels, n_mfcc,
-      n_frames, reflect, top_db, use_top_db);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, FFT_THREADS, smem));
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, mfcc
 KERNELS = (
     mfcc.MFCC_FFT_KERNEL,
     mfcc.MFCC_BLUESTEIN_KERNEL,
-    mfcc.MFCC_DFT_KERNEL,
+    mfcc.MFCC_LARGE_KERNEL,
+    mfcc.MFCC_DEVICE_KERNEL,
     conv1_bn_pool.BWD_PARAMS_KERNEL,
     conv1_bn_pool.BWD_INPUT_KERNEL,
     conv2_bn_pool.BWD_PARAMS_KERNEL,

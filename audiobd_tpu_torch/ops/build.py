@@ -27,6 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+MAX_SHARED_BYTES = 232_448  # the dynamic shared memory one block may use on the H100 (227 KB)
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}

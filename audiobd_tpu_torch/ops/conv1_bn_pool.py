@@ -30,6 +30,10 @@ BWD_PARAMS_KERNEL = CudaKernel(
     "conv1_bn_pool_bwd_params", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_params",
     [_P] * 9 + [_I] * 6,
 )
+# Kernel B stages a span of at most this many of a clip's pooled positions in
+# shared memory (32 bytes each: 96 KB, two blocks an SM); longer clips are cut
+# into equal spans whose partial sums the finish adds.
+PARAMS_SPAN = 3072
 BWD_INPUT_KERNEL = CudaKernel(
     "conv1_bn_pool_bwd_input", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_input",
     [_P] * 10 + [_I] * 5,
@@ -139,22 +143,19 @@ def _check_cuda(x, g, w5, *vecs, h12=None):
             raise ValueError(f"conv1_bn_pool: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _splits(m_valid: int) -> int:
-    """Blocks per channel for kernel B: about 32 positions per thread."""
-    return max(1, min(128, -(-m_valid // (256 * 32))))
-
-
 def conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, *, train_bn: bool) -> torch.Tensor:
-    """Kernel B: (9, C) = dw taps (4 rows), dbias, dgamma, dbeta, h1, h2."""
+    """Kernel B: (9, C) = dw taps (4 rows), dbias, dgamma, dbeta, h1, h2.
+    A block takes one span of at most ``PARAMS_SPAN`` of a clip's pooled
+    positions, so any clip length fits."""
     _check_cuda(x, g, w5, mu, inv, scale, shift)
     b, _, h, w = x.shape
     c = w5.shape[0]
-    splits = _splits(b * (h - 1) * ((w - 1) // 3))
-    partial = torch.empty((splits, 17, c), dtype=torch.float32, device=x.device)
+    chunks = -(-(h - 1) * ((w - 1) // 3) // PARAMS_SPAN)
+    partial = torch.empty((17, c, b * chunks), dtype=torch.float32, device=x.device)
     out = torch.empty((9, c), dtype=torch.float32, device=x.device)
     BWD_PARAMS_KERNEL(
         x.device, ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
-        ptr(partial), ptr(out), b, h, w, c, splits, int(train_bn),
+        ptr(partial), ptr(out), b, h, w, c, chunks, int(train_bn),
     )
     return out
 

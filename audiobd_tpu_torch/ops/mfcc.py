@@ -1,34 +1,37 @@
-"""Waveform → MFCC through the hand-written CUDA kernels of ``csrc/mfcc.cu``.
+"""Waveform → MFCC through the hand-written CUDA kernel of ``csrc/mfcc.cu``.
 
-Port of audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc. The kernel source has
-three paths, chosen by ``n_fft`` alone (``mfcc_path``):
+Port of audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc. Every n_fft goes through
+the kernel's Stockham stages, on one of two paths chosen by ``n_fft`` alone
+(``mfcc_path``):
 
-* ``"fft"``: n_fft whose prime factors are 2, 3 and 5 (400, the main path;
-  2048, the DABA and FlowMur settings), up to ``MAX_FFT``. A mixed-radix
-  Stockham FFT in shared memory, two real frames packed into one complex
-  transform, and the mel product over each band's nonzero bins. Its host
-  tables come from ``fft_plan`` and ``mel_ranges``.
-* ``"bluestein"``: every other n_fft whose Bluestein size L (a product of 2,
-  3 and 5 of at least 2·n_fft − 1, ``bluestein_size``) is at most
-  ``MAX_FFT``, i.e. every n_fft up to 2048 (1103, Ultrasonic's 44.1 kHz
-  setting, is prime). The same kernel in its chirp mode: the frame pair is
-  multiplied by the chirp, transformed at L, multiplied by the transformed
-  chirp kernel, transformed back and multiplied by the chirp again
+* ``"fft"``: n_fft whose prime factors are 2, 3, 5 and 7 (400, the main
+  path; 2048, the DABA and FlowMur settings; 2205 = 3²·5·7²). A mixed-radix
+  Stockham FFT, two real frames packed into one complex transform, and the
+  mel product over each band's nonzero bins. Its host tables come from
+  ``fft_plan`` and ``mel_ranges``.
+* ``"bluestein"``: every other n_fft (1103, Ultrasonic's 44.1 kHz setting,
+  is prime). The same kernel in its chirp mode: the frame pair is multiplied
+  by the chirp, transformed at a size L of 2, 3 and 5 of at least
+  2·n_fft − 1 (``bluestein_size``), multiplied by the transformed chirp
+  kernel, transformed back and multiplied by the chirp again
   (``bluestein_plan``).
-* ``"dft"``: anything larger (n_fft above 2048 with another prime factor,
-  or above ``MAX_FFT``). The matrix-form DFT against windowed bases.
 
-Each path that fails to build or launch raises; none stands in for another.
-Each has its own launch counter. On a CPU tensor the wrapper runs the plain
-version, ``dsp.mfcc`` of the dequantized waveform; ``mfcc_fft_plain`` and
-``mfcc_bluestein_plain`` walk the kernel paths' plans in plain torch, for
-the tests.
+Where the kernel keeps its buffers (``mfcc_route``) is a choice by size with
+a launch counter each: ``"mfcc_fft"`` and ``"mfcc_bluestein"``, everything
+in shared memory at two blocks an SM; ``"mfcc_fft_large"``, the buffers
+alone in shared memory, for transforms up to ``MAX_FFT``; and
+``"mfcc_fft_device"``, the buffers in a device-memory scratch, beyond it.
+A route that fails to build or launch raises; none stands in for another. On
+a CPU tensor the wrapper runs the plain version, ``dsp.mfcc`` of the
+dequantized waveform; ``mfcc_fft_plain`` and ``mfcc_bluestein_plain`` walk
+the kernel paths' plans in plain torch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,76 +39,123 @@ import torch
 
 from audiobd_tpu_torch.dsp import mel as _mel
 from audiobd_tpu_torch.dsp.mfcc import MFCCParams, mfcc
-from audiobd_tpu_torch.dsp.stft import _dft_bases, frame_signal, hann_window, num_frames
-from audiobd_tpu_torch.ops.build import CudaKernel, load_library, ptr
+from audiobd_tpu_torch.dsp.stft import frame_signal, hann_window, num_frames
+from audiobd_tpu_torch.ops.build import MAX_SHARED_BYTES, CudaKernel, load_library, ptr
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
-MAX_FFT = 4096  # the FFT path's largest n_fft: one frame pair's buffers fit shared memory
-FFT_BUFFER_BYTES = 52 * 1024  # the thread groups' ping-pong buffers (csrc/mfcc.cu's note)
+MAX_FFT = 8192  # the largest transform whose buffers fit one block's shared memory (csrc/mfcc.cu)
+MAX_STAGES = 8  # the kernel's plan holds at most this many Stockham stages
+FFT_BUFFER_BYTES = 52 * 1024  # the FFT path's thread groups' ping-pong buffers (csrc/mfcc.cu's note)
 # The chirp mode keeps its dB tile in device memory, so its buffers may take
-# what the FFT path gives the tile: two 256-thread groups at L = 2304.
+# what the FFT path gives the tile: two 256-thread groups at L = 2240.
 BLUESTEIN_BUFFER_BYTES = 76 * 1024
+# With twiddles, window and dB tile out of shared memory, the buffers take up
+# to this much: two groups at n_fft 2205 (80 KB a block, two blocks an SM).
+LARGE_BUFFER_BYTES = 96 * 1024
+TWO_BLOCKS_BYTES = 113 * 1024  # a block's shared memory with two blocks on an SM
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-MFCC_FFT_KERNEL = CudaKernel(
-    "mfcc_fft", "mfcc.cu", "mfcc_fft_forward",
-    [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _I, _I, _F, _I],
-)
-MFCC_BLUESTEIN_KERNEL = CudaKernel(
-    "mfcc_bluestein", "mfcc.cu", "mfcc_bluestein_forward",
-    [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I),
-     _I, _I, _F, _I],
-)
-MFCC_DFT_KERNEL = CudaKernel(
-    "mfcc_dft", "mfcc.cu", "mfcc_dft_forward",
-    [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I],
-)
+_ARGS = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+         ctypes.POINTER(_I), _I, _I, _I, _I, _F, _I]
+# One C entry point; a counter for each route (where the kernel keeps its buffers).
+MFCC_FFT_KERNEL = CudaKernel("mfcc_fft", "mfcc.cu", "mfcc_forward", _ARGS)
+MFCC_BLUESTEIN_KERNEL = CudaKernel("mfcc_bluestein", "mfcc.cu", "mfcc_forward", _ARGS)
+MFCC_LARGE_KERNEL = CudaKernel("mfcc_fft_large", "mfcc.cu", "mfcc_forward", _ARGS)
+MFCC_DEVICE_KERNEL = CudaKernel("mfcc_fft_device", "mfcc.cu", "mfcc_forward", _ARGS)
+MODE_SHARED, MODE_LARGE, MODE_DEVICE = 0, 1, 2
 
 
-def fft_radices(n_fft: int) -> tuple[int, ...] | None:
+def fft_radices(n_fft: int, primes: tuple[int, ...] = (3, 5, 7)) -> tuple[int, ...] | None:
     """The Stockham stages for ``n_fft`` in the order they run: radix 8 while
-    three factors of 2 remain, then 4 or 2, then the 3s and 5s; None when
-    n_fft has another prime factor or exceeds ``MAX_FFT``."""
-    if n_fft < 2 or n_fft > MAX_FFT:
+    three factors of 2 remain, then 4 or 2, then the odd ``primes`` in
+    order; None when n_fft has another prime factor or needs more than
+    ``MAX_STAGES`` stages."""
+    if n_fft < 2:
         return None
     n, twos = n_fft, 0
     while n % 2 == 0:
         n, twos = n // 2, twos + 1
     radices = [8] * (twos // 3) + {0: [], 1: [2], 2: [4]}[twos % 3]
-    for p in (3, 5):
+    for p in primes:
         while n % p == 0:
             n //= p
             radices.append(p)
-    return tuple(radices) if n == 1 else None
+    return tuple(radices) if n == 1 and len(radices) <= MAX_STAGES else None
 
 
 BLUESTEIN_SLACK = 1.05  # how far above the smallest Bluestein size the plan looks for fewer stages
+# The odd radices of a Bluestein size (at n_fft 1103, 2240 = 8·8·5·7 beat 2304: PERF.md).
+BLUESTEIN_PRIMES = (3, 5, 7)
 
 
-def bluestein_size(n_fft: int) -> int | None:
+def bluestein_size(n_fft: int, primes: tuple[int, ...] = BLUESTEIN_PRIMES) -> int | None:
     """The transform size L of the Bluestein path for ``n_fft``: among the
-    products of 2, 3 and 5 from 2·n_fft − 1 to ``BLUESTEIN_SLACK`` times the
-    smallest of them (and at most ``MAX_FFT``), the one with the fewest
-    Stockham stages, the smaller on a tie (at n_fft 1103: 2304 = 8·8·4·3·3,
-    5 stages, over 2250 = 2·3·3·5·5·5, 6 stages). None when no such L is at
-    most MAX_FFT."""
+    products of 2 and ``primes`` from 2·n_fft − 1 to ``BLUESTEIN_SLACK``
+    times the smallest of them, the one with the fewest Stockham stages, the
+    smaller on a tie (at n_fft 1103: 2240 = 8·8·5·7, 4 stages, over 2205 =
+    3·3·5·7·7, 5 stages). None for n_fft < 2 or past the plan's stages."""
     if n_fft < 2:
         return None
-    sizes = [n for n in range(2 * n_fft - 1, MAX_FFT + 1) if fft_radices(n) is not None]
-    if not sizes:
+    limit = 8 ** MAX_STAGES
+    first = next((n for n in itertools.count(2 * n_fft - 1) if n > limit or fft_radices(n, primes)), None)
+    if first is None or first > limit:
         return None
-    near = [n for n in sizes if n <= BLUESTEIN_SLACK * sizes[0]]
-    return min(near, key=lambda n: (len(fft_radices(n)), n))
+    near = [n for n in range(first, int(BLUESTEIN_SLACK * first) + 1) if fft_radices(n, primes) is not None]
+    return min(near, key=lambda n: (len(fft_radices(n, primes)), n))
 
 
 def mfcc_path(n_fft: int) -> str:
-    """"fft" when n_fft factors into 2, 3 and 5 and is at most MAX_FFT;
-    "bluestein" for any other n_fft with a Bluestein size (every n_fft up to
-    2048); "dft" beyond. A choice by shape: the paths compute the same
-    function."""
-    if fft_radices(n_fft) is not None:
-        return "fft"
-    return "bluestein" if bluestein_size(n_fft) is not None else "dft"
+    """"fft" when n_fft factors into 2, 3, 5 and 7, else "bluestein". A
+    choice by shape: the paths compute the same function."""
+    return "fft" if fft_radices(n_fft) is not None else "bluestein"
+
+
+def smem_bytes(mode: int, chirp: bool, n_fft: int, size: int, groups: int, params: MFCCParams,
+               n_frames: int) -> int:
+    """Shared memory of one block of the kernel, in bytes, as
+    csrc/mfcc.cu::mfcc_smem_bytes counts it."""
+    nbytes = 4 * mel_ranges(params)[1].size + 12 * params.n_mels
+    if mode == MODE_DEVICE:
+        return nbytes
+    nbytes += 8 * max(2 * groups * size, (params.n_mels * params.n_mfcc + 1) // 2)
+    if mode == MODE_LARGE:
+        return nbytes
+    return nbytes + 8 * size + (0 if chirp else 4 * (n_fft + n_frames * params.n_mels))
+
+
+class MfccRoute(NamedTuple):
+    path: str  # "fft" or "bluestein"
+    size: int  # the transform size: n_fft, or the Bluestein L
+    mode: int  # where the buffers live: MODE_SHARED, MODE_LARGE or MODE_DEVICE
+    groups: int  # thread groups of the 512-thread block
+    smem: int  # shared memory of one block, bytes
+    kernel: CudaKernel  # the route's launch counter
+
+
+def mfcc_route(params: MFCCParams, n_frames: int) -> MfccRoute:
+    """The kernel's route for these settings and frame count: everything in
+    shared memory (``MODE_SHARED``) where that layout fits two blocks an SM;
+    else the buffers alone in shared memory (``MODE_LARGE``) up to
+    ``MAX_FFT``; else the buffers in device memory (``MODE_DEVICE``).
+    ``MODE_LARGE`` serves every size up to ``MAX_FFT`` but is 6% slower on an
+    H100 at n_fft 400 and 10% at 1103 with the same groups
+    (``scripts/mfcc_fft_experiments.py``), so it is the second choice."""
+    path = mfcc_path(params.n_fft)
+    chirp = path == "bluestein"
+    size = bluestein_size(params.n_fft) if chirp else params.n_fft
+    if size is None:
+        raise ValueError(f"n_fft {params.n_fft} has no transform size the kernel can plan")
+    groups = fft_groups(size, BLUESTEIN_BUFFER_BYTES if chirp else FFT_BUFFER_BYTES)
+    smem = smem_bytes(MODE_SHARED, chirp, params.n_fft, size, groups, params, n_frames)
+    if size <= MAX_FFT and smem <= TWO_BLOCKS_BYTES:
+        return MfccRoute(path, size, MODE_SHARED, groups, smem,
+                         MFCC_BLUESTEIN_KERNEL if chirp else MFCC_FFT_KERNEL)
+    groups = fft_groups(size, LARGE_BUFFER_BYTES)
+    smem = smem_bytes(MODE_LARGE, chirp, params.n_fft, size, groups, params, n_frames)
+    if size <= MAX_FFT and smem <= MAX_SHARED_BYTES:
+        return MfccRoute(path, size, MODE_LARGE, groups, smem, MFCC_LARGE_KERNEL)
+    return MfccRoute(path, size, MODE_DEVICE, 1, smem_bytes(MODE_DEVICE, chirp, params.n_fft, size, 1, params,
+                                                            n_frames), MFCC_DEVICE_KERNEL)
 
 
 class FftPlan(NamedTuple):
@@ -118,7 +168,7 @@ class FftPlan(NamedTuple):
 def fft_plan(n_fft: int) -> FftPlan:
     radices = fft_radices(n_fft)
     if radices is None:
-        raise ValueError(f"n_fft {n_fft} is not a product of 2, 3 and 5 up to {MAX_FFT}")
+        raise ValueError(f"n_fft {n_fft} is not a product of 2, 3, 5 and 7 in at most {MAX_STAGES} stages")
     angle = -2.0 * np.pi * np.arange(n_fft) / n_fft
     twiddles = np.stack([np.cos(angle), np.sin(angle)], axis=1).astype(np.float32)
     return FftPlan(radices, twiddles, hann_window(n_fft).astype(np.float32))
@@ -142,15 +192,15 @@ def chirp(n_fft: int) -> np.ndarray:
 @functools.lru_cache(maxsize=8)
 def bluestein_plan(n_fft: int, size: int) -> BluesteinPlan:
     """Host tables of the Bluestein path at transform size ``size`` (L >=
-    2·n_fft − 1, a product of 2, 3 and 5), built in float64 and cast to f32.
+    2·n_fft − 1, a product of 2, 3, 5 and 7), built in float64 and cast to f32.
     With nk = (n² + k² − (k − n)²) / 2 the DFT is X_k = c_k Σ_n (x_n c_n)
     conj(c_{k−n}): a circular convolution at L of u = x·c (zero past N) with h
     (h_m = conj(c_|m|) for |m| < N, wrapped), done as FFT_L⁻¹(FFT_L(u)·FFT_L(h)).
     The kernel table carries the inverse's 1/L."""
     radices = fft_radices(size)
     if radices is None or size < 2 * n_fft - 1:
-        raise ValueError(f"Bluestein size {size} for n_fft {n_fft} must be a product of 2, 3 and 5 "
-                         f"of at least {2 * n_fft - 1} and at most {MAX_FFT}")
+        raise ValueError(f"Bluestein size {size} for n_fft {n_fft} must be a product of 2, 3, 5 and 7 "
+                         f"of at least {2 * n_fft - 1}")
     c = chirp(n_fft)
     h = np.zeros(size, np.complex128)
     h[:n_fft] = np.conj(c)
@@ -193,22 +243,21 @@ def fft_groups(n_fft: int, budget: int = FFT_BUFFER_BYTES) -> int:
     return groups
 
 
-def fft_occupancy(params: MFCCParams, n_samples: int, device: torch.device) -> tuple[int, int]:
-    """(blocks of the FFT kernel, in the mode ``mfcc_path`` picks, that fit
-    one SM; its shared memory per block in bytes) for clips of ``n_samples``,
-    from the CUDA runtime on ``device``."""
+def fft_occupancy(params: MFCCParams, n_samples: int, device: torch.device) -> tuple[MfccRoute, int]:
+    """(the route ``mfcc_route`` picks for clips of ``n_samples``, the blocks
+    of its kernel that fit one SM), from the CUDA runtime on ``device``."""
     n_frames = num_frames(n_samples, params.n_fft, params.hop_length)
-    chirped = mfcc_path(params.n_fft) == "bluestein"
-    size = bluestein_size(params.n_fft) if chirped else params.n_fft
-    groups = fft_groups(size, BLUESTEIN_BUFFER_BYTES if chirped else FFT_BUFFER_BYTES)
+    route = mfcc_route(params, n_frames)
     lib = load_library(MFCC_FFT_KERNEL.source)
     blocks, smem = _I(), _I()
-    for code in (lib.use_device(device.index or 0), lib.mfcc_fft_occupancy(
-            params.n_fft, size, int(chirped), groups, params.n_mels, params.n_mfcc, n_frames,
-            mel_ranges(params)[1].size, ctypes.byref(blocks), ctypes.byref(smem))):
+    for code in (lib.use_device(device.index or 0), lib.mfcc_occupancy(
+            params.n_fft, route.size, int(route.path == "bluestein"), route.mode, route.groups, params.n_mels,
+            params.n_mfcc, n_frames, mel_ranges(params)[1].size, ctypes.byref(blocks), ctypes.byref(smem))):
         if code:
-            raise RuntimeError(f"mfcc_fft_occupancy failed with CUDA error {code}")
-    return blocks.value, smem.value
+            raise RuntimeError(f"mfcc_occupancy failed with CUDA error {code}")
+    if smem.value != route.smem:
+        raise RuntimeError(f"kernel A's shared memory {smem.value} B differs from the host's count {route.smem} B")
+    return route, blocks.value
 
 
 # ---------------------------------------------------------------------------
@@ -336,21 +385,11 @@ def _bluestein_tables(params: MFCCParams, size: int, device: torch.device) -> tu
     )
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Windowed DFT bases, mel filterbank and DCT on ``device`` (float32)."""
-    cos_b, sin_b = _dft_bases(params.n_fft)
-    return tuple(
-        torch.from_numpy(a).to(device).contiguous()
-        for a in (cos_b, sin_b, params.mel_fb(), params.dct())
-    )
-
-
 def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     """(B, T) float32 or int16 PCM → (B, n_frames, n_mfcc) float32, the
     function of ``dsp.mfcc`` (int16 is scaled by 2⁻¹⁵ first). On a CUDA
-    tensor it launches the kernel of the path ``mfcc_path(params.n_fft)``
-    names: the FFT kernel, its chirp (Bluestein) mode, or the matrix DFT."""
+    tensor it launches the kernel on the route ``mfcc_route`` picks: the FFT
+    path or the chirp (Bluestein) mode, its buffers where the sizes allow."""
     if wavs.ndim != 2:
         raise ValueError(f"fused_mfcc expects (B, T), got {tuple(wavs.shape)}")
     if not wavs.is_cuda:
@@ -371,41 +410,32 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     is_int16 = int(wavs.dtype == torch.int16)
     reflect = int(params.pad_mode == "reflect")
     top_db, use_top_db = float(params.top_db or 0.0), int(params.top_db is not None)
-    path = mfcc_path(params.n_fft)
-    if path == "fft":
-        twiddles, window, ranges, weights, dct = _fft_tables(params, wavs.device)
-        radices = fft_plan(params.n_fft).radices
-        MFCC_FFT_KERNEL(
-            wavs.device,
-            ptr(wavs), is_int16, batch, n_samples,
-            ptr(twiddles), ptr(window), ptr(ranges), ptr(weights), weights.numel(), ptr(dct), ptr(out),
-            params.n_fft, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
-            fft_groups(params.n_fft), (_I * len(radices))(*radices), len(radices),
-            reflect, top_db, use_top_db,
-        )
-    elif path == "bluestein":
-        size = bluestein_size(params.n_fft)
-        twiddles, pre, post, kernel, ranges, weights, dct = _bluestein_tables(params, size, wavs.device)
-        radices = fft_radices(size)
-        db = torch.empty((batch, n_frames, params.n_mels), dtype=torch.float32, device=wavs.device)
-        MFCC_BLUESTEIN_KERNEL(
-            wavs.device,
-            ptr(wavs), is_int16, batch, n_samples,
-            ptr(twiddles), ptr(pre), ptr(post), ptr(kernel), ptr(ranges), ptr(weights), weights.numel(),
-            ptr(dct), ptr(db), ptr(out),
-            params.n_fft, size, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
-            fft_groups(size, BLUESTEIN_BUFFER_BYTES), (_I * len(radices))(*radices), len(radices),
-            reflect, top_db, use_top_db,
-        )
+    route = mfcc_route(params, n_frames)
+    chirped = route.path == "bluestein"
+    if chirped:
+        twiddles, pre, post, kernel, ranges, weights, dct = _bluestein_tables(params, route.size, wavs.device)
+        window = None
     else:
-        cos_b, sin_b, mel_fb, dct = _dft_tables(params, wavs.device)
-        MFCC_DFT_KERNEL(
-            wavs.device,
-            ptr(wavs), is_int16, batch, n_samples,
-            ptr(cos_b), ptr(sin_b), ptr(mel_fb), ptr(dct), ptr(out),
-            params.n_fft, params.hop_length, params.n_fft // 2 + 1, params.n_mels, params.n_mfcc,
-            n_frames, reflect, top_db, use_top_db,
-        )
+        twiddles, window, ranges, weights, dct = _fft_tables(params, wavs.device)
+        pre = post = kernel = None
+    radices = fft_radices(route.size)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=wavs.device)  # noqa: E731
+    db = None if route.mode == MODE_SHARED and not chirped else new(batch, n_frames, params.n_mels)
+    grid, scratch = batch, None
+    if route.mode == MODE_DEVICE:
+        # As many blocks as are resident (two an SM), each looping over clips.
+        grid = min(batch, 2 * torch.cuda.get_device_properties(wavs.device).multi_processor_count)
+        scratch = new(grid, 2 * route.groups * route.size, 2)
+    opt = lambda t: None if t is None else ptr(t)  # noqa: E731
+    route.kernel(
+        wavs.device,
+        ptr(wavs), is_int16, batch, n_samples,
+        ptr(twiddles), opt(window), opt(pre), opt(post), opt(kernel), ptr(ranges), ptr(weights), weights.numel(),
+        ptr(dct), opt(db), opt(scratch), ptr(out),
+        params.n_fft, route.size, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
+        route.groups, grid, (_I * len(radices))(*radices), len(radices), int(chirped), route.mode,
+        reflect, top_db, use_top_db,
+    )
     return out
 
 

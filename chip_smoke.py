@@ -10,8 +10,10 @@ no result, without them. Phases, each printing its own lines:
      path that runs it (max abs error within the stated tolerance), with the kernel's
      time, the plain version's and a one-call PyTorch yardstick's, and the
      least time the card could take for the same work (bound): 1a kernel
-     A's FFT, Bluestein and matrix-DFT paths, 1b kernels B and C, 1c kernels
-     D and E (E on the routing a D call wrote).
+     A's routes (the FFT path and the Bluestein path with everything in
+     shared memory; the buffers alone in shared memory, n_fft 2205 by
+     radix-7 stages; the buffers in device memory, n_fft 4097), 1b kernels B
+     and C, 1c kernels D and E (E on the routing a D call wrote).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
@@ -79,7 +81,7 @@ def max_err(torch, got, ref, rtol: float, atol: float) -> tuple[float, float, bo
 def mfcc_bound(wav, params) -> tuple[float, str, float, float]:
     """Least time for waveform → MFCC on ``wav`` (B, T): (ms, by, flops, bytes).
 
-    Operations per frame of the function, not of the kernel's matrix DFT:
+    Operations per frame of the function, not of the kernel's transforms:
     the window (n_fft multiplies); a real-input FFT of size n_fft at the
     conventional 2.5·n·log2(n) (half of a complex FFT's 5·n·log2(n)); the
     power (3 per bin); the mel product over the filterbank's nonzeros only
@@ -118,19 +120,22 @@ def mfcc_float64(torch, wav, params):
 def phase_mfcc(torch, ctx) -> list[dict]:
     from audiobd_tpu_torch.dsp import MFCCParams, mfcc
     from audiobd_tpu_torch.dsp.mel import amplitude_to_db
+    from audiobd_tpu_torch.dsp.stft import num_frames
     from audiobd_tpu_torch.ops import mfcc as op
     from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
-    print("phase 1a: MFCC kernel (A), FFT, Bluestein and matrix-DFT paths, vs plain dsp.mfcc; tolerance "
-          "rtol 1e-4, atol 1e-3 (f32 both; sums in another order)", flush=True)
+    print("phase 1a: MFCC kernel (A), every route, vs plain dsp.mfcc; tolerance rtol 1e-4, atol 1e-3 (f32 "
+          "both; sums in another order)", flush=True)
     rtol, atol = 1e-4, 1e-3
     gen = torch.Generator(device="cuda").manual_seed(0)
     # The main path's prep launches A on f32 chunks of 2048 clips and one
     # 1568-clip tail (20,000 clips); the other cases cover int16 PCM, librosa
     # parity and a batch that is not a multiple of anything. n_fft 1103
     # (Ultrasonic's 44.1 kHz setting, prime) takes the Bluestein path, at the
-    # 2048-clip chunk that Ultrasonic's prep will launch; n_fft 2205 (3²·5·7²,
-    # whose Bluestein size would pass 4096) the matrix-DFT path.
+    # 2048-clip chunk that Ultrasonic's prep will launch; n_fft 2205 (3²·5·7²)
+    # the FFT path by radix-7 stages with its buffers alone in shared memory;
+    # n_fft 4097 (17·241, L = 8232) the Bluestein path in device memory, at
+    # 256 clips and at more clips than the route's grid has blocks.
     wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
     tail = wav[:1568]
     pcm = torch.clamp(torch.round(wav[:256] * 32768.0), -32768, 32767).to(torch.int16)
@@ -139,8 +144,14 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     lib = MFCCParams(n_fft=2048, hop_length=512, parity="librosa")
     us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
     wide = MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)
-    kernels = {"fft": op.MFCC_FFT_KERNEL, "bluestein": op.MFCC_BLUESTEIN_KERNEL, "dft": op.MFCC_DFT_KERNEL}
+    deep = MFCCParams(sample_rate=44100, n_fft=4097, hop_length=441)
+    kernels = {k.name: k for k in (op.MFCC_FFT_KERNEL, op.MFCC_BLUESTEIN_KERNEL, op.MFCC_LARGE_KERNEL,
+                                   op.MFCC_DEVICE_KERNEL)}
     worst = dict.fromkeys(kernels, 0.0)
+    pcm44 = torch.clamp(torch.round(wav44[:64] * 32768.0), -32768, 32767).to(torch.int16)
+    # The device-memory route's grid is two blocks an SM, each looping over
+    # clips: 37 clips more make blocks take a second clip.
+    loop = 2 * torch.cuda.get_device_properties(0).multi_processor_count + 37
     for name, w, params in (
         ("torchaudio f32 (2048, 16000), main-path chunk", wav, ta),
         ("torchaudio f32 (1568, 16000), main-path tail", tail, ta),
@@ -148,11 +159,14 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         ("librosa f32 (64, 16000) n_fft 2048", wav[:64], lib),
         ("torchaudio f32 ragged (257, 16000)", torch.cat([wav[:256], wav[:1] * 0.5]), ta),
         ("torchaudio f32 (2048, 44100) n_fft 1103 hop 441, Ultrasonic's chunk", wav44, us),
-        ("torchaudio int16 (64, 44100) n_fft 1103 hop 441",
-         torch.clamp(torch.round(wav44[:64] * 32768.0), -32768, 32767).to(torch.int16), us),
-        ("torchaudio f32 (64, 44100) n_fft 2205 hop 441", wav44[:64], wide),
+        ("torchaudio int16 (64, 44100) n_fft 1103 hop 441", pcm44, us),
+        ("torchaudio f32 (2048, 44100) n_fft 2205 hop 441, radix 7", wav44, wide),
+        ("torchaudio int16 (64, 44100) n_fft 2205 hop 441", pcm44, wide),
+        ("torchaudio f32 (256, 44100) n_fft 4097 hop 441, device memory", wav44[:256], deep),
+        (f"torchaudio f32 ({loop}, 9000) n_fft 4097 hop 441, device memory, blocks loop over clips",
+         wav44[:loop, :9000], deep),
     ):
-        path = op.mfcc_path(params.n_fft)
+        path = op.mfcc_route(params, num_frames(w.shape[1], params.n_fft, params.hop_length)).kernel.name
         before = {p: k.launches for p, k in kernels.items()}
         got = op.fused_mfcc(w, params)
         torch.cuda.synchronize()
@@ -165,10 +179,11 @@ def phase_mfcc(torch, ctx) -> list[dict]:
               f"(rel to max {rel:.3e})")
         del got, ref
 
-    # The FFT's rounding differs from the matrix DFT's, so the card's kernels
-    # and the plain version are each also held against a float64 MFCC.
+    # The kernel's FFT rounds otherwise than the plain version's matrix DFT, so
+    # the card's kernels and the plain version are each also held against a float64 MFCC.
     for w, params, label in ((wav, ta, "FFT kernel (2048, 16000)"),
-                             (wav44, us, "Bluestein kernel (2048, 44100) n_fft 1103")):
+                             (wav44, us, "Bluestein kernel (2048, 44100) n_fft 1103"),
+                             (wav44[:512], wide, "radix-7 kernel (512, 44100) n_fft 2205")):
         truth = mfcc_float64(torch, w, params)
         for name, got in ((label, op.fused_mfcc(w, params)), (f"plain dsp.mfcc at n_fft {params.n_fft}",
                                                                mfcc(w, params))):
@@ -192,9 +207,10 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         return library
 
     rows = []
-    for path, w, params, label in (("fft", wav, ta, "(2048, 16000) f32"),
-                                   ("bluestein", wav44, us, "(2048, 44100) f32"),
-                                   ("dft", wav44[:64], wide, "(64, 44100) f32")):
+    for path, w, params, label in (("mfcc_fft", wav, ta, "(2048, 16000) f32"),
+                                   ("mfcc_bluestein", wav44, us, "(2048, 44100) f32"),
+                                   ("mfcc_fft_large", wav44, wide, "(2048, 44100) f32"),
+                                   ("mfcc_fft_device", wav44[:256], deep, "(256, 44100) f32")):
         kernel = kernels[path]
         library = yardstick(w, params)
         ms = time_ms(torch, lambda: op.fused_mfcc(w, params), 10)
@@ -207,19 +223,27 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         rows.append({"name": kernel.name, "route": "cuda", "source": "audiobd_tpu_torch/csrc/mfcc.cu",
                      "replaces": "audiobd_tpu/ops/pallas_mfcc.py:129", "max_abs_err": worst[path], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms})
+    narrow = wav44[:64]
+    library = yardstick(narrow, wide)
+    print(f"  MFCC mfcc_fft_large path (64, 44100) f32 n_fft 2205: kernel "
+          f"{time_ms(torch, lambda: op.fused_mfcc(narrow, wide), 10):.4f} ms, torch.stft yardstick "
+          f"{time_ms(torch, library, 10):.4f} ms, bound {mfcc_bound(narrow, wide)[0]:.4f} ms", flush=True)
     tail_ms = time_ms(torch, lambda: op.fused_mfcc(tail, ta), 10)
     print(f"  MFCC fft path (1568, 16000) f32 tail: kernel {tail_ms:.4f} ms, bound {mfcc_bound(tail, ta)[0]:.4f} ms",
           flush=True)
     lib_ms = time_ms(torch, lambda: op.fused_mfcc(wav[:64], lib), 10)
     print(f"  MFCC fft path (64, 16000) f32 n_fft 2048: kernel {lib_ms:.4f} ms, bound "
           f"{mfcc_bound(wav[:64], lib)[0]:.4f} ms", flush=True)
-    for params, n_samples in ((ta, 16000), (lib, 16000), (us, 44100)):
-        blocks, smem = op.fft_occupancy(params, n_samples, torch.device("cuda"))
-        mode = op.mfcc_path(params.n_fft)
-        size = op.bluestein_size(params.n_fft) if mode == "bluestein" else params.n_fft
-        print(f"  FFT kernel ({mode}) at n_fft {params.n_fft}, transform {size}: {smem} B shared memory a "
-              f"block, {blocks} blocks ({blocks * 512} threads) per SM", flush=True)
-        check(blocks * 512 >= 1024, f"FFT kernel ({mode}) at n_fft {params.n_fft} keeps >= 1024 threads per SM")
+    # The sizes that ran two blocks an SM before keep them; the larger
+    # transforms state theirs.
+    for params, n_samples, two_blocks in ((ta, 16000, True), (lib, 16000, True), (us, 44100, True),
+                                          (wide, 44100, False), (deep, 44100, False)):
+        route, blocks = op.fft_occupancy(params, n_samples, torch.device("cuda"))
+        print(f"  kernel A ({route.kernel.name}, {route.path} path) at n_fft {params.n_fft}, transform "
+              f"{route.size}, {route.groups} thread group(s): {route.smem} B shared memory a block, {blocks} "
+              f"blocks ({blocks * 512} threads) per SM", flush=True)
+        if two_blocks:
+            check(blocks * 512 >= 1024, f"kernel A at n_fft {params.n_fft} keeps >= 1024 threads per SM")
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
     return rows
 
@@ -327,8 +351,8 @@ def phase_conv1(torch, ctx) -> list[dict]:
           f"{3 * n_pc}, {n_win_active} active winners", flush=True)
     bb, byb = bound(flops_b, x_bytes + g_bytes + 4 * 11 * c)
     bc, byc = bound(flops_c, 2 * x_bytes + g_bytes + 4 * 13 * c)
-    print(f"  B params bwd: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, autograd yardstick "
-          f"{lib_b:.4f} ms, bound {bb:.4f} ms ({byb})", flush=True)
+    print(f"  B params bwd (partial pass + finish, one wrapper call): kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
+          f"autograd yardstick {lib_b:.4f} ms, bound {bb:.4f} ms ({byb})", flush=True)
     print(f"  C input bwd: kernel {ms_c:.4f} ms, plain (B+C) {plain_bc:.4f} ms, autograd dx "
           f"yardstick {lib_c:.4f} ms, bound {bc:.4f} ms ({byc})", flush=True)
     src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
@@ -548,7 +572,7 @@ def run_cli(torch, kernels, label: str, flags: list[str]) -> tuple[dict[str, int
 def phase_main_path(torch, kernels) -> tuple[dict[str, int], float]:
     launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [])
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
-    for name in ("mfcc_bluestein", "mfcc_dft"):
+    for name in ("mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device"):
         check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none: no caller yet)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Where kernel A's FFT and Bluestein paths spend their time, by varying one
-knob at a time.
+"""Where kernel A's routes spend their time, by varying one knob at a time.
 
     python3 scripts/mfcc_fft_experiments.py
 
@@ -15,9 +14,23 @@ kernel (CUDA events, 20 launches after warm-up) while changing:
 At Ultrasonic's chunk, (2048, 44100) f32 clips at n_fft 1103, hop 441:
   * the Bluestein size L (2250, 2304, 2400, 2560), with each one's shared
     memory and blocks per SM: the measurement behind ops/mfcc.py's rule;
+  * a 7-smooth L, 2240 = 8x8x5x7 (4 stages, the rule's), beside 2304, the
+    measurement behind BLUESTEIN_PRIMES;
   * thread groups (1, 2, 4) at the chosen L;
-  * the matrix-DFT kernel at the same shape (the path n_fft 1103 took before
-    the Bluestein path) and the torch.stft + matmul yardstick.
+  * the torch.stft + matmul yardstick.
+At (2048, 44100) f32 clips at n_fft 2205 (3^2 x 5 x 7^2), hop 441, the
+radix-7 FFT path with its buffers alone in shared memory:
+  * thread groups (1, 2) and the order of the radices (3, 3, 5, 7, 7 or
+    7, 7, 5, 3, 3);
+  * the torch.stft + matmul yardstick.
+And n_fft 4097 (L = 8232 in device memory) at (256, 44100). Last, at the
+two sizes whose layout fits everything in shared memory, n_fft 400 at
+(2048, 16000) and n_fft 1103 at (2048, 44100), the route as chosen
+(MODE_SHARED: twiddles, window and the FFT path's dB tile staged in shared
+memory) against the same groups with only the buffers in shared memory
+(MODE_LARGE: tables read through the read-only cache, dB tile in device
+memory), in turns, three rounds each, so the spread between rounds is
+printed beside the gap.
 Prints the card's name and power limit first. Needs a CUDA device.
 """
 
@@ -82,9 +95,10 @@ def main() -> int:
     us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
     chosen_size, chosen_groups = op.bluestein_size, op.fft_groups
     try:
-        for size in (2250, 2304, 2400, 2560):
-            op.bluestein_size = lambda n_fft, size=size: size
-            blocks, smem = op.fft_occupancy(us, 44100, torch.device("cuda"))
+        for size in (2240, 2250, 2304, 2400, 2560):
+            op.bluestein_size = lambda n_fft, primes=None, size=size: size
+            route, blocks = op.fft_occupancy(us, 44100, torch.device("cuda"))
+            smem = route.smem
             print(f"Bluestein n_fft 1103 (2048, 44100), L {size} = {'x'.join(map(str, op.fft_radices(size)))}: "
                   f"{time_ms(lambda: op.fused_mfcc(wav44, us), 10):.4f} ms ({smem} B a block, {blocks} blocks "
                   f"per SM)", flush=True)
@@ -97,22 +111,63 @@ def main() -> int:
         op.bluestein_size, op.fft_groups = chosen_size, chosen_groups
     print(f"Bluestein (chosen L {op.bluestein_size(1103)}) (2048, 44100): "
           f"{time_ms(lambda: op.fused_mfcc(wav44, us), 10):.4f} ms", flush=True)
-    chosen_path = op.mfcc_path
+
+    def yardstick(w, params):
+        mel_fb, dct = torch.from_numpy(params.mel_fb()).cuda(), torch.from_numpy(params.dct()).cuda()
+        window = torch.hann_window(params.n_fft, periodic=True, device="cuda")
+
+        def library():
+            spec = torch.stft(w, params.n_fft, params.hop_length, window=window, center=True,
+                              pad_mode=params.pad_mode, return_complex=True).abs().pow(2)
+            return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb, top_db=params.top_db) @ dct
+
+        return time_ms(library, 10)
+
+    print(f"torch.stft + matmul yardstick n_fft 1103 (2048, 44100): {yardstick(wav44, us):.4f} ms", flush=True)
+
+    wide = MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)
+    chosen_radices = op.fft_radices
     try:
-        op.mfcc_path = lambda n_fft: "dft"
-        print(f"matrix-DFT kernel n_fft 1103 (2048, 44100): {time_ms(lambda: op.fused_mfcc(wav44, us), 3):.4f} ms",
-              flush=True)
+        for groups in (1, 2):
+            op.fft_groups = lambda n_fft, budget=None, groups=groups: groups
+            route, blocks = op.fft_occupancy(wide, 44100, torch.device("cuda"))
+            print(f"n_fft 2205 (2048, 44100), {route.kernel.name}, {groups} thread groups: "
+                  f"{time_ms(lambda: op.fused_mfcc(wav44, wide), 10):.4f} ms ({route.smem} B a block, {blocks} "
+                  f"blocks per SM)", flush=True)
+        op.fft_groups = chosen_groups
+        op.fft_radices = lambda n, primes=(3, 5, 7): (7, 7, 5, 3, 3) if n == 2205 else chosen_radices(n, primes)
+        print(f"n_fft 2205 (2048, 44100), radices 7, 7, 5, 3, 3: "
+              f"{time_ms(lambda: op.fused_mfcc(wav44, wide), 10):.4f} ms", flush=True)
     finally:
-        op.mfcc_path = chosen_path
-    mel_fb, dct = torch.from_numpy(us.mel_fb()).cuda(), torch.from_numpy(us.dct()).cuda()
-    window = torch.hann_window(us.n_fft, periodic=True, device="cuda")
+        op.fft_groups, op.fft_radices = chosen_groups, chosen_radices
+    print(f"n_fft 2205 (2048, 44100), as chosen: {time_ms(lambda: op.fused_mfcc(wav44, wide), 10):.4f} ms",
+          flush=True)
+    print(f"torch.stft + matmul yardstick n_fft 2205 (2048, 44100): {yardstick(wav44, wide):.4f} ms", flush=True)
+    deep = MFCCParams(sample_rate=44100, n_fft=4097, hop_length=441)
+    route, blocks = op.fft_occupancy(deep, 44100, torch.device("cuda"))
+    print(f"n_fft 4097 (256, 44100), {route.kernel.name}, L {route.size}: "
+          f"{time_ms(lambda: op.fused_mfcc(wav44[:256], deep), 10):.4f} ms ({blocks} blocks per SM); torch.stft "
+          f"yardstick {yardstick(wav44[:256], deep):.4f} ms", flush=True)
 
-    def library():
-        spec = torch.stft(wav44, us.n_fft, us.hop_length, window=window, center=True, pad_mode=us.pad_mode,
-                          return_complex=True).abs().pow(2)
-        return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb, top_db=us.top_db) @ dct
+    chosen_route = op.mfcc_route
 
-    print(f"torch.stft + matmul yardstick n_fft 1103 (2048, 44100): {time_ms(library, 10):.4f} ms", flush=True)
+    def large_route(params, n_frames):
+        route = chosen_route(params, n_frames)
+        smem = op.smem_bytes(op.MODE_LARGE, route.path == "bluestein", params.n_fft, route.size, route.groups,
+                             params, n_frames)
+        return route._replace(mode=op.MODE_LARGE, smem=smem, kernel=op.MFCC_LARGE_KERNEL)
+
+    for label, w, params in (("n_fft 400 (2048, 16000)", wav, base), ("n_fft 1103 (2048, 44100)", wav44, us)):
+        times = {"shared": [], "large": []}
+        try:
+            for _ in range(3):
+                for mode, route_fn in (("shared", chosen_route), ("large", large_route)):
+                    op.mfcc_route = route_fn
+                    times[mode].append(time_ms(lambda: op.fused_mfcc(w, params), 10))
+        finally:
+            op.mfcc_route = chosen_route
+        print(f"{label}: MODE_SHARED {', '.join(f'{t:.4f}' for t in times['shared'])} ms; MODE_LARGE, same "
+              f"groups, {', '.join(f'{t:.4f}' for t in times['large'])} ms", flush=True)
     return 0
 
 

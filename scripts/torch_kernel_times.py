@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Times kernels A, B and D of a checkout of the PyTorch/CUDA port, so that
+two checkouts can be compared on one card in one call.
+
+    python3 scripts/torch_kernel_times.py [--root DIR] [--label NAME]
+
+Imports ``audiobd_tpu_torch`` from ``--root`` (default: this checkout) and
+times, by CUDA events over 10 (A) or 20 (B, D) launches after warm-up,
+through the wrappers the versions share:
+  * A at the main path's chunk, (2048, 16000) f32, n_fft 400;
+  * A at Ultrasonic's chunk, (2048, 44100) f32, n_fft 1103, hop 441;
+  * A at (2048, 44100) and (64, 44100) f32, n_fft 2205, hop 441;
+  * B (``conv1_bn_pool_bwd_params``, train and eval mode) at the main
+    path's shape: x = the MFCC features of 256 clips, SmallCNN's block-1
+    parameters (seed 35), g (256, 64, 100, 13) from a seeded generator;
+  * D (``conv2_bn_pool_bwd_params``) at full width, block 2 (x (256, 64,
+    100, 13), g (256, 64, 50, 7), pool padding (1, 1)) and block 3 (x (256,
+    64, 50, 7), g (256, 32, 24, 4), pool padding (0, 1)), random inputs with
+    many relu zeros; then five launches of each under torch.profiler, with
+    the device time of each CUDA kernel it launched (D's passes).
+Run it for two checkouts in turns (parent, change, change, parent) to
+compare them. Prints the card's name and power limit first; needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--label", default=None)
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.dsp import MFCCParams
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op1
+    from audiobd_tpu_torch.ops import conv2_bn_pool as op2
+    from audiobd_tpu_torch.ops import mfcc as op
+    from audiobd_tpu_torch.utils.device import resolve_device
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    resolve_device(None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    label = args.label or args.root
+    print(f"[{label}] {smi}", flush=True)
+
+    def time_ms(fn, iters):
+        for _ in range(2):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
+    wav44 = torch.randn(2048, 44100, device="cuda", generator=gen) * 0.1
+    for name, w, params in (
+        ("A n_fft 400 (2048, 16000)", wav, MFCCParams()),
+        ("A n_fft 1103 (2048, 44100)", wav44, MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)),
+        ("A n_fft 2205 (2048, 44100)", wav44, MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)),
+        ("A n_fft 2205 (64, 44100)", wav44[:64], MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)),
+    ):
+        print(f"[{label}] {name}: {time_ms(lambda: op.fused_mfcc(w, params), 10):.4f} ms", flush=True)
+
+    x = op.fused_mfcc(wav[:256], MFCCParams())[:, None].contiguous()
+    del wav, wav44
+    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True)
+    w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
+    gamma, beta = model.bn1.weight.detach(), model.bn1.bias.detach()
+    r = torch.clamp(F.conv2d(x, w, b), min=0.0)
+    mu = r.mean(dim=(0, 2, 3))
+    inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op1.EPS)
+    scale = gamma * inv
+    shift = beta - mu * scale
+    g = torch.randn(256, 64, 100, 13, device="cuda", generator=gen)
+    w5 = op1._w5(w, b)
+    for mode, train in (("train", True), ("eval", False)):
+        ms = time_ms(lambda: op1.conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train), 20)
+        print(f"[{label}] B {mode} (256, 1, 101, 40) x (256, 64, 100, 13): {ms:.4f} ms", flush=True)
+
+    for name, (b, cin, h, w, c), pad in (("block 2", (256, 64, 100, 13, 64), (1, 1)),
+                                        ("block 3", (256, 64, 50, 7, 32), (0, 1))):
+        x = torch.relu(torch.randn(b, cin, h, w, device="cuda", generator=gen))
+        weight = torch.randn(c, cin, 2, 2, device="cuda", generator=gen) * 0.1
+        bias = torch.randn(c, device="cuda", generator=gen) * 0.1 - 0.2
+        _, _, ho, wo, _, _ = op2.pool_dims(h, w, pad)
+        g = torch.randn(b, c, ho, wo, device="cuda", generator=gen) * 1e-3
+        mu = torch.rand(c, device="cuda", generator=gen) * 0.3
+        inv = torch.rsqrt(torch.rand(c, device="cuda", generator=gen) + 0.5)
+        scale = (1.0 + 0.3 * torch.randn(c, device="cuda", generator=gen)) * inv
+        shift = 0.1 * torch.randn(c, device="cuda", generator=gen) - mu * scale
+        w257 = op2.w257(weight, bias)
+
+        def launch():
+            return op2.conv2_bn_pool_bwd_params(x, g, w257, mu, inv, scale, shift, pool_padding=pad)
+
+        print(f"[{label}] D {name} x {tuple(x.shape)}: {time_ms(launch, 20):.4f} ms", flush=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                launch()
+            torch.cuda.synchronize()
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                entry = by_name.setdefault(e.name, [0.0, 0])
+                entry[0] += e.time_range.end - e.time_range.start
+                entry[1] += 1
+        for kernel, (us, count) in by_name.items():
+            print(f"[{label}]   {kernel[:60]}: {us / count / 1e3:.4f} ms a launch ({count} launches)", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

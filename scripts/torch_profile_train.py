@@ -26,7 +26,7 @@ from collections import defaultdict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 # Name fragments of the __global__ functions in audiobd_tpu_torch/csrc/.
-HAND_WRITTEN = ("mfcc_fft_kernel", "mfcc_dft_kernel", "bwd_params_", "bwd_input_", "conv2_route", "conv2_params_",
+HAND_WRITTEN = ("mfcc_fft_kernel", "bwd_params_", "bwd_input_", "conv2_route", "conv2_params_",
                 "conv2_input_")
 
 

@@ -7,7 +7,8 @@ pre (hann·c), post (c) and kernel (FFT_L(h) / L) tables. ``bluestein_fft``
 walks the kernel's steps on top of ``stockham_fft`` and is held against
 numpy's FFT; ``mfcc_bluestein_plain`` walks the whole path and is held
 against audiobd_tpu.dsp.mfcc_features and audiobd_tpu.ops.pallas_mfcc.
-fused_mfcc (interpret mode) at Ultrasonic's 44.1 kHz settings.
+fused_mfcc (interpret mode) at Ultrasonic's 44.1 kHz settings. Bluestein
+sizes are products of 2, 3, 5 and 7 (``BLUESTEIN_PRIMES``).
 
 Tolerances: MFCC rtol 1e-4, atol 1e-3, as tests/test_pallas_mfcc.py (f32 on
 both sides, sums in another order). The f32 Bluestein DFT against numpy's
@@ -30,10 +31,11 @@ from audiobd_tpu_torch.ops import mfcc as op
 RTOL, ATOL = 1e-4, 1e-3
 ULTRASONIC = dict(sample_rate=44100, n_mfcc=40, n_fft=1103, hop_length=441, parity="torchaudio")
 SIZES = {  # n_fft: (L, radices)
-    1103: (2304, (8, 8, 4, 3, 3)),  # prime: Ultrasonic's setting; 2250 = 2·3²·5³ has 6 stages
-    882: (1800, (8, 3, 3, 5, 5)),  # 2 · 3² · 7²
-    97: (200, (8, 5, 5)),
-    2039: (4096, (8, 8, 8, 8)),  # prime; the largest L, MAX_FFT
+    1103: (2240, (8, 8, 5, 7)),  # prime: Ultrasonic's setting; 2205 = 3²·5·7² has 5 stages
+    882: (1792, (8, 8, 4, 7)),  # 2 · 3² · 7² (the FFT path's; its Bluestein tables still hold)
+    97: (196, (4, 7, 7)),  # 200 = 8·5·5 ties on stages: the smaller wins
+    2039: (4096, (8, 8, 8, 8)),  # prime; the largest L whose layout fits two blocks an SM
+    4097: (8232, (8, 3, 7, 7, 7)),  # 17 · 241: L past MAX_FFT, the device-memory route
 }
 
 
@@ -65,16 +67,16 @@ def test_bluestein_plan_tables(n_fft):
 
 @pytest.mark.parametrize("n_fft", [1103, 882, 97, 2039, 4097, 8192])
 def test_bluestein_size_rule(n_fft):
-    """The smallest product of 2, 3, 5 of at least 2N − 1, or one no more
-    than BLUESTEIN_SLACK above it with fewer Stockham stages; None past
-    MAX_FFT (those n_fft take the matrix DFT)."""
-    smooth = [n for n in range(2 * n_fft - 1, op.MAX_FFT + 1) if op.fft_radices(n) is not None]
+    """The smallest product of 2 and BLUESTEIN_PRIMES of at least 2N − 1, or
+    one no more than BLUESTEIN_SLACK above it with fewer Stockham stages; a
+    size for every N (past MAX_FFT the buffers live in device memory)."""
+    primes = op.BLUESTEIN_PRIMES
     size = op.bluestein_size(n_fft)
-    if not smooth:
-        assert size is None and op.mfcc_path(n_fft) != "bluestein"
-        return
-    assert smooth[0] <= size <= op.BLUESTEIN_SLACK * smooth[0]
-    assert all(len(op.fft_radices(size)) <= len(op.fft_radices(n)) for n in smooth if n <= size)
+    first = next(n for n in range(2 * n_fft - 1, 8 * n_fft) if op.fft_radices(n, primes) is not None)
+    smooth = [n for n in range(first, size + 1) if op.fft_radices(n, primes) is not None]
+    assert first <= size <= op.BLUESTEIN_SLACK * first
+    assert all(len(op.fft_radices(size, primes)) <= len(op.fft_radices(n, primes)) for n in smooth)
+    assert op.fft_radices(size) == op.fft_radices(size, primes)  # the kernel's plan of L
 
 
 @pytest.mark.parametrize("n_fft", sorted(SIZES))
@@ -115,10 +117,10 @@ def test_mfcc_bluestein_plain_matches_jax(dtype):
 
 
 def test_mfcc_bluestein_plain_other_sizes_match_dsp():
-    """n_fft 882 without top_db and 97 with 40 mels (L 1800 and 200) against
+    """n_fft 874 without top_db and 97 with 40 mels (L 1792 and 196) against
     the port's own plain dsp.mfcc, which the tests above tie to the JAX package."""
     x = torch.from_numpy((np.random.default_rng(7).standard_normal((2, 16000)) * 0.1).astype(np.float32))
-    for kw in (dict(n_fft=882, hop_length=160, top_db=None), dict(n_fft=97, hop_length=160, n_mels=40, n_mfcc=13)):
+    for kw in (dict(n_fft=874, hop_length=160, top_db=None), dict(n_fft=97, hop_length=160, n_mels=40, n_mfcc=13)):
         params = MFCCParams(**kw)
         assert op.mfcc_path(params.n_fft) == "bluestein"
         torch.testing.assert_close(op.mfcc_bluestein_plain(x, params), op.fused_mfcc(x, params), rtol=RTOL, atol=ATOL)

@@ -3,8 +3,10 @@ against numpy and the JAX package.
 
 The CUDA kernel runs only on the card; what it reads from the host is
 checked here: the Stockham plan (radices, twiddles, window), the per-band
-mel ranges and packed weights, the thread groups, and the choice of path by
-n_fft (the Bluestein path's own tables: test_torch_port_mfcc_bluestein.py).
+mel ranges and packed weights, the thread groups, the choice of path by
+n_fft and of route (where the buffers live) by size (the Bluestein path's
+own tables: test_torch_port_mfcc_bluestein.py; radix 7 at n_fft 2205:
+test_torch_port_mfcc_radix7.py).
 ``mfcc_fft_plain`` walks the same plan and ranges in plain torch and
 is held against audiobd_tpu.ops.pallas_mfcc.fused_mfcc (interpret mode) and
 audiobd_tpu.dsp.mfcc_features.
@@ -23,6 +25,7 @@ from audiobd_tpu.dsp import MFCCParams as JaxMFCCParams
 from audiobd_tpu.dsp import mfcc_features as jax_mfcc_features
 from audiobd_tpu.ops.pallas_mfcc import fused_mfcc as jax_fused_mfcc
 from audiobd_tpu_torch.dsp import MFCCParams
+from audiobd_tpu_torch.dsp.stft import num_frames
 from audiobd_tpu_torch.ops import mfcc as op
 
 RTOL, ATOL = 1e-4, 1e-3
@@ -38,9 +41,14 @@ SETTINGS = {
     (1103, "bluestein", None),  # prime: Ultrasonic's 44.1 kHz setting
     (480, "fft", (8, 4, 3, 5)),
     (4096, "fft", (8, 8, 8, 8)),
-    (4097, "dft", None),  # 17 · 241: its Bluestein size would pass MAX_FFT
-    (8192, "dft", None),  # beyond MAX_FFT
-    (882, "bluestein", None),  # 2 · 3² · 7²
+    (4097, "bluestein", None),  # 17 · 241: L = 8232 passes MAX_FFT, the device-memory route
+    (8192, "fft", (8, 8, 8, 8, 2)),  # MAX_FFT
+    (882, "fft", (2, 3, 3, 7, 7)),  # 2 · 3² · 7²
+    (2205, "fft", (3, 3, 5, 7, 7)),  # 3² · 5 · 7²: was the matrix DFT's
+    (7, "fft", (7,)),
+    (343, "fft", (7, 7, 7)),
+    (16384, "fft", (8, 8, 8, 8, 4)),  # past MAX_FFT: the device-memory route
+    (874, "bluestein", None),  # 2 · 19 · 23
 ])
 def test_path_chosen_by_n_fft(n_fft, path, radices):
     assert op.mfcc_path(n_fft) == path
@@ -48,7 +56,28 @@ def test_path_chosen_by_n_fft(n_fft, path, radices):
     if radices is not None:
         assert int(np.prod(radices)) == n_fft
     if path != "fft":
-        assert (op.bluestein_size(n_fft) is not None) == (path == "bluestein")
+        assert op.bluestein_size(n_fft) is not None
+
+
+@pytest.mark.parametrize("n_fft,hop,n_samples,route", [
+    (400, 160, 16000, ("fft", 400, op.MODE_SHARED, 8, "mfcc_fft")),  # the main path
+    (2048, 512, 16000, ("fft", 2048, op.MODE_SHARED, 1, "mfcc_fft")),  # DABA's and FlowMur's
+    (2048, 160, 16000, ("fft", 2048, op.MODE_LARGE, 2, "mfcc_fft_large")),  # 101 frames: the dB tile leaves
+    (1103, 441, 44100, ("bluestein", 2240, op.MODE_SHARED, 2, "mfcc_bluestein")),  # Ultrasonic's
+    (2205, 441, 44100, ("fft", 2205, op.MODE_LARGE, 2, "mfcc_fft_large")),
+    (8192, 160, 16000, ("fft", 8192, op.MODE_LARGE, 1, "mfcc_fft_large")),
+    (3001, 441, 44100, ("bluestein", 6125, op.MODE_LARGE, 1, "mfcc_fft_large")),
+    (4097, 441, 44100, ("bluestein", 8232, op.MODE_DEVICE, 1, "mfcc_fft_device")),
+    (16384, 441, 44100, ("fft", 16384, op.MODE_DEVICE, 1, "mfcc_fft_device")),
+])
+def test_route_chosen_by_size(n_fft, hop, n_samples, route):
+    """Where the kernel keeps its buffers: everything in shared memory where
+    two blocks fit an SM, the buffers alone up to MAX_FFT, device memory
+    beyond; the host's count of shared memory within the card's limits."""
+    params = MFCCParams(sample_rate=n_samples, n_fft=n_fft, hop_length=hop)
+    got = op.mfcc_route(params, num_frames(n_samples, n_fft, hop))
+    assert (got.path, got.size, got.mode, got.groups, got.kernel.name) == route
+    assert got.smem <= (op.TWO_BLOCKS_BYTES if got.mode == op.MODE_SHARED else op.MAX_SHARED_BYTES)
 
 
 @pytest.mark.parametrize("n_fft", [400, 2048])
@@ -65,7 +94,7 @@ def test_fft_plan_tables(n_fft):
                                   .astype(np.float32))
 
 
-@pytest.mark.parametrize("n_fft", [400, 2048, 480, 384, 30, 1000])
+@pytest.mark.parametrize("n_fft", [400, 2048, 480, 384, 30, 1000, 7, 343, 882, 2205, 16384])
 def test_stockham_fft_matches_numpy(n_fft):
     rng = np.random.default_rng(n_fft)
     z = (rng.standard_normal((3, n_fft)) + 1j * rng.standard_normal((3, n_fft))).astype(np.complex64)
