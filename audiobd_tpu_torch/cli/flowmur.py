@@ -1,0 +1,125 @@
+"""FlowMur attack entry point.
+
+    python -m audiobd_tpu_torch flowmur --synthetic [--device cpu] ...
+
+The reference CLI's flags (audiobd_tpu/cli/flowmur.py:27-47) plus
+``--device``. Every stage runs: the surrogates, the trigger search (or
+``--load_trigger``), the poisoning and the victim's training. Each stage's
+wall time and the kernel launches it made are printed and returned.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from audiobd_tpu_torch.configs import add_common_args, config_from_args
+from audiobd_tpu_torch.data.speech_commands import (
+    load_clean_data,
+    make_synthetic_clean_data,
+    save_clean_data,
+)
+from audiobd_tpu_torch.ops import KERNELS
+from audiobd_tpu_torch.poison import flowmur
+from audiobd_tpu_torch.train.ensemble import MemberResult
+from audiobd_tpu_torch.train.trainer import TrainResult, train_attack
+from audiobd_tpu_torch.utils.device import resolve_device
+
+
+@dataclass
+class FlowmurRun:
+    victim: TrainResult
+    trigger: np.ndarray
+    surrogates: list[MemberResult]
+    trigger_losses: list[float]  # each search epoch's summed loss (empty with --load_trigger)
+    stages: dict[str, dict] = field(default_factory=dict)  # name → {"wall_s", "launches"}
+
+
+def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description="FlowMur audio backdoor attack (PyTorch/CUDA)")
+    add_common_args(parser)
+    parser.add_argument("--trigger_duration", type=float, default=None)
+    parser.add_argument("--snr_db", type=int, default=None)
+    parser.add_argument("--surrogate_epochs", type=int, default=None)
+    parser.add_argument("--opt_epochs", type=int, default=None)
+    parser.add_argument("--load_trigger", type=str, default=None, help="path to sp_trigger npy")
+    parser.add_argument(
+        "--flowmur_update", type=str, default=None, choices=["per_batch", "accumulated"],
+        help="trigger-search update rule: independent per-batch Adam steps, or the "
+             "reference's per-batch steps on the prefix-summed epoch gradient",
+    )
+    parser.add_argument(
+        "--flowmur_restarts", type=int, default=None,
+        help="trigger searches with probe-victim selection (1 = the reference's single search)",
+    )
+    parser.add_argument("--synthetic", action="store_true")
+    parser.add_argument("--synthetic_per_class", type=int, default=50)
+    return parser.parse_args(argv)
+
+
+def main(argv: list[str] | None = None) -> FlowmurRun:
+    args = parse_arguments(argv)
+    cfg = config_from_args(
+        "flowmur", args,
+        trigger_duration=args.trigger_duration,
+        snr_db=args.snr_db,
+        surrogate_epochs=args.surrogate_epochs,
+        flowmur_opt_epochs=args.opt_epochs,
+    )
+    device = resolve_device(cfg.device)
+    print("----------FlowMur attack (audiobd_tpu_torch)----------")
+    for key, value in vars(args).items():
+        print(f"{key}: {value}")
+    stages: dict[str, dict] = {}
+
+    @contextlib.contextmanager
+    def stage(name: str):
+        before = {k.name: k.launches for k in KERNELS}
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches - before[k.name] for k in KERNELS if k.launches > before[k.name]}
+        stages[name] = {"wall_s": wall, "launches": launches}
+        print(f"stage {name}: wall {wall:.3f} s, kernel launches {launches}")
+
+    with stage("prep"):
+        if args.synthetic:
+            clean = make_synthetic_clean_data(cfg, n_per_class=args.synthetic_per_class)
+            save_clean_data(cfg, clean)  # defenses read the clean npy cache
+        else:
+            clean = load_clean_data(cfg)
+    print("Training surrogate models...")
+    with stage("surrogates"):
+        model, surrogates = flowmur.pretrain_surrogate(cfg, clean)
+    trigger_losses: list[float] = []
+    with stage("trigger"):
+        if args.load_trigger and os.path.exists(args.load_trigger):
+            trigger = np.load(args.load_trigger).astype(np.float32)
+            print(f"loaded trigger {args.load_trigger} {trigger.shape}")
+        else:
+            print("Generating optimal trigger...")
+            hosts = flowmur.select_trigger_hosts(cfg, clean)
+            trigger = flowmur.select_trigger(cfg, model, hosts, clean, loss_history=trigger_losses)
+    with stage("poison"):
+        poisoned = flowmur.poison(cfg, clean, trigger)
+    with stage("victim"):
+        result = train_attack(cfg, poisoned.bd_train, poisoned.clean_test, poisoned.bd_test)
+    print(
+        f"done: epochs={result.epochs_ran} "
+        f"clean_acc={result.history['test_clean_acc'][-1]:.2f} "
+        f"asr={result.history['test_asr'][-1]:.2f}"
+    )
+    return FlowmurRun(victim=result, trigger=trigger, surrogates=surrogates,
+                      trigger_losses=trigger_losses, stages=stages)
+
+
+if __name__ == "__main__":
+    main()

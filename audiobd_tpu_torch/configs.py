@@ -1,7 +1,7 @@
 """Typed, YAML-loadable, CLI-overridable configuration.
 
 An own copy of the reference's config tree (audiobd_tpu/configs.py:47-356),
-trimmed to the fields the ported BadNets + SmallCNN path reads, plus the
+trimmed to the fields the ported BadNets and FlowMur paths read, plus the
 ``device`` the entry points run on. YAML is parsed only when ``--config`` is
 given (PyYAML is imported there and nowhere else).
 """
@@ -74,6 +74,22 @@ class AttackConfig:
     result: str = "badnets_smallcnn"
     load_clean_data: bool = True
     trigger_size: int = 5
+    # FlowMur (reference audiobd_tpu/configs.py:163-183).
+    trigger_duration: float = 0.5
+    snr_db: int = 30
+    flowmur_opt_epochs: int = 300
+    flowmur_opt_lr: float = 1e-3
+    flowmur_clamp: float = 0.2
+    # "per_batch": an Adam step + clamp per batch on that batch's gradient.
+    # "accumulated": the reference's rule, an Adam step + clamp per batch on
+    # the prefix sum of the epoch's gradients so far.
+    flowmur_update: str = "per_batch"
+    # Trigger searches, each ranked by a probe victim of flowmur_probe_epochs
+    # epochs; 1 = the reference's single search.
+    flowmur_restarts: int = 1
+    flowmur_probe_epochs: int = 10
+    surrogate_runs: int = 3
+    surrogate_epochs: int = 1000
     # None = CUDA (raises if there is none); "cpu" or "cuda:N" to choose.
     device: str | None = None
 
@@ -89,8 +105,8 @@ class AttackConfig:
         return f"record/{self.result}"
 
 
-# The badnets row of the reference's per-attack DSP + model-shape table
-# (attack_config.txt:1-23; audiobd_tpu/configs.py:205-213).
+# The badnets and flowmur rows of the reference's per-attack DSP +
+# model-shape table (attack_config.txt:1-23; audiobd_tpu/configs.py:205-246).
 ATTACK_PRESETS: dict[str, dict[str, Any]] = {
     "badnets": {
         "dsp": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
@@ -99,6 +115,14 @@ ATTACK_PRESETS: dict[str, dict[str, Any]] = {
             "lstmwithattention": 101, "rnn": 40, "resnet": 384,
         },
         "result": "badnets_smallcnn",
+    },
+    "flowmur": {
+        "dsp": dict(sample_rate=16000, n_mfcc=13, n_fft=2048, hop_length=512, parity="torchaudio"),
+        "linear_features": {
+            "smallcnn": 224, "largecnn": 768, "smalllstm": 32,
+            "lstmwithattention": 32, "rnn": 13, "resnet": 64,
+        },
+        "result": "flowmur_smallcnn",
     },
 }
 
@@ -113,6 +137,8 @@ def make_config(attack: str, **overrides: Any) -> AttackConfig:
     preset = ATTACK_PRESETS[attack]
     cfg = AttackConfig(name=attack, result=preset["result"])
     cfg.dsp = DSPConfig(**preset["dsp"])
+    if attack == "flowmur":
+        cfg.model = "smallcnn"  # the surrogate and the victim (reference flowmur.py)
     for key, value in overrides.items():
         if value is None:
             continue

@@ -34,11 +34,13 @@
 //
 // What bounds it on the H100: device-memory bytes by the data sheet (at the
 // main path's shape, B 256, H 101, W 40, C 64, g is 85 MB and x 4 MB: 0.027
-// ms), but in practice f32 issue: the recompute's unfused multiplies and adds
-// (kept so the routing is bit-identical, 33 a pair) and the sums take ~100
-// instructions per (position, channel) pair in train mode, 21.3 M pairs,
-// ~0.075 ms at the issue peak. The recompute trades them for never storing
-// or re-reading the 85 MB-per-phase pre-pool activation.
+// ms; at FlowMur's, x (256, 1, 32, 13), g is 8.1 MB: 0.0027 ms), but in
+// practice f32 issue: the recompute's unfused multiplies and adds (kept so
+// the routing is bit-identical, 33 a pair) and the sums take ~100
+// instructions per (position, channel) pair in kernel B's train mode, 21.3
+// M pairs at the main path, ~0.075 ms at the issue peak; kernel C takes ~60
+// (eval) to ~75 (train). The recompute trades them for never storing or
+// re-reading the 85 MB-per-phase pre-pool activation.
 //
 // Design:
 //  * Kernel B: a grid of (clip, span of its positions, slice of 8 channels)
@@ -57,20 +59,35 @@
 //    a (17, C, spans) scratch, and a second pass of one block per channel
 //    adds the spans' partials in a fixed order (deterministic, no atomics)
 //    and forms dw, dgamma, dbeta, h1, h2.
-//  * Kernel C: one thread per pooled position loops over the channels
-//    (their parameters in shared memory), recomputes the pool window, and
-//    sums w.dy over channels into the four per-tap planes dp (4, B, H', W-1);
-//    a gather pass then forms dx[b,i,j] from the <= 4 conv outputs that read
-//    x[b,i,j], again without atomics. The bias tap gets no cotangent.
+//  * Kernel C, one launch: a block owns a span of a clip's conv rows (the
+//    whole clip when its dp tile fits ops/conv1_bn_pool.py's
+//    INPUT_TILE_BYTES: 62 KB at the main path, 6 KB at FlowMur's) and
+//    writes those rows of dx directly; the dp tile (4 taps x rows x (W-1))
+//    lives in shared memory only, never in device memory. A span after
+//    the first also recomputes the conv row above it (the halo row) for the
+//    dp that dx's first row needs. Lanes own pooled positions (a thread
+//    loads its 2x4 patch once, to registers) and warps own channel groups:
+//    at FlowMur's 124 positions a clip there are only 4 warps of positions,
+//    so two groups of 32 channels fill the block's 8 warps, where the old
+//    kernel ran one thread's 64-channel chain per position on 124 blocks.
+//    The groups' per-position sums meet in the tile in a fixed order (group
+//    0 stores, the others add in turn behind barriers): deterministic, no
+//    atomics. Eval mode does winner-only work: dz lives on the pool winner
+//    and h1 = h2 = 0, so dy is scale*g there where r > 0 and zero elsewhere;
+//    nothing reads h. Train mode forms dy = relu'*(A - r*Bc + [winner]*
+//    scale*g) with A = mu*inv*h2 - h1, Bc = inv*h2 per channel, h1 and h2
+//    from kernel B. The bias tap gets no cotangent.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;         // kernel C
 constexpr int NACC = 17;             // dwA[5], dwB[5], dwC[5], S1, S2
 constexpr int PARAMS_THREADS = 256;  // kernel B: a block takes PARAMS_THREADS / 32 channels, one a warp
 constexpr int PARAMS_UNROLL = 4;     // positions a lane takes a pass, their g loads issued together
+constexpr int INPUT_THREADS = 256;   // kernel C
+constexpr int INPUT_WARPS = INPUT_THREADS / 32;
+constexpr int INPUT_UNROLL = 4;      // channels a thread takes a pass, their g loads issued together
 
 // The forward's compute dtype is f32 in this build: rounding r and z to it
 // is the identity. A bf16 build rounds here, as _phase_rz does.
@@ -300,83 +317,152 @@ int launch_params_partial(const float* x, const float* g, const float* w5, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// dp (4, B, H', W-1): per-tap sums over channels of w[c][k] * dy[c].
-__global__ void __launch_bounds__(THREADS)
-bwd_input_dp(const float* __restrict__ x, const float* __restrict__ g,
-             const float* __restrict__ w5, const float* __restrict__ mu_p,
-             const float* __restrict__ inv_p, const float* __restrict__ scale_p,
-             const float* __restrict__ shift_p, const float* __restrict__ h_p,
-             float* __restrict__ dp, int B, int H, int W, int C, int train_bn) {
-  extern __shared__ float prm[];  // (C, 11): w0..w4, mu, inv, scale, shift, h1, h2
-  for (int q = threadIdx.x; q < C; q += blockDim.x) {
-    float* row = prm + q * 11;
+// One (position, channel) pair of kernel C: adds w_k * dy_t to acc[t][k].
+// taps = w0..w3, rest = (bias, scale, shift, -), h = (A, Bc) in train mode.
+template <bool TRAIN>
+__device__ __forceinline__ void input_pair(const float a[4], const float d[4], const float4 taps,
+                                           const float4 rest, const float2 h, float gq, float acc[3][4]) {
+  const float w[5] = {taps.x, taps.y, taps.z, taps.w, rest.x};
+  Window win;
+  recompute(a, d, w, rest.y, rest.z, win);
+  const float sg = rest.y * gq;  // scale * dz on the winner
+  if constexpr (TRAIN) {
+    // dy_t = relu'_t * (scale*dz_t - h1 - xhat_t*h2) over every active phase.
 #pragma unroll
-    for (int k = 0; k < 5; ++k) row[k] = w5[q * 5 + k];
-    row[5] = mu_p[q]; row[6] = inv_p[q]; row[7] = scale_p[q]; row[8] = shift_p[q];
-    row[9] = h_p[q]; row[10] = h_p[C + q];
+    for (int t = 0; t < 3; ++t) {
+      float dr = fmaf(-win.r[t], h.y, h.x);
+      dr += t == win.win ? sg : 0.0f;
+      const float dy = win.r[t] > 0.0f ? dr : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[t][k] = fmaf(w[k], dy, acc[t][k]);
+    }
+  } else {
+    // Eval mode: dy is scale*g on the winner where its relu is active.
+    const float rw = win.win == 0 ? win.r[0] : (win.win == 1 ? win.r[1] : win.r[2]);
+    const float v = rw > 0.0f ? sg : 0.0f;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const float dy = t == win.win ? v : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[t][k] = fmaf(w[k], dy, acc[t][k]);
+    }
+  }
+}
+
+// Kernel C. Block (clip b, span s of its conv rows): conv rows [r0, r1) and,
+// after the first span, the halo row r0 - 1; dx rows [r0, r1), and the last
+// dx row with the last span. Shared memory: the channels' taps and (bias,
+// scale, shift) as float4s, in train mode (A, Bc) as float2s, then the dp
+// tile, four tap planes of (rows, W-1). Warp w takes channel group w %
+// groups and every (INPUT_WARPS / groups)-th run of 32 positions; after each
+// pass the groups' sums meet in the tile in group order, then the tile is
+// un-patched: dx[i,j] = dp0[i,j] + dp1[i,j-1] + dp2[i-1,j] + dp3[i-1,j-1],
+// summed in that order as the plain version's pads do.
+template <bool TRAIN>
+__global__ void __launch_bounds__(INPUT_THREADS, 3)
+bwd_input(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ w5,
+          const float* __restrict__ mu_p, const float* __restrict__ inv_p, const float* __restrict__ scale_p,
+          const float* __restrict__ shift_p, const float* __restrict__ h_p, float* __restrict__ dx,
+          int H, int W, int C, int spans, int rows, int groups) {
+  extern __shared__ float4 smem[];
+  float4* taps = smem;                                          // (C) w0..w3
+  float4* rest = smem + C;                                      // (C) bias, scale, shift, -
+  float2* hab = reinterpret_cast<float2*>(smem + 2 * C);        // (C) A, Bc (train mode)
+  float* tile = reinterpret_cast<float*>(hab + (TRAIN ? C : 0));  // (4, rows incl. halo, W-1)
+
+  const int b = blockIdx.x / spans, s = blockIdx.x - b * spans;
+  const int Hp = H - 1, Wc = W - 1, Wp = Wc / 3, plane = Hp * Wp;
+  const int r0 = s * rows, r1 = min(Hp, r0 + rows);
+  const int first = r0 > 0 ? r0 - 1 : 0;  // the halo row feeds dx row r0
+  const int npos = (r1 - first) * Wp;
+  const int tap = (r1 - first) * Wc;      // one tap plane of the tile
+  for (int q = threadIdx.x; q < C; q += INPUT_THREADS) {
+    const float* wq = w5 + 5 * q;
+    taps[q] = make_float4(wq[0], wq[1], wq[2], wq[3]);
+    rest[q] = make_float4(wq[4], scale_p[q], shift_p[q], 0.0f);
+    if constexpr (TRAIN) {
+      const float inv = inv_p[q], h2 = h_p[C + q];
+      hab[q] = make_float2(mu_p[q] * inv * h2 - h_p[q], inv * h2);
+    }
   }
   __syncthreads();
 
-  const int Hp = H - 1, Wc = W - 1, Wp = Wc / 3;
-  const int plane = Hp * Wp;
-  const long long M = (long long)B * plane;
-  const long long m = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (m >= M) return;
-  const int b = static_cast<int>(m / plane);
-  const int ij = static_cast<int>(m - (long long)b * plane);
-  const int i = ij / Wp, jp = ij - i * Wp;
-  float a[4], d[4];
-  load_patch(x, H, W, b, i, jp, a, d);
-
-  float dpa[3][4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cg = warp % groups, slot = warp / groups, slots = INPUT_WARPS / groups;
+  const int per = (C + groups - 1) / groups;
+  const int c_lo = min(C, cg * per), c_hi = min(C, c_lo + per);
+  const int passes = ((npos + 31) / 32 + slots - 1) / slots;
+  const float* gb = g + (static_cast<size_t>(b) * C * plane + first * Wp);
+  for (int pass = 0; pass < passes; ++pass) {
+    const int q = (pass * slots + slot) * 32 + lane;  // position in the span, halo row first
+    const bool valid = q < npos;
+    float acc[3][4] = {};
+    if (valid) {
+      const int li = q / Wp;
+      float a[4], d[4];
+      load_patch(x, H, W, b, first + li, q - li * Wp, a, d);
+      const float* gq = gb + q;
+      int c = c_lo;
+      for (; c + INPUT_UNROLL <= c_hi; c += INPUT_UNROLL) {
+        float gv[INPUT_UNROLL];
 #pragma unroll
-  for (int t = 0; t < 3; ++t)
+        for (int u = 0; u < INPUT_UNROLL; ++u) gv[u] = __ldg(gq + static_cast<size_t>(c + u) * plane);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) dpa[t][k] = 0.0f;
-
-  const float* gb = g + (long long)b * C * plane + ij;
-  for (int c = 0; c < C; ++c) {
-    const float* row = prm + c * 11;
-    const float w[5] = {row[0], row[1], row[2], row[3], row[4]};
-    const float mu = row[5], inv = row[6], scale = row[7], shift = row[8];
-    Window win;
-    recompute(a, d, w, scale, shift, win);
-    const float gv = __ldg(gb + (long long)c * plane);
+        for (int u = 0; u < INPUT_UNROLL; ++u)
+          input_pair<TRAIN>(a, d, taps[c + u], rest[c + u], TRAIN ? hab[c + u] : make_float2(0.0f, 0.0f),
+                            gv[u], acc);
+      }
+      for (; c < c_hi; ++c)
+        input_pair<TRAIN>(a, d, taps[c], rest[c], TRAIN ? hab[c] : make_float2(0.0f, 0.0f),
+                          __ldg(gq + static_cast<size_t>(c) * plane), acc);
+    }
+    // Position q's conv outputs are tile columns 3q .. 3q+2 of each tap plane
+    // (W-1 = 3 Wp): lanes at a stride of 3 words, no bank conflict.
+    for (int st = 0; st < groups; ++st) {
+      if (valid && cg == st) {
 #pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      const float dz = t == win.win ? gv : 0.0f;
-      float dr = scale * dz;
-      if (train_bn) dr = dr - row[9] - ((win.r[t] - mu) * inv) * row[10];
-      const float dy = win.r[t] > 0.0f ? dr : 0.0f;
+        for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) dpa[t][k] = fmaf(w[k], dy, dpa[t][k]);
+          for (int t = 0; t < 3; ++t) {
+            float* e = tile + k * tap + 3 * q + t;
+            *e = st == 0 ? acc[t][k] : *e + acc[t][k];
+          }
+      }
+      __syncthreads();
     }
   }
-  const long long tap = (long long)B * Hp * Wc;
-  float* out = dp + ((long long)b * Hp + i) * Wc + 3 * jp;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int t = 0; t < 3; ++t) out[k * tap + t] = dpa[t][k];
+
+  const int last = r1 == Hp ? H : r1;  // the last span also writes dx row H-1
+  float* dxb = dx + (static_cast<size_t>(b) * H + r0) * W;
+  const int n = (last - r0) * W;
+  for (int e = threadIdx.x; e < n; e += INPUT_THREADS) {
+    const int i = r0 + e / W, j = e - (e / W) * W;
+    const float* row = tile + (i - first) * Wc;  // conv row i; row - Wc is conv row i-1
+    float v = 0.0f;
+    if (i < Hp) {
+      if (j < Wc) v += row[j];
+      if (j >= 1) v += row[tap + j - 1];
+    }
+    if (i >= 1) {
+      if (j < Wc) v += row[2 * tap - Wc + j];
+      if (j >= 1) v += row[3 * tap - Wc + j - 1];
+    }
+    dxb[e] = v;
+  }
 }
 
-// dx[b,i,j] = dp0[b,i,j] + dp1[b,i,j-1] + dp2[b,i-1,j] + dp3[b,i-1,j-1].
-__global__ void bwd_input_unpatch(const float* __restrict__ dp, float* __restrict__ dx,
-                                  int B, int H, int W) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (long long)B * H * W) return;
-  const int j = static_cast<int>(n % W);
-  const int i = static_cast<int>((n / W) % H);
-  const int b = static_cast<int>(n / ((long long)W * H));
-  const int Hp = H - 1, Wc = W - 1;
-  const long long tap = (long long)B * Hp * Wc;
-  const float* p = dp + (long long)b * Hp * Wc;
-  float v = 0.0f;
-  if (i < Hp && j < Wc) v += p[i * Wc + j];
-  if (i < Hp && j >= 1) v += p[tap + i * Wc + j - 1];
-  if (i >= 1 && j < Wc) v += p[2 * tap + (i - 1) * Wc + j];
-  if (i >= 1 && j >= 1) v += p[3 * tap + (i - 1) * Wc + j - 1];
-  dx[n] = v;
+template <bool TRAIN>
+int launch_input(const float* x, const float* g, const float* w5, const float* mu, const float* inv,
+                 const float* scale, const float* shift, const float* h, float* dx, int B, int H, int W, int C,
+                 int spans, int rows, int groups, cudaStream_t s) {
+  const int tile_rows = rows + (spans > 1 ? 1 : 0);
+  const int smem = C * static_cast<int>(2 * sizeof(float4) + (TRAIN ? sizeof(float2) : 0)) +
+                   4 * tile_rows * (W - 1) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(bwd_input<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_input<TRAIN><<<B * spans, INPUT_THREADS, smem, s>>>(x, g, w5, mu, inv, scale, shift, h, dx, H, W, C,
+                                                          spans, rows, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -404,23 +490,18 @@ int conv1_bn_pool_bwd_params(const float* x, const float* g, const float* w5, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel C: h (2, C) from kernel B, dp (4, B, H-1, W-1) scratch, dx (B, H, W).
+// Kernel C: dx (B, H, W), each clip's conv rows in `spans` spans of `rows`,
+// the block's warps in `groups` channel groups (a divisor of 8); h (2, C)
+// from kernel B in train mode, null in eval mode.
 int conv1_bn_pool_bwd_input(const float* x, const float* g, const float* w5, const float* mu,
                             const float* inv, const float* scale, const float* shift,
-                            const float* h, float* dp, float* dx, int B, int H, int W, int C,
-                            int train_bn, void* stream) {
+                            const float* h, float* dx, int B, int H, int W, int C, int spans, int rows,
+                            int groups, int train_bn, void* stream) {
+  if (spans < 1 || rows < 1 || groups < 1 || INPUT_WARPS % groups != 0 || (train_bn && h == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long M = (long long)B * (H - 1) * ((W - 1) / 3);
-  const int smem = C * 11 * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(bwd_input_dp, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_input_dp<<<static_cast<unsigned>((M + THREADS - 1) / THREADS), THREADS, smem, s>>>(
-      x, g, w5, mu, inv, scale, shift, h, dp, B, H, W, C, train_bn);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long N = (long long)B * H * W;
-  bwd_input_unpatch<<<static_cast<unsigned>((N + 255) / 256), 256, 0, s>>>(dp, dx, B, H, W);
-  return static_cast<int>(cudaGetLastError());
+  return train_bn ? launch_input<true>(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, s)
+                  : launch_input<false>(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, s);
 }
 
 }  // extern "C"

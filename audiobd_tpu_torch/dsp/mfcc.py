@@ -9,6 +9,7 @@ against.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -50,14 +51,19 @@ class MFCCParams:
         return _mel.dct_matrix(self.n_mfcc, self.n_mels)
 
 
+@functools.lru_cache(maxsize=8)
+def _device_tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mel filterbank, DCT) on ``device``, uploaded once. Read-only."""
+    return torch.from_numpy(params.mel_fb()).to(device), torch.from_numpy(params.dct()).to(device)
+
+
 def mfcc(x: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     """MFCC of float ``x`` (..., T) → (..., n_frames, n_mfcc), time-major."""
     spec = _stft.power_spectrogram(
         x, params.n_fft, params.hop_length, center=True, pad_mode=params.pad_mode
     )
-    fb = torch.from_numpy(params.mel_fb()).to(x.device)
+    fb, dct = _device_tables(params, x.device)
     db = _mel.amplitude_to_db(torch.matmul(spec, fb), top_db=params.top_db)
-    dct = torch.from_numpy(params.dct()).to(x.device)
     return torch.matmul(db, dct)
 
 

@@ -40,6 +40,14 @@ def _dft_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     return cos_b, sin_b
 
 
+@functools.lru_cache(maxsize=8)
+def _device_bases(n_fft: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bases on ``device``, uploaded once: FlowMur's trigger search runs
+    the STFT every step, and re-uploading 16.8 MB of bases a step at n_fft
+    2048 took a quarter of its device time. Read-only."""
+    return tuple(torch.from_numpy(b).to(device) for b in _dft_bases(n_fft))
+
+
 def frame_signal(
     x: torch.Tensor, n_fft: int, hop_length: int, center: bool = True, pad_mode: str = "reflect"
 ) -> torch.Tensor:
@@ -63,7 +71,7 @@ def power_spectrogram(
     """Hann-windowed power spectrogram of ``x`` (..., T) → (..., n_frames, n_bins),
     time-major."""
     frames = frame_signal(x, n_fft, hop_length, center=center, pad_mode=pad_mode)
-    cos_b, sin_b = (torch.from_numpy(b).to(x.device) for b in _dft_bases(n_fft))
+    cos_b, sin_b = _device_bases(n_fft, x.device)
     re = torch.matmul(frames, cos_b)
     im = torch.matmul(frames, sin_b)
     return re * re + im * im

@@ -128,16 +128,18 @@ class SmallLSTM(ConvStack):
 
 
 def build_model(name: str, num_classes: int, feature_size: int, device: torch.device, seed: int,
-                fused: bool = False, fused_block2: bool = False, fused_block3: bool = False) -> nn.Module:
-    """The model with weights drawn from ``torch_generator(seed, "params")``
-    and dropout from ``torch_generator(seed, "dropout", device)``. ``fused``
-    is block 1's flag. SmallCNN and SmallLSTM are ported so far."""
+                fused: bool = False, fused_block2: bool = False, fused_block3: bool = False,
+                init_stream: str = "params", dropout_stream: str = "dropout") -> nn.Module:
+    """The model with weights drawn from ``torch_generator(seed,
+    init_stream)`` and dropout from ``torch_generator(seed, dropout_stream,
+    device)``. ``fused`` is block 1's flag. SmallCNN and SmallLSTM are ported
+    so far."""
     classes = {"smallcnn": SmallCNN, "smalllstm": SmallLSTM}
     if name.lower() not in classes:
         raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP queue 1)")
     model = classes[name.lower()](num_classes, feature_size, fused_block1=fused,
                                   fused_block2=fused_block2, fused_block3=fused_block3)
-    model.reset_parameters(torch_generator(seed, "params"))
+    model.reset_parameters(torch_generator(seed, init_stream))
     model.to(device)
-    model.dropout_generator = torch_generator(seed, "dropout", device)
+    model.dropout_generator = torch_generator(seed, dropout_stream, device)
     return model

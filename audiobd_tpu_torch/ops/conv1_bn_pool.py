@@ -5,9 +5,11 @@ SmallCNN block. The forward is plain torch (conv2d, relu, batch statistics
 with the fast variance E[r²] − μ², normalize, max_pool2d), as the reference's
 forward is stock XLA. The backward never materializes the pre-pool
 activation: kernel B (``conv1_bn_pool_bwd_params``) recomputes each pool
-window from x and accumulates the parameter gradients; kernel C
-(``conv1_bn_pool_bwd_input``) forms dx when x requires a gradient. The math
-and the first-match tie rule are described in ``csrc/conv1_bn_pool.cu``.
+window from x and accumulates the parameter gradients when some parameter
+needs one; kernel C (``conv1_bn_pool_bwd_input``) forms dx when x requires
+a gradient (FlowMur's trigger search through a frozen eval-mode surrogate
+runs C alone). The math and the first-match tie rule are described in
+``csrc/conv1_bn_pool.cu``.
 
 Layout is the port's NCHW: x (B, 1, H, W), weight (C, 1, 2, 2), out
 (B, C, H-1, (W-1)//3). On a CUDA tensor the backward launches the kernels or
@@ -36,8 +38,38 @@ BWD_PARAMS_KERNEL = CudaKernel(
 PARAMS_SPAN = 3072
 BWD_INPUT_KERNEL = CudaKernel(
     "conv1_bn_pool_bwd_input", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_input",
-    [_P] * 10 + [_I] * 5,
+    [_P] * 9 + [_I] * 8,
 )
+# Kernel C keeps a span's dp tile (4 taps x conv rows x (W-1) floats, the
+# halo row included) in shared memory; a clip whose tile is larger is cut
+# into equal spans of conv rows. The main path's clip (62,400 B) is one span.
+INPUT_TILE_BYTES = 64 * 1024
+INPUT_WARPS = 8  # a kernel-C block's warps, shared out among channel groups
+
+
+def input_spans(h: int, w: int) -> tuple[int, int]:
+    """(spans, rows): kernel C cuts a clip's h-1 conv rows into ``spans``
+    spans of ``rows`` (the last may be shorter, none is empty), so that a
+    span's tile with its halo row fits ``INPUT_TILE_BYTES``."""
+    hp, row_bytes = h - 1, 16 * (w - 1)
+    if hp * row_bytes <= INPUT_TILE_BYTES:
+        return 1, hp
+    max_rows = INPUT_TILE_BYTES // row_bytes - 1  # a row for the halo
+    if max_rows < 1:
+        raise ValueError(f"conv1_bn_pool: rows of {w} samples are too wide for kernel C's tile")
+    rows = -(-hp // -(-hp // max_rows))
+    return -(-hp // rows), rows
+
+
+def input_groups(positions: int) -> int:
+    """Kernel C's channel groups for a span of ``positions`` pooled
+    positions: the most (1, 2, 4 or 8) that keep every warp on positions,
+    so a short clip (FlowMur's 124 positions, 4 warps' worth) still fills
+    the block's 8 warps."""
+    runs, groups = -(-positions // 32), 1
+    while groups < INPUT_WARPS and 2 * groups * runs <= INPUT_WARPS:
+        groups *= 2
+    return groups
 
 
 def supports(x: torch.Tensor) -> bool:
@@ -80,9 +112,11 @@ def _first_match(z: torch.Tensor) -> torch.Tensor:
     return hit & (torch.cumsum(hit.to(torch.int8), dim=-1) == 1)
 
 
-def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx):
+def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx,
+                                 need_params=True):
     """Plain torch version of kernels B and C: (dx or None, dweight, dbias,
-    dgamma, dbeta) for upstream gradient ``g`` (B, C, H', Wp)."""
+    dgamma, dbeta) for upstream gradient ``g`` (B, C, H', Wp); the last four
+    are None unless ``need_params``."""
     w5 = _w5(weight, bias)
     c = w5.shape[0]
     p, r, z = _windows(x, w5, scale, shift)
@@ -91,19 +125,20 @@ def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, t
     c5 = lambda v: v.reshape(1, -1, 1, 1, 1)  # noqa: E731
     xhat = (r - c5(mu)) * c5(inv)
     rp = r > 0
-    t1 = torch.where(rp, dz, torch.zeros_like(dz))
-    dwa = torch.einsum("kbhwt,bchwt->kc", p, t1)
     s1 = dz.sum(dim=(0, 2, 3, 4))
     s2 = (dz * xhat).sum(dim=(0, 2, 3, 4))
-    dw = dwa * scale
+    if need_params:
+        t1 = torch.where(rp, dz, torch.zeros_like(dz))
+        dw = torch.einsum("kbhwt,bchwt->kc", p, t1) * scale
     if train_bn:
-        rpf = rp.to(x.dtype)
-        dwb = torch.einsum("kbhwt,bchwt->kc", p, rpf)
-        dwc = torch.einsum("kbhwt,bchwt->kc", p, rpf * xhat)
         n_total = 3 * m_valid
         h1 = scale * s1 / n_total
         h2 = scale * s2 / n_total
-        dw = dw - dwb * h1 - dwc * h2
+        if need_params:
+            rpf = rp.to(x.dtype)
+            dwb = torch.einsum("kbhwt,bchwt->kc", p, rpf)
+            dwc = torch.einsum("kbhwt,bchwt->kc", p, rpf * xhat)
+            dw = dw - dwb * h1 - dwc * h2
     else:
         h1 = h2 = torch.zeros_like(s1)
     dx = None
@@ -117,6 +152,8 @@ def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, t
             F.pad(dp[0], (0, 1, 0, 1)) + F.pad(dp[1], (1, 0, 0, 1))
             + F.pad(dp[2], (0, 1, 1, 0)) + F.pad(dp[3], (1, 0, 1, 0))
         )[:, None]
+    if not need_params:
+        return dx, None, None, None, None
     return dx, dw[:4].t().reshape(weight.shape), dw[4], s2, s1
 
 
@@ -160,35 +197,46 @@ def conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, *, train_bn: bool)
     return out
 
 
-def conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12, *, train_bn: bool) -> torch.Tensor:
-    """Kernel C: dx (B, 1, H, W); ``h12`` is rows 7-8 of kernel B's output."""
+def conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12=None, *, train_bn: bool) -> torch.Tensor:
+    """Kernel C: dx (B, 1, H, W) in one launch. Train mode takes ``h12``,
+    rows 7-8 of kernel B's output; eval mode takes none (h1 = h2 = 0)."""
+    if train_bn != (h12 is not None):
+        raise ValueError("kernel C takes h12 (kernel B's rows 7-8) in train mode, and only there")
     _check_cuda(x, g, w5, mu, inv, scale, shift, h12=h12)
     b, _, h, w = x.shape
     c = w5.shape[0]
-    dp = torch.empty((4, b, h - 1, w - 1), dtype=torch.float32, device=x.device)
+    spans, rows = input_spans(h, w)
+    groups = input_groups((rows + (spans > 1)) * ((w - 1) // 3))
     dx = torch.empty_like(x)
     BWD_INPUT_KERNEL(
         x.device, ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
-        ptr(h12), ptr(dp), ptr(dx), b, h, w, c, int(train_bn),
+        None if h12 is None else ptr(h12), ptr(dx), b, h, w, c, spans, rows, groups, int(train_bn),
     )
     return dx
 
 
-def conv1_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx):
-    """(dx or None, dweight, dbias, dgamma, dbeta): the kernels on CUDA
-    tensors, the plain version on CPU tensors."""
+def conv1_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx, need_params=True):
+    """(dx or None, dweight, dbias, dgamma, dbeta), the last four None
+    unless ``need_params``: the kernels on CUDA tensors, the plain version
+    on CPU tensors. Kernel B runs when the parameters need a gradient, and
+    in train mode whenever dx is needed too, since C reads B's h1 and h2;
+    eval-mode dx of a frozen block is kernel C alone."""
     if not x.is_cuda:
         return conv1_bn_pool_backward_plain(
-            x, g, weight, bias, mu, inv, scale, shift, train_bn=train_bn, need_dx=need_dx
+            x, g, weight, bias, mu, inv, scale, shift, train_bn=train_bn, need_dx=need_dx,
+            need_params=need_params,
         )
     x, g = x.contiguous(), g.contiguous()
     w5 = _w5(weight, bias)
-    out = conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train_bn)
+    out = None
+    if need_params or (train_bn and need_dx):
+        out = conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train_bn)
     dx = None
     if need_dx:
-        dx = conv1_bn_pool_bwd_input(
-            x, g, w5, mu, inv, scale, shift, out[7:9].contiguous(), train_bn=train_bn
-        )
+        h12 = out[7:9].contiguous() if train_bn else None
+        dx = conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12, train_bn=train_bn)
+    if not need_params:
+        return dx, None, None, None, None
     return dx, out[:4].t().reshape(weight.shape), out[4], out[5], out[6]
 
 
@@ -226,7 +274,7 @@ class _TrainBlock(torch.autograd.Function):
         x, weight, bias, mu, inv, scale, shift = ctx.saved_tensors
         return conv1_bn_pool_backward(
             x, g, weight, bias, mu, inv, scale, shift,
-            train_bn=True, need_dx=ctx.needs_input_grad[0],
+            train_bn=True, need_dx=ctx.needs_input_grad[0], need_params=any(ctx.needs_input_grad[1:5]),
         )
 
 
@@ -243,10 +291,11 @@ class _EvalBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # A frozen block (FlowMur's surrogate) needs dx alone: kernel C only.
         x, weight, bias, mu, inv, scale, shift = ctx.saved_tensors
         grads = conv1_bn_pool_backward(
             x, g, weight, bias, mu, inv, scale, shift,
-            train_bn=False, need_dx=ctx.needs_input_grad[0],
+            train_bn=False, need_dx=ctx.needs_input_grad[0], need_params=any(ctx.needs_input_grad[1:5]),
         )
         return (*grads, None, None)
 

@@ -1,7 +1,7 @@
 """PCM handling of the device-resident prep (port of
 audiobd_tpu/poison/device_prep.py).
 
-Only ``dequantize_pcm`` is kept here. The reference's chunked prep
+``dequantize_pcm`` and ``scatter_rows`` are kept here. The reference's chunked prep
 (``make_block_fn``/``run_prep``: dequantize → MFCC → optional feature
 injection, ``lax.map`` over chunks, wrap-padded to quantized XLA shapes) is
 a plain loop over chunks in ``data.speech_commands.batched_mfcc_device``:
@@ -23,3 +23,10 @@ def dequantize_pcm(w: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"integer wavs must be int16 PCM, got {w.dtype}")
         return w.to(torch.float32) * (1.0 / 32768.0)
     return w
+
+
+def scatter_rows(base: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``base`` with ``base[idx] ← rows``, out of place: subset-poisoning
+    attacks (FlowMur) recompute MFCCs only for the injected rows and merge
+    them into the device-resident clean features."""
+    return base.index_copy(0, idx, rows)

@@ -12,16 +12,23 @@ no result, without them. Phases, each printing its own lines:
      least time the card could take for the same work (bound): 1a kernel
      A's routes (the FFT path and the Bluestein path with everything in
      shared memory; the buffers alone in shared memory, n_fft 2205 by
-     radix-7 stages; the buffers in device memory, n_fft 4097), 1b kernels B
-     and C, 1c kernels D and E (E on the routing a D call wrote).
+     radix-7 stages; the buffers in device memory, n_fft 4097; FlowMur's
+     n_fft 2048, 13 coefficients), 1b kernels B and C (both in train mode at
+     the main path's shape; at FlowMur's (256, 1, 32, 13) B in train mode,
+     as its surrogates and victim train, and C in eval mode, as its search runs),
+     1c kernels D and E (E on the routing a D call wrote).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
   3. the block-2/3 path: the same run with --model smalllstm --fused_block2 on
      --fused_block3 on (blocks 2-3 backward through kernels D and E);
      3b. the same flags on SmallCNN, its clips/s beside phase 2's.
-     Kernel launch counts are zeroed just before each CLI run and read just
-     after it.
+  4. the FlowMur path through its CLI: the same 20,000 clips → MFCC (kernel
+     A at n_fft 2048) → 3 SmallCNN surrogates (kernel B) → trigger search
+     through the frozen surrogate (kernel C, one launch a step, no B) →
+     poisoning → victim (kernel B), 2 epochs a stage; each stage's wall.
+  Kernel launch counts are zeroed just before each CLI run and read just
+  after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -67,6 +74,22 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Device time per call: the CUDA kernels' durations under torch.profiler
+    over ``iters`` calls after a warm-up call, summed. For calls so short
+    that back-to-back launches timed by CUDA events measure the host's
+    launch path instead (kernel C at FlowMur's shape: ~0.01 ms)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def max_err(torch, got, ref, rtol: float, atol: float) -> tuple[float, float, bool]:
@@ -145,6 +168,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
     wide = MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)
     deep = MFCCParams(sample_rate=44100, n_fft=4097, hop_length=441)
+    flow = MFCCParams(n_mfcc=13, n_fft=2048, hop_length=512)  # FlowMur's front end
     kernels = {k.name: k for k in (op.MFCC_FFT_KERNEL, op.MFCC_BLUESTEIN_KERNEL, op.MFCC_LARGE_KERNEL,
                                    op.MFCC_DEVICE_KERNEL)}
     worst = dict.fromkeys(kernels, 0.0)
@@ -158,6 +182,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         ("torchaudio int16 (256, 16000)", pcm, ta),
         ("librosa f32 (64, 16000) n_fft 2048", wav[:64], lib),
         ("torchaudio f32 ragged (257, 16000)", torch.cat([wav[:256], wav[:1] * 0.5]), ta),
+        ("torchaudio f32 (2048, 16000) n_fft 2048 hop 512, 13 coefficients, FlowMur's chunk", wav, flow),
         ("torchaudio f32 (2048, 44100) n_fft 1103 hop 441, Ultrasonic's chunk", wav44, us),
         ("torchaudio int16 (64, 44100) n_fft 1103 hop 441", pcm44, us),
         ("torchaudio f32 (2048, 44100) n_fft 2205 hop 441, radix 7", wav44, wide),
@@ -228,6 +253,15 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     print(f"  MFCC mfcc_fft_large path (64, 44100) f32 n_fft 2205: kernel "
           f"{time_ms(torch, lambda: op.fused_mfcc(narrow, wide), 10):.4f} ms, torch.stft yardstick "
           f"{time_ms(torch, library, 10):.4f} ms, bound {mfcc_bound(narrow, wide)[0]:.4f} ms", flush=True)
+    library = yardstick(wav, flow)
+    route = op.mfcc_route(flow, num_frames(16000, flow.n_fft, flow.hop_length)).kernel.name
+    flow_ms = time_ms(torch, lambda: op.fused_mfcc(wav, flow), 10)
+    flow_plain = time_ms(torch, lambda: mfcc(wav, flow), 5, warmup=1)
+    bms, by, flops, nbytes = mfcc_bound(wav, flow)
+    print(f"  MFCC {route} path (2048, 16000) f32 n_fft 2048 hop 512, 13 coefficients (FlowMur): kernel "
+          f"{flow_ms:.4f} ms, plain {flow_plain:.4f} ms, torch.stft yardstick {time_ms(torch, library, 10):.4f} ms, "
+          f"bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    ctx["flowmur_route"] = route
     tail_ms = time_ms(torch, lambda: op.fused_mfcc(tail, ta), 10)
     print(f"  MFCC fft path (1568, 16000) f32 tail: kernel {tail_ms:.4f} ms, bound {mfcc_bound(tail, ta)[0]:.4f} ms",
           flush=True)
@@ -245,6 +279,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         if two_blocks:
             check(blocks * 512 >= 1024, f"kernel A at n_fft {params.n_fft} keeps >= 1024 threads per SM")
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
+    ctx["flowmur_feats"] = op.fused_mfcc(wav[:256], flow)[:, None]
     return rows
 
 
@@ -353,17 +388,110 @@ def phase_conv1(torch, ctx) -> list[dict]:
     bc, byc = bound(flops_c, 2 * x_bytes + g_bytes + 4 * 13 * c)
     print(f"  B params bwd (partial pass + finish, one wrapper call): kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, "
           f"autograd yardstick {lib_b:.4f} ms, bound {bb:.4f} ms ({byb})", flush=True)
-    print(f"  C input bwd: kernel {ms_c:.4f} ms, plain (B+C) {plain_bc:.4f} ms, autograd dx "
-          f"yardstick {lib_c:.4f} ms, bound {bc:.4f} ms ({byc})", flush=True)
+    print(f"  C input bwd, train mode, main path's shape x {tuple(x.shape)}: kernel {ms_c:.4f} ms, plain (B+C) "
+          f"{plain_bc:.4f} ms, autograd dx yardstick {lib_c:.4f} ms, bound {bc:.4f} ms ({byc})", flush=True)
+    flow = flowmur_block1(torch, ctx["flowmur_feats"].contiguous(), compare)
     src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
     return [
+        # B's row is the main path's shape; FlowMur's is checked and printed above.
         {"name": "conv1_bn_pool_bwd_params", "route": "cuda", "source": src,
-         "replaces": "audiobd_tpu/ops/fused_conv_block.py:226", "max_abs_err": err_b, "ms": ms_b,
+         "replaces": "audiobd_tpu/ops/fused_conv_block.py:226", "max_abs_err": max(err_b, flow["err_b"]), "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb, "library_ms": lib_b},
+        # C's caller is FlowMur's trigger search: the row is its eval-mode shape.
         {"name": "conv1_bn_pool_bwd_input", "route": "cuda", "source": src,
-         "replaces": "audiobd_tpu/ops/fused_conv_block.py:243", "max_abs_err": err_c, "ms": ms_c,
-         "plain_ms": plain_bc, "bound_ms": bc, "bound_by": byc, "library_ms": lib_c},
+         "replaces": "audiobd_tpu/ops/fused_conv_block.py:243", "max_abs_err": max(err_c, flow["err"]),
+         "ms": flow["ms"], "plain_ms": flow["plain_ms"], "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"],
+         "library_ms": flow["library_ms"]},
     ]
+
+
+def flowmur_block1(torch, x, compare) -> dict:
+    """Kernels B and C at FlowMur's shape: x (256, 1, 32, 13), C 64. B in
+    train mode with batch statistics, as surrogate and victim training launch
+    it. C in eval mode with running statistics, frozen parameters (no kernel
+    B, no h12), as the trigger search launches it. Each against the plain
+    version; their times and bounds by this run's data, and C's cuDNN
+    autograd yardstick."""
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op
+
+    model = build_model("smallcnn", 10, 224, torch.device("cuda"), seed=35, fused=True)
+    w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
+    gamma, beta = model.bn1.weight.detach(), model.bn1.bias.detach()
+    labels = torch.randint(0, 10, (x.shape[0],), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    model.train()  # also sets the running statistics C reads below from this batch
+    out1d = model.block1(x).detach().requires_grad_(True)
+    g_t = torch.autograd.grad(F.cross_entropy(model.head(out1d), labels), out1d)[0].contiguous()
+    r = torch.clamp(F.conv2d(x, w, b), min=0.0)
+    mu = r.mean(dim=(0, 2, 3))
+    inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op.EPS)
+    del r
+    w5 = op._w5(w, b)
+    vecs_t = (mu, inv, gamma * inv, beta - mu * gamma * inv)
+    out_b = op.conv1_bn_pool_bwd_params(x, g_t, w5, *vecs_t, train_bn=True)
+    ref_b = op.conv1_bn_pool_backward_plain(x, g_t, w, b, *vecs_t, train_bn=True, need_dx=False)
+    err_b = compare((None, out_b[:4].t().reshape(w.shape), out_b[4], out_b[5], out_b[6]), ref_b, "FlowMur train")
+    kernel_b = lambda: op.conv1_bn_pool_bwd_params(x, g_t, w5, *vecs_t, train_bn=True)  # noqa: E731
+    ms_b, event_b = device_ms(torch, kernel_b, 50), time_ms(torch, kernel_b, 50)
+    plain_b = device_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
+        x, g_t, w, b, *vecs_t, train_bn=True, need_dx=False), 10)
+    # B's bound counted as at the main path's shape (phase_conv1).
+    _, r_win, z_win = op._windows(x, w5, vecs_t[2], vecs_t[3])
+    winner, active = op._first_match(z_win), r_win > 0
+    n_pc_t, n_active = winner.numel() // 3, int(active.sum())
+    n_win_active, n_xhat = int((winner & active).sum()), int((winner | active).sum())
+    del r_win, z_win, winner, active
+    bb, byb = bound(n_pc_t * (33 + 2 + 3) + 2 * n_xhat + 9 * n_win_active + 14 * n_active,
+                    4 * (x.numel() + g_t.numel() + 11 * w.shape[0]))
+    print(f"  data (FlowMur, train): {n_pc_t} (position, channel) pairs, {n_active} active phases, "
+          f"{n_win_active} active winners", flush=True)
+    print(f"  B params bwd, train mode, FlowMur's shape x {tuple(x.shape)}, g {tuple(g_t.shape)}, device times: "
+          f"kernel {ms_b:.4f} ms (CUDA events over back-to-back calls {event_b:.4f}), plain {plain_b:.4f} ms, "
+          f"bound {bb:.4f} ms ({byb})", flush=True)
+
+    model.eval()
+    out1d = model.block1(x).detach().requires_grad_(True)
+    labels = torch.full((x.shape[0],), 2, device="cuda")  # FlowMur's target class
+    g = torch.autograd.grad(F.cross_entropy(model.head(out1d), labels), out1d)[0].contiguous()
+    rmean, rinv = model.bn1.running_mean, torch.rsqrt(model.bn1.running_var + op.EPS)
+    scale = gamma * rinv
+    shift = beta - rmean * scale
+    vecs = (rmean, rinv, scale, shift)
+    dx = op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, train_bn=False)
+    ref = op.conv1_bn_pool_backward_plain(x, g, w, b, *vecs, train_bn=False, need_dx=True, need_params=False)
+    err = compare((dx, None, None, None, None), ref, "FlowMur eval")
+    # Device times (profiler): at ~0.01 ms a call, CUDA events over
+    # back-to-back launches time the host's launch path (events printed too).
+    kernel = lambda: op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, train_bn=False)  # noqa: E731
+    ms, event_ms = device_ms(torch, kernel, 50), time_ms(torch, kernel, 50)
+    plain_ms = device_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
+        x, g, w, b, *vecs, train_bn=False, need_dx=True, need_params=False), 10)
+    # Yardstick: autograd dx through conv2d → relu → BN (running statistics) → max_pool2d.
+    xg = x.detach().clone().requires_grad_(True)
+    c4 = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+    rr = torch.clamp(F.conv2d(xg, w, b), min=0.0)
+    pooled = F.max_pool2d((rr - c4(rmean)) * c4(rinv) * c4(gamma) + c4(beta), (1, 3))
+    library_ms = device_ms(torch, lambda: torch.autograd.grad(pooled, xg, g, retain_graph=True), 50)
+    # Bound on this run's data, eval mode: per (position, channel) the
+    # recompute (33) and the winner (2); on each active winner scale·g (1)
+    # and four dp multiply-adds (8); at most three adds per x element in the
+    # gather. No h terms. Bytes: x and g read, dx written, taps and three
+    # vectors read.
+    _, r_win, z_win = op._windows(x, w5, scale, shift)
+    n_pc = r_win.numel() // 3
+    n_win_active = int((op._first_match(z_win) & (r_win > 0)).sum())
+    del r_win, z_win
+    flops = n_pc * (33 + 2) + 9 * n_win_active + 3 * x.numel()
+    bound_ms, bound_by = bound(flops, 4 * (2 * x.numel() + g.numel() + 8 * w.shape[0]))
+    print(f"  data: {n_pc} (position, channel) pairs, {n_win_active} active winners", flush=True)
+    print(f"  C input bwd, eval mode, FlowMur's shape x {tuple(x.shape)}, g {tuple(g.shape)}, device times: "
+          f"kernel {ms:.4f} ms (CUDA events over back-to-back calls {event_ms:.4f}), plain {plain_ms:.4f} ms, "
+          f"autograd dx yardstick {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(err_b=err_b, err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbytes_e):
@@ -597,6 +725,99 @@ def phase_block23_paths(torch, kernels, main_clips: float) -> dict[str, int]:
     return launches
 
 
+FLOWMUR_HOSTS, FLOWMUR_OPT_EPOCHS = 5000, 2
+
+
+def _r(values) -> list[float]:
+    return [round(float(v), 5) for v in values]
+
+
+def phase_flowmur(torch, kernels, route: str) -> dict[str, int]:
+    """Phase 4: the FlowMur CLI at full width (SmallCNN surrogates and victim
+    at FlowMur's 224-feature flatten, 3 members, 5,000 hosts, batch 256, a
+    0.5 s trigger), cut in depth to 2 epochs a stage."""
+    import numpy as np
+
+    from audiobd_tpu_torch.cli import flowmur as cli
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.train.checkpoint import load_checkpoint
+
+    flags = ["--synthetic", "--synthetic_per_class", "2000", "--surrogate_epochs", "2", "--opt_epochs",
+             str(FLOWMUR_OPT_EPOCHS), "--num_epochs", "2", "--patience", "20", "--result", "chip_smoke_flowmur"]
+    print(f"phase 4: FlowMur path: python -m audiobd_tpu_torch flowmur {' '.join(flags)} (20,000 clips, 3 "
+          f"surrogates, {FLOWMUR_HOSTS} hosts, batch {BATCH}, 0.5 s trigger, f32)", flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            run = cli.main(flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            stages = run.stages
+            steps = (FLOWMUR_HOSTS // BATCH) * FLOWMUR_OPT_EPOCHS
+            print(f"  wall {wall:.1f} s; launches: {launches}", flush=True)
+            for name, st in stages.items():
+                extra = f", {st['wall_s'] * 1e3 / steps:.2f} ms a step over {steps} steps" if name == "trigger" else ""
+                print(f"  stage {name}: wall {st['wall_s']:.3f} s{extra}; launches {st['launches']}", flush=True)
+            for i, m in enumerate(run.surrogates):
+                print(f"  surrogate {i}: train loss {_r(m.history['train_loss'])}, val loss "
+                      f"{_r(m.history['val_loss'])}, val acc {_r(m.history['val_acc'])}", flush=True)
+            h = run.victim.history
+            print(f"  trigger search summed losses {_r(run.trigger_losses)}; victim train loss {_r(h['train_loss'])}, "
+                  f"clean acc {_r(h['test_clean_acc'])}, ASR {_r(h['test_asr'])}", flush=True)
+            losses = run.trigger_losses + h["train_loss"] + h["test_clean_loss"] + h["test_bd_loss"]
+            losses += [v for m in run.surrogates for v in m.history["train_loss"] + m.history["val_loss"]]
+            check(len(run.surrogates) == 3 and len(run.trigger_losses) == FLOWMUR_OPT_EPOCHS
+                  and run.victim.epochs_ran == 2, "3 surrogates, 2 search epochs and 2 victim epochs ran")
+            check(all(math.isfinite(v) for v in losses), f"every surrogate, trigger and victim loss is finite "
+                  f"({len(losses)} losses)")
+            trig = run.trigger
+            check(trig.shape == (1, 8000) and float(np.abs(trig).max()) <= 0.2 and not np.allclose(trig, 0.1),
+                  f"trigger shaped {trig.shape}, max |trigger| {float(np.abs(trig).max()):.4f} <= 0.2, moved off 0.1")
+            c_search = stages["trigger"]["launches"].get("conv1_bn_pool_bwd_input", 0)
+            check(c_search == steps and launches["conv1_bn_pool_bwd_input"] == steps,
+                  f"kernel C launched {c_search} times in the search, {launches['conv1_bn_pool_bwd_input']} in "
+                  f"all: one a search step ({FLOWMUR_HOSTS // BATCH} x {FLOWMUR_OPT_EPOCHS})")
+            b = {name: st["launches"].get("conv1_bn_pool_bwd_params", 0) for name, st in stages.items()}
+            check(b["trigger"] == 0 and b["surrogates"] > 0 and b["victim"] > 0,
+                  f"kernel B launched {b['trigger']} times in the search, {b['surrogates']} in surrogate and "
+                  f"{b['victim']} in victim training")
+            prep_a = stages["prep"]["launches"].get(route, 0)
+            check(prep_a > 0, f"kernel A's route for n_fft 2048 ({route}) launched {prep_a} times in the prep")
+            rec = os.path.join("record", "chip_smoke_flowmur")
+            data = os.path.join(rec, "SCDv1-10")
+            clean_files = [os.path.join(data, "clean", n + ".npy") for n in (
+                "clean_train_wav", "clean_test_wav", "clean_train_mfcc", "clean_test_mfcc", "clean_train_label",
+                "clean_test_label")]
+            bd_files = [os.path.join(data, "bd", n + ".npy") for n in (
+                "bd_train_wav", "bd_train_mfcc", "bd_train_label", "poison_index_train", "bd_test_wav",
+                "bd_test_mfcc", "bd_test_label", "poison_index_test")]
+            members = [os.path.join(rec, "poisoning_record", f"surrogate_{i}", "torch_checkpoint", "model.pt")
+                       for i in range(3)]
+            csvs = [os.path.join(rec, n) for n in ("loss_result.csv", "acc_result.csv")]
+            missing = [f for f in clean_files + bd_files + members + csvs if not os.path.exists(f)]
+            check(not missing, f"the six clean npys, eight bd npys, three member checkpoints and the victim's "
+                  f"CSVs exist (missing: {missing})")
+            sd, spec = load_checkpoint(rec)
+            reloaded = build_model(spec["model"], spec["num_classes"], spec["feature_size"],
+                                   torch.device("cpu"), seed=0)
+            reloaded.load_state_dict(sd)
+            feats = torch.from_numpy(np.load(bd_files[5])[:64])
+            with torch.no_grad():
+                logits = reloaded.eval()(feats)
+            check(tuple(feats.shape[1:]) == (1, 32, 13) and bool(torch.isfinite(logits).all())
+                  and tuple(logits.shape) == (64, 10),
+                  f"victim checkpoint reloads on the CPU: finite {tuple(logits.shape)} logits on "
+                  f"{tuple(feats.shape[1:])} features")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -633,6 +854,7 @@ def main() -> int:
     ctx: dict = {}
     main_rows = [*phase_mfcc(torch, ctx), *phase_conv1(torch, ctx)]
     block23_rows = phase_conv2(torch, ctx)
+    flowmur_route = ctx["flowmur_route"]
     del ctx
     torch.cuda.empty_cache()
     launches, main_clips = phase_main_path(torch, KERNELS)
@@ -641,6 +863,10 @@ def main() -> int:
     block23 = phase_block23_paths(torch, KERNELS, main_clips)
     for row in block23_rows:
         row["launches"] = block23[row["name"]]
+    flowmur = phase_flowmur(torch, KERNELS, flowmur_route)
+    for row in main_rows:
+        if row["name"] == "conv1_bn_pool_bwd_input":
+            row["launches"] = flowmur[row["name"]]
     rows = main_rows + block23_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Times kernels A, B and D of a checkout of the PyTorch/CUDA port, so that
-two checkouts can be compared on one card in one call.
+"""Times kernels A, B, C and D of a checkout of the PyTorch/CUDA port, so
+that two checkouts can be compared on one card in one call.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [--label NAME]
 
 Imports ``audiobd_tpu_torch`` from ``--root`` (default: this checkout) and
-times, by CUDA events over 10 (A) or 20 (B, D) launches after warm-up,
+times, by CUDA events over 10 (A) or 20 (B, C, D) launches after warm-up
+(C also by device time under torch.profiler: at FlowMur's shape the events
+time the host's launch path),
 through the wrappers the versions share:
   * A at the main path's chunk, (2048, 16000) f32, n_fft 400;
   * A at Ultrasonic's chunk, (2048, 44100) f32, n_fft 1103, hop 441;
@@ -13,6 +15,12 @@ through the wrappers the versions share:
   * B (``conv1_bn_pool_bwd_params``, train and eval mode) at the main
     path's shape: x = the MFCC features of 256 clips, SmallCNN's block-1
     parameters (seed 35), g (256, 64, 100, 13) from a seeded generator;
+  * C (``conv1_bn_pool_bwd_input``) in train mode at the same shape with
+    B's h1, h2, and in eval mode at FlowMur's trigger search: x = the MFCC
+    features of 256 clips at n_fft 2048, hop 512, 13 coefficients (256, 1,
+    32, 13), SmallCNN's block-1 parameters at FlowMur's widths, statistics
+    from the batch standing in for running ones, g (256, 64, 31, 4) seeded
+    (C's two-launch version took h12 in both modes, zeros in eval mode);
   * D (``conv2_bn_pool_bwd_params``) at full width, block 2 (x (256, 64,
     100, 13), g (256, 64, 50, 7), pool padding (1, 1)) and block 3 (x (256,
     64, 50, 7), g (256, 32, 24, 4), pool padding (0, 1)), random inputs with
@@ -29,6 +37,11 @@ import argparse
 import os
 import subprocess
 import sys
+
+# The timers are chip_smoke.py's, from this script's checkout (before --root
+# puts another checkout first on the path).
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import device_ms, time_ms  # noqa: E402
 
 
 def main() -> int:
@@ -56,18 +69,6 @@ def main() -> int:
     label = args.label or args.root
     print(f"[{label}] {smi}", flush=True)
 
-    def time_ms(fn, iters):
-        for _ in range(2):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
     gen = torch.Generator(device="cuda").manual_seed(0)
     wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
     wav44 = torch.randn(2048, 44100, device="cuda", generator=gen) * 0.1
@@ -77,9 +78,10 @@ def main() -> int:
         ("A n_fft 2205 (2048, 44100)", wav44, MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)),
         ("A n_fft 2205 (64, 44100)", wav44[:64], MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)),
     ):
-        print(f"[{label}] {name}: {time_ms(lambda: op.fused_mfcc(w, params), 10):.4f} ms", flush=True)
+        print(f"[{label}] {name}: {time_ms(torch, lambda: op.fused_mfcc(w, params), 10):.4f} ms", flush=True)
 
     x = op.fused_mfcc(wav[:256], MFCCParams())[:, None].contiguous()
+    xf = op.fused_mfcc(wav[:256], MFCCParams(n_mfcc=13, n_fft=2048, hop_length=512))[:, None].contiguous()
     del wav, wav44
     model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True)
     w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
@@ -92,8 +94,25 @@ def main() -> int:
     g = torch.randn(256, 64, 100, 13, device="cuda", generator=gen)
     w5 = op1._w5(w, b)
     for mode, train in (("train", True), ("eval", False)):
-        ms = time_ms(lambda: op1.conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train), 20)
+        ms = time_ms(torch, lambda: op1.conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train), 20)
         print(f"[{label}] B {mode} (256, 1, 101, 40) x (256, 64, 100, 13): {ms:.4f} ms", flush=True)
+    h12 = op1.conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=True)[7:9].contiguous()
+    c_train = lambda: op1.conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12, train_bn=True)  # noqa: E731
+    print(f"[{label}] C train (256, 1, 101, 40) x (256, 64, 100, 13): {time_ms(torch, c_train, 20):.4f} ms, device "
+          f"{device_ms(torch, c_train, 20):.4f} ms", flush=True)
+    flow = build_model("smallcnn", 10, 224, torch.device("cuda"), seed=35, fused=True)
+    wf, bf = flow.conv1.weight.detach(), flow.conv1.bias.detach()
+    r = torch.clamp(F.conv2d(xf, wf, bf), min=0.0)
+    muf = r.mean(dim=(0, 2, 3))
+    invf = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - muf * muf + op1.EPS)
+    scalef = flow.bn1.weight.detach() * invf
+    shiftf = flow.bn1.bias.detach() - muf * scalef
+    gf = torch.randn(256, 64, 31, 4, device="cuda", generator=gen)
+    w5f = op1._w5(wf, bf)
+    hz = None if hasattr(op1, "input_spans") else torch.zeros(2, 64, device="cuda")
+    c_eval = lambda: op1.conv1_bn_pool_bwd_input(xf, gf, w5f, muf, invf, scalef, shiftf, hz, train_bn=False)  # noqa: E731
+    print(f"[{label}] C eval (256, 1, 32, 13) x (256, 64, 31, 4): {time_ms(torch, c_eval, 20):.4f} ms, device "
+          f"{device_ms(torch, c_eval, 50):.4f} ms", flush=True)
 
     for name, (b, cin, h, w, c), pad in (("block 2", (256, 64, 100, 13, 64), (1, 1)),
                                         ("block 3", (256, 64, 50, 7, 32), (0, 1))):
@@ -111,7 +130,7 @@ def main() -> int:
         def launch():
             return op2.conv2_bn_pool_bwd_params(x, g, w257, mu, inv, scale, shift, pool_padding=pad)
 
-        print(f"[{label}] D {name} x {tuple(x.shape)}: {time_ms(launch, 20):.4f} ms", flush=True)
+        print(f"[{label}] D {name} x {tuple(x.shape)}: {time_ms(torch, launch, 20):.4f} ms", flush=True)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 launch()

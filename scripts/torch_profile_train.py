@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile_train.py [--model smallcnn|smalllstm]
         [--fused_block2 auto|on|off] [--fused_block3 auto|on|off]
-        [--per_class 2000] [--batch_size 256] [--trace PATH]
+        [--per_class 2000] [--batch_size 256] [--trace PATH] [--flowmur]
 
 Builds the main path's data on the card (synthetic clips → MFCC kernel →
 BadNets patch), runs one warm-up epoch of training (SmallCNN by default;
@@ -12,6 +12,15 @@ two eval passes exactly as train_attack does, then times one more such epoch
 under torch.profiler. Prints the epoch's wall time, the device's busy and idle
 share (union of kernel intervals over the wall time), device time by kernel,
 and the hand-written kernels' share; ``--trace`` also writes the Chrome trace. Needs a CUDA device.
+
+``--flowmur`` does the same for an epoch of FlowMur's trigger search: the
+5,000 hosts of the synthetic set at FlowMur's front end (n_fft 2048, hop
+512, 13 coefficients), batch 256 (19 steps, the remainder dropped), a
+SmallCNN surrogate at its 224-feature width with fresh weights, frozen in
+eval mode; each step is poison/flowmur.py::trigger_step (deploy → plain matmul
+STFT → MFCC → surrogate → backward through kernel C → Adam). It also sums
+the device time by kind: cuBLAS matrix products (the STFT's), cuDNN
+convolutions (the surrogate's blocks 2-3), kernel C, the rest.
 """
 
 from __future__ import annotations
@@ -26,8 +35,12 @@ from collections import defaultdict
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 # Name fragments of the __global__ functions in audiobd_tpu_torch/csrc/.
-HAND_WRITTEN = ("mfcc_fft_kernel", "bwd_params_", "bwd_input_", "conv2_route", "conv2_params_",
+HAND_WRITTEN = ("mfcc_fft_kernel", "bwd_params_", "bwd_input", "conv2_route", "conv2_params_",
                 "conv2_input_")
+# Name fragments of cuDNN's convolution kernels (implicit GEMMs among them),
+# tested before those of cuBLAS's matrix products.
+CONV_MARKS = ("implicit_gemm", "convolve", "conv2d", "fprop", "dgrad", "wgrad", "cudnn")
+GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90")
 
 
 def main() -> int:
@@ -50,25 +63,32 @@ def main() -> int:
     parser.add_argument("--per_class", type=int, default=2000)
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--trace", type=str, default=None, help="write the Chrome trace here")
+    parser.add_argument("--flowmur", action="store_true", help="profile an epoch of FlowMur's trigger search")
     args = parser.parse_args()
 
-    cfg = make_config("badnets", batch_size=args.batch_size, model=args.model,
+    cfg = make_config("flowmur" if args.flowmur else "badnets", batch_size=args.batch_size, model=args.model,
                       fused_block2=args.fused_block2, fused_block3=args.fused_block3)
     device = resolve_device(cfg.device)
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         clean = make_synthetic_clean_data(cfg, n_per_class=args.per_class)
-        poisoned = badnets.poison(cfg, clean, save=False)
+        poisoned = None if args.flowmur else badnets.poison(cfg, clean, save=False)
         os.chdir(REPO)
-    model = build_attack_model(cfg, device)
-    opt = Adam(model.parameters(), cfg.train.learning_rate)
-    sets = [DeviceDataset(s, device) for s in (poisoned.bd_train, poisoned.clean_test, poisoned.bd_test)]
-    np_rng = rnd.np_rng(cfg.train.seed, "shuffle")
+    if args.flowmur:
+        epoch, n_train, what = flowmur_search_epoch(cfg, clean, device)
+    else:
+        model = build_attack_model(cfg, device)
+        opt = Adam(model.parameters(), cfg.train.learning_rate)
+        sets = [DeviceDataset(s, device) for s in (poisoned.bd_train, poisoned.clean_test, poisoned.bd_test)]
+        np_rng = rnd.np_rng(cfg.train.seed, "shuffle")
+        n_train = len(sets[0])
+        what = (f"model {cfg.model}, fused_block2 {cfg.train.fused_block2}, fused_block3 {cfg.train.fused_block3}; "
+                f"batch {cfg.train.batch_size}; train clips {n_train}, eval clips {len(sets[1]) + len(sets[2])}")
 
-    def epoch():
-        run_train_epoch(model, opt, sets[0], cfg.train.batch_size, np_rng)
-        run_eval_epoch(model, sets[1], cfg.train.batch_size)
-        run_eval_epoch(model, sets[2], cfg.train.batch_size)
+        def epoch():
+            run_train_epoch(model, opt, sets[0], cfg.train.batch_size, np_rng)
+            run_eval_epoch(model, sets[1], cfg.train.batch_size)
+            run_eval_epoch(model, sets[2], cfg.train.batch_size)
 
     epoch()  # warm-up: cuDNN algorithm choice, allocator, kernel binding
     torch.cuda.synchronize()
@@ -106,10 +126,7 @@ def main() -> int:
         by_name[e.name][1] += 1
     total = sum(v[0] for v in by_name.values())
 
-    n_train = len(sets[0])
-    print(f"device {torch.cuda.get_device_name(0)}; model {cfg.model}, fused_block2 "
-          f"{cfg.train.fused_block2}, fused_block3 {cfg.train.fused_block3}; batch {cfg.train.batch_size}; "
-          f"train clips {n_train}, eval clips {len(sets[1]) + len(sets[2])}")
+    print(f"device {torch.cuda.get_device_name(0)}; {what}")
     print(f"epoch wall (no profiler) {plain_wall * 1e3:.1f} ms = {n_train / plain_wall:.0f} train clips/s")
     print(f"epoch wall (profiled) {wall * 1e3:.1f} ms; device busy {busy / 1e3:.1f} ms "
           f"({100 * busy / 1e3 / (wall * 1e3):.1f}% of wall, idle {100 - 100 * busy / 1e3 / (wall * 1e3):.1f}%); "
@@ -121,10 +138,57 @@ def main() -> int:
     print(f"hand-written kernels of csrc/ (sum {sum(v[0] for _, v in own) / 1e3:.1f} ms):")
     for name, (us, count) in sorted(own, key=lambda kv: -kv[1][0]):
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:110]}")
+    if args.flowmur:
+        kinds: dict[str, list] = defaultdict(lambda: [0.0, 0])
+        for name, (us, count) in by_name.items():
+            low = name.lower()
+            kind = ("kernel C" if "bwd_input" in name
+                    else "cuDNN convolutions" if any(k in low for k in CONV_MARKS)
+                    else "matrix products (cuBLAS)" if any(k in low for k in GEMM_MARKS)
+                    else "the rest")
+            kinds[kind][0] += us
+            kinds[kind][1] += count
+        print("device time by kind:")
+        for kind, (us, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {us / 1e3:9.3f} ms {100 * us / total:5.1f}% {count:6d}x  {kind}")
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
     return 0
+
+
+def flowmur_search_epoch(cfg, clean, device):
+    """(epoch function, hosts, description) for an epoch of the trigger search."""
+    import numpy as np
+    import torch
+
+    from audiobd_tpu_torch.data.speech_commands import mfcc_params
+    from audiobd_tpu_torch.poison import flowmur
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils import random as rnd
+
+    surrogate = flowmur.build_surrogate(cfg, 0, device).eval()
+    for p in surrogate.parameters():
+        p.requires_grad_(False)
+    hosts = flowmur.select_trigger_hosts(cfg, clean)
+    wavs = torch.from_numpy(np.ascontiguousarray(hosts[:, 0])).to(device)
+    n, t = wavs.shape
+    length = int(cfg.trigger_duration * cfg.dsp.sample_rate)
+    bs = min(cfg.train.batch_size, n)
+    trigger = torch.full((length,), 0.1, device=device, requires_grad=True)
+    opt = Adam([trigger], cfg.flowmur_opt_lr)
+    np_rng = rnd.np_rng(cfg.train.seed, "flowmur_trigger_shuffle")
+    gen = rnd.torch_generator(cfg.train.seed, "flowmur_positions", device)
+    params = mfcc_params(cfg)
+
+    def epoch():
+        batches = torch.from_numpy(flowmur.trigger_batches(np_rng, n, bs)).to(device)
+        for i in range(batches.shape[0]):
+            positions = torch.randint(0, t - length + 1, (bs,), generator=gen, device=device)
+            flowmur.trigger_step(surrogate, opt, wavs[batches[i]], positions, params, cfg)
+
+    return epoch, n, (f"FlowMur trigger search, {n} hosts, batch {bs}, {n // bs} steps an epoch, "
+                      f"n_fft {params.n_fft}, surrogate block 1 fused {surrogate.fused_block1}")
 
 
 if __name__ == "__main__":

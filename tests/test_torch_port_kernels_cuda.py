@@ -182,6 +182,8 @@ def _block_inputs(shape, seed):
     # C 5 and 33, not multiples of a block's 8-channel slice; 801 frames of
     # 40 (hop 20 at 16 kHz): 10,400 positions a clip, four spans of 2,600.
     (1, 9, 13, 8), (3, 8, 10, 5), (2, 12, 16, 33), (2, 801, 40, 64),
+    # FlowMur's surrogates and victim: 124 positions a clip, one span.
+    (256, 32, 13, 64),
 ])
 @pytest.mark.parametrize("train_bn", [True, False])
 def test_block1_backward_kernels_match_plain(cuda, shape, train_bn):
@@ -190,6 +192,67 @@ def test_block1_backward_kernels_match_plain(cuda, shape, train_bn):
     got = op.conv1_bn_pool_backward(*(a.to(cuda) for a in args), train_bn=train_bn, need_dx=True)
     for name, a, e in zip(("dx", "dweight", "dbias", "dgamma", "dbeta"), got, ref):
         torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("shape", [
+    # FlowMur's trigger search: one span of 124 positions, two channel groups.
+    (256, 32, 13, 64), (1, 32, 13, 64), (3, 32, 13, 5), (2, 32, 13, 33),
+    # The main path's clip: one span, a 62 KB tile, one channel group.
+    (16, 101, 40, 64),
+    # Spans with a halo row: 801 frames of 40 (8 spans of 100 conv rows), rows
+    # of 130 samples (14 spans of 29), and a 4-row clip of 1027 samples.
+    (2, 801, 40, 64), (2, 400, 130, 8), (3, 5, 1027, 16),
+])
+@pytest.mark.parametrize("train_bn", [True, False])
+def test_block1_input_kernel_matches_plain(cuda, shape, train_bn):
+    """Kernel C alone, one launch: eval mode takes no h12; train mode takes
+    kernel B's h1, h2 (the plain version forms its own: same sums, another
+    order)."""
+    args = _block_inputs(shape, seed=sum(shape) + 7)
+    ref = op.conv1_bn_pool_backward_plain(*args, train_bn=train_bn, need_dx=True, need_params=False)[0]
+    x, g, weight, bias, *vecs = (a.to(cuda) for a in args)
+    w5 = op._w5(weight, bias)
+    h12 = op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True)[7:9].contiguous() if train_bn else None
+    before = op.BWD_INPUT_KERNEL.launches
+    dx = op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, h12, train_bn=train_bn)
+    torch.cuda.synchronize()
+    assert op.BWD_INPUT_KERNEL.launches == before + 1
+    torch.testing.assert_close(dx.cpu(), ref, rtol=1e-4, atol=1e-5)
+
+
+def test_frozen_eval_block_launches_kernel_c_alone(cuda):
+    """A frozen eval-mode block (FlowMur's surrogate) launches C once and B
+    never; with its parameters requiring gradients, B and C once each. dx
+    agrees with the CPU either way."""
+    x, _, weight, bias, _, _, _, _ = _block_inputs((8, 32, 13, 64), seed=9)
+    gamma, beta = torch.linspace(-1.05, 1.45, 64), torch.linspace(-0.2, 0.3, 64)
+    rmean, rvar = torch.linspace(0.1, 0.4, 64), torch.linspace(0.6, 1.4, 64)
+    wts = torch.randn(8, 64, 31, 4, generator=torch.Generator().manual_seed(1))
+
+    def run(device, params_grad):
+        params = [t.to(device).requires_grad_(params_grad) for t in (weight, bias, gamma, beta)]
+        xd = x.to(device).detach().requires_grad_(True)
+        out = op.conv1_bn_pool(xd, *params, train=False, running_mean=rmean.to(device),
+                               running_var=rvar.to(device))
+        (out * wts.to(device) + 0.5 * out * out).sum().backward()
+        return xd.grad
+
+    for params_grad, launched in ((False, (0, 1)), (True, (1, 1))):
+        before = op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches
+        dx = run(cuda, params_grad)
+        torch.cuda.synchronize()
+        after = op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches
+        assert (after[0] - before[0], after[1] - before[1]) == launched
+        torch.testing.assert_close(dx.cpu(), run(torch.device("cpu"), params_grad), rtol=1e-4, atol=1e-5)
+
+
+def test_block1_input_kernel_takes_h12_in_train_mode_only(cuda):
+    x, g, weight, bias, *vecs = (a.to(cuda) for a in _block_inputs((2, 9, 13, 8), seed=1))
+    w5 = op._w5(weight, bias)
+    with pytest.raises(ValueError, match="h12"):
+        op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, None, train_bn=True)
+    with pytest.raises(ValueError, match="h12"):
+        op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, torch.zeros(2, 8, device=cuda), train_bn=False)
 
 
 @pytest.mark.parametrize("loss", ["polynomial", "tanh"])
