@@ -61,6 +61,12 @@ class TrainConfig:
     # the reference (audiobd_tpu/configs.py:112-117); "on" turns it on.
     fused_block2: str = "auto"
     fused_block3: str = "auto"
+    # "float32" (the default) or "bfloat16": bf16 activations and matmuls
+    # with f32 parameters, BN statistics and loss (audiobd_tpu/configs.py:93-95).
+    compute_dtype: str = "float32"
+
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
@@ -148,6 +154,8 @@ def make_config(attack: str, **overrides: Any) -> AttackConfig:
                 break
         else:
             raise KeyError(f"Unknown config key: {key}")
+    if cfg.train.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {cfg.train.compute_dtype!r}")
     return cfg
 
 

@@ -29,8 +29,23 @@
 // y and z are formed with __fmul_rn/__fadd_rn in a fixed order (no FMA
 // contraction), so the plain PyTorch version in ops/conv1_bn_pool.py
 // reproduces them bit for bit and routes every tie the same way. r and z
-// are rounded to the forward's compute dtype before the compare; in f32
-// that rounding is the identity (round_to_compute below).
+// are rounded to the forward's compute dtype before the compare
+// (round_to_compute below; the identity in f32).
+//
+// Compute dtype: each kernel is a template over x's type XT and the compute
+// type CT (g's type); the f32 instantiation <float, float> is the f32
+// kernel. In bf16 (CT = __nv_bfloat16; _phase_rz and the bf16 operands of
+// _run_bwd_merged and _run_dp): x (f32 or bf16) and the taps w5 are rounded
+// to bf16 where they are loaded; y = sum of the rounded taps times x, the
+// bias folded in, is formed in f32 and rounded ONCE, at r (the forward
+// rounds after the conv and again after the bias add: the reference's own
+// difference, kept); z is rounded too, and ties go to the first match. g is
+// read as bf16, and the sums multiply the bf16-rounded x. Kernel C rounds
+// each tap's dp (the sum over channels, in f32) to bf16, as the Pallas dp
+// is bf16, and forms dx as the f32 sum of a position's rounded taps in a
+// fixed order, rounded once to bf16 and written in x's type. The reference's
+// un-patch VJP adds the bf16 taps in bf16, so its dx may differ from this
+// one by 1 bf16 ulp. B's output stays f32.
 //
 // What bounds it on the H100: device-memory bytes by the data sheet (at the
 // main path's shape, B 256, H 101, W 40, C 64, g is 85 MB and x 4 MB: 0.027
@@ -78,9 +93,14 @@
 //    scale*g) with A = mu*inv*h2 - h1, Bc = inv*h2 per channel, h1 and h2
 //    from kernel B. The bias tap gets no cotangent.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int NACC = 17;             // dwA[5], dwB[5], dwC[5], S1, S2
 constexpr int PARAMS_THREADS = 256;  // kernel B: a block takes PARAMS_THREADS / 32 channels, one a warp
@@ -89,9 +109,39 @@ constexpr int INPUT_THREADS = 256;   // kernel C
 constexpr int INPUT_WARPS = INPUT_THREADS / 32;
 constexpr int INPUT_UNROLL = 4;      // channels a thread takes a pass, their g loads issued together
 
-// The forward's compute dtype is f32 in this build: rounding r and z to it
-// is the identity. A bf16 build rounds here, as _phase_rz does.
-__device__ __forceinline__ float round_to_compute(float v) { return v; }
+// v rounded to the compute type CT and held in f32: the identity for f32,
+// round to nearest even for bf16, as _phase_rz's astype does.
+template <typename CT>
+__device__ __forceinline__ float round_to_compute(float v) {
+  if constexpr (std::is_same_v<CT, bf16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
+
+// An element of x, rounded to the compute type (exact when x is already in it).
+template <typename XT, typename CT>
+__device__ __forceinline__ float load_x(const XT* p) {
+  const float v = to_f32(__ldg(p));
+  if constexpr (std::is_same_v<XT, CT>) {
+    return v;
+  } else {
+    return round_to_compute<CT>(v);
+  }
+}
 
 struct Window {
   float p[3][4];  // the 2x2 taps of x for the three phases
@@ -100,16 +150,20 @@ struct Window {
   int win;        // first phase whose z equals the pool max
 };
 
-// Loads the 2x4 patch of x under pooled position (b, i, j') and recomputes
-// the window for one channel.
-__device__ __forceinline__ void load_patch(const float* __restrict__ x, int H, int W,
+// Loads the 2x4 patch of x under pooled position (b, i, j'), rounded to the
+// compute type.
+template <typename XT, typename CT>
+__device__ __forceinline__ void load_patch(const XT* __restrict__ x, int H, int W,
                                            int b, int i, int jp, float a[4], float d[4]) {
-  const float* r0 = x + ((long long)b * H + i) * W + 3 * jp;
-  const float* r1 = r0 + W;
+  const XT* r0 = x + ((long long)b * H + i) * W + 3 * jp;
+  const XT* r1 = r0 + W;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) { a[k] = __ldg(r0 + k); d[k] = __ldg(r1 + k); }
+  for (int k = 0; k < 4; ++k) { a[k] = load_x<XT, CT>(r0 + k); d[k] = load_x<XT, CT>(r1 + k); }
 }
 
+// Recomputes the window for one channel from its patch (a: row i, d: row
+// i+1) and taps w (w[4] the bias), both already in the compute type.
+template <typename CT>
 __device__ __forceinline__ void recompute(const float a[4], const float d[4], const float w[5],
                                           float scale, float shift, Window& win) {
   float zmax = 0.0f;
@@ -121,8 +175,8 @@ __device__ __forceinline__ void recompute(const float a[4], const float d[4], co
     y = __fadd_rn(y, __fmul_rn(w[2], win.p[t][2]));
     y = __fadd_rn(y, __fmul_rn(w[3], win.p[t][3]));
     y = __fadd_rn(y, w[4]);
-    const float r = round_to_compute(fmaxf(y, 0.0f));
-    const float z = round_to_compute(__fadd_rn(__fmul_rn(r, scale), shift));
+    const float r = round_to_compute<CT>(fmaxf(y, 0.0f));
+    const float z = round_to_compute<CT>(__fadd_rn(__fmul_rn(r, scale), shift));
     win.r[t] = r;
     win.z[t] = z;
     zmax = t == 0 ? z : fmaxf(zmax, z);
@@ -145,12 +199,12 @@ struct LaneSums {
 
 // One (position, channel) pair of kernel B: top and bottom are the window's
 // 2x4 patch of x (rows i and i+1, columns 3j'..3j'+3), gq is g there.
-template <bool TRAIN>
+template <bool TRAIN, typename CT>
 __device__ __forceinline__ void params_pair(const float4 top, const float4 bottom, float gq, const float w[5],
                                             float scale, float shift, LaneSums& s) {
   const float a[4] = {top.x, top.y, top.z, top.w}, d[4] = {bottom.x, bottom.y, bottom.z, bottom.w};
   Window win;
-  recompute(a, d, w, scale, shift, win);
+  recompute<CT>(a, d, w, scale, shift, win);
   // Only the winner carries dz = g: its taps, relu' and r.
   const int t = win.win;
   const float rw = t == 0 ? win.r[0] : (t == 1 ? win.r[1] : win.r[2]);
@@ -196,10 +250,11 @@ __device__ __forceinline__ void params_pair(const float4 top, const float4 botto
 // the rest of the span follows one position a lane. The warp's sums, each
 // lane's folded to the NACC partial sums, reduce by a shuffle tree in a
 // fixed order and land in partial (NACC, C, B * chunks), one slot per (sum,
-// channel, span).
-template <bool TRAIN>
+// channel, span). The patches are staged rounded to the compute type, so
+// the sums multiply the rounded x.
+template <bool TRAIN, typename XT, typename CT>
 __global__ void __launch_bounds__(PARAMS_THREADS)
-bwd_params_partial(const float* __restrict__ x, const float* __restrict__ g,
+bwd_params_partial(const XT* __restrict__ x, const CT* __restrict__ g,
                    const float* __restrict__ w5, const float* __restrict__ mu_p,
                    const float* __restrict__ inv_p, const float* __restrict__ scale_p,
                    const float* __restrict__ shift_p, float* __restrict__ partial,
@@ -210,12 +265,14 @@ bwd_params_partial(const float* __restrict__ x, const float* __restrict__ g,
   const int span = (plane + chunks - 1) / chunks;
   const int first = (blockIdx.x - b * chunks) * span, n = min(span, plane - first);
   float4* bottom = top + span;
-  const float* xb = x + static_cast<size_t>(b) * H * W;
+  const XT* xb = x + static_cast<size_t>(b) * H * W;
   for (int e = threadIdx.x; e < n; e += PARAMS_THREADS) {
     const int q = first + e, i = q / Wp;
-    const float* r0 = xb + i * W + 3 * (q - i * Wp);
-    top[e] = make_float4(__ldg(r0), __ldg(r0 + 1), __ldg(r0 + 2), __ldg(r0 + 3));
-    bottom[e] = make_float4(__ldg(r0 + W), __ldg(r0 + W + 1), __ldg(r0 + W + 2), __ldg(r0 + W + 3));
+    const XT* r0 = xb + i * W + 3 * (q - i * Wp);
+    top[e] = make_float4(load_x<XT, CT>(r0), load_x<XT, CT>(r0 + 1), load_x<XT, CT>(r0 + 2),
+                         load_x<XT, CT>(r0 + 3));
+    bottom[e] = make_float4(load_x<XT, CT>(r0 + W), load_x<XT, CT>(r0 + W + 1), load_x<XT, CT>(r0 + W + 2),
+                            load_x<XT, CT>(r0 + W + 3));
   }
   __syncthreads();
 
@@ -224,25 +281,25 @@ bwd_params_partial(const float* __restrict__ x, const float* __restrict__ g,
   if (c >= C) return;  // the whole warp; no barrier follows
   float w[5];
 #pragma unroll
-  for (int k = 0; k < 5; ++k) w[k] = __ldg(w5 + c * 5 + k);
+  for (int k = 0; k < 5; ++k) w[k] = round_to_compute<CT>(__ldg(w5 + c * 5 + k));
   const float mu = __ldg(mu_p + c), inv = __ldg(inv_p + c);
   const float scale = __ldg(scale_p + c), shift = __ldg(shift_p + c);
-  const float* gc = g + (static_cast<size_t>(b) * C + c) * plane + first;
+  const CT* gc = g + (static_cast<size_t>(b) * C + c) * plane + first;
   LaneSums s = {};
 
   int base = 0;
   for (; base + 32 * PARAMS_UNROLL <= n; base += 32 * PARAMS_UNROLL) {
     float gv[PARAMS_UNROLL];
 #pragma unroll
-    for (int u = 0; u < PARAMS_UNROLL; ++u) gv[u] = __ldg(gc + base + 32 * u + lane);
+    for (int u = 0; u < PARAMS_UNROLL; ++u) gv[u] = to_f32(__ldg(gc + base + 32 * u + lane));
 #pragma unroll
     for (int u = 0; u < PARAMS_UNROLL; ++u) {
       const int p = base + 32 * u + lane;
-      params_pair<TRAIN>(top[p], bottom[p], gv[u], w, scale, shift, s);
+      params_pair<TRAIN, CT>(top[p], bottom[p], gv[u], w, scale, shift, s);
     }
   }
   for (int p = base + lane; p < n; p += 32)
-    params_pair<TRAIN>(top[p], bottom[p], __ldg(gc + p), w, scale, shift, s);
+    params_pair<TRAIN, CT>(top[p], bottom[p], to_f32(__ldg(gc + p)), w, scale, shift, s);
 
   // Fold: rows 0-4 dwA, 5-9 dwB, 10-14 dwC = inv * (sum p*r - mu * sum p),
   // 15 S1, 16 S2 = inv * (sum g*r - mu * S1).
@@ -302,29 +359,29 @@ bwd_params_finish(const float* __restrict__ partial, const float* __restrict__ s
   out[8 * C + c] = h2;
 }
 
-template <bool TRAIN>
-int launch_params_partial(const float* x, const float* g, const float* w5, const float* mu, const float* inv,
+template <bool TRAIN, typename XT, typename CT>
+int launch_params_partial(const XT* x, const CT* g, const float* w5, const float* mu, const float* inv,
                           const float* scale, const float* shift, float* partial, int B, int H, int W, int C,
                           int chunks, cudaStream_t s) {
   const int plane = (H - 1) * ((W - 1) / 3);
   const int smem = static_cast<int>(sizeof(float4)) * 2 * ((plane + chunks - 1) / chunks);
-  cudaError_t err = cudaFuncSetAttribute(bwd_params_partial<TRAIN>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_params_partial<TRAIN, XT, CT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slices = (C + PARAMS_THREADS / 32 - 1) / (PARAMS_THREADS / 32);
-  bwd_params_partial<TRAIN><<<dim3(B * chunks, slices), PARAMS_THREADS, smem, s>>>(
+  bwd_params_partial<TRAIN, XT, CT><<<dim3(B * chunks, slices), PARAMS_THREADS, smem, s>>>(
       x, g, w5, mu, inv, scale, shift, partial, H, W, C, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One (position, channel) pair of kernel C: adds w_k * dy_t to acc[t][k].
 // taps = w0..w3, rest = (bias, scale, shift, -), h = (A, Bc) in train mode.
-template <bool TRAIN>
+template <bool TRAIN, typename CT>
 __device__ __forceinline__ void input_pair(const float a[4], const float d[4], const float4 taps,
                                            const float4 rest, const float2 h, float gq, float acc[3][4]) {
   const float w[5] = {taps.x, taps.y, taps.z, taps.w, rest.x};
   Window win;
-  recompute(a, d, w, rest.y, rest.z, win);
+  recompute<CT>(a, d, w, rest.y, rest.z, win);
   const float sg = rest.y * gq;  // scale * dz on the winner
   if constexpr (TRAIN) {
     // dy_t = relu'_t * (scale*dz_t - h1 - xhat_t*h2) over every active phase.
@@ -357,12 +414,13 @@ __device__ __forceinline__ void input_pair(const float a[4], const float d[4], c
 // groups and every (INPUT_WARPS / groups)-th run of 32 positions; after each
 // pass the groups' sums meet in the tile in group order, then the tile is
 // un-patched: dx[i,j] = dp0[i,j] + dp1[i,j-1] + dp2[i-1,j] + dp3[i-1,j-1],
-// summed in that order as the plain version's pads do.
-template <bool TRAIN>
+// summed in that order as the plain version's pads do, each dp rounded to
+// the compute type first and the sum once more.
+template <bool TRAIN, typename XT, typename CT>
 __global__ void __launch_bounds__(INPUT_THREADS, 3)
-bwd_input(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ w5,
+bwd_input(const XT* __restrict__ x, const CT* __restrict__ g, const float* __restrict__ w5,
           const float* __restrict__ mu_p, const float* __restrict__ inv_p, const float* __restrict__ scale_p,
-          const float* __restrict__ shift_p, const float* __restrict__ h_p, float* __restrict__ dx,
+          const float* __restrict__ shift_p, const float* __restrict__ h_p, XT* __restrict__ dx,
           int H, int W, int C, int spans, int rows, int groups) {
   extern __shared__ float4 smem[];
   float4* taps = smem;                                          // (C) w0..w3
@@ -378,8 +436,9 @@ bwd_input(const float* __restrict__ x, const float* __restrict__ g, const float*
   const int tap = (r1 - first) * Wc;      // one tap plane of the tile
   for (int q = threadIdx.x; q < C; q += INPUT_THREADS) {
     const float* wq = w5 + 5 * q;
-    taps[q] = make_float4(wq[0], wq[1], wq[2], wq[3]);
-    rest[q] = make_float4(wq[4], scale_p[q], shift_p[q], 0.0f);
+    taps[q] = make_float4(round_to_compute<CT>(wq[0]), round_to_compute<CT>(wq[1]), round_to_compute<CT>(wq[2]),
+                          round_to_compute<CT>(wq[3]));
+    rest[q] = make_float4(round_to_compute<CT>(wq[4]), scale_p[q], shift_p[q], 0.0f);
     if constexpr (TRAIN) {
       const float inv = inv_p[q], h2 = h_p[C + q];
       hab[q] = make_float2(mu_p[q] * inv * h2 - h_p[q], inv * h2);
@@ -392,7 +451,7 @@ bwd_input(const float* __restrict__ x, const float* __restrict__ g, const float*
   const int per = (C + groups - 1) / groups;
   const int c_lo = min(C, cg * per), c_hi = min(C, c_lo + per);
   const int passes = ((npos + 31) / 32 + slots - 1) / slots;
-  const float* gb = g + (static_cast<size_t>(b) * C * plane + first * Wp);
+  const CT* gb = g + (static_cast<size_t>(b) * C * plane + first * Wp);
   for (int pass = 0; pass < passes; ++pass) {
     const int q = (pass * slots + slot) * 32 + lane;  // position in the span, halo row first
     const bool valid = q < npos;
@@ -400,21 +459,21 @@ bwd_input(const float* __restrict__ x, const float* __restrict__ g, const float*
     if (valid) {
       const int li = q / Wp;
       float a[4], d[4];
-      load_patch(x, H, W, b, first + li, q - li * Wp, a, d);
-      const float* gq = gb + q;
+      load_patch<XT, CT>(x, H, W, b, first + li, q - li * Wp, a, d);
+      const CT* gq = gb + q;
       int c = c_lo;
       for (; c + INPUT_UNROLL <= c_hi; c += INPUT_UNROLL) {
         float gv[INPUT_UNROLL];
 #pragma unroll
-        for (int u = 0; u < INPUT_UNROLL; ++u) gv[u] = __ldg(gq + static_cast<size_t>(c + u) * plane);
+        for (int u = 0; u < INPUT_UNROLL; ++u) gv[u] = to_f32(__ldg(gq + static_cast<size_t>(c + u) * plane));
 #pragma unroll
         for (int u = 0; u < INPUT_UNROLL; ++u)
-          input_pair<TRAIN>(a, d, taps[c + u], rest[c + u], TRAIN ? hab[c + u] : make_float2(0.0f, 0.0f),
-                            gv[u], acc);
+          input_pair<TRAIN, CT>(a, d, taps[c + u], rest[c + u], TRAIN ? hab[c + u] : make_float2(0.0f, 0.0f),
+                                gv[u], acc);
       }
       for (; c < c_hi; ++c)
-        input_pair<TRAIN>(a, d, taps[c], rest[c], TRAIN ? hab[c] : make_float2(0.0f, 0.0f),
-                          __ldg(gq + static_cast<size_t>(c) * plane), acc);
+        input_pair<TRAIN, CT>(a, d, taps[c], rest[c], TRAIN ? hab[c] : make_float2(0.0f, 0.0f),
+                              to_f32(__ldg(gq + static_cast<size_t>(c) * plane)), acc);
     }
     // Position q's conv outputs are tile columns 3q .. 3q+2 of each tap plane
     // (W-1 = 3 Wp): lanes at a stride of 3 words, no bank conflict.
@@ -433,36 +492,66 @@ bwd_input(const float* __restrict__ x, const float* __restrict__ g, const float*
   }
 
   const int last = r1 == Hp ? H : r1;  // the last span also writes dx row H-1
-  float* dxb = dx + (static_cast<size_t>(b) * H + r0) * W;
+  XT* dxb = dx + (static_cast<size_t>(b) * H + r0) * W;
   const int n = (last - r0) * W;
   for (int e = threadIdx.x; e < n; e += INPUT_THREADS) {
     const int i = r0 + e / W, j = e - (e / W) * W;
     const float* row = tile + (i - first) * Wc;  // conv row i; row - Wc is conv row i-1
     float v = 0.0f;
     if (i < Hp) {
-      if (j < Wc) v += row[j];
-      if (j >= 1) v += row[tap + j - 1];
+      if (j < Wc) v += round_to_compute<CT>(row[j]);
+      if (j >= 1) v += round_to_compute<CT>(row[tap + j - 1]);
     }
     if (i >= 1) {
-      if (j < Wc) v += row[2 * tap - Wc + j];
-      if (j >= 1) v += row[3 * tap - Wc + j - 1];
+      if (j < Wc) v += round_to_compute<CT>(row[2 * tap - Wc + j]);
+      if (j >= 1) v += round_to_compute<CT>(row[3 * tap - Wc + j - 1]);
     }
-    dxb[e] = v;
+    dxb[e] = from_f32<XT>(round_to_compute<CT>(v));
   }
 }
 
-template <bool TRAIN>
-int launch_input(const float* x, const float* g, const float* w5, const float* mu, const float* inv,
-                 const float* scale, const float* shift, const float* h, float* dx, int B, int H, int W, int C,
+template <bool TRAIN, typename XT, typename CT>
+int launch_input(const XT* x, const CT* g, const float* w5, const float* mu, const float* inv,
+                 const float* scale, const float* shift, const float* h, XT* dx, int B, int H, int W, int C,
                  int spans, int rows, int groups, cudaStream_t s) {
   const int tile_rows = rows + (spans > 1 ? 1 : 0);
   const int smem = C * static_cast<int>(2 * sizeof(float4) + (TRAIN ? sizeof(float2) : 0)) +
                    4 * tile_rows * (W - 1) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(bwd_input<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(bwd_input<TRAIN, XT, CT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_input<TRAIN><<<B * spans, INPUT_THREADS, smem, s>>>(x, g, w5, mu, inv, scale, shift, h, dx, H, W, C,
-                                                          spans, rows, groups);
+  bwd_input<TRAIN, XT, CT><<<B * spans, INPUT_THREADS, smem, s>>>(x, g, w5, mu, inv, scale, shift, h, dx, H, W,
+                                                                  C, spans, rows, groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel B in the compute type CT, x in XT.
+template <typename XT, typename CT>
+int params_entry(const XT* x, const CT* g, const float* w5, const float* mu, const float* inv, const float* scale,
+                 const float* shift, float* partial, float* out, int B, int H, int W, int C, int chunks,
+                 int train_bn, void* stream) {
+  if (chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err =
+      train_bn
+          ? launch_params_partial<true>(x, g, w5, mu, inv, scale, shift, partial, B, H, W, C, chunks, s)
+          : launch_params_partial<false>(x, g, w5, mu, inv, scale, shift, partial, B, H, W, C, chunks, s);
+  if (err != 0) return err;
+  const float n_total = 3.0f * static_cast<float>(B) * (H - 1) * ((W - 1) / 3);
+  bwd_params_finish<<<C, PARAMS_THREADS, 0, s>>>(partial, scale, out, C, B * chunks, n_total, train_bn);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel C in the compute type CT, x and dx in XT.
+template <typename XT, typename CT>
+int input_entry(const XT* x, const CT* g, const float* w5, const float* mu, const float* inv, const float* scale,
+                const float* shift, const float* h, XT* dx, int B, int H, int W, int C, int spans, int rows,
+                int groups, int train_bn, void* stream) {
+  if (spans < 1 || rows < 1 || groups < 1 || INPUT_WARPS % groups != 0 || (train_bn && h == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return train_bn ? launch_input<true>(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, s)
+                  : launch_input<false>(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, s);
 }
 
 }  // namespace
@@ -479,15 +568,7 @@ int conv1_bn_pool_bwd_params(const float* x, const float* g, const float* w5, co
                              const float* inv, const float* scale, const float* shift,
                              float* partial, float* out, int B, int H, int W, int C, int chunks,
                              int train_bn, void* stream) {
-  if (chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err =
-      train_bn ? launch_params_partial<true>(x, g, w5, mu, inv, scale, shift, partial, B, H, W, C, chunks, s)
-               : launch_params_partial<false>(x, g, w5, mu, inv, scale, shift, partial, B, H, W, C, chunks, s);
-  if (err != 0) return err;
-  const float n_total = 3.0f * static_cast<float>(B) * (H - 1) * ((W - 1) / 3);
-  bwd_params_finish<<<C, PARAMS_THREADS, 0, s>>>(partial, scale, out, C, B * chunks, n_total, train_bn);
-  return static_cast<int>(cudaGetLastError());
+  return params_entry(x, g, w5, mu, inv, scale, shift, partial, out, B, H, W, C, chunks, train_bn, stream);
 }
 
 // Kernel C: dx (B, H, W), each clip's conv rows in `spans` spans of `rows`,
@@ -497,11 +578,31 @@ int conv1_bn_pool_bwd_input(const float* x, const float* g, const float* w5, con
                             const float* inv, const float* scale, const float* shift,
                             const float* h, float* dx, int B, int H, int W, int C, int spans, int rows,
                             int groups, int train_bn, void* stream) {
-  if (spans < 1 || rows < 1 || groups < 1 || INPUT_WARPS % groups != 0 || (train_bn && h == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return train_bn ? launch_input<true>(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, s)
-                  : launch_input<false>(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, s);
+  return input_entry(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, train_bn, stream);
+}
+
+// Kernel B in bf16: g bf16; x bf16 (x_bf16) or f32; the rest as above.
+int conv1_bn_pool_bwd_params_bf16(const void* x, const void* g, const float* w5, const float* mu,
+                                  const float* inv, const float* scale, const float* shift,
+                                  float* partial, float* out, int B, int H, int W, int C, int chunks,
+                                  int train_bn, int x_bf16, void* stream) {
+  const bf16* gb = static_cast<const bf16*>(g);
+  return x_bf16 ? params_entry(static_cast<const bf16*>(x), gb, w5, mu, inv, scale, shift, partial, out, B, H, W,
+                               C, chunks, train_bn, stream)
+                : params_entry(static_cast<const float*>(x), gb, w5, mu, inv, scale, shift, partial, out, B, H,
+                               W, C, chunks, train_bn, stream);
+}
+
+// Kernel C in bf16: g bf16; x and dx bf16 (x_bf16) or f32.
+int conv1_bn_pool_bwd_input_bf16(const void* x, const void* g, const float* w5, const float* mu,
+                                 const float* inv, const float* scale, const float* shift,
+                                 const float* h, void* dx, int B, int H, int W, int C, int spans, int rows,
+                                 int groups, int train_bn, int x_bf16, void* stream) {
+  const bf16* gb = static_cast<const bf16*>(g);
+  return x_bf16 ? input_entry(static_cast<const bf16*>(x), gb, w5, mu, inv, scale, shift, h, static_cast<bf16*>(dx),
+                              B, H, W, C, spans, rows, groups, train_bn, stream)
+                : input_entry(static_cast<const float*>(x), gb, w5, mu, inv, scale, shift, h,
+                              static_cast<float*>(dx), B, H, W, C, spans, rows, groups, train_bn, stream);
 }
 
 }  // extern "C"

@@ -46,8 +46,23 @@
 // contraction); z is __fmul_rn then __fadd_rn. The plain PyTorch version in
 // ops/conv2_bn_pool.py forms y and z in the same order, so both route every
 // tie the same way. r and z are rounded to the forward's compute dtype
-// before the compare; in f32 that is the identity (round_to_compute). E reads
-// D's winners, so the two kernels route every tie alike by construction.
+// before the compare (round_to_compute; the identity in f32). E reads D's
+// winners, so the two kernels route every tie alike by construction.
+//
+// Compute dtype: the kernels are templates over T, the type of x, g and dx
+// (the compute type); the f32 instantiation is the f32 kernel. In bf16
+// (_phase_rz2 and the bf16 operands of _run_bwd2 and _run_dp2): x and g are
+// read as bf16 (x lands in the f32 patch tiles by ordinary loads, as
+// cp.async copies bytes and cannot convert); the taps w are rounded to bf16
+// where they are loaded; r and z are rounded to bf16 before the compare; the
+// routing stays f32 (r is bf16-exact in it). D's product multiplies
+// bf16-exact patch values, exact in TF32, so the low half of the patch's
+// TF32 split is zero and a tile takes two mma.sync (hi*hi and hi*lo of the
+// coefficients), not three. E forms each tap's dp (the sum over channels,
+// f32) apart, rounds it to bf16 as the Pallas dp is bf16, adds a position's
+// four taps in f32 in tap order and rounds once to bf16; the reference's
+// un-patch VJP adds the bf16 taps in bf16, so its dx may differ from this
+// one by 1 bf16 ulp. D's output stays f32.
 //
 // What bounds it on the H100: operations. At block 2 (B 256, Cin 64, H 100,
 // W 13, C 64) x is 85 MB and g 23 MB, but the recompute alone is 304,128
@@ -104,10 +119,15 @@
 //    input channel) strip of 16 columns from a register copy of the dy row
 //    segment. No atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int TW = 16;                        // windows per product tile
@@ -141,9 +161,28 @@ static_assert(16 * MT * (THREADS / 32) == KMAX && NT * 8 == NCOL, "each warp 32 
 static_assert(THREADS == 256 && THREADS % TP == 0, "the patch load gives each position THREADS / NP threads");
 static_assert(PSTRIDE % 4 == 0 && WPITCH % 32 == 4, "16-byte rows; channel quads 4 banks apart");
 
-// The forward's compute dtype is f32 in this build: rounding r and z to it
-// is the identity. A bf16 build rounds here, as _phase_rz2 does.
-__device__ __forceinline__ float round_to_compute(float v) { return v; }
+// v rounded to the compute type T and held in f32: the identity for f32,
+// round to nearest even for bf16, as _phase_rz2's astype does.
+template <typename T>
+__device__ __forceinline__ float round_to_compute(float v) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
 
 struct Geometry {
   int B, Cin, H, W, C, ph, pw;
@@ -233,11 +272,12 @@ __device__ __forceinline__ void mma_tf32(float d[4], const unsigned a[4], const 
 // k = (kh*2 + kw)*Cin + ci and position p, 0 on padding (base[p] < 0); taps
 // (kh*2 + kw) from tap0 to tap1 - 1 only, rows counted from tap0's first.
 // Thread (p, k0) copies rows k0, k0 + 4, ... of every tap for position p:
-// neighbouring threads read neighbouring positions, and no division. The
+// neighbouring threads read neighbouring positions, and no division. f32
 // copies are asynchronous, all in flight at once; the caller waits
-// (cp_async_wait_all, then a barrier) before reading P.
-template <int NP, int PITCH>
-__device__ void load_patches(const float* __restrict__ x, const Geometry& G, const long long* __restrict__ base,
+// (cp_async_wait_all, then a barrier) before reading P. bf16 values are
+// loaded and widened to f32 (exact) by ordinary loads.
+template <int NP, int PITCH, typename T>
+__device__ void load_patches(const T* __restrict__ x, const Geometry& G, const long long* __restrict__ base,
                              float* __restrict__ P, int tap0 = 0, int tap1 = 4) {
   const long long plane = (long long)G.H * G.W;
   const int p = threadIdx.x % NP;
@@ -245,18 +285,25 @@ __device__ void load_patches(const float* __restrict__ x, const Geometry& G, con
   const bool ok = o >= 0;
   for (int tap = tap0; tap < tap1; ++tap) {
     float* dst = P + (tap - tap0) * G.Cin * PITCH + p;
-    const float* src = ok ? x + o + (tap >> 1) * G.W + (tap & 1) : x;
+    const T* src = ok ? x + o + (tap >> 1) * G.W + (tap & 1) : x;
     const long long step = ok ? plane : 0;
-    for (int ci = threadIdx.x / NP; ci < G.Cin; ci += THREADS / NP) cp_async4(dst + ci * PITCH, src + ci * step, ok);
+    for (int ci = threadIdx.x / NP; ci < G.Cin; ci += THREADS / NP) {
+      if constexpr (std::is_same_v<T, float>) {
+        cp_async4(dst + ci * PITCH, src + ci * step, ok);
+      } else {
+        dst[ci * PITCH] = ok ? to_f32(__ldg(src + ci * step)) : 0.0f;
+      }
+    }
   }
 }
 
 // The pooled gradient of the window for channel c; 0 for windows with no
 // output (past (ho, wo)) and past the covering grid or the channels.
-__device__ __forceinline__ float pooled_grad(const float* __restrict__ g, const Geometry& G,
+template <typename T>
+__device__ __forceinline__ float pooled_grad(const T* __restrict__ g, const Geometry& G,
                                              const Window& win, int c) {
   if (!win.real || c >= G.C || win.io >= G.ho || win.jo >= G.wo) return 0.0f;
-  return __ldg(g + (((long long)win.b * G.C + c) * G.ho + win.io) * G.wo + win.jo);
+  return to_f32(__ldg(g + (((long long)win.b * G.C + c) * G.ho + win.io) * G.wo + win.jo));
 }
 
 // y[t] += w * p.t for the four phases, each product and sum rounded on its own.
@@ -270,6 +317,8 @@ __device__ __forceinline__ void tap_add(float y[4], float w, const float4& p) {
 // The window's four phases for one channel from its tap sums y: r (0 off
 // the conv grid), the winner (the first phase with the largest z), and the
 // encoded routing into enc[t]: 0 where r = 0, -r at the winner, else +r.
+// r and z are rounded to the compute type T.
+template <typename T>
 __device__ __forceinline__ void encode(const float y[4], float bias, float scale, float shift,
                                        const long long* __restrict__ base, float* __restrict__ enc) {
   float r[4], z[4];
@@ -277,8 +326,8 @@ __device__ __forceinline__ void encode(const float y[4], float bias, float scale
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const bool ok = base[t] >= 0;
-    r[t] = ok ? round_to_compute(fmaxf(__fadd_rn(y[t], bias), 0.0f)) : 0.0f;
-    z[t] = ok ? round_to_compute(__fadd_rn(__fmul_rn(r[t], scale), shift)) : -CUDART_INF_F;
+    r[t] = ok ? round_to_compute<T>(fmaxf(__fadd_rn(y[t], bias), 0.0f)) : 0.0f;
+    z[t] = ok ? round_to_compute<T>(__fadd_rn(__fmul_rn(r[t], scale), shift)) : -CUDART_INF_F;
     zmax = fmaxf(zmax, z[t]);
   }
   const int winner = z[0] == zmax ? 0 : (z[1] == zmax ? 1 : (z[2] == zmax ? 2 : 3));
@@ -297,10 +346,10 @@ static_assert(NCOL * PSTRIDE >= 5 * THREADS, "the final reduction reuses the coe
 // 16-byte loads of the windows' phases (one address per quarter-warp) and
 // one of the quad's taps, for 64 rounded products and sums, so the pass is
 // bound by f32 issue. The encoded routing is staged in the patch chunk and
-// written position-major.
-template <int CR>
+// written position-major. The taps are rounded to the compute type T.
+template <int CR, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-conv2_route(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ scale_p,
+conv2_route(const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ scale_p,
             const float* __restrict__ shift_p, float* __restrict__ route, Geometry G) {
   using S = RouteShape<CR>;
   constexpr int RW = S::RW, RP = S::RP, RPITCH = S::RPITCH, RSTAGE = S::RSTAGE;
@@ -316,9 +365,10 @@ conv2_route(const float* __restrict__ x, const float* __restrict__ w, const floa
   const int c0 = blockIdx.y * CR;
   for (int e = tid; e < k4 * CR; e += THREADS) {
     const int k = e / CR, cl = e % CR, c = c0 + cl;
-    Wq[(cl >> 2) * WPITCH + 4 * k + (cl & 3)] = c < G.C ? w[(long long)k * G.C + c] : 0.0f;
+    Wq[(cl >> 2) * WPITCH + 4 * k + (cl & 3)] = c < G.C ? round_to_compute<T>(w[(long long)k * G.C + c]) : 0.0f;
   }
-  for (int cl = tid; cl < CR; cl += THREADS) bias_s[cl] = c0 + cl < G.C ? w[(long long)k4 * G.C + c0 + cl] : 0.0f;
+  for (int cl = tid; cl < CR; cl += THREADS)
+    bias_s[cl] = c0 + cl < G.C ? round_to_compute<T>(w[(long long)k4 * G.C + c0 + cl]) : 0.0f;
 
   // Warp q: window pairs 4*(q % PG) .. + 3 (lane / 8), quads 8*(q / PG) .. + 7 (lane % 8).
   const int lane = tid & 31, wq = tid >> 5;
@@ -372,8 +422,8 @@ conv2_route(const float* __restrict__ x, const float* __restrict__ w, const floa
     for (int v = 0; v < 2; ++v)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        encode(y[v][e], bias_s[4 * cq + e], scale[e], shift[e], base + 4 * (w0 + v),
-               Rs + (4 * cq + e) * RSTAGE + 4 * (w0 + v));
+        encode<T>(y[v][e], bias_s[4 * cq + e], scale[e], shift[e], base + 4 * (w0 + v),
+                  Rs + (4 * cq + e) * RSTAGE + 4 * (w0 + v));
     __syncthreads();
 
     for (int e = tid; e < CR * RP; e += THREADS) {
@@ -389,9 +439,11 @@ conv2_route(const float* __restrict__ x, const float* __restrict__ w, const floa
 // the bias), then S1, S2. Thread (window, channel) turns the window's four
 // routing values into its coefficients, column-major, and keeps the bias
 // rows and S1, S2; then warp q adds rows 32q .. 32q + 31 times all 48
-// columns in 3xTF32 mma tiles of 16 x 8 x 8.
+// columns in 3xTF32 mma tiles of 16 x 8 x 8 (two a tile in bf16, whose
+// patch values are exact in TF32).
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ route,
+conv2_params_partial(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ route,
                      const float* __restrict__ mu_p, const float* __restrict__ inv_p,
                      float* __restrict__ partial, Geometry G) {
   extern __shared__ __align__(16) float smem[];
@@ -458,16 +510,23 @@ conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g, c
     cp_async_wait_all();
     __syncthreads();
 
-    // 3xTF32 (TF32 alone keeps ~3 digits and is never used on its own).
+    // 3xTF32 (TF32 alone keeps ~3 digits and is never used on its own). A
+    // bf16 patch value is its own TF32 hi part (al = 0): two products.
+    constexpr bool kExactP = std::is_same_v<T, bf16>;
     for (int kk = 0; kk < TP; kk += 8) {
       unsigned ah[MT][4], al[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const float* pr = P + (row0 + 16 * i + gq) * PSTRIDE + kk + tq;
-        split_tf32(pr[0], ah[i][0], al[i][0]);
-        split_tf32(pr[8 * PSTRIDE], ah[i][1], al[i][1]);
-        split_tf32(pr[4], ah[i][2], al[i][2]);
-        split_tf32(pr[8 * PSTRIDE + 4], ah[i][3], al[i][3]);
+        const float pv[4] = {pr[0], pr[8 * PSTRIDE], pr[4], pr[8 * PSTRIDE + 4]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kExactP) {
+            ah[i][e] = __float_as_uint(pv[e]);
+          } else {
+            split_tf32(pv[e], ah[i][e], al[i][e]);
+          }
+        }
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -478,7 +537,7 @@ conv2_params_partial(const float* __restrict__ x, const float* __restrict__ g, c
         const bool exact = 8 * j >= CB && 8 * j < 2 * CB;  // relu' columns are 0 or 1: no low part
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
-          mma_tf32(acc[i][j], al[i], bh);
+          if constexpr (!kExactP) mma_tf32(acc[i][j], al[i], bh);
           if (!exact) mma_tf32(acc[i][j], ah[i], bl);
           mma_tf32(acc[i][j], ah[i], bh);
         }
@@ -548,11 +607,13 @@ __global__ void conv2_params_finish(const float* __restrict__ partial, const flo
 __host__ __device__ __forceinline__ int gather_row_pitch(int W) { return (W + GJ - 1) / GJ * GJ + 1; }
 
 // dx[b, ci, i, j] = sum_{c, kh, kw} w[(kh*2 + kw)*Cin + ci, c] * dy[b, c, i - kh, j - kw],
-// dy formed from kernel D's routing. h (2, C) = h1, h2.
+// dy formed from kernel D's routing. h (2, C) = h1, h2. In bf16 each tap's
+// sum over c is kept apart and rounded before the four are added.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g, const float* __restrict__ w,
+conv2_input_gather(const float* __restrict__ route, const T* __restrict__ g, const float* __restrict__ w,
                  const float* __restrict__ mu_p, const float* __restrict__ inv_p,
-                 const float* __restrict__ scale_p, const float* __restrict__ h_p, float* __restrict__ dx,
+                 const float* __restrict__ scale_p, const float* __restrict__ h_p, T* __restrict__ dx,
                  Geometry G) {
   extern __shared__ __align__(16) float smem[];
   const int cin = G.Cin, C = G.C, wp = G.wp;
@@ -564,7 +625,7 @@ conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g,
   const int b = blockIdx.y, i0 = blockIdx.x * GR;
   for (int e = threadIdx.x; e < C * 4 * cin; e += THREADS) {
     const int c = e / (4 * cin), k = e - c * 4 * cin;
-    Ws[e] = w[(long long)k * C + c];
+    Ws[e] = round_to_compute<T>(w[(long long)k * C + c]);
   }
   for (int c = threadIdx.x; c < C; c += THREADS) {
     V[c] = mu_p[c];
@@ -583,7 +644,7 @@ conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g,
       if (enc != 0.0f) {
         float dz = 0.0f;
         const int io = (i + G.ph) >> 1, jo = (j + G.pw) >> 1;
-        if (enc < 0.0f && io < G.ho && jo < G.wo) dz = __ldg(g + (plane * G.ho + io) * G.wo + jo);
+        if (enc < 0.0f && io < G.ho && jo < G.wo) dz = to_f32(__ldg(g + (plane * G.ho + io) * G.wo + jo));
         const float xhat = (fabsf(enc) - V[c]) * V[C + c];
         v = V[2 * C + c] * dz - V[3 * C + c] - xhat * V[4 * C + c];
       }
@@ -596,9 +657,13 @@ conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g,
     const int r = pair / cin, ci = pair - r * cin, i = i0 + r;
     if (i >= G.H) continue;
     for (int j0 = 0; j0 < G.W; j0 += GJ) {
-      float acc[GJ];
+      // f32: one sum over every (c, tap); bf16: one per tap (kh, kw).
+      constexpr int NA = std::is_same_v<T, bf16> ? 4 : 1;
+      float acc[NA][GJ];
 #pragma unroll
-      for (int jj = 0; jj < GJ; ++jj) acc[jj] = 0.0f;
+      for (int a = 0; a < NA; ++a)
+#pragma unroll
+        for (int jj = 0; jj < GJ; ++jj) acc[a][jj] = 0.0f;
       for (int c = 0; c < C; ++c) {
 #pragma unroll
         for (int kh = 0; kh < 2; ++kh) {
@@ -608,17 +673,27 @@ conv2_input_gather(const float* __restrict__ route, const float* __restrict__ g,
 #pragma unroll
           for (int u = 0; u <= GJ; ++u) dr[u] = drow[u];
           const float w0 = Ws[(c * 4 + kh * 2) * cin + ci], w1 = Ws[(c * 4 + kh * 2 + 1) * cin + ci];
+          float* a0 = acc[NA == 4 ? 2 * kh : 0];
+          float* a1 = acc[NA == 4 ? 2 * kh + 1 : 0];
 #pragma unroll
           for (int jj = 0; jj < GJ; ++jj) {
-            acc[jj] = fmaf(w0, dr[jj + 1], acc[jj]);
-            acc[jj] = fmaf(w1, dr[jj], acc[jj]);
+            a0[jj] = fmaf(w0, dr[jj + 1], a0[jj]);
+            a1[jj] = fmaf(w1, dr[jj], a1[jj]);
           }
         }
       }
-      float* out = dx + (((long long)b * cin + ci) * G.H + i) * G.W;
+      T* out = dx + (((long long)b * cin + ci) * G.H + i) * G.W;
 #pragma unroll
-      for (int jj = 0; jj < GJ; ++jj)
-        if (j0 + jj < G.W) out[j0 + jj] = acc[jj];
+      for (int jj = 0; jj < GJ; ++jj) {
+        float v = acc[0][jj];
+        if constexpr (NA == 4) {
+          v = round_to_compute<T>(v);
+#pragma unroll
+          for (int a = 1; a < 4; ++a) v += round_to_compute<T>(acc[a][jj]);
+          v = round_to_compute<T>(v);
+        }
+        if (j0 + jj < G.W) out[j0 + jj] = from_f32<T>(v);
+      }
     }
   }
 }
@@ -632,13 +707,55 @@ int set_smem(Kernel kernel, size_t bytes) {
                                                static_cast<int>(cudaSharedmemCarveoutMaxShared)));
 }
 
-template <int CR>
-int launch_route(const float* x, const float* w, const float* scale, const float* shift, float* route,
+template <int CR, typename T>
+int launch_route(const T* x, const float* w, const float* scale, const float* shift, float* route,
                  const Geometry& G, int splits, cudaStream_t s) {
   const size_t smem = RouteShape<CR>::FLOATS * sizeof(float) + 2 * RouteShape<CR>::RP * sizeof(long long);
-  const int err = set_smem(conv2_route<CR>, smem);
+  const int err = set_smem(conv2_route<CR, T>, smem);
   if (err != 0) return err;
-  conv2_route<CR><<<dim3(splits, (G.C + CR - 1) / CR), THREADS, smem, s>>>(x, w, scale, shift, route, G);
+  conv2_route<CR, T><<<dim3(splits, (G.C + CR - 1) / CR), THREADS, smem, s>>>(x, w, scale, shift, route, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel D in the compute type T (x and g in T).
+template <typename T>
+int params_entry(const T* x, const T* g, const float* w, const float* mu, const float* inv, const float* scale,
+                 const float* shift, float* partial, float* out, float* route, int B, int Cin, int H, int W, int C,
+                 int ph, int pw, int splits, int route_splits, void* stream) {
+  if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
+  if (G.M + TW >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  int err = C <= 32 ? launch_route<32>(x, w, scale, shift, route, G, route_splits, s)
+                    : launch_route<64>(x, w, scale, shift, route, G, route_splits, s);
+  if (err != 0) return err;
+  const size_t smem = kParamsFloats * sizeof(float) + 2 * TP * sizeof(long long);
+  err = set_smem(conv2_params_partial<T>, smem);
+  if (err != 0) return err;
+  conv2_params_partial<T><<<dim3(splits, (C + CB - 1) / CB), THREADS, smem, s>>>(x, g, route, mu, inv, partial, G);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int k4 = 4 * Cin;
+  const long long n = (long long)(k4 + 1) * C;
+  const float n_total = static_cast<float>((long long)B * G.hp * G.wp);
+  conv2_params_finish<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(partial, scale, out, k4, C,
+                                                                           splits, n_total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel E in the compute type T (g and dx in T).
+template <typename T>
+int input_entry(const float* route, const T* g, const float* w, const float* mu, const float* inv,
+                const float* scale, const float* h, T* dx, int B, int Cin, int H, int W, int C, int ph, int pw,
+                void* stream) {
+  if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
+  const size_t smem = ((size_t)C * 4 * Cin + (size_t)(GR + 1) * C * gather_row_pitch(W) + 5 * (size_t)C) * sizeof(float);
+  const int err = set_smem(conv2_input_gather<T>, smem);
+  if (err != 0) return err;
+  const dim3 grid((H + GR - 1) / GR, B);
+  conv2_input_gather<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(route, g, w, mu, inv, scale, h,
+                                                                                    dx, G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -658,25 +775,8 @@ int conv2_bn_pool_bwd_params(const float* x, const float* g, const float* w, con
                              const float* inv, const float* scale, const float* shift,
                              float* partial, float* out, float* route, int B, int Cin, int H, int W, int C,
                              int ph, int pw, int splits, int route_splits, void* stream) {
-  if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
-  if (G.M + TW >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  int err = C <= 32 ? launch_route<32>(x, w, scale, shift, route, G, route_splits, s)
-                    : launch_route<64>(x, w, scale, shift, route, G, route_splits, s);
-  if (err != 0) return err;
-  const size_t smem = kParamsFloats * sizeof(float) + 2 * TP * sizeof(long long);
-  err = set_smem(conv2_params_partial, smem);
-  if (err != 0) return err;
-  conv2_params_partial<<<dim3(splits, (C + CB - 1) / CB), THREADS, smem, s>>>(x, g, route, mu, inv, partial, G);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const int k4 = 4 * Cin;
-  const long long n = (long long)(k4 + 1) * C;
-  const float n_total = static_cast<float>((long long)B * G.hp * G.wp);
-  conv2_params_finish<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(partial, scale, out, k4, C,
-                                                                           splits, n_total);
-  return static_cast<int>(cudaGetLastError());
+  return params_entry(x, g, w, mu, inv, scale, shift, partial, out, route, B, Cin, H, W, C, ph, pw, splits,
+                      route_splits, stream);
 }
 
 // Kernel E: route (B, C, H-1, W-1) from kernel D; h (2, C) = h1, h2 from kernel D;
@@ -684,15 +784,24 @@ int conv2_bn_pool_bwd_params(const float* x, const float* g, const float* w, con
 int conv2_bn_pool_bwd_input(const float* route, const float* g, const float* w, const float* mu,
                             const float* inv, const float* scale, const float* h, float* dx, int B, int Cin,
                             int H, int W, int C, int ph, int pw, void* stream) {
-  if (Cin < 1 || 4 * Cin > KMAX) return static_cast<int>(cudaErrorInvalidValue);
-  const Geometry G = make_geometry(B, Cin, H, W, C, ph, pw);
-  const size_t smem = ((size_t)C * 4 * Cin + (size_t)(GR + 1) * C * gather_row_pitch(W) + 5 * (size_t)C) * sizeof(float);
-  const int err = set_smem(conv2_input_gather, smem);
-  if (err != 0) return err;
-  const dim3 grid((H + GR - 1) / GR, B);
-  conv2_input_gather<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(route, g, w, mu, inv, scale, h,
-                                                                                 dx, G);
-  return static_cast<int>(cudaGetLastError());
+  return input_entry(route, g, w, mu, inv, scale, h, dx, B, Cin, H, W, C, ph, pw, stream);
+}
+
+// Kernel D in bf16: x and g bf16, the rest as above.
+int conv2_bn_pool_bwd_params_bf16(const void* x, const void* g, const float* w, const float* mu,
+                                  const float* inv, const float* scale, const float* shift,
+                                  float* partial, float* out, float* route, int B, int Cin, int H, int W, int C,
+                                  int ph, int pw, int splits, int route_splits, void* stream) {
+  return params_entry(static_cast<const bf16*>(x), static_cast<const bf16*>(g), w, mu, inv, scale, shift, partial,
+                      out, route, B, Cin, H, W, C, ph, pw, splits, route_splits, stream);
+}
+
+// Kernel E in bf16: g and dx bf16, the rest as above.
+int conv2_bn_pool_bwd_input_bf16(const float* route, const void* g, const float* w, const float* mu,
+                                 const float* inv, const float* scale, const float* h, void* dx, int B, int Cin,
+                                 int H, int W, int C, int ph, int pw, void* stream) {
+  return input_entry(route, static_cast<const bf16*>(g), w, mu, inv, scale, h, static_cast<bf16*>(dx), B, Cin, H,
+                     W, C, ph, pw, stream);
 }
 
 }  // extern "C"

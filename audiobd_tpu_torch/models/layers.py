@@ -12,6 +12,15 @@ differ and are written out here:
     variance at momentum 0.9 (``nn.BatchNorm2d`` would use the unbiased one
     and drift from the reference at every step).
 Dropout takes a generator too, since ``F.dropout`` cannot.
+
+Compute dtype: the blocks and layers take ``dtype`` (torch.float32 or
+torch.bfloat16; the reference's flax ``dtype``). In bf16 the casts are
+flax's, made explicitly (autocast would compute BatchNorm's statistics in
+bf16 here and fuse the conv bias into one rounding): a conv or dense layer
+rounds its input and weight to bf16, rounds the product, then adds the bf16
+bias (a second rounding); relu, max-pooling and dropout run in bf16;
+BatchNorm takes its statistics and normalizes in f32 and returns bf16. The
+parameters and running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -55,15 +64,18 @@ class BatchNorm2d(nn.Module):
         self.running_var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """In f32 whatever x's dtype (flax BatchNorm(dtype=float32),
+        audiobd_tpu/models/layers.py:201-212); the result in x's dtype."""
         c = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+        x32 = x.to(torch.float32)
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight
-        return (x - c(mean)) * c(mul) + c(self.bias)
+        return ((x32 - c(mean)) * c(mul) + c(self.bias)).to(x.dtype)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
@@ -74,28 +86,45 @@ def dropout(x: torch.Tensor, p: float, training: bool, generator: torch.Generato
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def conv_bn_pool_block1(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused_block: bool) -> torch.Tensor:
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv(x)`` in the compute ``dtype`` (flax nn.Conv's casts)."""
+    if dtype == torch.float32:
+        return conv(x)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype)) + conv.bias.to(dtype).reshape(1, -1, 1, 1)
+
+
+def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``fc(x)`` in the compute ``dtype`` (flax nn.Dense's casts)."""
+    if dtype == torch.float32:
+        return fc(x)
+    return F.linear(x.to(dtype), fc.weight.to(dtype)) + fc.bias.to(dtype)
+
+
+def conv_bn_pool_block1(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused_block: bool,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """First SmallCNN block: maxpool_{1,3}(BN(relu(conv2x2(x)))).
 
     With ``fused_block`` (and the shape guard of the reference,
     layers.py:309) the block goes through ops/conv1_bn_pool, whose backward
     is the CUDA kernel pair; in training mode the running statistics are
     updated from the op's batch μ and σ² (clamped at 0, as the reference's
-    two-sample update does). Otherwise the unfused chain runs."""
+    two-sample update does). Otherwise the unfused chain runs. Either way
+    the output is in the compute ``dtype``."""
     if not fused_block or not fused.supports(x):
-        return F.max_pool2d(bn(F.relu(conv(x))), (1, 3))
+        return F.max_pool2d(bn(F.relu(conv2d(conv, x, dtype))), (1, 3))
     if bn.training:
-        out, mu, var = fused.conv1_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, train=True)
+        out, mu, var = fused.conv1_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, train=True,
+                                           compute_dtype=dtype)
         bn.update_running(mu, torch.clamp(var, min=0.0))
         return out
     return fused.conv1_bn_pool(
         x, conv.weight, conv.bias, bn.weight, bn.bias, train=False,
-        running_mean=bn.running_mean, running_var=bn.running_var,
+        running_mean=bn.running_mean, running_var=bn.running_var, compute_dtype=dtype,
     )
 
 
 def conv_bn_pool_block2(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused_block: bool,
-                        pool_padding: tuple[int, int]) -> torch.Tensor:
+                        pool_padding: tuple[int, int], dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Second and third SmallCNN/SmallLSTM blocks:
     maxpool_{2,2,pad pool_padding}(BN(relu(conv2x2(x)))), pool padding (1, 1)
     in block 2 and (0, 1) in block 3 (reference layers.py:342-381).
@@ -104,9 +133,10 @@ def conv_bn_pool_block2(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused
     2 columns, the block goes through ops/conv2_bn_pool, whose backward is
     the CUDA kernel pair D, E; the running statistics are updated from the
     op's batch μ and σ² (clamped at 0). Eval calls always take the unfused
-    chain: the fused op is train mode only."""
+    chain: the fused op is train mode only. The output is in ``dtype``."""
     if not fused_block or not bn.training or x.shape[2] < 2 or x.shape[3] < 2:
-        return F.max_pool2d(bn(F.relu(conv(x))), (2, 2), padding=pool_padding)
-    out, mu, var = fused2.conv2_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, pool_padding=pool_padding)
+        return F.max_pool2d(bn(F.relu(conv2d(conv, x, dtype))), (2, 2), padding=pool_padding)
+    out, mu, var = fused2.conv2_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, pool_padding=pool_padding,
+                                        compute_dtype=dtype)
     bn.update_running(mu, torch.clamp(var, min=0.0))
     return out

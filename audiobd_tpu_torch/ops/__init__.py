@@ -13,4 +13,8 @@ KERNELS = (
     conv1_bn_pool.BWD_INPUT_KERNEL,
     conv2_bn_pool.BWD_PARAMS_KERNEL,
     conv2_bn_pool.BWD_INPUT_KERNEL,
+    conv1_bn_pool.BWD_PARAMS_BF16_KERNEL,
+    conv1_bn_pool.BWD_INPUT_BF16_KERNEL,
+    conv2_bn_pool.BWD_PARAMS_BF16_KERNEL,
+    conv2_bn_pool.BWD_INPUT_BF16_KERNEL,
 )

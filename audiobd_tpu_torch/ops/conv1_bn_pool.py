@@ -15,6 +15,14 @@ Layout is the port's NCHW: x (B, 1, H, W), weight (C, 1, 2, 2), out
 (B, C, H-1, (W-1)//3). On a CUDA tensor the backward launches the kernels or
 raises; on a CPU tensor it runs ``conv1_bn_pool_backward_plain``, the same
 recompute in plain torch.
+
+Compute dtype (``compute_dtype``, float32 or bfloat16; JAX's ``dt_name``):
+in bf16 the forward is the reference's bf16 forward (_conv_relu, _norm_pool
+at audiobd_tpu/ops/fused_conv_block.py:292-318) and ``out`` is bf16; the
+batch statistics stay f32. The backward's mode is the cotangent's dtype: a
+bf16 g runs the kernels' bf16 instantiation (``*_bf16``), which rounds x,
+the taps, r and z to bf16 where the Pallas kernels do and writes dx rounded
+to bf16; the parameter gradients stay f32.
 """
 
 from __future__ import annotations
@@ -39,6 +47,15 @@ PARAMS_SPAN = 3072
 BWD_INPUT_KERNEL = CudaKernel(
     "conv1_bn_pool_bwd_input", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_input",
     [_P] * 9 + [_I] * 8,
+)
+# The bf16 instantiations (a bf16 g; x f32 or bf16, told by the last int).
+BWD_PARAMS_BF16_KERNEL = CudaKernel(
+    "conv1_bn_pool_bwd_params_bf16", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_params_bf16",
+    [_P] * 9 + [_I] * 7,
+)
+BWD_INPUT_BF16_KERNEL = CudaKernel(
+    "conv1_bn_pool_bwd_input_bf16", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_input_bf16",
+    [_P] * 9 + [_I] * 9,
 )
 # Kernel C keeps a span's dp tile (4 taps x conv rows x (W-1) floats, the
 # halo row included) in shared memory; a clip whose tile is larger is cut
@@ -83,13 +100,21 @@ def _w5(weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return torch.cat([weight.reshape(weight.shape[0], 4), bias[:, None]], dim=1).contiguous()
 
 
+def round_to(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 ``v`` rounded to ``dtype`` and held in f32: the identity for
+    float32, round to nearest even for bfloat16 (the kernels'
+    ``round_to_compute``, JAX's ``.astype(bfloat16).astype(float32)``)."""
+    return v if dtype == torch.float32 else v.to(dtype).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
 
-def _windows(x, w5, scale, shift):
+def _windows(x, w5, scale, shift, dtype=torch.float32):
     """Taps p (5, B, H', Wp, 3) and the recomputed r, z (B, C, H', Wp, 3), in
-    the kernel's order of operations (no FMA), so ties route identically."""
+    the kernel's order of operations (no FMA), so ties route identically; r
+    and z rounded to the compute ``dtype`` (x and w5 already are)."""
     b, _, h, w = x.shape
     hp, wp = h - 1, (w - 1) // 3
     x2 = x[:, 0]
@@ -100,8 +125,8 @@ def _windows(x, w5, scale, shift):
     for k in range(1, 4):
         y = y + cw[k] * taps[k][:, None]
     y = y + cw[4]
-    r = torch.clamp(y, min=0.0)
-    z = r * scale.reshape(1, -1, 1, 1, 1) + shift.reshape(1, -1, 1, 1, 1)
+    r = round_to(torch.clamp(y, min=0.0), dtype)
+    z = round_to(r * scale.reshape(1, -1, 1, 1, 1) + shift.reshape(1, -1, 1, 1, 1), dtype)
     p = torch.stack(taps + [torch.ones_like(taps[0])])
     return p, r, z
 
@@ -116,10 +141,19 @@ def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, t
                                  need_params=True):
     """Plain torch version of kernels B and C: (dx or None, dweight, dbias,
     dgamma, dbeta) for upstream gradient ``g`` (B, C, H', Wp); the last four
-    are None unless ``need_params``."""
-    w5 = _w5(weight, bias)
+    are None unless ``need_params``.
+
+    g's dtype is the compute dtype. In bf16 (the Pallas kernels' bf16 mode):
+    x and the taps are rounded to bf16, y = sum of taps times x with the bias
+    folded in is rounded once at r, z is rounded too; the sums multiply the
+    rounded x; each tap's dp is rounded to bf16, and dx is their f32 sum in
+    the un-patch order, rounded once to bf16 and cast to x's dtype. The
+    parameter gradients are f32."""
+    cd = g.dtype
+    w5 = round_to(_w5(weight, bias), cd)
     c = w5.shape[0]
-    p, r, z = _windows(x, w5, scale, shift)
+    xc, g = round_to(x.float(), cd), g.float()
+    p, r, z = _windows(xc, w5, scale, shift, cd)
     m_valid = g.numel() // c
     dz = torch.where(_first_match(z), g[..., None], torch.zeros((), dtype=g.dtype, device=g.device))
     c5 = lambda v: v.reshape(1, -1, 1, 1, 1)  # noqa: E731
@@ -135,7 +169,7 @@ def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, t
         h1 = scale * s1 / n_total
         h2 = scale * s2 / n_total
         if need_params:
-            rpf = rp.to(x.dtype)
+            rpf = rp.to(torch.float32)
             dwb = torch.einsum("kbhwt,bchwt->kc", p, rpf)
             dwc = torch.einsum("kbhwt,bchwt->kc", p, rpf * xhat)
             dw = dw - dwb * h1 - dwc * h2
@@ -145,13 +179,14 @@ def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, t
     if need_dx:
         dr = c5(scale) * dz - c5(h1) - xhat * c5(h2)
         dy = torch.where(rp, dr, torch.zeros_like(dr))
-        dp = torch.einsum("ck,bchwt->kbhwt", w5[:, :4], dy)
+        dp = round_to(torch.einsum("ck,bchwt->kbhwt", w5[:, :4], dy), cd)
         b, _, h, w = x.shape
         dp = dp.reshape(4, b, h - 1, w - 1)
         dx = (
             F.pad(dp[0], (0, 1, 0, 1)) + F.pad(dp[1], (1, 0, 0, 1))
             + F.pad(dp[2], (0, 1, 1, 0)) + F.pad(dp[3], (1, 0, 1, 0))
         )[:, None]
+        dx = round_to(dx, cd).to(x.dtype)
     if not need_params:
         return dx, None, None, None, None
     return dx, dw[:4].t().reshape(weight.shape), dw[4], s2, s1
@@ -161,57 +196,70 @@ def conv1_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, t
 # kernel wrappers
 
 
-def _check_cuda(x, g, w5, *vecs, h12=None):
-    """The kernels' contract: contiguous float32 tensors on one CUDA device,
-    x (B, 1, H, W) with (W-1) % 3 == 0, g (B, C, H-1, (W-1)//3), w5 (C, 5),
-    the per-channel vectors (C,), h12 (2, C)."""
+def _check_cuda(x, g, w5, *vecs, h12=None) -> bool:
+    """The kernels' contract, contiguous tensors on x's CUDA device: g (B, C,
+    H-1, (W-1)//3) in the compute dtype, float32 or bfloat16; x (B, 1, H, W)
+    with (W-1) % 3 == 0, float32, or bfloat16 when g is; w5 (C, 5), the
+    per-channel vectors (C,) and h12 (2, C) float32. Raises naming the
+    tensor that breaks it; returns whether the compute dtype is bf16."""
     if not supports(x):
         raise ValueError(f"conv1_bn_pool needs x (B, 1, H, W) with (W-1) % 3 == 0, got {tuple(x.shape)}")
     b, _, h, w = x.shape
     c = w5.shape[0]
-    expected = [("x", x, x.shape), ("g", g, (b, c, h - 1, (w - 1) // 3)), ("w5", w5, (c, 5))]
-    expected += [(f"vector {i}", v, (c,)) for i, v in enumerate(vecs)]
+    f32, bf16 = (torch.float32,), (torch.float32, torch.bfloat16)
+    expected = [("g", g, (b, c, h - 1, (w - 1) // 3), bf16),
+                ("x", x, x.shape, bf16 if g.dtype == torch.bfloat16 else f32), ("w5", w5, (c, 5), f32)]
+    expected += [(f"vector {i}", v, (c,), f32) for i, v in enumerate(vecs)]
     if h12 is not None:
-        expected.append(("h12", h12, (2, c)))
-    for name, t, shape in expected:
-        if not t.is_cuda or t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"conv1_bn_pool kernels take contiguous float32 tensors on x's CUDA device ({name})")
+        expected.append(("h12", h12, (2, c), f32))
+    for name, t, shape, dtypes in expected:
+        if not t.is_cuda or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"conv1_bn_pool kernels take contiguous tensors on x's CUDA device ({name})")
+        if t.dtype not in dtypes:
+            raise ValueError(f"conv1_bn_pool kernels take {name} in {' or '.join(map(str, dtypes))}"
+                             f"{' (bfloat16 only with a bfloat16 g)' if name == 'x' else ''}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"conv1_bn_pool: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return g.dtype == torch.bfloat16
 
 
 def conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, *, train_bn: bool) -> torch.Tensor:
     """Kernel B: (9, C) = dw taps (4 rows), dbias, dgamma, dbeta, h1, h2.
     A block takes one span of at most ``PARAMS_SPAN`` of a clip's pooled
-    positions, so any clip length fits."""
-    _check_cuda(x, g, w5, mu, inv, scale, shift)
+    positions, so any clip length fits. A bf16 g launches the bf16 mode."""
+    bf16 = _check_cuda(x, g, w5, mu, inv, scale, shift)
     b, _, h, w = x.shape
     c = w5.shape[0]
     chunks = -(-(h - 1) * ((w - 1) // 3) // PARAMS_SPAN)
     partial = torch.empty((17, c, b * chunks), dtype=torch.float32, device=x.device)
     out = torch.empty((9, c), dtype=torch.float32, device=x.device)
-    BWD_PARAMS_KERNEL(
-        x.device, ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
-        ptr(partial), ptr(out), b, h, w, c, chunks, int(train_bn),
-    )
+    args = [ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift), ptr(partial), ptr(out),
+            b, h, w, c, chunks, int(train_bn)]
+    if bf16:
+        BWD_PARAMS_BF16_KERNEL(x.device, *args, int(x.dtype == torch.bfloat16))
+    else:
+        BWD_PARAMS_KERNEL(x.device, *args)
     return out
 
 
 def conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12=None, *, train_bn: bool) -> torch.Tensor:
-    """Kernel C: dx (B, 1, H, W) in one launch. Train mode takes ``h12``,
-    rows 7-8 of kernel B's output; eval mode takes none (h1 = h2 = 0)."""
+    """Kernel C: dx (B, 1, H, W) in x's dtype, in one launch. Train mode
+    takes ``h12``, rows 7-8 of kernel B's output; eval mode takes none (h1 =
+    h2 = 0). A bf16 g launches the bf16 mode."""
     if train_bn != (h12 is not None):
         raise ValueError("kernel C takes h12 (kernel B's rows 7-8) in train mode, and only there")
-    _check_cuda(x, g, w5, mu, inv, scale, shift, h12=h12)
+    bf16 = _check_cuda(x, g, w5, mu, inv, scale, shift, h12=h12)
     b, _, h, w = x.shape
     c = w5.shape[0]
     spans, rows = input_spans(h, w)
     groups = input_groups((rows + (spans > 1)) * ((w - 1) // 3))
     dx = torch.empty_like(x)
-    BWD_INPUT_KERNEL(
-        x.device, ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
-        None if h12 is None else ptr(h12), ptr(dx), b, h, w, c, spans, rows, groups, int(train_bn),
-    )
+    args = [ptr(x), ptr(g), ptr(w5), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
+            None if h12 is None else ptr(h12), ptr(dx), b, h, w, c, spans, rows, groups, int(train_bn)]
+    if bf16:
+        BWD_INPUT_BF16_KERNEL(x.device, *args, int(x.dtype == torch.bfloat16))
+    else:
+        BWD_INPUT_KERNEL(x.device, *args)
     return dx
 
 
@@ -244,24 +292,32 @@ def conv1_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, train_b
 # forward (plain torch) and autograd
 
 
-def _conv_relu(x, weight, bias):
-    return torch.clamp(F.conv2d(x, weight, bias), min=0.0)
+def _conv_relu(x, weight, bias, dtype=torch.float32):
+    """relu(conv2x2(x)) in f32. In bf16 (JAX's _conv_relu): x and the weight
+    rounded to bf16, the convolution rounded to bf16, plus the bf16 bias (a
+    second rounding), relu; r is then held in f32."""
+    if dtype == torch.float32:
+        return torch.clamp(F.conv2d(x, weight, bias), min=0.0)
+    y = F.conv2d(x.to(dtype), weight.to(dtype)) + bias.to(dtype).reshape(1, -1, 1, 1)
+    return torch.clamp(y, min=0.0).to(torch.float32)
 
 
-def _norm_pool(r, gamma, beta, mu, inv):
+def _norm_pool(r, gamma, beta, mu, inv, dtype=torch.float32):
+    """maxpool_{1,3} of z = (r − μ)·inv·γ + β, z formed in f32 and pooled in
+    the compute dtype (JAX's _norm_pool)."""
     c = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
-    z = (r - c(mu)) * c(inv) * c(gamma) + c(beta)
+    z = ((r - c(mu)) * c(inv) * c(gamma) + c(beta)).to(dtype)
     return F.max_pool2d(z, (1, 3))
 
 
 class _TrainBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, gamma, beta):
-        r = _conv_relu(x, weight, bias)
+    def forward(ctx, x, weight, bias, gamma, beta, dtype):
+        r = _conv_relu(x, weight, bias, dtype)
         mu = r.mean(dim=(0, 2, 3))
         var = (r * r).mean(dim=(0, 2, 3)) - mu * mu
         inv = torch.rsqrt(var + EPS)
-        out = _norm_pool(r, gamma, beta, mu, inv)
+        out = _norm_pool(r, gamma, beta, mu, inv, dtype)
         scale = gamma * inv
         shift = beta - mu * scale
         ctx.save_for_backward(x, weight, bias, mu, inv, scale, shift)
@@ -272,18 +328,19 @@ class _TrainBlock(torch.autograd.Function):
     def backward(ctx, g, _g_mu, _g_var):
         # μ and σ² feed only the running statistics, which take no gradient.
         x, weight, bias, mu, inv, scale, shift = ctx.saved_tensors
-        return conv1_bn_pool_backward(
+        grads = conv1_bn_pool_backward(
             x, g, weight, bias, mu, inv, scale, shift,
             train_bn=True, need_dx=ctx.needs_input_grad[0], need_params=any(ctx.needs_input_grad[1:5]),
         )
+        return (*grads, None)
 
 
 class _EvalBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, gamma, beta, running_mean, running_var):
-        r = _conv_relu(x, weight, bias)
+    def forward(ctx, x, weight, bias, gamma, beta, running_mean, running_var, dtype):
+        r = _conv_relu(x, weight, bias, dtype)
         inv = torch.rsqrt(running_var + EPS)
-        out = _norm_pool(r, gamma, beta, running_mean, inv)
+        out = _norm_pool(r, gamma, beta, running_mean, inv, dtype)
         scale = gamma * inv
         shift = beta - running_mean * scale
         ctx.save_for_backward(x, weight, bias, running_mean, inv, scale, shift)
@@ -297,10 +354,11 @@ class _EvalBlock(torch.autograd.Function):
             x, g, weight, bias, mu, inv, scale, shift,
             train_bn=False, need_dx=ctx.needs_input_grad[0], need_params=any(ctx.needs_input_grad[1:5]),
         )
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
-def conv1_bn_pool(x, weight, bias, gamma, beta, *, train: bool, running_mean=None, running_var=None):
+def conv1_bn_pool(x, weight, bias, gamma, beta, *, train: bool, running_mean=None, running_var=None,
+                  compute_dtype: torch.dtype = torch.float32):
     """maxpool_{1,3}(BN(relu(conv2x2(x)))) with the kernel backward.
 
     Training mode normalizes with the batch statistics and returns
@@ -308,9 +366,13 @@ def conv1_bn_pool(x, weight, bias, gamma, beta, *, train: bool, running_mean=Non
     fast variance). Eval mode normalizes with the running statistics and
     returns out. dx is computed whenever x requires a gradient (the
     reference needed a ``need_input_grad`` flag for that; autograd knows).
+    ``out`` is in ``compute_dtype`` (float32 or bfloat16); the statistics
+    are f32.
     """
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv1_bn_pool computes in float32 or bfloat16, got {compute_dtype}")
     if train:
-        return _TrainBlock.apply(x, weight, bias, gamma, beta)
+        return _TrainBlock.apply(x, weight, bias, gamma, beta, compute_dtype)
     if running_mean is None or running_var is None:
         raise ValueError("eval mode needs running_mean and running_var")
-    return _EvalBlock.apply(x, weight, bias, gamma, beta, running_mean, running_var)
+    return _EvalBlock.apply(x, weight, bias, gamma, beta, running_mean, running_var, compute_dtype)

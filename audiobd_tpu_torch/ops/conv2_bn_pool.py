@@ -21,6 +21,15 @@ Layout is the port's NCHW: x (B, Cin, H, W), weight (C, Cin, 2, 2), out
 (B, C, ho, wo). On a CUDA tensor the backward launches the kernels or raises;
 on a CPU tensor it runs ``conv2_bn_pool_backward_plain``, the same recompute
 in plain torch.
+
+Compute dtype (``compute_dtype``, float32 or bfloat16): in bf16 the forward
+is the reference's bf16 forward (_conv_relu2, _norm_pool2 at
+audiobd_tpu/ops/fused_conv_block2.py:285-320; the pool pads with bf16 −inf)
+and ``out`` is bf16, the batch statistics f32. The backward's mode is the
+cotangent's dtype: a bf16 g (and the bf16 x that a bf16 model hands this
+block) runs the kernels' bf16 instantiation (``*_bf16``), which rounds the
+taps, r and z to bf16 where the Pallas kernels do and writes dx in bf16; the
+parameter gradients and the routing stay f32.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from audiobd_tpu_torch.ops.build import CudaKernel, ptr
+from audiobd_tpu_torch.ops.conv1_bn_pool import _conv_relu, round_to
 
 EPS = 1e-5
 MAX_CIN = 64  # 4·Cin taps fit the kernels' 256-row patch tile
@@ -44,6 +54,15 @@ BWD_PARAMS_KERNEL = CudaKernel(
 )
 BWD_INPUT_KERNEL = CudaKernel(
     "conv2_bn_pool_bwd_input", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_input",
+    [_P] * 8 + [_I] * 7,
+)
+# The bf16 instantiations: x, g and dx bf16, the same arguments.
+BWD_PARAMS_BF16_KERNEL = CudaKernel(
+    "conv2_bn_pool_bwd_params_bf16", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_params_bf16",
+    [_P] * 10 + [_I] * 9,
+)
+BWD_INPUT_BF16_KERNEL = CudaKernel(
+    "conv2_bn_pool_bwd_input_bf16", "conv2_bn_pool.cu", "conv2_bn_pool_bwd_input_bf16",
     [_P] * 8 + [_I] * 7,
 )
 
@@ -120,11 +139,12 @@ def _phase_patches(x: torch.Tensor, pool_padding) -> torch.Tensor:
     return pk.reshape(b, k, hc, 2, wc, 2).permute(1, 0, 2, 4, 3, 5).reshape(k, b, hc, wc, 4)
 
 
-def _recompute(p: torch.Tensor, w: torch.Tensor, scale, shift):
+def _recompute(p: torch.Tensor, w: torch.Tensor, scale, shift, dtype=torch.float32):
     """r, z (B, C, hc, wc, 4) in the kernels' order of operations: y is the
     sum over taps k = 0, 1, ... of w[k]·p[k], each product and sum rounded
-    on its own (no FMA), then + bias; r = relu(y), z = r·scale + shift; on
-    pool padding r = 0 and z = −inf. So the pool winners are the kernels'."""
+    on its own (no FMA), then + bias; r = relu(y), z = r·scale + shift, each
+    rounded to the compute ``dtype`` (p and w already are); on pool padding
+    r = 0 and z = −inf. So the pool winners are the kernels'."""
     c5 = lambda v: v.reshape(1, -1, 1, 1, 1)  # noqa: E731
     k4 = w.shape[0] - 1
     y = c5(w[0]) * p[0][:, None]
@@ -133,8 +153,8 @@ def _recompute(p: torch.Tensor, w: torch.Tensor, scale, shift):
     y = y + c5(w[k4])
     valid = p[k4][:, None] > 0
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
-    r = torch.where(valid, torch.clamp(y, min=0.0), zero)
-    z = torch.where(valid, r * c5(scale) + c5(shift), torch.full((), float("-inf"), device=y.device))
+    r = torch.where(valid, round_to(torch.clamp(y, min=0.0), dtype), zero)
+    z = torch.where(valid, round_to(r * c5(scale) + c5(shift), dtype), torch.full((), float("-inf"), device=y.device))
     return r, z
 
 
@@ -158,10 +178,12 @@ def _encode(r: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
     return torch.where(r > 0, torch.where(winner, -r, r), zero)
 
 
-def conv2_routing_plain(x, w, scale, shift, *, pool_padding) -> torch.Tensor:
+def conv2_routing_plain(x, w, scale, shift, *, pool_padding, compute_dtype=torch.float32) -> torch.Tensor:
     """Plain version of kernel D's routing for kernel E: ``Conv2Routing.enc``
-    (B, C, H − 1, W − 1) from x and ``w257`` taps."""
-    r, z = _recompute(_phase_patches(x, pool_padding), w, scale, shift)
+    (B, C, H − 1, W − 1) f32 from x and ``w257`` taps, both rounded to the
+    compute dtype."""
+    xc, wc = round_to(x.float(), compute_dtype), round_to(w, compute_dtype)
+    r, z = _recompute(_phase_patches(xc, pool_padding), wc, scale, shift, compute_dtype)
     return _windows_to_grid(_encode(r, _first_match(z)), x.shape[2], x.shape[3], pool_padding)
 
 
@@ -169,7 +191,11 @@ def conv2_input_from_routing_plain(enc, g, weight, mu, inv, scale, h1, h2, *, po
     """Plain version of kernel E: dx (B, Cin, H, W) from the routing ``enc``,
     the pooled gradient ``g`` and kernel D's h1, h2. dy = relu'·(scale·dz −
     h1 − x̂·h2), dz = g of the window where the position won, then the
-    transposed 2x2 conv of dy."""
+    transposed 2x2 conv of dy. In bf16 (g's dtype) the weight is rounded to
+    bf16, each tap's product (the Pallas dp) is rounded to bf16, and dx is
+    the f32 sum of the four rounded taps in tap order, rounded once (bf16)."""
+    cd = g.dtype
+    g = g.float()
     b, c, hp, wp = enc.shape
     _, _, ho, wo, hc, wc = pool_dims(hp + 1, wp + 1, pool_padding)
     ph, pw = pool_padding
@@ -180,27 +206,38 @@ def conv2_input_from_routing_plain(enc, g, weight, mu, inv, scale, h1, h2, *, po
     dz = torch.where(enc < 0, g_grid, zero)
     xhat = (enc.abs() - c4(mu)) * c4(inv)
     dy = torch.where(enc != 0, c4(scale) * dz - c4(h1) - xhat * c4(h2), zero)
-    return F.conv_transpose2d(dy, weight)
+    if cd == torch.float32:
+        return F.conv_transpose2d(dy, weight)
+    wc = round_to(weight, cd)
+    taps = [round_to(torch.einsum("bchw,ci->bihw", dy, wc[:, :, kh, kw]), cd) for kh in (0, 1) for kw in (0, 1)]
+    dx = (F.pad(taps[0], (0, 1, 0, 1)) + F.pad(taps[1], (1, 0, 0, 1))
+          + F.pad(taps[2], (0, 1, 1, 0)) + F.pad(taps[3], (1, 0, 1, 0)))
+    return dx.to(cd)
 
 
 def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, pool_padding, need_dx=True):
     """Plain torch version of kernels D and E: (dx or None, dweight, dbias,
-    dgamma, dbeta) for the pooled gradient ``g`` (B, C, ho, wo)."""
+    dgamma, dbeta) for the pooled gradient ``g`` (B, C, ho, wo). g's dtype
+    is the compute dtype: in bf16 x and the taps are rounded to it, r and z
+    too, the sums multiply the rounded x, and dx is formed as kernel E's
+    plain version does and cast to x's dtype; the parameter gradients are
+    f32."""
+    cd = g.dtype
     b, cin, h, wd = x.shape
     hp, wp, ho, wo, hc, wc = pool_dims(h, wd, pool_padding)
-    w = w257(weight, bias)
+    w = round_to(w257(weight, bias), cd)
     k4 = 4 * cin
-    p = _phase_patches(x, pool_padding)
-    r, z = _recompute(p, w, scale, shift)
+    p = _phase_patches(round_to(x.float(), cd), pool_padding)
+    r, z = _recompute(p, w, scale, shift, cd)
     winner = _first_match(z)
-    g2 = F.pad(g, (0, wc - wo, 0, hc - ho))  # zero over the windows with no output
-    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    g2 = F.pad(g.float(), (0, wc - wo, 0, hc - ho))  # zero over the windows with no output
+    zero = torch.zeros((), dtype=torch.float32, device=g.device)
     dz = torch.where(winner, g2[..., None], zero)
     c5 = lambda v: v.reshape(1, -1, 1, 1, 1)  # noqa: E731
     xhat = (r - c5(mu)) * c5(inv)
     rp = r > 0
     t1 = torch.where(rp, dz, zero)
-    rpf = rp.to(x.dtype)
+    rpf = rp.to(torch.float32)
     dwa = torch.einsum("kbhwt,bchwt->kc", p, t1)
     dwb = torch.einsum("kbhwt,bchwt->kc", p, rpf)
     dwc = torch.einsum("kbhwt,bchwt->kc", p, rpf * xhat)
@@ -214,7 +251,8 @@ def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, p
     dx = None
     if need_dx:
         enc = _windows_to_grid(_encode(r, winner), h, wd, pool_padding)
-        dx = conv2_input_from_routing_plain(enc, g, weight, mu, inv, scale, h1, h2, pool_padding=pool_padding)
+        dx = conv2_input_from_routing_plain(enc, g, weight, mu, inv, scale, h1, h2,
+                                            pool_padding=pool_padding).to(x.dtype)
     return dx, dweight, dw[k4], s2, s1
 
 
@@ -222,12 +260,14 @@ def conv2_bn_pool_backward_plain(x, g, weight, bias, mu, inv, scale, shift, *, p
 # kernel wrappers
 
 
-def _check_cuda(device, dims, g, w, vecs, pool_padding, extra=()):
-    """The kernels' contract: contiguous float32 tensors on ``device`` (a
-    CUDA device) for the block input of shape ``dims`` = (B, Cin, H, W) with
-    Cin <= 64 and H, W >= 2: g (B, C, ho, wo), w (4·Cin + 1, C), the
-    per-channel vectors (C,) and each (name, tensor, shape) of ``extra``;
-    pool padding in {0, 1} per axis."""
+def _check_cuda(device, dims, g, w, vecs, pool_padding, extra=()) -> bool:
+    """The kernels' contract: contiguous tensors on ``device`` (a CUDA
+    device) for the block input of shape ``dims`` = (B, Cin, H, W) with Cin
+    <= 64 and H, W >= 2: g (B, C, ho, wo) in the compute dtype, float32 or
+    bfloat16; w (4·Cin + 1, C) and the per-channel vectors (C,) float32; each
+    (name, tensor, shape, dtype) of ``extra`` (x in the compute dtype, the
+    routing f32); pool padding in {0, 1} per axis. Raises naming the tensor
+    that breaks it; returns whether the compute dtype is bf16."""
     b, cin, h, wd = dims
     if cin > MAX_CIN or h < 2 or wd < 2:
         raise ValueError(f"conv2_bn_pool kernels need x (B, Cin <= {MAX_CIN}, H >= 2, W >= 2), got {tuple(dims)}")
@@ -235,13 +275,18 @@ def _check_cuda(device, dims, g, w, vecs, pool_padding, extra=()):
         raise ValueError(f"conv2_bn_pool kernels take pool padding 0 or 1 per axis, got {pool_padding}")
     c = w.shape[-1]
     _, _, ho, wo, _, _ = pool_dims(h, wd, pool_padding)
-    expected = [("g", g, (b, c, ho, wo)), ("w", w, (4 * cin + 1, c))]
-    expected += [(f"vector {i}", v, (c,)) for i, v in enumerate(vecs)]
-    for name, t, shape in [*expected, *extra]:
-        if not t.is_cuda or t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"conv2_bn_pool kernels take contiguous float32 tensors on one CUDA device ({name})")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv2_bn_pool kernels take g in float32 or bfloat16 (the compute dtype), got {g.dtype}")
+    expected = [("g", g, (b, c, ho, wo), g.dtype), ("w", w, (4 * cin + 1, c), torch.float32)]
+    expected += [(f"vector {i}", v, (c,), torch.float32) for i, v in enumerate(vecs)]
+    for name, t, shape, dtype in [*expected, *extra]:
+        if not t.is_cuda or t.device != device or not t.is_contiguous():
+            raise ValueError(f"conv2_bn_pool kernels take contiguous tensors on one CUDA device ({name})")
+        if t.dtype != dtype:
+            raise ValueError(f"conv2_bn_pool kernels take {name} in {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"conv2_bn_pool: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    return g.dtype == torch.bfloat16
 
 
 def _splits(n_tiles: int, groups: int) -> int:
@@ -258,10 +303,12 @@ def _route_block(c: int) -> tuple[int, int]:
 
 def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) -> tuple[torch.Tensor, Conv2Routing]:
     """Kernel D: (4·Cin + 5, C) = dw taps (4·Cin rows, tap-major), dbias,
-    dgamma, dbeta, h1, h2; and the routing for kernel E."""
+    dgamma, dbeta, h1, h2; and the routing for kernel E. x and g in the
+    compute dtype: bf16 ones launch the bf16 mode."""
     if x.ndim != 4:
         raise ValueError(f"conv2_bn_pool kernels need x (B, Cin, H, W), got {tuple(x.shape)}")
-    _check_cuda(x.device, x.shape, g, w, (mu, inv, scale, shift), pool_padding, extra=[("x", x, x.shape)])
+    bf16 = _check_cuda(x.device, x.shape, g, w, (mu, inv, scale, shift), pool_padding,
+                       extra=[("x", x, x.shape, g.dtype)])
     b, cin, h, wd = x.shape
     c = w.shape[1]
     _, _, _, _, hc, wc = pool_dims(h, wd, pool_padding)
@@ -270,7 +317,7 @@ def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) ->
     partial = torch.empty((splits, 3 * (4 * cin + 1) + 2, c), dtype=torch.float32, device=x.device)
     out = torch.empty((4 * cin + 5, c), dtype=torch.float32, device=x.device)
     route = torch.empty((b, c, h - 1, wd - 1), dtype=torch.float32, device=x.device)
-    BWD_PARAMS_KERNEL(
+    (BWD_PARAMS_BF16_KERNEL if bf16 else BWD_PARAMS_KERNEL)(
         x.device, ptr(x), ptr(g), ptr(w), ptr(mu), ptr(inv), ptr(scale), ptr(shift),
         ptr(partial), ptr(out), ptr(route), b, cin, h, wd, c, pool_padding[0], pool_padding[1], splits,
         _splits(-(-(b * hc * wc) // route_windows), -(-c // route_channels)),
@@ -279,8 +326,9 @@ def conv2_bn_pool_bwd_params(x, g, w, mu, inv, scale, shift, *, pool_padding) ->
 
 
 def conv2_bn_pool_bwd_input(routing, g, w, mu, inv, scale, h12, *, pool_padding) -> torch.Tensor:
-    """Kernel E: dx (B, Cin, H, W) from kernel D's ``routing`` and its
-    ``h12``, rows 4·Cin + 3 and + 4 of D's output. Raises without D's routing."""
+    """Kernel E: dx (B, Cin, H, W) in g's dtype (the compute dtype, x's)
+    from kernel D's ``routing`` and its ``h12``, rows 4·Cin + 3 and + 4 of
+    D's output. Raises without D's routing."""
     if not isinstance(routing, Conv2Routing):
         raise TypeError(f"kernel E needs the Conv2Routing that kernel D wrote, got {type(routing).__name__}")
     if tuple(routing.pool_padding) != tuple(pool_padding):
@@ -291,10 +339,11 @@ def conv2_bn_pool_bwd_input(routing, g, w, mu, inv, scale, h12, *, pool_padding)
                          f"{tuple(enc.shape)} and {tuple(w.shape)}")
     b, c, hp, wp = enc.shape
     dims = (b, (w.shape[0] - 1) // 4, hp + 1, wp + 1)
-    _check_cuda(enc.device, dims, g, w, (mu, inv, scale), pool_padding,
-                extra=[("routing", enc, (b, w.shape[1], hp, wp)), ("h12", h12, (2, w.shape[1]))])
-    dx = torch.empty(dims, dtype=torch.float32, device=enc.device)
-    BWD_INPUT_KERNEL(
+    bf16 = _check_cuda(enc.device, dims, g, w, (mu, inv, scale), pool_padding,
+                       extra=[("routing", enc, (b, w.shape[1], hp, wp), torch.float32),
+                              ("h12", h12, (2, w.shape[1]), torch.float32)])
+    dx = torch.empty(dims, dtype=g.dtype, device=enc.device)
+    (BWD_INPUT_BF16_KERNEL if bf16 else BWD_INPUT_KERNEL)(
         enc.device, ptr(enc), ptr(g), ptr(w), ptr(mu), ptr(inv), ptr(scale), ptr(h12), ptr(dx),
         *dims, c, pool_padding[0], pool_padding[1],
     )
@@ -323,13 +372,14 @@ def conv2_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, pool_pa
 
 class _TrainBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, gamma, beta, pool_padding):
-        r = torch.clamp(F.conv2d(x, weight, bias), min=0.0)
+    def forward(ctx, x, weight, bias, gamma, beta, pool_padding, dtype):
+        r = _conv_relu(x, weight, bias, dtype)  # JAX's _conv_relu2, the same as block 1's
         mu = r.mean(dim=(0, 2, 3))
         var = (r * r).mean(dim=(0, 2, 3)) - mu * mu  # flax's fast variance, unclamped here
         inv = torch.rsqrt(var + EPS)
         c = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
-        out = F.max_pool2d((r - c(mu)) * c(inv) * c(gamma) + c(beta), (2, 2), padding=pool_padding)
+        z = ((r - c(mu)) * c(inv) * c(gamma) + c(beta)).to(dtype)  # pooled in the compute dtype (−inf padding)
+        out = F.max_pool2d(z, (2, 2), padding=pool_padding)
         scale = gamma * inv
         shift = beta - mu * scale
         ctx.save_for_backward(x, weight, bias, mu, inv, scale, shift)
@@ -342,11 +392,14 @@ class _TrainBlock(torch.autograd.Function):
         # μ and σ² feed only the running statistics, which take no gradient.
         x, weight, bias, mu, inv, scale, shift = ctx.saved_tensors
         grads = conv2_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, pool_padding=ctx.pool_padding)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
-def conv2_bn_pool(x, weight, bias, gamma, beta, *, pool_padding=(1, 1)):
+def conv2_bn_pool(x, weight, bias, gamma, beta, *, pool_padding=(1, 1), compute_dtype=torch.float32):
     """maxpool_{2,2,pad pool_padding}(BN(relu(conv2x2(x)))) in train mode,
     with the kernel backward: (out, batch_mean, batch_var), the variance
-    biased (E[r²] − μ², flax's fast variance). dx is always computed."""
-    return _TrainBlock.apply(x, weight, bias, gamma, beta, tuple(pool_padding))
+    biased (E[r²] − μ², flax's fast variance). dx is always computed. ``out``
+    is in ``compute_dtype`` (float32 or bfloat16); the statistics are f32."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv2_bn_pool computes in float32 or bfloat16, got {compute_dtype}")
+    return _TrainBlock.apply(x, weight, bias, gamma, beta, tuple(pool_padding), compute_dtype)

@@ -55,11 +55,22 @@ def resolve_fused_block2(cfg: AttackConfig, field: str = "fused_block2") -> bool
     return mode == "on"
 
 
+def resolve_compute_dtype(cfg: AttackConfig) -> torch.dtype:
+    """TrainConfig.compute_dtype → the models' torch dtype (the reference's
+    trainer.py:81: bf16 activations and matmuls, f32 parameters, BN
+    statistics and loss)."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.train.compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {cfg.train.compute_dtype!r}")
+    return dtypes[cfg.train.compute_dtype]
+
+
 def build_attack_model(cfg: AttackConfig, device: torch.device):
     return build_model(
         cfg.model, cfg.num_classes, linear_features_for(cfg.name, cfg.model), device,
         cfg.train.seed, fused=resolve_fused_conv(cfg, device),
         fused_block2=resolve_fused_block2(cfg), fused_block3=resolve_fused_block2(cfg, "fused_block3"),
+        compute_dtype=resolve_compute_dtype(cfg),
     )
 
 

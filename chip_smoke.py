@@ -27,6 +27,15 @@ no result, without them. Phases, each printing its own lines:
      A at n_fft 2048) → 3 SmallCNN surrogates (kernel B) → trigger search
      through the frozen surrogate (kernel C, one launch a step, no B) →
      poisoning → victim (kernel B), 2 epochs a stage; each stage's wall.
+  1b/1c (bf16). kernels B, C, D and E in their bf16 mode (a bf16 g; x f32
+     for B and C, bf16 for D and E) against their plain versions at the same
+     shapes, g from the bf16 model; the yardstick is autograd through cuDNN's
+     bf16 conv2d → relu → BN (f32 statistics) → max_pool2d chain.
+  5. path 1 of the bf16 slice: the main path's CLI run with --config naming
+     a YAML of train: {compute_dtype: bfloat16} (BadNets → SmallCNN in bf16,
+     block-1 backward through kernel B's bf16 mode);
+     5b. path 2: SmallLSTM in bf16 with --fused_block2 on --fused_block3 on
+     (B, D and E in bf16).
   Kernel launch counts are zeroed just before each CLI run and read just
   after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
@@ -494,7 +503,119 @@ def flowmur_block1(torch, x, compare) -> dict:
                 bound_by=bound_by)
 
 
-def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbytes_e):
+def block_yardstick(torch, x, w, b, gamma, beta, pool, padding, g, dtype):
+    """Autograd through cuDNN's chain conv2d → relu → BN (batch statistics) →
+    max_pool2d in ``dtype``: (ms for the parameters' gradients, ms for
+    dx's)."""
+    import torch.nn.functional as F
+
+    xg = x.detach().clone().requires_grad_(True)
+    params = [t.detach().clone().requires_grad_(True) for t in (w, b, gamma, beta)]
+    c4 = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+    rr = torch.clamp(F.conv2d(xg.to(dtype), params[0].to(dtype)) + c4(params[1].to(dtype)), min=0.0).float()
+    m_ = rr.mean(dim=(0, 2, 3))
+    v_ = (rr * rr).mean(dim=(0, 2, 3)) - m_ * m_
+    z = ((rr - c4(m_)) * c4(torch.rsqrt(v_ + 1e-5)) * c4(params[2]) + c4(params[3])).to(dtype)
+    pooled = F.max_pool2d(z, pool, padding=padding)
+    lib_p = time_ms(torch, lambda: torch.autograd.grad(pooled, params, g, retain_graph=True), 20)
+    lib_x = time_ms(torch, lambda: torch.autograd.grad(pooled, xg, g, retain_graph=True), 20)
+    return lib_p, lib_x
+
+
+def bf16_compare(torch, names, got, ref, label) -> tuple[float, float]:
+    """The bf16 modes against their plain versions: parameter gradients
+    within 1e-3 * max|ref| + 1e-6 (f32 sums in another order, the same
+    routing); dx, a bf16 sum of bf16 taps each summed over the channels in
+    another order, within 2 bf16 ulps of max|dx|. (worst param, dx error)."""
+    worst = {"params": 0.0, "dx": 0.0}
+    for n, a, e in zip(names, got, ref):
+        if a is None:
+            continue
+        err, rel, _ = max_err(torch, a.float(), e.float(), 0.0, 0.0)
+        limit = 2 * 2.0 ** -7 * float(e.float().abs().max()) if n == "dx" else 1e-3 * float(e.abs().max()) + 1e-6
+        same = float((a.float() == e.float()).double().mean()) if n == "dx" else None
+        check(err <= limit, f"{label} {n} {tuple(a.shape)} {a.dtype}: max abs err {err:.3e} (rel to max "
+              f"{rel:.3e}){'' if same is None else f', {100 * same:.2f}% bit-equal'}")
+        key = "dx" if n == "dx" else "params"
+        worst[key] = max(worst[key], err)
+    return worst["params"], worst["dx"]
+
+
+def phase_conv1_bf16(torch, ctx) -> list[dict]:
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op
+
+    bf16 = torch.bfloat16
+    print("phase 1b (bf16): kernels B and C in bf16 mode vs plain at the main path's shape (x f32, g bf16); "
+          "tolerance: parameter gradients max abs err <= 1e-3 * max|ref| + 1e-6, dx within 2 bf16 ulps of "
+          "max|dx|", flush=True)
+    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True, compute_dtype=bf16)
+    model.train()
+    x = ctx["feats"].contiguous()
+    out1d = model.block1(x).detach().requires_grad_(True)
+    labels = torch.randint(0, 10, (x.shape[0],), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    g = torch.autograd.grad(F.cross_entropy(model.head(out1d).float(), labels), out1d)[0].contiguous()
+    check(g.dtype == bf16 and out1d.dtype == bf16, f"the bf16 model's block-1 output and its gradient are "
+          f"{out1d.dtype}, {g.dtype}")
+    w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
+    gamma, beta = model.bn1.weight.detach(), model.bn1.bias.detach()
+    r = op._conv_relu(x, w, b, bf16)
+    mu = r.mean(dim=(0, 2, 3))
+    inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op.EPS)
+    del r
+    scale = gamma * inv
+    shift = beta - mu * scale
+    vecs = (mu, inv, scale, shift)
+    w5 = op._w5(w, b)
+    names = ("dx", "dweight", "dbias", "dgamma", "dbeta")
+    out_b = op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True)
+    h12 = out_b[7:9].contiguous()
+    dx = op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, h12, train_bn=True)
+    ref = op.conv1_bn_pool_backward_plain(x, g, w, b, *vecs, train_bn=True, need_dx=True)
+    err_b, err_c = bf16_compare(torch, names, (dx, out_b[:4].t().reshape(w.shape), out_b[4], out_b[5], out_b[6]),
+                                ref, "bf16 train")
+    del ref
+    ms_b = time_ms(torch, lambda: op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True), 20)
+    ms_c = time_ms(torch, lambda: op.conv1_bn_pool_bwd_input(x, g, w5, *vecs, h12, train_bn=True), 20)
+    plain_b = time_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
+        x, g, w, b, *vecs, train_bn=True, need_dx=False), 5, warmup=1)
+    plain_bc = time_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
+        x, g, w, b, *vecs, train_bn=True, need_dx=True), 5, warmup=1)
+    lib_b, lib_c = block_yardstick(torch, x, w, b, gamma, beta, (1, 3), 0, g, bf16)
+    # Bounds counted as phase 1b counts them, on the bf16 routing; bytes: x
+    # f32, g bf16 (2 bytes), dx f32 (the model input's dtype).
+    _, r_win, z_win = op._windows(op.round_to(x, bf16), op.round_to(w5, bf16), scale, shift, bf16)
+    winner, active = op._first_match(z_win), r_win > 0
+    n_pc, n_active = winner.numel() // 3, int(active.sum())
+    n_win_active, n_xhat = int((winner & active).sum()), int((winner | active).sum())
+    del r_win, z_win, winner, active
+    c = w.shape[0]
+    x_bytes, g_bytes = 4 * x.numel(), 2 * g.numel()
+    bb, byb = bound(n_pc * (33 + 2 + 3) + 2 * n_xhat + 9 * n_win_active + 14 * n_active,
+                    x_bytes + g_bytes + 4 * 11 * c)
+    bc, byc = bound(n_pc * (33 + 2) + 13 * n_active + n_win_active + 3 * x.numel(),
+                    2 * x_bytes + g_bytes + 4 * 13 * c)
+    print(f"  data (bf16): {n_pc} (position, channel) pairs, {n_active} active phases, {n_win_active} active "
+          f"winners", flush=True)
+    print(f"  B params bwd, bf16: kernel {ms_b:.4f} ms, plain {plain_b:.4f} ms, autograd yardstick (cuDNN bf16) "
+          f"{lib_b:.4f} ms, bound {bb:.4f} ms ({byb})", flush=True)
+    print(f"  C input bwd, bf16, train mode, x {tuple(x.shape)}: kernel {ms_c:.4f} ms, plain (B+C) {plain_bc:.4f} ms, "
+          f"autograd dx yardstick (cuDNN bf16) {lib_c:.4f} ms, bound {bc:.4f} ms ({byc})", flush=True)
+    src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
+    return [
+        {"name": "conv1_bn_pool_bwd_params_bf16", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block.py:226", "max_abs_err": err_b, "ms": ms_b,
+         "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb, "library_ms": lib_b},
+        {"name": "conv1_bn_pool_bwd_input_bf16", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block.py:243", "max_abs_err": err_c, "ms": ms_c,
+         "plain_ms": plain_bc, "bound_ms": bc, "bound_by": byc, "library_ms": lib_c},
+    ]
+
+
+def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbytes_e, dtype=None):
     """Least times for kernels D and E on this run's data: (D ms, by, E ms,
     by). D: per (conv position, channel) the recompute: 4·Cin products and
     sums, the bias, relu, z (8·Cin + 4). Per (window, channel) 3 compares for
@@ -502,11 +623,13 @@ def conv2_bound(torch, op2, x, w257, scale, shift, pool_padding, nbytes_d, nbyte
     where it is used: active phases and winners. D's dwA (2K, K = 4·Cin + 1
     taps with the bias) only on active winners; dwB (K) and dwC (2K) on every
     active phase. E, from D's routing: per active phase xhat (2), dy (4) and
-    the transposed product's 4·Cin multiply-adds."""
+    the transposed product's 4·Cin multiply-adds. ``dtype`` is the compute
+    dtype whose rounding routes the windows (f32 by default)."""
+    dtype = dtype or torch.float32
     cin = x.shape[1]
     k = 4 * cin + 1
-    p = op2._phase_patches(x, pool_padding)
-    r, z = op2._recompute(p, w257, scale, shift)
+    p = op2._phase_patches(x.float(), pool_padding)
+    r, z = op2._recompute(p, op2.round_to(w257, dtype), scale, shift, dtype)
     del p
     valid = torch.isfinite(z)
     winner = op2._first_match(z) & valid
@@ -638,24 +761,119 @@ def phase_conv2(torch, ctx) -> list[dict]:
     ]
 
 
+def phase_conv2_bf16(torch, ctx) -> list[dict]:
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv2_bn_pool as op2
+
+    bf16 = torch.bfloat16
+    print("phase 1c (bf16): kernels D and E in bf16 mode vs plain (x, g bf16); tolerance: parameter gradients "
+          "max abs err <= 1e-3 * max|ref| + 1e-6, dx within 2 bf16 ulps of max|dx|, D's routing bit-equal",
+          flush=True)
+    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True, fused_block2=True,
+                        fused_block3=True, compute_dtype=bf16)
+    model.train()
+    labels = torch.randint(0, 10, (ctx["feats"].shape[0],), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.no_grad():
+        x2 = model.block1(ctx["feats"]).contiguous()
+        x3 = model.block2(x2).contiguous()
+    x3d = x3.clone().requires_grad_(True)
+    out3 = model.block3(x3d)
+    out3d = out3.detach().requires_grad_(True)
+    g3 = torch.autograd.grad(F.cross_entropy(model.classifier(out3d).float(), labels), out3d)[0].contiguous()
+    g2 = torch.autograd.grad(out3, x3d, g3)[0].contiguous()
+    del x3d, out3, out3d
+    names = ("dx", "dweight", "dbias", "dgamma", "dbeta")
+    results = []
+    for label, x, g, conv, bn, pad in (("block 2", x2, g2, model.conv2, model.bn2, (1, 1)),
+                                       ("block 3", x3, g3, model.conv3, model.bn3, (0, 1))):
+        check(x.dtype == g.dtype == bf16, f"{label} bf16: x {x.dtype}, g {g.dtype}")
+        w, b = conv.weight.detach(), conv.bias.detach()
+        gamma, beta = bn.weight.detach(), bn.bias.detach()
+        r = op2._conv_relu(x, w, b, bf16)
+        mu = r.mean(dim=(0, 2, 3))
+        inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op2.EPS)
+        del r
+        scale = gamma * inv
+        shift = beta - mu * scale
+        vecs = (mu, inv, scale, shift)
+        got = op2.conv2_bn_pool_backward(x, g, w, b, *vecs, pool_padding=pad)  # kernels D, E in bf16
+        torch.cuda.synchronize()
+        ref = op2.conv2_bn_pool_backward_plain(x, g, w, b, *vecs, pool_padding=pad)
+        err_d, err_e = bf16_compare(torch, names, got, ref, f"{label} bf16")
+        del got, ref
+        w257 = op2.w257(w, b)
+        k4 = 4 * x.shape[1]
+        out_d, routing = op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad)
+        h12 = out_d[k4 + 3 : k4 + 5].contiguous()
+        enc_ref = op2.conv2_routing_plain(x, w257, scale, shift, pool_padding=pad, compute_dtype=bf16)
+        same = float((routing.enc == enc_ref).double().mean())
+        check(same == 1.0, f"{label} bf16 D's routing {tuple(routing.enc.shape)}: {100 * same:.4f}% bit-equal "
+              f"to the plain routing")
+        del enc_ref
+        ms_d = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_params(x, g, w257, *vecs, pool_padding=pad), 20)
+        ms_e = time_ms(torch, lambda: op2.conv2_bn_pool_bwd_input(routing, g, w257, mu, inv, scale, h12,
+                                                                  pool_padding=pad), 20)
+        plain_d = time_ms(torch, lambda: op2.conv2_bn_pool_backward_plain(
+            x, g, w, b, *vecs, pool_padding=pad, need_dx=False), 3, warmup=1)
+        plain_de = time_ms(torch, lambda: op2.conv2_bn_pool_backward_plain(x, g, w, b, *vecs, pool_padding=pad),
+                           3, warmup=1)
+        lib_d, lib_e = block_yardstick(torch, x, w, b, gamma, beta, (2, 2), pad, g, bf16)
+        # Bytes: x, g and dx bf16 (2 bytes), the routing, taps, vectors and
+        # D's result f32.
+        c = w.shape[0]
+        route_n = routing.enc.numel()
+        nbytes_d = 2 * (x.numel() + g.numel()) + 4 * (w257.numel() + 4 * c + (k4 + 5) * c + route_n)
+        nbytes_e = 4 * (route_n + w257.numel() + 5 * c) + 2 * (g.numel() + x.numel())
+        bd, byd, be, bye = conv2_bound(torch, op2, x, w257, scale, shift, pad, nbytes_d, nbytes_e, dtype=bf16)
+        print(f"  {label} bf16 x {tuple(x.shape)}, g {tuple(g.shape)}, pool pad {pad}:", flush=True)
+        print(f"    D params bwd: kernel {ms_d:.4f} ms, plain {plain_d:.4f} ms, autograd yardstick (cuDNN bf16) "
+              f"{lib_d:.4f} ms, bound {bd:.4f} ms ({byd})", flush=True)
+        print(f"    E input bwd from D's routing: kernel {ms_e:.4f} ms, plain (D+E) {plain_de:.4f} ms, "
+              f"autograd dx yardstick (cuDNN bf16) {lib_e:.4f} ms, bound {be:.4f} ms ({bye})", flush=True)
+        del routing
+        results.append(dict(err_d=err_d, err_e=err_e, ms_d=ms_d, ms_e=ms_e, plain_d=plain_d, plain_de=plain_de,
+                            lib_d=lib_d, lib_e=lib_e, bd=bd, byd=byd, be=be, bye=bye))
+    b2, src = results[0], "audiobd_tpu_torch/csrc/conv2_bn_pool.cu"
+    return [
+        {"name": "conv2_bn_pool_bwd_params_bf16", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block2.py:247",
+         "max_abs_err": max(r["err_d"] for r in results), "ms": b2["ms_d"], "plain_ms": b2["plain_d"],
+         "bound_ms": b2["bd"], "bound_by": b2["byd"], "library_ms": b2["lib_d"]},
+        {"name": "conv2_bn_pool_bwd_input_bf16", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block2.py:265",
+         "max_abs_err": max(r["err_e"] for r in results), "ms": b2["ms_e"], "plain_ms": b2["plain_de"],
+         "bound_ms": b2["be"], "bound_by": b2["bye"], "library_ms": b2["lib_e"]},
+    ]
+
+
 TRAIN_CLIPS = 16_000  # 80% of 20,000 synthetic clips
 BATCH = 256
 
 
-def run_cli(torch, kernels, label: str, flags: list[str]) -> tuple[dict[str, int], float, int]:
+def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "float32"
+            ) -> tuple[dict[str, int], float, int]:
     """One CLI run of 2 epochs on 20,000 synthetic clips with ``flags``;
-    checks its losses, CSV and checkpoint. Returns (launches, clips/s,
-    train steps)."""
+    checks its losses, CSV and checkpoint. A bf16 ``compute_dtype`` is
+    given as a user gives it, by --config and a YAML with train:
+    {compute_dtype: bfloat16}. Returns (launches, clips/s, train steps)."""
     import numpy as np
 
     from audiobd_tpu_torch.cli import badnets as cli
     from audiobd_tpu_torch.models import build_model
     from audiobd_tpu_torch.train.checkpoint import load_checkpoint
 
-    print(f"{label}: python -m audiobd_tpu_torch badnets --synthetic --synthetic_per_class 2000 "
-          f"--num_epochs 2 {' '.join(flags)} (20,000 clips, batch {BATCH}, f32)", flush=True)
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
+        if compute_dtype != "float32":
+            yaml_path = os.path.join(tmp, "compute_dtype.yaml")
+            with open(yaml_path, "w") as f:
+                f.write(f"train:\n  compute_dtype: {compute_dtype}\n")
+            flags = ["--config", yaml_path, *flags]
+        print(f"{label}: python -m audiobd_tpu_torch badnets --synthetic --synthetic_per_class 2000 "
+              f"--num_epochs 2 {' '.join(flags)} (20,000 clips, batch {BATCH}, {compute_dtype})", flush=True)
         os.chdir(tmp)
         try:
             for k in kernels:
@@ -675,6 +893,8 @@ def run_cli(torch, kernels, label: str, flags: list[str]) -> tuple[dict[str, int
                       f"train ASR {h['train_asr'][e]:.2f}", flush=True)
             print(f"  launches: {launches}", flush=True)
             check(result.epochs_ran == 2, "2 epochs ran")
+            check(result.model.compute_dtype == getattr(torch, compute_dtype),
+                  f"the trained model computes in {result.model.compute_dtype}")
             losses = h["train_loss"] + h["test_clean_loss"] + h["test_bd_loss"]
             check(all(math.isfinite(v) for v in losses), "every loss is finite")
             rec = os.path.join("record", "chip_smoke")
@@ -723,6 +943,31 @@ def phase_block23_paths(torch, kernels, main_clips: float) -> dict[str, int]:
     print(f"  train clips/s: SmallCNN default {main_clips:.1f} (phase 2), SmallCNN blocks 2-3 on D/E "
           f"{cnn_clips:.1f} (phase 3b), SmallLSTM blocks 2-3 on D/E {lstm_clips:.1f} (phase 3)", flush=True)
     return launches
+
+
+def phase_bf16_paths(torch, kernels) -> dict[str, int]:
+    """Phases 5 and 5b: the bf16 slice's paths through the CLI. Returns the
+    launches of both runs, each kernel's count from the run that drives it
+    (B's from phase 5, D's and E's from phase 5b)."""
+    launches, clips, steps = run_cli(torch, kernels, "phase 5: path 1, BadNets → SmallCNN in bf16", [],
+                                     compute_dtype="bfloat16")
+    check(launches["conv1_bn_pool_bwd_params_bf16"] == steps and launches["conv1_bn_pool_bwd_params"] == 0,
+          f"kernel B launched {launches['conv1_bn_pool_bwd_params_bf16']} times in bf16 mode ({steps} steps), "
+          f"{launches['conv1_bn_pool_bwd_params']} in f32")
+    check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
+    lstm, lstm_clips, lstm_steps = run_cli(
+        torch, kernels, "phase 5b: path 2, BadNets → SmallLSTM in bf16, blocks 2-3 on D/E",
+        ["--model", "smalllstm", "--fused_block2", "on", "--fused_block3", "on"], compute_dtype="bfloat16")
+    for name in ("conv2_bn_pool_bwd_params_bf16", "conv2_bn_pool_bwd_input_bf16"):
+        check(lstm[name] == 2 * lstm_steps, f"{name} launched {lstm[name]} times (2 blocks x {lstm_steps} steps)")
+    check(lstm["conv1_bn_pool_bwd_params_bf16"] == lstm_steps,
+          f"kernel B launched {lstm['conv1_bn_pool_bwd_params_bf16']} times in bf16 mode on SmallLSTM")
+    f32 = [n for n in ("conv1_bn_pool_bwd_params", "conv2_bn_pool_bwd_params", "conv2_bn_pool_bwd_input")
+           if launches[n] or lstm[n]]
+    check(not f32, f"no f32 block kernel launched in the bf16 runs (launched: {f32})")
+    print(f"  train clips/s in bf16: SmallCNN {clips:.1f} (phase 5), SmallLSTM blocks 2-3 on D/E {lstm_clips:.1f} "
+          f"(phase 5b)", flush=True)
+    return {**launches, **{n: lstm[n] for n in ("conv2_bn_pool_bwd_params_bf16", "conv2_bn_pool_bwd_input_bf16")}}
 
 
 FLOWMUR_HOSTS, FLOWMUR_OPT_EPOCHS = 5000, 2
@@ -854,6 +1099,7 @@ def main() -> int:
     ctx: dict = {}
     main_rows = [*phase_mfcc(torch, ctx), *phase_conv1(torch, ctx)]
     block23_rows = phase_conv2(torch, ctx)
+    bf16_rows = [*phase_conv1_bf16(torch, ctx), *phase_conv2_bf16(torch, ctx)]
     flowmur_route = ctx["flowmur_route"]
     del ctx
     torch.cuda.empty_cache()
@@ -867,7 +1113,11 @@ def main() -> int:
     for row in main_rows:
         if row["name"] == "conv1_bn_pool_bwd_input":
             row["launches"] = flowmur[row["name"]]
-    rows = main_rows + block23_rows
+    bf16 = phase_bf16_paths(torch, KERNELS)
+    for row in bf16_rows:
+        # C's bf16 mode has no caller on any path (as in the reference): 0.
+        row["launches"] = bf16[row["name"]]
+    rows = main_rows + block23_rows + bf16_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))

@@ -2,7 +2,7 @@
 """Times kernels A, B, C and D of a checkout of the PyTorch/CUDA port, so
 that two checkouts can be compared on one card in one call.
 
-    python3 scripts/torch_kernel_times.py [--root DIR] [--label NAME]
+    python3 scripts/torch_kernel_times.py [--root DIR] [--label NAME] [--compute_dtype bfloat16]
 
 Imports ``audiobd_tpu_torch`` from ``--root`` (default: this checkout) and
 times, by CUDA events over 10 (A) or 20 (B, C, D) launches after warm-up
@@ -25,7 +25,11 @@ through the wrappers the versions share:
     100, 13), g (256, 64, 50, 7), pool padding (1, 1)) and block 3 (x (256,
     64, 50, 7), g (256, 32, 24, 4), pool padding (0, 1)), random inputs with
     many relu zeros; then five launches of each under torch.profiler, with
-    the device time of each CUDA kernel it launched (D's passes).
+    the device time of each CUDA kernel it launched (D's passes); and E
+    (``conv2_bn_pool_bwd_input``) on that D call's routing.
+``--compute_dtype bfloat16`` times B, C, D and E in their bf16 mode instead
+(g bf16 throughout, x bf16 for D and E, x f32 for B and C as the model's
+input is; a checkout from before the bf16 modes has none to time).
 Run it for two checkouts in turns (parent, change, change, parent) to
 compare them. Prints the card's name and power limit first; needs a CUDA
 device.
@@ -48,6 +52,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--label", default=None)
+    parser.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -66,7 +71,8 @@ def main() -> int:
     resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    label = args.label or args.root
+    label = f"{args.label or args.root}{'' if args.compute_dtype == 'float32' else ', bf16'}"
+    dt = getattr(torch, args.compute_dtype)
     print(f"[{label}] {smi}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -91,7 +97,7 @@ def main() -> int:
     inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op1.EPS)
     scale = gamma * inv
     shift = beta - mu * scale
-    g = torch.randn(256, 64, 100, 13, device="cuda", generator=gen)
+    g = torch.randn(256, 64, 100, 13, device="cuda", generator=gen).to(dt)
     w5 = op1._w5(w, b)
     for mode, train in (("train", True), ("eval", False)):
         ms = time_ms(torch, lambda: op1.conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, train_bn=train), 20)
@@ -107,7 +113,7 @@ def main() -> int:
     invf = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - muf * muf + op1.EPS)
     scalef = flow.bn1.weight.detach() * invf
     shiftf = flow.bn1.bias.detach() - muf * scalef
-    gf = torch.randn(256, 64, 31, 4, device="cuda", generator=gen)
+    gf = torch.randn(256, 64, 31, 4, device="cuda", generator=gen).to(dt)
     w5f = op1._w5(wf, bf)
     hz = None if hasattr(op1, "input_spans") else torch.zeros(2, 64, device="cuda")
     c_eval = lambda: op1.conv1_bn_pool_bwd_input(xf, gf, w5f, muf, invf, scalef, shiftf, hz, train_bn=False)  # noqa: E731
@@ -116,11 +122,11 @@ def main() -> int:
 
     for name, (b, cin, h, w, c), pad in (("block 2", (256, 64, 100, 13, 64), (1, 1)),
                                         ("block 3", (256, 64, 50, 7, 32), (0, 1))):
-        x = torch.relu(torch.randn(b, cin, h, w, device="cuda", generator=gen))
+        x = torch.relu(torch.randn(b, cin, h, w, device="cuda", generator=gen)).to(dt)
         weight = torch.randn(c, cin, 2, 2, device="cuda", generator=gen) * 0.1
         bias = torch.randn(c, device="cuda", generator=gen) * 0.1 - 0.2
         _, _, ho, wo, _, _ = op2.pool_dims(h, w, pad)
-        g = torch.randn(b, c, ho, wo, device="cuda", generator=gen) * 1e-3
+        g = (torch.randn(b, c, ho, wo, device="cuda", generator=gen) * 1e-3).to(dt)
         mu = torch.rand(c, device="cuda", generator=gen) * 0.3
         inv = torch.rsqrt(torch.rand(c, device="cuda", generator=gen) + 0.5)
         scale = (1.0 + 0.3 * torch.randn(c, device="cuda", generator=gen)) * inv
@@ -143,6 +149,11 @@ def main() -> int:
                 entry[1] += 1
         for kernel, (us, count) in by_name.items():
             print(f"[{label}]   {kernel[:60]}: {us / count / 1e3:.4f} ms a launch ({count} launches)", flush=True)
+        out, routing = launch()
+        k4 = 4 * cin
+        e_call = lambda: op2.conv2_bn_pool_bwd_input(  # noqa: E731
+            routing, g, w257, mu, inv, scale, out[k4 + 3 : k4 + 5].contiguous(), pool_padding=pad)
+        print(f"[{label}] E {name} on D's routing: {time_ms(torch, e_call, 20):.4f} ms", flush=True)
     return 0
 
 

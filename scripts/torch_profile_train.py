@@ -3,7 +3,8 @@
 
     python3 scripts/torch_profile_train.py [--model smallcnn|smalllstm]
         [--fused_block2 auto|on|off] [--fused_block3 auto|on|off]
-        [--per_class 2000] [--batch_size 256] [--trace PATH] [--flowmur]
+        [--per_class 2000] [--batch_size 256] [--compute_dtype float32|bfloat16]
+        [--trace PATH] [--flowmur]
 
 Builds the main path's data on the card (synthetic clips → MFCC kernel →
 BadNets patch), runs one warm-up epoch of training (SmallCNN by default;
@@ -12,6 +13,9 @@ two eval passes exactly as train_attack does, then times one more such epoch
 under torch.profiler. Prints the epoch's wall time, the device's busy and idle
 share (union of kernel intervals over the wall time), device time by kernel,
 and the hand-written kernels' share; ``--trace`` also writes the Chrome trace. Needs a CUDA device.
+``--compute_dtype bfloat16`` trains the model in bf16 (TrainConfig.compute_dtype,
+as a YAML's train: {compute_dtype: bfloat16} does; kernels B, D and E in their
+bf16 mode); FlowMur's search keeps its f32 surrogate, as the reference does.
 
 ``--flowmur`` does the same for an epoch of FlowMur's trigger search: the
 5,000 hosts of the synthetic set at FlowMur's front end (n_fft 2048, hop
@@ -64,10 +68,12 @@ def main() -> int:
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--trace", type=str, default=None, help="write the Chrome trace here")
     parser.add_argument("--flowmur", action="store_true", help="profile an epoch of FlowMur's trigger search")
+    parser.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     args = parser.parse_args()
 
     cfg = make_config("flowmur" if args.flowmur else "badnets", batch_size=args.batch_size, model=args.model,
-                      fused_block2=args.fused_block2, fused_block3=args.fused_block3)
+                      fused_block2=args.fused_block2, fused_block3=args.fused_block3,
+                      compute_dtype=args.compute_dtype)
     device = resolve_device(cfg.device)
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -82,8 +88,9 @@ def main() -> int:
         sets = [DeviceDataset(s, device) for s in (poisoned.bd_train, poisoned.clean_test, poisoned.bd_test)]
         np_rng = rnd.np_rng(cfg.train.seed, "shuffle")
         n_train = len(sets[0])
-        what = (f"model {cfg.model}, fused_block2 {cfg.train.fused_block2}, fused_block3 {cfg.train.fused_block3}; "
-                f"batch {cfg.train.batch_size}; train clips {n_train}, eval clips {len(sets[1]) + len(sets[2])}")
+        what = (f"model {cfg.model}, {cfg.train.compute_dtype}, fused_block2 {cfg.train.fused_block2}, fused_block3 "
+                f"{cfg.train.fused_block3}; batch {cfg.train.batch_size}; train clips {n_train}, eval clips "
+                f"{len(sets[1]) + len(sets[2])}")
 
         def epoch():
             run_train_epoch(model, opt, sets[0], cfg.train.batch_size, np_rng)

@@ -19,6 +19,17 @@ the same reasoning over sums of up to ~10^4 terms per entry (D's parameter
 sums in 3xTF32 on the tensor cores, each product exact, f32 accumulation). D's routing: the
 same zero/sign pattern as the plain routing (both form y in one fixed order)
 and magnitudes within 1e-6 relative; E from it: 1e-3 * max|ref| + 1e-6.
+
+bf16 modes (a bf16 g; x f32 or bf16 for B and C, bf16 for D and E): the
+kernels and the plain version round x, the taps, r and z alike and route
+every tie the same way, so only the order of the f32 sums differs: the
+parameter gradients within 1e-5 * max|ref| + 1e-6 per output for B (a
+small dw entry is a cancelling sum of ~1e4-1e5 terms, which the elementwise
+bound above does not allow for: at (2, 801, 40, 64) in eval mode the plain
+version alone is 0.83 of it against float64), and D's f32 tolerance above.
+dx is a bf16 sum of bf16-rounded taps, each tap an f32 sum over the
+channels in another order than the plain version's, so a tap can round the
+other way: dx within 2 bf16 ulps of max|dx| (2**-6 * max|dx|).
 """
 
 import numpy as np
@@ -407,3 +418,108 @@ def test_block2_kernels_reject_other_dtypes(cuda):
     with pytest.raises(TypeError, match="Conv2Routing"):
         op2.conv2_bn_pool_bwd_input(routing.enc, args[1], w, *args[4:7], torch.zeros(2, 16, device=cuda),
                                     pool_padding=(1, 1))
+
+
+# ---------------------------------------------------------------------------
+# bf16 modes
+
+
+def _dx_within_bf16_ulps(got, ref, ulps: int = 2) -> None:
+    err = float((got.cpu().double() - ref.double()).abs().max())
+    assert err <= ulps * 2.0 ** -7 * float(ref.abs().max()), err
+
+
+def _params_close(got, ref) -> None:
+    for name, a, e in zip(("dweight", "dbias", "dgamma", "dbeta"), got, ref):
+        err = float((a.cpu().double() - e.double()).abs().max())
+        assert err <= 1e-5 * float(e.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 9, 13, 8), (16, 101, 40, 64), (3, 8, 10, 5), (2, 12, 16, 33),
+    # kernel B's spans (801 frames) and C's halo rows (rows of 130 samples); FlowMur's shape.
+    (2, 801, 40, 64), (2, 400, 130, 8), (256, 32, 13, 64),
+])
+@pytest.mark.parametrize("train_bn", [True, False])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_block1_bf16_kernels_match_plain(cuda, shape, train_bn, x_dtype):
+    x, g, *rest = _block_inputs(shape, seed=sum(shape) + 11)
+    args = (x.to(x_dtype), g.to(torch.bfloat16), *rest)
+    ref = op.conv1_bn_pool_backward_plain(*args, train_bn=train_bn, need_dx=True)
+    before = op.BWD_PARAMS_BF16_KERNEL.launches, op.BWD_INPUT_BF16_KERNEL.launches, op.BWD_PARAMS_KERNEL.launches
+    got = op.conv1_bn_pool_backward(*(a.to(cuda) for a in args), train_bn=train_bn, need_dx=True)
+    torch.cuda.synchronize()
+    after = op.BWD_PARAMS_BF16_KERNEL.launches, op.BWD_INPUT_BF16_KERNEL.launches, op.BWD_PARAMS_KERNEL.launches
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+    assert got[0].dtype == x_dtype and all(t.dtype == torch.float32 for t in got[1:])
+    _dx_within_bf16_ulps(got[0].float(), ref[0].float())
+    _params_close(got[1:], ref[1:])
+
+
+def test_block1_bf16_kernels_on_card_statistics_match_plain(cuda):
+    """The bf16 block through autograd on the card launches the bf16 kernels,
+    and B and C given the card's own forward statistics match the plain
+    version given the same statistics."""
+    x, _, weight, bias, _, _, _, _ = _block_inputs((8, 21, 31, 16), seed=3)
+    gamma, beta = torch.linspace(-1.05, 1.45, 16), torch.linspace(-0.2, 0.3, 16)
+    wts = torch.randn(8, 16, 20, 10, generator=torch.Generator().manual_seed(0))
+    leaves = [t.to(cuda).requires_grad_(True) for t in (x, weight, bias, gamma, beta)]
+    before = op.BWD_PARAMS_BF16_KERNEL.launches, op.BWD_INPUT_BF16_KERNEL.launches
+    out, mu, var = op.conv1_bn_pool(*leaves, train=True, compute_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and mu.dtype == var.dtype == torch.float32
+    (out.float() * wts.to(cuda)).sum().backward()
+    torch.cuda.synchronize()
+    assert (op.BWD_PARAMS_BF16_KERNEL.launches, op.BWD_INPUT_BF16_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad.dtype == torch.float32 and bool(torch.isfinite(t.grad).all()) for t in leaves)
+    inv = torch.rsqrt(var.detach() + op.EPS)
+    scale = leaves[3].detach() * inv
+    stats = (mu.detach(), inv, scale, leaves[4].detach() - mu.detach() * scale)
+    g = wts.to(cuda).to(torch.bfloat16)
+    got = op.conv1_bn_pool_backward(leaves[0].detach(), g, leaves[1].detach(), leaves[2].detach(), *stats,
+                                    train_bn=True, need_dx=True)
+    ref = op.conv1_bn_pool_backward_plain(x, g.cpu(), weight, bias, *(s.cpu() for s in stats), train_bn=True,
+                                          need_dx=True)
+    _dx_within_bf16_ulps(got[0], ref[0])
+    _params_close(got[1:], ref[1:])
+
+
+@pytest.mark.parametrize("shape,pool_padding", [
+    ((3, 8, 12, 13, 16), (1, 1)), ((3, 8, 12, 13, 16), (0, 1)), ((4, 64, 20, 13, 64), (1, 1)),
+    ((4, 64, 11, 7, 32), (0, 1)), ((2, 16, 11, 7, 48), (0, 1)), ((2, 4, 5, 6, 3), (1, 1)),
+])
+def test_block2_bf16_kernels_match_plain(cuda, shape, pool_padding):
+    x, g, *rest = _block2_inputs(shape, pool_padding, seed=sum(shape) + 3)
+    args = (x.to(torch.bfloat16), g.to(torch.bfloat16), *rest)
+    ref = op2.conv2_bn_pool_backward_plain(*args, pool_padding=pool_padding)
+    before = op2.BWD_PARAMS_BF16_KERNEL.launches, op2.BWD_INPUT_BF16_KERNEL.launches
+    got = op2.conv2_bn_pool_backward(*(a.to(cuda) for a in args), pool_padding=pool_padding)
+    torch.cuda.synchronize()
+    assert (op2.BWD_PARAMS_BF16_KERNEL.launches, op2.BWD_INPUT_BF16_KERNEL.launches) == (before[0] + 1,
+                                                                                         before[1] + 1)
+    assert got[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in got[1:])
+    _dx_within_bf16_ulps(got[0].float(), ref[0].float())
+    for name, a, e in zip(("dweight", "dbias", "dgamma", "dbeta"), got[1:], ref[1:]):
+        err = float((a.cpu().double() - e.double()).abs().max())
+        assert err <= 1e-4 * float(e.abs().max()) + 1e-6, (name, err)
+    w = op2.w257(args[2], args[3])
+    dev = [t.to(cuda) for t in (args[0], args[1], w, *args[4:])]
+    _, routing = op2.conv2_bn_pool_bwd_params(*dev, pool_padding=pool_padding)
+    enc_ref = op2.conv2_routing_plain(args[0], w, args[6], args[7], pool_padding=pool_padding,
+                                      compute_dtype=torch.bfloat16)
+    assert torch.equal(routing.enc.cpu(), enc_ref)
+
+
+def test_bf16_kernels_reject_mixed_dtypes(cuda):
+    x, g, weight, bias, *vecs = (a.to(cuda) for a in _block_inputs((2, 9, 13, 8), seed=1))
+    w5 = op._w5(weight, bias)
+    with pytest.raises(ValueError, match="x in torch.float32 .bfloat16 only with a bfloat16 g"):
+        op.conv1_bn_pool_bwd_params(x.to(torch.bfloat16), g, w5, *vecs, train_bn=True)
+    with pytest.raises(ValueError, match="g in torch.float32 or torch.bfloat16"):
+        op.conv1_bn_pool_bwd_input(x, g.half(), w5, *vecs, train_bn=False)
+    args = [a.to(cuda) for a in _block2_inputs((2, 8, 6, 5, 16), (1, 1), seed=0)]
+    w = op2.w257(args[2], args[3])
+    with pytest.raises(ValueError, match="x in torch.bfloat16"):
+        op2.conv2_bn_pool_bwd_params(args[0], args[1].to(torch.bfloat16), w, *args[4:], pool_padding=(1, 1))
+    with pytest.raises(ValueError, match="w in torch.float32"):
+        op2.conv2_bn_pool_bwd_params(args[0].to(torch.bfloat16), args[1].to(torch.bfloat16), w.to(torch.bfloat16),
+                                     *args[4:], pool_padding=(1, 1))
