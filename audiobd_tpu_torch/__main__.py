@@ -1,6 +1,6 @@
 """CLI dispatcher: ``python -m audiobd_tpu_torch <command> [flags]``.
 
-Ported commands so far: badnets, flowmur. The reference's other commands
+Ported commands so far: badnets, ultrasonic, flowmur. The reference's other commands
 (``python -m audiobd_tpu``) are listed in ROADMAP.md.
 """
 
@@ -11,6 +11,7 @@ import sys
 
 COMMANDS = {
     "badnets": "audiobd_tpu_torch.cli.badnets",
+    "ultrasonic": "audiobd_tpu_torch.cli.ultrasonic",
     "flowmur": "audiobd_tpu_torch.cli.flowmur",
 }
 

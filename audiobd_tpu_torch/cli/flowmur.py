@@ -11,21 +11,18 @@ wall time and the kernel launches it made are printed and returned.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
+from audiobd_tpu_torch.cli.stages import Stages
 from audiobd_tpu_torch.configs import add_common_args, config_from_args
 from audiobd_tpu_torch.data.speech_commands import (
     load_clean_data,
     make_synthetic_clean_data,
     save_clean_data,
 )
-from audiobd_tpu_torch.ops import KERNELS
 from audiobd_tpu_torch.poison import flowmur
 from audiobd_tpu_torch.train.ensemble import MemberResult
 from audiobd_tpu_torch.train.trainer import TrainResult, train_attack
@@ -76,20 +73,7 @@ def main(argv: list[str] | None = None) -> FlowmurRun:
     print("----------FlowMur attack (audiobd_tpu_torch)----------")
     for key, value in vars(args).items():
         print(f"{key}: {value}")
-    stages: dict[str, dict] = {}
-
-    @contextlib.contextmanager
-    def stage(name: str):
-        before = {k.name: k.launches for k in KERNELS}
-        t0 = time.perf_counter()
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        launches = {k.name: k.launches - before[k.name] for k in KERNELS if k.launches > before[k.name]}
-        stages[name] = {"wall_s": wall, "launches": launches}
-        print(f"stage {name}: wall {wall:.3f} s, kernel launches {launches}")
-
+    stage = Stages(device)
     with stage("prep"):
         if args.synthetic:
             clean = make_synthetic_clean_data(cfg, n_per_class=args.synthetic_per_class)
@@ -118,7 +102,7 @@ def main(argv: list[str] | None = None) -> FlowmurRun:
         f"asr={result.history['test_asr'][-1]:.2f}"
     )
     return FlowmurRun(victim=result, trigger=trigger, surrogates=surrogates,
-                      trigger_losses=trigger_losses, stages=stages)
+                      trigger_losses=trigger_losses, stages=stage.records)
 
 
 if __name__ == "__main__":

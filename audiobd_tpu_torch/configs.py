@@ -1,8 +1,8 @@
 """Typed, YAML-loadable, CLI-overridable configuration.
 
 An own copy of the reference's config tree (audiobd_tpu/configs.py:47-356),
-trimmed to the fields the ported BadNets and FlowMur paths read, plus the
-``device`` the entry points run on. YAML is parsed only when ``--config`` is
+trimmed to the fields the ported BadNets, Ultrasonic and FlowMur paths read,
+plus the ``device`` the entry points run on. YAML is parsed only when ``--config`` is
 given (PyYAML is imported there and nowhere else).
 """
 
@@ -28,6 +28,14 @@ DATASET_LABELS: dict[str, list[str]] = {
         "off", "on", "right", "sheila", "stop", "tree", "up", "visual",
         "wow", "yes",
     ],
+}
+
+# Where each dataset's wav tree lies (reference audiobd_tpu/configs.py:39-44).
+DATASET_PATHS: dict[str, str] = {
+    "SCDv1-10": "./data/SpeechCommands/speech_commands_v0.01",
+    "SCDv1-30": "./data/SpeechCommands/speech_commands_v0.01",
+    "SCDv2-10": "./data/SpeechCommands/speech_commands_v0.02",
+    "SCDv2-26": "./data/speech_commands_v0.02",
 }
 
 
@@ -80,6 +88,10 @@ class AttackConfig:
     result: str = "badnets_smallcnn"
     load_clean_data: bool = True
     trigger_size: int = 5
+    # Ultrasonic (reference audiobd_tpu/configs.py:152-154).
+    trigger_pos: str = "start"
+    trigger_cont: bool = True
+    ultra_trigger_size: int = 60   # percent of the 1 s trigger kept
     # FlowMur (reference audiobd_tpu/configs.py:163-183).
     trigger_duration: float = 0.5
     snr_db: int = 30
@@ -107,11 +119,15 @@ class AttackConfig:
         return DATASET_LABELS[self.dataset]
 
     @property
+    def data_path(self) -> str:
+        return DATASET_PATHS[self.dataset]
+
+    @property
     def record_dir(self) -> str:
         return f"record/{self.result}"
 
 
-# The badnets and flowmur rows of the reference's per-attack DSP +
+# The badnets, ultrasonic and flowmur rows of the reference's per-attack DSP +
 # model-shape table (attack_config.txt:1-23; audiobd_tpu/configs.py:205-246).
 ATTACK_PRESETS: dict[str, dict[str, Any]] = {
     "badnets": {
@@ -121,6 +137,14 @@ ATTACK_PRESETS: dict[str, dict[str, Any]] = {
             "lstmwithattention": 101, "rnn": 40, "resnet": 384,
         },
         "result": "badnets_smallcnn",
+    },
+    "ultrasonic": {
+        "dsp": dict(sample_rate=44100, n_mfcc=40, n_fft=1103, hop_length=441, parity="torchaudio"),
+        "linear_features": {
+            "smallcnn": 3072, "largecnn": 12288, "smalllstm": 128,
+            "lstmwithattention": 100, "rnn": 40, "resnet": 384,
+        },
+        "result": "ultrasonic_smallcnn",
     },
     "flowmur": {
         "dsp": dict(sample_rate=16000, n_mfcc=13, n_fft=2048, hop_length=512, parity="torchaudio"),

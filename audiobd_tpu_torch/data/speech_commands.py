@@ -1,24 +1,37 @@
-"""The synthetic Speech Commands stand-in and the record/ npy cache contract
-(port of the parts of audiobd_tpu/data/speech_commands.py that the
-synthetic path needs).
+"""Speech Commands ingest, the synthetic stand-in and the record/ npy cache
+contract (port of audiobd_tpu/data/speech_commands.py).
 
-Not ported yet: ``prepare_clean_dataset`` (the wav-tree ingest with the
-native decoder and resampling); ``load_clean_data`` reads the six-npy cache
-and raises when it is missing.
+The wav-tree ingest (``prepare_clean_dataset``) follows the reference
+(reference prepare_dataset.py:49-112; audiobd_tpu/data/speech_commands.py:133-249):
+walk ``<data_path>/<label>/*.wav``, keep clips of at least 1 s at the
+attack's rate (the length filter is what standardizes clips, SURVEY §6b.1),
+truncate to 1 s, MFCC, split 80/20 as sklearn's ``train_test_split(...,
+random_state=35)`` does, and cache six npys under
+``record/<result>/<dataset>/clean/``. PCM16 files at the attack's rate are
+decoded to int16 by the native decoder and sent to the device as int16;
+other formats at that rate take its f32 decode; files at another rate are
+read whole and resampled on the device, in batches by rate.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from audiobd_tpu_torch.configs import AttackConfig
+from audiobd_tpu_torch.data.native import decode_batch, decode_batch_pcm16
+from audiobd_tpu_torch.data.wavio import read_wav
 from audiobd_tpu_torch.dsp import MFCCParams
+from audiobd_tpu_torch.dsp.resample import resample, resampled_length
 from audiobd_tpu_torch.ops.mfcc import fused_mfcc_features
 from audiobd_tpu_torch.utils.device import resolve_device
+
+DECODE_CHUNK = 2048  # files a native batch decode takes at once
+RESAMPLE_CHUNK = 2048  # clips a resampling convolution takes at once
 
 _CLEAN_FILES = (
     "clean_train_wav",
@@ -42,6 +55,8 @@ class CleanData:
     # poisoning adopts them instead of uploading the host arrays again.
     train_mfcc_dev: torch.Tensor | None = None
     test_mfcc_dev: torch.Tensor | None = None
+    # The wav-tree prep's walls in seconds: decode, resample, mfcc.
+    prep_walls: dict[str, float] | None = None
 
 
 def mfcc_params(cfg: AttackConfig) -> MFCCParams:
@@ -100,17 +115,144 @@ def save_clean_data(cfg: AttackConfig, data: CleanData) -> None:
         np.save(os.path.join(path, name + ".npy"), arr)
 
 
-def load_clean_data(cfg: AttackConfig) -> CleanData:
-    """Load the six cached npys written by either package. Rebuilding them
-    from the wav tree (``cfg.load_clean_data`` False, or no cache) is not
-    ported yet (ROADMAP queue 1) and raises."""
+def load_clean_data(cfg: AttackConfig, load: bool | None = None) -> CleanData:
+    """Load the six cached npys written by either package, or rebuild them
+    from the wav tree (``load`` False, or no cache)."""
+    load = cfg.load_clean_data if load is None else load
     path = clean_dir(cfg)
-    if not cfg.load_clean_data or not os.path.exists(os.path.join(path, "clean_train_mfcc.npy")):
-        raise NotImplementedError(
-            f"no clean npy cache used under {path}: building it from the wav tree is not "
-            "ported yet (ROADMAP queue 1); use --synthetic or the JAX package's cache"
-        )
-    return CleanData(*[np.load(os.path.join(path, n + ".npy")) for n in _CLEAN_FILES])
+    if load and os.path.exists(os.path.join(path, "clean_train_mfcc.npy")):
+        return CleanData(*[np.load(os.path.join(path, n + ".npy")) for n in _CLEAN_FILES])
+    return prepare_clean_dataset(cfg)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def resample_rows(rows: list[np.ndarray], orig_freq: int, new_freq: int, keep: int, device: torch.device,
+                  chunk: int = RESAMPLE_CHUNK) -> torch.Tensor:
+    """Whole clips at one rate, of any lengths (each resampling to at least
+    ``keep`` samples) → (N, keep) f32 on ``device``: the first ``keep``
+    samples of each clip resampled alone. A chunk of clips is zero-padded on
+    the right to its longest and resampled as one batch; the zeros are the
+    ones ``resample`` pads a clip with, so no row changes."""
+    out = []
+    for start in range(0, len(rows), chunk):
+        block = rows[start : start + chunk]
+        host = np.zeros((len(block), max(len(r) for r in block)), np.float32)
+        for i, r in enumerate(block):
+            host[i, : len(r)] = r
+        out.append(resample(torch.from_numpy(host).to(device), orig_freq, new_freq)[:, :keep])
+    return torch.cat(out)
+
+
+def prepare_clean_dataset(cfg: AttackConfig, data_path: str | None = None, save: bool = True) -> CleanData:
+    """The clean dataset from the wav tree at ``data_path`` (default
+    ``cfg.data_path``), MFCCs on ``cfg.device``; the six npys are written
+    when ``save``. Clip order, split and labels are the reference's."""
+    device = resolve_device(cfg.device)
+    data_path = data_path or cfg.data_path
+    sr = cfg.dsp.sample_rate  # exactly 1 s at the attack's rate
+    walls = {}
+
+    t0 = time.perf_counter()
+    rows_i16, idx_i16 = [], []  # raw PCM16 rows at the attack's rate, their clip indices
+    rows_f32, idx_f32 = [], []  # other formats at the attack's rate
+    off_rate: dict[int, tuple[list, list]] = {}  # file rate → (whole clips, clip indices)
+    labels: list[int] = []
+    for label_idx, label in enumerate(cfg.labels):
+        label_path = os.path.join(data_path, label)
+        if not os.path.isdir(label_path):
+            raise FileNotFoundError(f"missing class dir {label_path}")
+        paths = [os.path.join(label_path, name) for name in sorted(os.listdir(label_path)) if name.endswith(".wav")]
+        for start in range(0, len(paths), DECODE_CHUNK):
+            chunk = paths[start : start + DECODE_CHUNK]
+            pcm, lengths, rates, ok = decode_batch_pcm16(chunk, sr)
+            bad = np.flatnonzero(~ok)
+            if bad.size:
+                f32_dec, f32_len, f32_rates = decode_batch([chunk[i] for i in bad], sr)
+                bad_map = {int(i): j for j, i in enumerate(bad)}
+            for row in range(len(chunk)):
+                if ok[row]:
+                    rate_r, len_r = int(rates[row]), int(lengths[row])
+                else:
+                    j = bad_map[row]
+                    rate_r, len_r = int(f32_rates[j]), int(f32_len[j])
+                if rate_r == sr:
+                    if len_r >= sr:
+                        if ok[row]:
+                            rows_i16.append(pcm[row].copy())  # not a view that keeps the chunk alive
+                            idx_i16.append(len(labels))
+                        else:
+                            rows_f32.append(f32_dec[j])
+                            idx_f32.append(len(labels))
+                        labels.append(label_idx)
+                else:
+                    # Whole clips: the filter applies to the resampled length.
+                    if ok[row] and len_r < sr:  # the decoder returned every sample
+                        wav, file_sr = pcm[row, :len_r].astype(np.float32) * (1.0 / 32768.0), rate_r
+                    else:  # cut at sr samples, or not PCM16: read again whole
+                        wav, file_sr = read_wav(chunk[row])
+                        wav = wav[0]
+                    if resampled_length(len(wav), file_sr, sr) >= sr:
+                        clips, idx = off_rate.setdefault(file_sr, ([], []))
+                        clips.append(wav)
+                        idx.append(len(labels))
+                        labels.append(label_idx)
+    n_total = len(labels)
+    if n_total == 0:
+        raise ValueError(f"no clip of at least 1 s at {sr} Hz under {data_path}")
+    walls["decode"] = time.perf_counter() - t0
+
+    # The f32 pool on the device: the rows above, then the resampled clips by rate.
+    t0 = time.perf_counter()
+    pool32 = [torch.from_numpy(np.stack(rows_f32)).to(device)] if rows_f32 else []
+    for file_sr, (clips, idx) in sorted(off_rate.items()):
+        pool32.append(resample_rows(clips, file_sr, sr, sr, device))
+        idx_f32 += idx
+    pool32 = torch.cat(pool32) if pool32 else None
+    _sync(device)
+    walls["resample"] = time.perf_counter() - t0
+
+    # Host f32 waveforms for the clean npy contract, in clip order.
+    all_wav = np.empty((n_total, 1, sr), np.float32)
+    if rows_i16:
+        all_wav[idx_i16, 0] = np.stack(rows_i16).astype(np.float32) * (1.0 / 32768.0)
+    if pool32 is not None:
+        all_wav[idx_f32, 0] = pool32.cpu().numpy()
+    all_label = np.asarray(labels, dtype=np.int64)
+
+    # MFCC of each pool in its own dtype (int16 goes to the device as is),
+    # put back in clip order on the device; the split is a device gather.
+    t0 = time.perf_counter()
+    params = mfcc_params(cfg)
+    pools = [(batched_mfcc_device(np.stack(rows_i16), params, device), idx_i16)] if rows_i16 else []
+    if pool32 is not None:
+        pools.append((batched_mfcc_device(pool32, params, device), idx_f32))
+    all_mfcc = torch.empty((n_total, *pools[0][0].shape[1:]), dtype=torch.float32, device=device)
+    for feats, idx in pools:
+        all_mfcc.index_copy_(0, torch.as_tensor(idx, device=device), feats)
+    del pool32, pools
+    idx_train, idx_test = split_indices(n_total)
+    train_dev = all_mfcc[torch.from_numpy(idx_train).to(device)]
+    test_dev = all_mfcc[torch.from_numpy(idx_test).to(device)]
+    del all_mfcc
+    _sync(device)
+    walls["mfcc"] = time.perf_counter() - t0
+    print(f"clean prep ({len(rows_i16)} clips as int16 PCM, {n_total - len(rows_i16)} as f32, "
+          f"{sum(len(c) for c, _ in off_rate.values())} of them resampled to {sr} Hz): {n_total} clips; "
+          f"decode {walls['decode']:.3f} s, resample {walls['resample']:.3f} s, MFCC {walls['mfcc']:.3f} s")
+
+    data = CleanData(
+        all_wav[idx_train], all_wav[idx_test],
+        train_dev.cpu().numpy(), test_dev.cpu().numpy(),
+        all_label[idx_train], all_label[idx_test],
+        train_mfcc_dev=train_dev, test_mfcc_dev=test_dev, prep_walls=walls,
+    )
+    if save:
+        save_clean_data(cfg, data)
+    return data
 
 
 def make_synthetic_clean_data(cfg: AttackConfig, n_per_class: int = 30, seed: int = 35) -> CleanData:

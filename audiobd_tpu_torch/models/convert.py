@@ -1,15 +1,15 @@
-"""Carry SmallCNN and SmallLSTM weights between the flax variable tree and the port.
+"""Carry model weights between the flax variable tree and the port.
 
-The flax trees (audiobd_tpu.models.SmallCNN, SmallLSTM) hold plain numpy
-arrays here:
-  params/TorchConv_{0,1,2}/Conv_0/{kernel (kh, kw, in, out), bias}
-  params/TorchBatchNorm_{0,1,2}/BatchNorm_0/{scale, bias}
-  batch_stats/TorchBatchNorm_{0,1,2}/BatchNorm_0/{mean, var}
-  params/fc{1,2}/Dense_0/{kernel (in, out), bias}   (SmallLSTM: fc2 only)
-  params/LSTM_0/l{0,1}_fwd/{w_ih (in, 4H), w_hh (H, 4H), b_ih, b_hh}   (SmallLSTM)
+The flax trees (audiobd_tpu.models) hold plain numpy arrays here:
+  params/<conv>/Conv_0/{kernel (kh, kw, in, out), bias}
+  params/<bn>/BatchNorm_0/{scale, bias}, batch_stats/<bn>/BatchNorm_0/{mean, var}
+  params/<dense>/Dense_0/{kernel (in, out), bias}
+  params/<lstm>/l{layer}_{fwd,bwd}/{w_ih (in, 4H), w_hh (H, 4H), b_ih, b_hh}
+with flax's auto-names TorchConv_i and TorchBatchNorm_i in creation order.
 Conv kernels go HWIO → OIHW, Dense and LSTM kernels (in, out) → (out, in);
-the LSTM's gate order (i, f, g, o) is torch's already. The flatten order
-already matches (the reference flattens NCHW-style).
+the LSTM's gate order (i, f, g, o) is torch's already, and a ``bwd``
+direction is torch's ``_reverse``. The flatten order already matches (the
+reference flattens NCHW-style).
 """
 
 from __future__ import annotations
@@ -17,47 +17,130 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_CONVS = ("conv1", "conv2", "conv3")
-_BNS = ("bn1", "bn2", "bn3")
+
+class _Carry:
+    """Collects a port state_dict from one flax variable tree."""
+
+    def __init__(self, variables: dict):
+        self.params = variables["params"]
+        self.stats = variables.get("batch_stats", {})
+        self.out: dict[str, torch.Tensor] = {}
+
+    def put(self, key: str, arr) -> None:
+        self.out[key] = torch.from_numpy(np.array(arr, np.float32))
+
+    def conv(self, port: str, path: tuple[str, ...]) -> None:
+        conv = _at(self.params, path)["Conv_0"]
+        self.put(f"{port}.weight", np.transpose(conv["kernel"], (3, 2, 0, 1)))
+        if "bias" in conv:
+            self.put(f"{port}.bias", conv["bias"])
+
+    def bn(self, port: str, path: tuple[str, ...]) -> None:
+        bn, st = _at(self.params, path)["BatchNorm_0"], _at(self.stats, path)["BatchNorm_0"]
+        self.put(f"{port}.weight", bn["scale"])
+        self.put(f"{port}.bias", bn["bias"])
+        self.put(f"{port}.running_mean", st["mean"])
+        self.put(f"{port}.running_var", st["var"])
+
+    def dense(self, port: str, name: str) -> None:
+        dense = self.params[name]["Dense_0"]
+        self.put(f"{port}.weight", np.transpose(dense["kernel"]))
+        self.put(f"{port}.bias", dense["bias"])
+
+    def lstm(self, port: str, name: str) -> None:
+        for key, cell in self.params[name].items():  # l{layer}_fwd / l{layer}_bwd
+            layer, direction = key[1:].split("_")
+            suffix = f"l{layer}" + ("_reverse" if direction == "bwd" else "")
+            for w in ("ih", "hh"):
+                self.put(f"{port}.weight_{w}_{suffix}", np.transpose(cell[f"w_{w}"]))
+                self.put(f"{port}.bias_{w}_{suffix}", cell[f"b_{w}"])
 
 
-def _conv_stack_from_flax(variables: dict, fcs: tuple[str, ...]) -> dict[str, torch.Tensor]:
-    params, stats = variables["params"], variables["batch_stats"]
-    out: dict[str, torch.Tensor] = {}
+def _at(tree: dict, path: tuple[str, ...]) -> dict:
+    for key in path:
+        tree = tree[key]
+    return tree
 
-    def put(key, arr):
-        out[key] = torch.from_numpy(np.array(arr, np.float32))
 
-    for i, name in enumerate(_CONVS):
-        conv = params[f"TorchConv_{i}"]["Conv_0"]
-        put(f"{name}.weight", np.transpose(conv["kernel"], (3, 2, 0, 1)))
-        put(f"{name}.bias", conv["bias"])
-    for i, name in enumerate(_BNS):
-        bn = params[f"TorchBatchNorm_{i}"]["BatchNorm_0"]
-        st = stats[f"TorchBatchNorm_{i}"]["BatchNorm_0"]
-        put(f"{name}.weight", bn["scale"])
-        put(f"{name}.bias", bn["bias"])
-        put(f"{name}.running_mean", st["mean"])
-        put(f"{name}.running_var", st["var"])
-    for name in fcs:
-        dense = params[name]["Dense_0"]
-        put(f"{name}.weight", np.transpose(dense["kernel"]))
-        put(f"{name}.bias", dense["bias"])
-    return out
+def _conv_stack(c: _Carry) -> None:
+    for i in range(3):
+        c.conv(f"conv{i + 1}", (f"TorchConv_{i}",))
+        c.bn(f"bn{i + 1}", (f"TorchBatchNorm_{i}",))
 
 
 def smallcnn_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """flax SmallCNN variables (numpy leaves) → the port's state_dict."""
-    return _conv_stack_from_flax(variables, ("fc1", "fc2"))
+    c = _Carry(variables)
+    _conv_stack(c)
+    c.dense("fc1", "fc1")
+    c.dense("fc2", "fc2")
+    return c.out
 
 
 def smalllstm_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """flax SmallLSTM variables (numpy leaves) → the port's state_dict."""
-    out = _conv_stack_from_flax(variables, ("fc2",))
-    lstm = variables["params"]["LSTM_0"]
-    for layer in (0, 1):
-        cell = lstm[f"l{layer}_fwd"]
-        for w in ("ih", "hh"):
-            out[f"lstm.weight_{w}_l{layer}"] = torch.from_numpy(np.array(np.transpose(cell[f"w_{w}"]), np.float32))
-            out[f"lstm.bias_{w}_l{layer}"] = torch.from_numpy(np.array(cell[f"b_{w}"], np.float32))
-    return out
+    c = _Carry(variables)
+    _conv_stack(c)
+    c.lstm("lstm", "LSTM_0")
+    c.dense("fc2", "fc2")
+    return c.out
+
+
+def largecnn_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """flax LargeCNN variables → the port's state_dict (convs.0-4, fc1-3)."""
+    c = _Carry(variables)
+    for i in range(5):
+        c.conv(f"convs.{i}", (f"TorchConv_{i}",))
+    for name in ("fc1", "fc2", "fc3"):
+        c.dense(name, name)
+    return c.out
+
+
+def lstmwithattention_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """flax LSTMWithAttention variables → the port's state_dict."""
+    c = _Carry(variables)
+    for i in range(2):
+        c.conv(f"conv{i + 1}", (f"TorchConv_{i}",))
+        c.bn(f"bn{i + 1}", (f"TorchBatchNorm_{i}",))
+    c.lstm("rnn1", "rnn1")
+    c.lstm("rnn2", "rnn2")
+    for name in ("dense1", "attention", "dense2", "dense3", "output"):
+        c.dense(name, name)
+    return c.out
+
+
+def rnn_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """flax RNN variables → the port's state_dict."""
+    c = _Carry(variables)
+    c.lstm("lstm", "LSTM_0")
+    c.dense("fc", "fc")
+    return c.out
+
+
+def resnet_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """flax ResNet variables → the port's state_dict: the stem, stages.{s}.{b}
+    from layer{s+1}_{b} (conv1/bn1, conv2/bn2, down_conv/down_bn from
+    TorchConv_{0,1,2}/TorchBatchNorm_{0,1,2}), conv2d and fc."""
+    c = _Carry(variables)
+    c.conv("conv1", ("TorchConv_0",))
+    c.bn("bn1", ("TorchBatchNorm_0",))
+    for name in sorted(k for k in c.params if k.startswith("layer")):
+        stage, block = name[len("layer"):].split("_")
+        port = f"stages.{int(stage) - 1}.{block}"
+        for i, (conv, bn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"), ("down_conv", "down_bn"))):
+            if f"TorchConv_{i}" in c.params[name]:
+                c.conv(f"{port}.{conv}", (name, f"TorchConv_{i}"))
+                c.bn(f"{port}.{bn}", (name, f"TorchBatchNorm_{i}"))
+    c.conv("conv2d", ("conv2d",))
+    c.dense("fc", "fc")
+    return c.out
+
+
+FROM_FLAX = {
+    "smallcnn": smallcnn_from_flax,
+    "smalllstm": smalllstm_from_flax,
+    "largecnn": largecnn_from_flax,
+    "lstmwithattention": lstmwithattention_from_flax,
+    "rnn": rnn_from_flax,
+    "resnet": resnet_from_flax,
+}

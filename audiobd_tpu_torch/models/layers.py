@@ -1,12 +1,18 @@
-"""Building blocks with the reference's semantics (port of the pieces of
-audiobd_tpu/models/layers.py that SmallCNN and SmallLSTM use).
+"""Building blocks with the reference's semantics (port of
+audiobd_tpu/models/layers.py).
 
 torch already is the reference's framework for these: ``F.max_pool2d`` is
-floor mode with implicit −inf padding, NCHW flatten is (C, H, W) order, and
-``nn.Conv2d`` / ``nn.Linear`` compute what flax's Conv/Dense do. Two things
-differ and are written out here:
+floor mode with implicit −inf padding (the reference's ``max_pool_torch``),
+``F.avg_pool2d`` without padding is floor mode divided by window² (its
+``avg_pool_torch``), NCHW flatten is (C, H, W) order, ``nn.Conv2d`` with
+``padding=(2, 0)`` is flax's "SAME" for a (5, 1) kernel and ``bias=False``
+its ``use_bias=False``, and ``nn.Conv2d`` / ``nn.Linear`` / ``nn.LSTM``
+compute what flax's Conv, Dense and the reference's scan LSTM do (gate
+order i, f, g, o, both biases; a reverse direction runs on the flipped
+sequence). Two things differ and are written out here:
   * init draws from an explicit ``torch.Generator`` (U(±1/√fan_in) for
-    weights and biases, torch's own defaults);
+    weights and biases, torch's own defaults; U(±1/√hidden) for every LSTM
+    tensor);
   * BatchNorm keeps flax's statistics: the fast variance E[x²] − E[x]²
     clamped at 0, and a running variance updated with that *biased* batch
     variance at momentum 0.9 (``nn.BatchNorm2d`` would use the unbiased one
@@ -19,8 +25,10 @@ flax's, made explicitly (autocast would compute BatchNorm's statistics in
 bf16 here and fuse the conv bias into one rounding): a conv or dense layer
 rounds its input and weight to bf16, rounds the product, then adds the bf16
 bias (a second rounding); relu, max-pooling and dropout run in bf16;
-BatchNorm takes its statistics and normalizes in f32 and returns bf16. The
-parameters and running statistics stay f32.
+BatchNorm takes its statistics and normalizes in f32 and returns bf16; an
+LSTM runs on bf16 copies of its weights and a bf16 input, the whole
+recurrence in bf16 (``torch.func.functional_call``). The parameters and
+running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -45,7 +53,27 @@ def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     with torch.no_grad():
         for p in (module.weight, module.bias):
+            if p is not None:
+                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+
+def init_lstm_(module: nn.LSTM, generator: torch.Generator) -> None:
+    """U(±1/√hidden) for all four tensors of every layer and direction
+    (reference layers.py:231-235)."""
+    bound = 1.0 / math.sqrt(module.hidden_size)
+    with torch.no_grad():
+        for p in module.parameters():
             p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
+
+
+def init_tree_(model: nn.Module, generator: torch.Generator) -> None:
+    """Every conv, dense and LSTM of ``model`` in module order; BatchNorm
+    keeps γ = 1, β = 0."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            init_uniform_(m, generator)
+        elif isinstance(m, nn.LSTM):
+            init_lstm_(m, generator)
 
 
 class BatchNorm2d(nn.Module):
@@ -90,7 +118,8 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
     """``conv(x)`` in the compute ``dtype`` (flax nn.Conv's casts)."""
     if dtype == torch.float32:
         return conv(x)
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype)) + conv.bias.to(dtype).reshape(1, -1, 1, 1)
+    y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding)
+    return y if conv.bias is None else y + conv.bias.to(dtype).reshape(1, -1, 1, 1)
 
 
 def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -98,6 +127,16 @@ def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.float32:
         return fc(x)
     return F.linear(x.to(dtype), fc.weight.to(dtype)) + fc.bias.to(dtype)
+
+
+def lstm(module: nn.LSTM, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The LSTM's output sequence (B, T, H·directions) in the compute
+    ``dtype``: in bf16 on bf16 copies of its weights, as the reference casts
+    its parameters and input (layers.py:236-259)."""
+    if dtype == torch.float32:
+        return module(x)[0]
+    weights = {name: p.to(dtype) for name, p in module.named_parameters()}
+    return torch.func.functional_call(module, weights, (x.to(dtype),))[0]
 
 
 def conv_bn_pool_block1(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused_block: bool,

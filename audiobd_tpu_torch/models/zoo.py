@@ -1,16 +1,17 @@
-"""SmallCNN and SmallLSTM (port of audiobd_tpu/models/zoo.py:36-88 and
-122-165; reference utils/models.py:17-65 and 121-178).
+"""The six keyword-spotting models (port of audiobd_tpu/models/zoo.py;
+reference utils/models.py): SmallCNN, LargeCNN, SmallLSTM,
+LSTMWithAttention, RNN and ResNet.
 
 Input NCHW MFCC features (B, 1, frames, n_mfcc), raw logits out (the
 reference's log_softmax is a no-op under cross-entropy). ``compute_dtype``
 (torch.float32 or torch.bfloat16, the reference's ``dtype``) is the dtype
 of the activations and the logits; the parameters stay f32 (models/layers.py
-says where the casts are).
+says where the casts are). The fused conv blocks (``ops/conv1_bn_pool``,
+``ops/conv2_bn_pool``) exist on SmallCNN and SmallLSTM only, as in the
+reference.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn as nn
@@ -18,16 +19,33 @@ import torch.nn.functional as F
 
 from audiobd_tpu_torch.models.layers import (
     BatchNorm2d,
+    conv2d,
     conv_bn_pool_block1,
     conv_bn_pool_block2,
     dropout,
-    init_uniform_,
+    init_tree_,
     linear,
+    lstm,
 )
 from audiobd_tpu_torch.utils.random import torch_generator
 
 
-class ConvStack(nn.Module):
+class _Model(nn.Module):
+    """What the six models share: the compute dtype, the dropout generator,
+    and weights drawn by ``init_tree_``."""
+
+    def __init__(self, compute_dtype: torch.dtype):
+        super().__init__()
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the models compute in float32 or bfloat16, got {compute_dtype}")
+        self.compute_dtype = compute_dtype
+        self.dropout_generator: torch.Generator | None = None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_tree_(self, generator)
+
+
+class ConvStack(_Model):
     """The three (conv2x2 → relu → BN → maxpool) blocks SmallCNN and
     SmallLSTM share.
 
@@ -38,10 +56,7 @@ class ConvStack(nn.Module):
 
     def __init__(self, fused_block1: bool = False, fused_block2: bool = False, fused_block3: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
-        super().__init__()
-        if compute_dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"the models compute in float32 or bfloat16, got {compute_dtype}")
-        self.compute_dtype = compute_dtype
+        super().__init__(compute_dtype)
         self.conv1 = nn.Conv2d(1, 64, 2)
         self.bn1 = BatchNorm2d(64)
         self.conv2 = nn.Conv2d(64, 64, 2)
@@ -51,7 +66,6 @@ class ConvStack(nn.Module):
         self.fused_block1 = fused_block1
         self.fused_block2 = fused_block2
         self.fused_block3 = fused_block3
-        self.dropout_generator: torch.Generator | None = None
 
     def block1(self, x: torch.Tensor) -> torch.Tensor:
         return conv_bn_pool_block1(self.conv1, self.bn1, x, self.fused_block1, self.compute_dtype)
@@ -75,10 +89,6 @@ class SmallCNN(ConvStack):
         self.fc2 = nn.Linear(128, num_classes)
         self.linear_features = linear_features
         self.dropout_rates = dropout_rates
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for layer in (self.conv1, self.conv2, self.conv3, self.fc1, self.fc2):
-            init_uniform_(layer, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.block1(x))
@@ -119,15 +129,6 @@ class SmallLSTM(ConvStack):
         self.rnn_features = rnn_features
         self.dropout_rate = dropout_rate
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        for layer in (self.conv1, self.conv2, self.conv3):
-            init_uniform_(layer, generator)
-        bound = 1.0 / math.sqrt(self.hidden)  # all four tensors of each layer (reference layers.py:231-235)
-        with torch.no_grad():
-            for p in self.lstm.parameters():
-                p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=generator))
-        init_uniform_(self.fc2, generator)
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.block3(self.block2(self.block1(x)))
         x = dropout(x, self.dropout_rate, self.training, self.dropout_generator)
@@ -135,28 +136,179 @@ class SmallLSTM(ConvStack):
         x = x.permute(0, 2, 3, 1).reshape(b, h, w * c)  # (B, H, W·C), the reference's NHWC order
         if x.shape[-1] != self.rnn_features:
             raise ValueError(f"smalllstm features {x.shape[-1]} != configured {self.rnn_features}")
-        if self.compute_dtype == torch.float32:
-            x, _ = self.lstm(x)
-        else:
-            weights = {name: p.to(self.compute_dtype) for name, p in self.lstm.named_parameters()}
-            x, _ = torch.func.functional_call(self.lstm, weights, (x,))
+        x = lstm(self.lstm, x, self.compute_dtype)
         return linear(self.fc2, x[:, -1], self.compute_dtype)
 
 
+class LargeCNN(_Model):
+    """AlexNet-style 5 conv + 3 FC (reference zoo.py:91-119): conv 96 → pool
+    2 → conv 256 → pool 2 (these two without relu) → 3 × (conv, relu) →
+    maxpool 3 stride 2 → relu(fc1) → dropout → relu(fc2) → dropout → fc3.
+    Every conv is 3×3 with padding 1."""
+
+    def __init__(self, num_classes: int, linear_features: int, dropout_rate: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        widths = (1, 96, 256, 384, 384, 256)
+        self.convs = nn.ModuleList(nn.Conv2d(a, b, 3, padding=1) for a, b in zip(widths, widths[1:]))
+        self.fc1 = nn.Linear(linear_features, 256)
+        self.fc2 = nn.Linear(256, 128)
+        self.fc3 = nn.Linear(128, num_classes)
+        self.linear_features = linear_features
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = F.max_pool2d(conv2d(self.convs[0], x, dt), 2)
+        x = F.max_pool2d(conv2d(self.convs[1], x, dt), 2)
+        for conv in self.convs[2:]:
+            x = F.relu(conv2d(conv, x, dt))
+        x = F.max_pool2d(x, 3, stride=2).flatten(1)
+        if x.shape[-1] != self.linear_features:
+            raise ValueError(f"largecnn flatten {x.shape[-1]} != configured {self.linear_features}")
+        x = dropout(F.relu(linear(self.fc1, x, dt)), self.dropout_rate, self.training, self.dropout_generator)
+        x = dropout(F.relu(linear(self.fc2, x, dt)), self.dropout_rate, self.training, self.dropout_generator)
+        return linear(self.fc3, x, dt)
+
+
+class LSTMWithAttention(_Model):
+    """Two "SAME" (5, 1) convs, each conv → relu → BN, → two two-direction
+    one-layer LSTMs of 64 → one-query soft attention over time → dense 64 →
+    dropout → dense 32 → output (reference zoo.py:168-202). ``time_len`` is
+    n_mfcc, ``seq_len`` the frame count."""
+
+    def __init__(self, num_classes: int, time_len: int, seq_len: int, dropout_rate: float = 0.5,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        self.conv1 = nn.Conv2d(1, 10, (5, 1), padding=(2, 0))
+        self.bn1 = BatchNorm2d(10)
+        self.conv2 = nn.Conv2d(10, 1, (5, 1), padding=(2, 0))
+        self.bn2 = BatchNorm2d(1)
+        self.rnn1 = nn.LSTM(time_len, 64, batch_first=True, bidirectional=True)
+        self.rnn2 = nn.LSTM(128, 64, batch_first=True, bidirectional=True)
+        self.dense1 = nn.Linear(128, 128)
+        self.attention = nn.Linear(128, 128)
+        self.dense2 = nn.Linear(seq_len, 64)
+        self.dense3 = nn.Linear(64, 32)
+        self.output = nn.Linear(32, num_classes)
+        self.seq_len = seq_len
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = self.bn1(F.relu(conv2d(self.conv1, x, dt)))
+        x = self.bn2(F.relu(conv2d(self.conv2, x, dt))).squeeze(1)  # (B, seq, time_len)
+        if x.shape[1] != self.seq_len:
+            raise ValueError(f"lstmwithattention sequence {x.shape[1]} != configured {self.seq_len}")
+        x = lstm(self.rnn2, lstm(self.rnn1, x, dt), dt)  # (B, seq, 128)
+        query = F.relu(linear(self.dense1, x[:, -1], dt))
+        att = torch.softmax(linear(self.attention, query, dt), dim=-1)
+        att_vector = torch.einsum("bk,btk->bt", att, x)  # (B, seq)
+        y = F.relu(linear(self.dense2, att_vector, dt))
+        y = dropout(y, self.dropout_rate, self.training, self.dropout_generator)
+        y = F.relu(linear(self.dense3, y, dt))
+        return linear(self.output, y, dt)
+
+
+class RNN(_Model):
+    """Three-layer LSTM(n_mfcc → 768) → FC on the last step (reference
+    zoo.py:205-220); the input is cast to f32 first, as there."""
+
+    hidden = 768
+
+    def __init__(self, num_classes: int, time_len: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        self.lstm = nn.LSTM(time_len, self.hidden, num_layers=3, batch_first=True)
+        self.fc = nn.Linear(self.hidden, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = lstm(self.lstm, x.squeeze(1).to(torch.float32), self.compute_dtype)
+        return linear(self.fc, x[:, -1], self.compute_dtype)
+
+
+class ResidualBlock(nn.Module):
+    """relu(BN(conv3x3(relu(BN(conv3x3_s(x))))) + residual), the residual a
+    3×3 conv with the stride and BN where ``downsample`` (reference
+    zoo.py:223-245). The convs have no bias."""
+
+    def __init__(self, cin: int, features: int, stride: int, downsample: bool, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.conv1 = nn.Conv2d(cin, features, 3, stride=stride, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(features)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm2d(features)
+        self.down_conv = nn.Conv2d(cin, features, 3, stride=stride, padding=1, bias=False) if downsample else None
+        self.down_bn = BatchNorm2d(features) if downsample else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.relu(self.bn1(conv2d(self.conv1, x, dt)))
+        y = self.bn2(conv2d(self.conv2, y, dt))
+        residual = x if self.down_conv is None else self.down_bn(conv2d(self.down_conv, x, dt))
+        return F.relu(y + residual)
+
+
+class ResNet(_Model):
+    """Conv stem (16, no bias) → BN → relu → 3 stages of 2 residual blocks,
+    16/32/64 channels at strides 1/2/2 → 1×1 conv stride (2, 1) with bias →
+    AvgPool(4) → FC (reference zoo.py:248-292)."""
+
+    def __init__(self, num_classes: int, linear_features: int, layers: tuple[int, int, int] = (2, 2, 2),
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        self.conv1 = nn.Conv2d(1, 16, 3, padding=1, bias=False)
+        self.bn1 = BatchNorm2d(16)
+        stages, cin = [], 16
+        for feats, stride, n in zip((16, 32, 64), (1, 2, 2), layers):
+            blocks = []
+            for block in range(n):
+                first = block == 0
+                blocks.append(ResidualBlock(cin, feats, stride if first else 1,
+                                            first and (stride != 1 or cin != feats), compute_dtype))
+                cin = feats
+            stages.append(nn.Sequential(*blocks))
+        self.stages = nn.ModuleList(stages)
+        self.conv2d = nn.Conv2d(64, 64, 1, stride=(2, 1))
+        self.fc = nn.Linear(linear_features, num_classes)
+        self.linear_features = linear_features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = F.relu(self.bn1(conv2d(self.conv1, x, dt)))
+        for stage in self.stages:
+            x = stage(x)
+        x = F.avg_pool2d(conv2d(self.conv2d, x, dt), 4).flatten(1)
+        if x.shape[-1] != self.linear_features:
+            raise ValueError(f"resnet flatten {x.shape[-1]} != configured {self.linear_features}")
+        return linear(self.fc, x, dt)
+
+
 def build_model(name: str, num_classes: int, feature_size: int, device: torch.device, seed: int,
-                fused: bool = False, fused_block2: bool = False, fused_block3: bool = False,
-                init_stream: str = "params", dropout_stream: str = "dropout",
+                n_mfcc: int | None = None, fused: bool = False, fused_block2: bool = False,
+                fused_block3: bool = False, init_stream: str = "params", dropout_stream: str = "dropout",
                 compute_dtype: torch.dtype = torch.float32) -> nn.Module:
-    """The model with weights drawn from ``torch_generator(seed,
-    init_stream)`` and dropout from ``torch_generator(seed, dropout_stream,
-    device)``. ``fused`` is block 1's flag. SmallCNN and SmallLSTM are ported
-    so far."""
-    classes = {"smallcnn": SmallCNN, "smalllstm": SmallLSTM}
-    if name.lower() not in classes:
-        raise NotImplementedError(f"model {name!r} is not ported yet (ROADMAP queue 1)")
-    model = classes[name.lower()](num_classes, feature_size, fused_block1=fused,
-                                  fused_block2=fused_block2, fused_block3=fused_block3,
-                                  compute_dtype=compute_dtype)
+    """The model as the reference's ``build_model`` (zoo.py:295-329) builds
+    it, with weights drawn from ``torch_generator(seed, init_stream)`` and
+    dropout from ``torch_generator(seed, dropout_stream, device)``.
+    ``feature_size`` is the attack's flatten size, LSTM features or sequence
+    length (``configs.linear_features_for``); LSTMWithAttention and RNN also
+    take ``n_mfcc``. ``fused`` is block 1's flag; the fused flags apply to
+    SmallCNN and SmallLSTM and are ignored elsewhere."""
+    name = name.lower()
+    if name in ("smallcnn", "smalllstm"):
+        cls = SmallCNN if name == "smallcnn" else SmallLSTM
+        model = cls(num_classes, feature_size, fused_block1=fused, fused_block2=fused_block2,
+                    fused_block3=fused_block3, compute_dtype=compute_dtype)
+    elif name in ("largecnn", "resnet"):
+        model = (LargeCNN if name == "largecnn" else ResNet)(num_classes, feature_size, compute_dtype=compute_dtype)
+    elif name in ("lstmwithattention", "rnn"):
+        if n_mfcc is None:
+            raise ValueError(f"{name} needs n_mfcc")
+        model = (LSTMWithAttention(num_classes, n_mfcc, feature_size, compute_dtype=compute_dtype)
+                 if name == "lstmwithattention" else RNN(num_classes, n_mfcc, compute_dtype=compute_dtype))
+    else:
+        raise ValueError(f"Unknown model {name}")
     model.reset_parameters(torch_generator(seed, init_stream))
     model.to(device)
     model.dropout_generator = torch_generator(seed, dropout_stream, device)

@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` has a plain C interface. It is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library under ``_build/`` (git-ignored),
 named by a digest of its source and flags so an edited source is rebuilt,
 and loaded with ``ctypes``. Every source is compiled in parallel on the first
-use of any kernel; nothing is built when a module is imported.
+use of any kernel; nothing is built when a module is imported. ``build`` is
+the port's one build routine: ``data/native.py`` builds the wav decoder
+with it too, by ``g++``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Callable
 from pathlib import Path
 
 import torch
@@ -44,37 +47,45 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+def library_path(source: Path, flags: tuple[str, ...]) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing, all at once. Returns
-    {source: library path}; the compiler's output (registers, spills) is kept
-    beside each library as ``<stem>.log``."""
+def build(sources: list[Path], compiler: Callable[[], str], flags: tuple[str, ...]) -> dict[Path, Path]:
+    """Compile every source whose library is missing, all at once, with
+    ``compiler()`` (asked for only when something is built) and ``flags``.
+    Returns {source: library path}; the compiler's output (registers,
+    spills) is kept beside each library as ``<stem>.log``. A failed
+    compile raises."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {src: library_path(src) for src in SOURCES}
+    paths = {src: library_path(src, flags) for src in sources}
     todo = [src for src, path in paths.items() if not path.exists()]
     if not todo:
         return paths
-    nvcc = _nvcc()
+    exe = compiler()
     procs = []
     for src in todo:
         tmp = paths[src].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / src)]
+        cmd = [exe, *flags, "-o", str(tmp), str(src)]
         procs.append((src, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failures = []
     for src, tmp, proc in procs:
         out, _ = proc.communicate()
-        (BUILD_DIR / f"{Path(src).stem}.log").write_bytes(out)
+        (BUILD_DIR / f"{src.stem}.log").write_bytes(out)
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {src}:\n{out.decode(errors='replace')}")
+            failures.append(f"{Path(exe).name} failed for {src.name}:\n{out.decode(errors='replace')}")
         else:
             os.replace(tmp, paths[src])
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
+
+
+def build_all() -> dict[str, Path]:
+    """Every kernel source in ``csrc/`` built by nvcc: {source name: library path}."""
+    paths = build([CSRC_DIR / src for src in SOURCES], _nvcc, NVCC_FLAGS)
+    return {src.name: path for src, path in paths.items()}
 
 
 def load_library(source: str) -> ctypes.CDLL:

@@ -68,7 +68,7 @@ def resolve_compute_dtype(cfg: AttackConfig) -> torch.dtype:
 def build_attack_model(cfg: AttackConfig, device: torch.device):
     return build_model(
         cfg.model, cfg.num_classes, linear_features_for(cfg.name, cfg.model), device,
-        cfg.train.seed, fused=resolve_fused_conv(cfg, device),
+        cfg.train.seed, n_mfcc=cfg.dsp.n_mfcc, fused=resolve_fused_conv(cfg, device),
         fused_block2=resolve_fused_block2(cfg), fused_block3=resolve_fused_block2(cfg, "fused_block3"),
         compute_dtype=resolve_compute_dtype(cfg),
     )

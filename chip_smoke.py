@@ -36,6 +36,16 @@ no result, without them. Phases, each printing its own lines:
      block-1 backward through kernel B's bf16 mode);
      5b. path 2: SmallLSTM in bf16 with --fused_block2 on --fused_block3 on
      (B, D and E in bf16).
+  6. Ultrasonic from a wav tree the phase writes (10 classes x 2,000
+     one-second 16 kHz PCM16 clips, plus 5 shorter and 5 at 44.1 kHz a
+     class): python -m audiobd_tpu_torch ultrasonic, 2 epochs at batch 256:
+     native decode, the 1-s filter, resampling to 44.1 kHz on the card,
+     kernel A's Bluestein route (n_fft 1103) in the prep and the poisoning,
+     full-width SmallCNN with kernel B once a step at (256, 1, 100, 40);
+     the prep's walls (decode, resample, MFCC), train clips/s, launches.
+     Phase 1b also holds B at that shape.
+     6b. LargeCNN, LSTMWithAttention, RNN and ResNet at full width through
+     ultrasonic --synthetic --model <m> (3,000 clips, 2 epochs each).
   Kernel launch counts are zeroed just before each CLI run and read just
   after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
@@ -47,6 +57,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -289,6 +300,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
             check(blocks * 512 >= 1024, f"kernel A at n_fft {params.n_fft} keeps >= 1024 threads per SM")
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
     ctx["flowmur_feats"] = op.fused_mfcc(wav[:256], flow)[:, None]
+    ctx["ultrasonic_feats"] = op.fused_mfcc(wav44[:256], us)[:, None]  # (256, 1, 100, 40): n_fft 1103 is odd
     return rows
 
 
@@ -400,11 +412,13 @@ def phase_conv1(torch, ctx) -> list[dict]:
     print(f"  C input bwd, train mode, main path's shape x {tuple(x.shape)}: kernel {ms_c:.4f} ms, plain (B+C) "
           f"{plain_bc:.4f} ms, autograd dx yardstick {lib_c:.4f} ms, bound {bc:.4f} ms ({byc})", flush=True)
     flow = flowmur_block1(torch, ctx["flowmur_feats"].contiguous(), compare)
+    ultra = ultrasonic_block1(torch, ctx["ultrasonic_feats"].contiguous(), compare)
     src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
     return [
         # B's row is the main path's shape; FlowMur's is checked and printed above.
         {"name": "conv1_bn_pool_bwd_params", "route": "cuda", "source": src,
-         "replaces": "audiobd_tpu/ops/fused_conv_block.py:226", "max_abs_err": max(err_b, flow["err_b"]), "ms": ms_b,
+         "replaces": "audiobd_tpu/ops/fused_conv_block.py:226",
+         "max_abs_err": max(err_b, flow["err_b"], ultra["err_b"]), "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb, "library_ms": lib_b},
         # C's caller is FlowMur's trigger search: the row is its eval-mode shape.
         {"name": "conv1_bn_pool_bwd_input", "route": "cuda", "source": src,
@@ -412,6 +426,50 @@ def phase_conv1(torch, ctx) -> list[dict]:
          "ms": flow["ms"], "plain_ms": flow["plain_ms"], "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"],
          "library_ms": flow["library_ms"]},
     ]
+
+
+def ultrasonic_block1(torch, x, compare) -> dict:
+    """Kernel B at Ultrasonic's training shape: x (256, 1, 100, 40) from
+    n_fft 1103 (100 frames), g (256, 64, 99, 13); train mode with batch
+    statistics, against the plain version; its time (CUDA events), the
+    plain version's and the bound on this run's data, as phase_conv1
+    counts it at the main path's shape."""
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op
+
+    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True)
+    model.train()
+    out1d = model.block1(x).detach().requires_grad_(True)
+    labels = torch.randint(0, 10, (x.shape[0],), device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    g = torch.autograd.grad(F.cross_entropy(model.head(out1d), labels), out1d)[0].contiguous()
+    w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
+    gamma, beta = model.bn1.weight.detach(), model.bn1.bias.detach()
+    r = torch.clamp(F.conv2d(x, w, b), min=0.0)
+    mu = r.mean(dim=(0, 2, 3))
+    inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op.EPS)
+    del r
+    w5 = op._w5(w, b)
+    vecs = (mu, inv, gamma * inv, beta - mu * gamma * inv)
+    out_b = op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True)
+    ref = op.conv1_bn_pool_backward_plain(x, g, w, b, *vecs, train_bn=True, need_dx=False)
+    err_b = compare((None, out_b[:4].t().reshape(w.shape), out_b[4], out_b[5], out_b[6]), ref, "Ultrasonic train")
+    ms = time_ms(torch, lambda: op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True), 20)
+    plain_ms = time_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
+        x, g, w, b, *vecs, train_bn=True, need_dx=False), 5, warmup=1)
+    _, r_win, z_win = op._windows(x, w5, vecs[2], vecs[3])
+    winner, active = op._first_match(z_win), r_win > 0
+    n_pc, n_active = winner.numel() // 3, int(active.sum())
+    n_win_active, n_xhat = int((winner & active).sum()), int((winner | active).sum())
+    del r_win, z_win, winner, active
+    bms, by = bound(n_pc * (33 + 2 + 3) + 2 * n_xhat + 9 * n_win_active + 14 * n_active,
+                    4 * (x.numel() + g.numel() + 11 * w.shape[0]))
+    print(f"  data (Ultrasonic, train): {n_pc} (position, channel) pairs, {n_active} active phases, "
+          f"{n_win_active} active winners", flush=True)
+    print(f"  B params bwd, train mode, Ultrasonic's shape x {tuple(x.shape)}, g {tuple(g.shape)}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    return dict(err_b=err_b, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def flowmur_block1(torch, x, compare) -> dict:
@@ -921,7 +979,7 @@ def phase_main_path(torch, kernels) -> tuple[dict[str, int], float]:
     launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [])
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
     for name in ("mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device"):
-        check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none: no caller yet)")
+        check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none on this path)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
     return launches, clips
@@ -1063,6 +1121,175 @@ def phase_flowmur(torch, kernels, route: str) -> dict[str, int]:
     return launches
 
 
+ULTRA_PER_CLASS, ULTRA_EXTRA = 2000, 5  # 1-s 16 kHz clips a class; clips shorter than 1 s, and at 44.1 kHz, a class
+
+
+def write_wav_tree(root: str, labels: list[str]) -> None:
+    """The tree Ultrasonic's ingest reads, at ``root/<label>/*.wav``, PCM16:
+    per class ``ULTRA_PER_CLASS`` one-second 16 kHz clips (a tone burst of
+    the class's pitch and noise, as the synthetic set's), ``ULTRA_EXTRA``
+    16 kHz clips shorter than 1 s (8,000 to 15,999 samples, which the 1-s
+    filter drops) and ``ULTRA_EXTRA`` one-second 44.1 kHz clips (no resampling)."""
+    import numpy as np
+
+    from audiobd_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(8)
+    for cls, label in enumerate(labels):
+        d = os.path.join(root, label)
+        os.makedirs(d)
+        for rate, n, count in ((16000, 16000, ULTRA_PER_CLASS), (44100, 44100, ULTRA_EXTRA)):
+            t = np.arange(n, dtype=np.float32) / rate
+            f0 = (200.0 + 160.0 * cls) * (1.0 + 0.03 * rng.standard_normal((count, 1)))
+            env = np.exp(-((t - rng.uniform(0.3, 0.7, (count, 1))) ** 2) / 0.05)
+            wav = 0.4 * env * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 2 * np.pi, (count, 1)))
+            wav += 0.3 * env * np.sin(4 * np.pi * f0 * t) + 0.02 * rng.standard_normal((count, n))
+            for i, clip in enumerate(wav.astype(np.float32)):
+                write_wav(os.path.join(d, f"{rate}_{i:05d}.wav"), clip, rate)
+        for i, n in enumerate(np.linspace(8000, 15999, ULTRA_EXTRA).astype(int)):
+            write_wav(os.path.join(d, f"short_{i}.wav"), (0.1 * rng.standard_normal(n)).astype(np.float32), 16000)
+
+
+def phase_ultrasonic(torch, kernels) -> dict[str, int]:
+    """Phase 6: ``python -m audiobd_tpu_torch ultrasonic`` on a wav tree of
+    16 kHz clips at full width (SmallCNN, its 3072-feature flatten), batch
+    256, cut to 2 epochs: native decode, resampling to 44.1 kHz on the card,
+    kernel A's Bluestein route (n_fft 1103) in the prep and the poisoning,
+    kernel B once a training step at (256, 1, 100, 40)."""
+    import numpy as np
+
+    from audiobd_tpu_torch.cli import ultrasonic as cli
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg = make_config("ultrasonic")
+    n_labels = len(cfg.labels)
+    print(f"phase 6: Ultrasonic from a wav tree: python -m audiobd_tpu_torch ultrasonic --num_epochs 2 "
+          f"({n_labels} classes x ({ULTRA_PER_CLASS} one-second 16 kHz clips + {ULTRA_EXTRA} shorter + {ULTRA_EXTRA} "
+          f"at 44.1 kHz), batch {BATCH}, f32)", flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            write_wav_tree(cfg.data_path, cfg.labels)
+            print(f"  wrote the wav tree in {time.perf_counter() - t0:.1f} s; {shutil.disk_usage(tmp).free / 1e9:.1f} "
+                  f"GB free where the run writes", flush=True)
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            run = cli.main(["--num_epochs", "2", "--patience", "20"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            h, st = run.result.history, run.stages
+            walls = run.prep_walls or {}
+            print(f"  wall {wall:.1f} s; prep {st['prep']['wall_s']:.3f} s (decode {walls.get('decode', 0):.3f} s, "
+                  f"resample {walls.get('resample', 0):.3f} s, MFCC {walls.get('mfcc', 0):.3f} s, the rest the npy "
+                  f"cache), poison {st['poison']['wall_s']:.3f} s, train {st['train']['wall_s']:.3f} s; train "
+                  f"clips/s {run.result.clips_per_sec:.1f}", flush=True)
+            for e in range(run.result.epochs_ran):
+                print(f"  epoch {e + 1}: train loss {h['train_loss'][e]:.5f} clean loss {h['test_clean_loss'][e]:.5f} "
+                      f"bd loss {h['test_bd_loss'][e]:.5f} clean acc {h['test_clean_acc'][e]:.2f} ASR "
+                      f"{h['test_asr'][e]:.2f}", flush=True)
+            print(f"  launches: {launches}; by stage {({n: v['launches'] for n, v in st.items()})}", flush=True)
+            n_clips = n_labels * (ULTRA_PER_CLASS + ULTRA_EXTRA)
+            check(run.n_clips == n_clips, f"{run.n_clips} clips pass the 1-s filter (expected {n_clips}: the "
+                  f"{n_labels * ULTRA_EXTRA} shorter ones dropped)")
+            data = os.path.join(cfg.record_dir, cfg.dataset)
+            ind = {s: np.load(os.path.join(data, "bd", f"poison_index_{s}.npy")) for s in ("train", "test")}
+            chunks = lambda n: -(-int(n) // 2048)  # noqa: E731  (batched_mfcc_device's chunk)
+            want = {"prep": chunks(n_labels * ULTRA_EXTRA) + chunks(n_labels * ULTRA_PER_CLASS),
+                    "poison": chunks(ind["train"].sum()) + chunks(ind["test"].sum())}
+            for stage, n in want.items():
+                got = st[stage]["launches"]
+                check(got.get("mfcc_bluestein", 0) == n and set(got) == {"mfcc_bluestein"},
+                      f"kernel A's Bluestein route launched {got.get('mfcc_bluestein', 0)} times in the {stage} stage "
+                      f"(expected {n}), no other kernel there ({got})")
+            others = [n for n in ("mfcc_fft", "mfcc_fft_large", "mfcc_fft_device") if launches[n]]
+            check(not others, f"no other route of kernel A launched (launched: {others})")
+            steps = run.result.epochs_ran * -(-len(ind["train"]) // BATCH)
+            check(launches["conv1_bn_pool_bwd_params"] == steps,
+                  f"kernel B launched {launches['conv1_bn_pool_bwd_params']} times ({steps} training steps)")
+            losses = h["train_loss"] + h["test_clean_loss"] + h["test_bd_loss"]
+            check(run.result.epochs_ran == 2 and all(math.isfinite(v) for v in losses),
+                  "2 epochs ran and every loss is finite")
+            check_record(torch, build_model, load_checkpoint, cfg.record_dir, data)
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def check_record(torch, build_model, load_checkpoint, record: str, data: str) -> None:
+    """The six clean npys, the eight bd npys and the CSVs exist, and the
+    checkpoint reloads on the CPU and gives finite logits on (1, 100, 40)
+    features."""
+    import numpy as np
+
+    names = [os.path.join("clean", f"clean_{s}_{k}.npy") for s in ("train", "test") for k in ("wav", "mfcc", "label")]
+    names += [os.path.join("bd", f"{n}.npy") for n in (
+        "bd_train_wav", "bd_test_wav", "bd_train_mfcc", "bd_test_mfcc", "bd_train_label", "bd_test_label",
+        "poison_index_train", "poison_index_test")]
+    files = [os.path.join(data, n) for n in names] + [os.path.join(record, n) for n in ("loss_result.csv",
+                                                                                       "acc_result.csv")]
+    missing = [f for f in files if not os.path.exists(f)]
+    check(not missing, f"the six clean npys, eight bd npys and the CSVs exist (missing: {missing})")
+    sd, spec = load_checkpoint(record)
+    reloaded = build_model(spec["model"], spec["num_classes"], spec["feature_size"], torch.device("cpu"), seed=0,
+                           n_mfcc=spec["n_mfcc"])
+    reloaded.load_state_dict(sd)
+    feats = torch.from_numpy(np.load(os.path.join(data, "bd", "bd_test_mfcc.npy"), mmap_mode="r")[:64].copy())
+    with torch.no_grad():
+        logits = reloaded.eval()(feats)
+    check(tuple(feats.shape[1:]) == (1, 100, 40) and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (64, 10),
+          f"checkpoint reloads as {type(reloaded).__name__} on the CPU: finite {tuple(logits.shape)} logits on "
+          f"{tuple(feats.shape[1:])} features")
+
+
+ULTRA_MODELS = ("largecnn", "lstmwithattention", "rnn", "resnet")
+ULTRA_MODELS_PER_CLASS = 300
+
+
+def phase_ultrasonic_models(torch, kernels) -> None:
+    """Phase 6b: the four models without a fused block, each at full width
+    through ``ultrasonic --synthetic --model <m>`` on 3,000 synthetic 44.1 kHz
+    clips, batch 256, 2 epochs."""
+    from audiobd_tpu_torch.cli import ultrasonic as cli
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.train.checkpoint import load_checkpoint
+
+    cwd = os.getcwd()
+    for name in ULTRA_MODELS:
+        flags = ["--synthetic", "--synthetic_per_class", str(ULTRA_MODELS_PER_CLASS), "--model", name,
+                 "--num_epochs", "2", "--patience", "20"]
+        print(f"phase 6b: python -m audiobd_tpu_torch ultrasonic {' '.join(flags)} ({10 * ULTRA_MODELS_PER_CLASS} "
+              f"clips, batch {BATCH}, f32)", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                for k in kernels:
+                    k.launches = 0
+                run = cli.main(flags)
+                torch.cuda.synchronize()
+                launches = {k.name: k.launches for k in kernels if k.launches}
+                h = run.result.history
+                print(f"  {name}: train clips/s {run.result.clips_per_sec:.1f}; train loss {_r(h['train_loss'])}, "
+                      f"clean acc {_r(h['test_clean_acc'])}, ASR {_r(h['test_asr'])}; launches {launches}", flush=True)
+                losses = h["train_loss"] + h["test_clean_loss"] + h["test_bd_loss"]
+                check(type(run.result.model).__name__.lower() == name and run.result.epochs_ran == 2
+                      and all(math.isfinite(v) for v in losses), f"{name}: 2 epochs ran, every loss finite")
+                check(set(launches) == {"mfcc_bluestein"}, f"{name}: kernel A's Bluestein route alone launched "
+                      f"({launches}); the model has no fused block")
+                cfg = make_config("ultrasonic", model=name)
+                check_record(torch, build_model, load_checkpoint, cfg.record_dir,
+                             os.path.join(cfg.record_dir, cfg.dataset))
+            finally:
+                os.chdir(cwd)
+
+
 def main() -> int:
     try:
         import torch
@@ -1117,6 +1344,11 @@ def main() -> int:
     for row in bf16_rows:
         # C's bf16 mode has no caller on any path (as in the reference): 0.
         row["launches"] = bf16[row["name"]]
+    ultrasonic = phase_ultrasonic(torch, KERNELS)
+    for row in main_rows:
+        if row["name"] == "mfcc_bluestein":
+            row["launches"] = ultrasonic[row["name"]]
+    phase_ultrasonic_models(torch, KERNELS)
     rows = main_rows + block23_rows + bf16_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -118,7 +118,8 @@ def test_named_streams_match_jax_package():
 
 def test_clean_cache_reloads_and_yaml_config(runs):
     """The six-npy cache the CLI wrote loads back; ``--config`` YAML parses
-    with CLI overrides on top; no cache (or --load_clean_data false) raises."""
+    with CLI overrides on top; with --load_clean_data false the cache is
+    rebuilt from the wav tree, which raises here, where there is none."""
     _, port, _ = runs
     yaml_path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs", "badnets.yaml")
     cfg = config_from_yaml(yaml_path, attack="badnets", num_epochs=3, device="cpu")
@@ -128,5 +129,5 @@ def test_clean_cache_reloads_and_yaml_config(runs):
         clean = load_clean_data(cfg)
         assert clean.train_mfcc.shape[1:] == (1, 101, 40) and len(clean.train_label) == 80
         cfg.load_clean_data = False
-        with pytest.raises(NotImplementedError, match="wav tree"):
+        with pytest.raises(FileNotFoundError, match="missing class dir"):
             load_clean_data(cfg)
