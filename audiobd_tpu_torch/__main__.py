@@ -1,6 +1,8 @@
 """CLI dispatcher: ``python -m audiobd_tpu_torch <command> [flags]``.
 
-Ported commands so far: badnets, ultrasonic, flowmur. The reference's other commands
+Ported commands so far: the attacks badnets, ultrasonic and flowmur; the
+defenses fp, ft_reg, tsbd and correlation_analysis, which read an attack's
+``record/<result>/torch_checkpoint/``. The reference's other commands
 (``python -m audiobd_tpu``) are listed in ROADMAP.md.
 """
 
@@ -13,6 +15,10 @@ COMMANDS = {
     "badnets": "audiobd_tpu_torch.cli.badnets",
     "ultrasonic": "audiobd_tpu_torch.cli.ultrasonic",
     "flowmur": "audiobd_tpu_torch.cli.flowmur",
+    "fp": "audiobd_tpu_torch.cli.fp",
+    "ft_reg": "audiobd_tpu_torch.cli.ft_reg",
+    "tsbd": "audiobd_tpu_torch.cli.tsbd",
+    "correlation_analysis": "audiobd_tpu_torch.cli.correlation_analysis",
 }
 
 

@@ -14,6 +14,8 @@ reference flattens NCHW-style).
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -144,3 +146,29 @@ FROM_FLAX = {
     "rnn": rnn_from_flax,
     "resnet": resnet_from_flax,
 }
+
+_CONV_PATHS = (
+    (re.compile(r"conv(\d+)\.weight"), lambda m: f"TorchConv_{int(m[1]) - 1}"),
+    (re.compile(r"convs\.(\d+)\.weight"), lambda m: f"TorchConv_{m[1]}"),
+    (re.compile(r"stages\.(\d+)\.(\d+)\.(conv1|conv2|down_conv)\.weight"),
+     lambda m: f"layer{int(m[1]) + 1}_{m[2]}/TorchConv_{('conv1', 'conv2', 'down_conv').index(m[3])}"),
+    (re.compile(r"(\w+)\.weight"), lambda m: m[1]),
+)
+
+
+def flax_kernel_path(key: str, ndim: int) -> str:
+    """The flax path of the kernel that the maps above carry to the port's
+    state_dict ``key``: a conv weight (``ndim`` 4) or an ``nn.Linear`` weight
+    (``ndim`` 2), e.g. ``conv3.weight`` → ``TorchConv_2/Conv_0/kernel``,
+    ``stages.2.1.conv2.weight`` → ``layer3_1/TorchConv_1/Conv_0/kernel``,
+    ``fc.weight`` → ``fc/Dense_0/kernel``."""
+    if ndim == 2:
+        name = re.fullmatch(r"(\w+)\.weight", key)
+        if name is None:
+            raise ValueError(f"{key!r} is not a dense kernel of the port's models")
+        return f"{name[1]}/Dense_0/kernel"
+    for pattern, path in _CONV_PATHS:
+        m = pattern.fullmatch(key)
+        if m is not None:
+            return f"{path(m)}/Conv_0/kernel"
+    raise ValueError(f"{key!r} is not a conv kernel of the port's models")

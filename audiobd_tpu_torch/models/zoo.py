@@ -13,6 +13,8 @@ reference.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -32,7 +34,11 @@ from audiobd_tpu_torch.utils.random import torch_generator
 
 class _Model(nn.Module):
     """What the six models share: the compute dtype, the dropout generator,
-    and weights drawn by ``init_tree_``."""
+    and weights drawn by ``init_tree_``. ``final_layer`` names the final
+    classifier, whose input the reference sows as ``features``
+    (audiobd_tpu/models/zoo.py:87, 118, 164, 201, 219, 281)."""
+
+    final_layer = "fc2"
 
     def __init__(self, compute_dtype: torch.dtype):
         super().__init__()
@@ -146,6 +152,8 @@ class LargeCNN(_Model):
     maxpool 3 stride 2 → relu(fc1) → dropout → relu(fc2) → dropout → fc3.
     Every conv is 3×3 with padding 1."""
 
+    final_layer = "fc3"
+
     def __init__(self, num_classes: int, linear_features: int, dropout_rate: float = 0.5,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(compute_dtype)
@@ -176,6 +184,8 @@ class LSTMWithAttention(_Model):
     one-layer LSTMs of 64 → one-query soft attention over time → dense 64 →
     dropout → dense 32 → output (reference zoo.py:168-202). ``time_len`` is
     n_mfcc, ``seq_len`` the frame count."""
+
+    final_layer = "output"
 
     def __init__(self, num_classes: int, time_len: int, seq_len: int, dropout_rate: float = 0.5,
                  compute_dtype: torch.dtype = torch.float32):
@@ -214,6 +224,7 @@ class RNN(_Model):
     """Three-layer LSTM(n_mfcc → 768) → FC on the last step (reference
     zoo.py:205-220); the input is cast to f32 first, as there."""
 
+    final_layer = "fc"
     hidden = 768
 
     def __init__(self, num_classes: int, time_len: int, compute_dtype: torch.dtype = torch.float32):
@@ -254,6 +265,8 @@ class ResNet(_Model):
     16/32/64 channels at strides 1/2/2 → 1×1 conv stride (2, 1) with bias →
     AvgPool(4) → FC (reference zoo.py:248-292)."""
 
+    final_layer = "fc"
+
     def __init__(self, num_classes: int, linear_features: int, layers: tuple[int, int, int] = (2, 2, 2),
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__(compute_dtype)
@@ -282,6 +295,20 @@ class ResNet(_Model):
         if x.shape[-1] != self.linear_features:
             raise ValueError(f"resnet flatten {x.shape[-1]} != configured {self.linear_features}")
         return linear(self.fc, x, dt)
+
+
+@contextlib.contextmanager
+def final_layer_inputs(model: nn.Module):
+    """Yields a list that gets the input of ``model``'s final classifier,
+    detached, at each forward inside the block (the reference's sown
+    ``features``). A forward hook on the layer: the f32 layers call it as a
+    module, the bf16 ones call ``F.linear`` and are not seen."""
+    seen: list[torch.Tensor] = []
+    hook = getattr(model, model.final_layer).register_forward_hook(lambda _m, args, _out: seen.append(args[0].detach()))
+    try:
+        yield seen
+    finally:
+        hook.remove()
 
 
 def build_model(name: str, num_classes: int, feature_size: int, device: torch.device, seed: int,

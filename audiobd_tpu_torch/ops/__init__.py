@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels and their wrappers.
 
-KERNELS lists every kernel of the port with its launch counter."""
+KERNELS lists every kernel of the port with its launch counter (kernel B in
+f32 twice: its train and eval modes count apart)."""
 
 from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, mfcc
 
@@ -10,6 +11,7 @@ KERNELS = (
     mfcc.MFCC_LARGE_KERNEL,
     mfcc.MFCC_DEVICE_KERNEL,
     conv1_bn_pool.BWD_PARAMS_KERNEL,
+    conv1_bn_pool.BWD_PARAMS_EVAL_KERNEL,
     conv1_bn_pool.BWD_INPUT_KERNEL,
     conv2_bn_pool.BWD_PARAMS_KERNEL,
     conv2_bn_pool.BWD_INPUT_KERNEL,

@@ -40,6 +40,13 @@ BWD_PARAMS_KERNEL = CudaKernel(
     "conv1_bn_pool_bwd_params", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_params",
     [_P] * 9 + [_I] * 6,
 )
+# Kernel B's eval mode (train_bn false: the parameter gradients of a block
+# normalized by its running statistics, the defenses' SAM and unlearning
+# steps) is the same entry point, counted apart.
+BWD_PARAMS_EVAL_KERNEL = CudaKernel(
+    "conv1_bn_pool_bwd_params_eval", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_params",
+    [_P] * 9 + [_I] * 6,
+)
 # Kernel B stages a span of at most this many of a clip's pooled positions in
 # shared memory (32 bytes each: 96 KB, two blocks an SM); longer clips are cut
 # into equal spans whose partial sums the finish adds.
@@ -226,7 +233,8 @@ def _check_cuda(x, g, w5, *vecs, h12=None) -> bool:
 def conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, *, train_bn: bool) -> torch.Tensor:
     """Kernel B: (9, C) = dw taps (4 rows), dbias, dgamma, dbeta, h1, h2.
     A block takes one span of at most ``PARAMS_SPAN`` of a clip's pooled
-    positions, so any clip length fits. A bf16 g launches the bf16 mode."""
+    positions, so any clip length fits. A bf16 g launches the bf16 mode (one
+    counter for both BN modes); in f32 train and eval mode count apart."""
     bf16 = _check_cuda(x, g, w5, mu, inv, scale, shift)
     b, _, h, w = x.shape
     c = w5.shape[0]
@@ -238,7 +246,7 @@ def conv1_bn_pool_bwd_params(x, g, w5, mu, inv, scale, shift, *, train_bn: bool)
     if bf16:
         BWD_PARAMS_BF16_KERNEL(x.device, *args, int(x.dtype == torch.bfloat16))
     else:
-        BWD_PARAMS_KERNEL(x.device, *args)
+        (BWD_PARAMS_KERNEL if train_bn else BWD_PARAMS_EVAL_KERNEL)(x.device, *args)
     return out
 
 

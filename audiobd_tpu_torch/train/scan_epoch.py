@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from audiobd_tpu_torch.train.loop import ArraySet, cross_entropy, masked_mean, metric_sums
-from audiobd_tpu_torch.train.state import Adam
 
 
 def pad_plan(n: int, batch_size: int) -> tuple[int, np.ndarray]:
@@ -67,7 +66,9 @@ def _summary(losses: torch.Tensor, sums: torch.Tensor) -> tuple[float, np.ndarra
     return float(losses.mean()), sums.cpu().numpy()
 
 
-def run_train_epoch(model, opt: Adam, dset: DeviceDataset, batch_size: int, np_rng) -> dict:
+def run_train_epoch(model, opt, dset: DeviceDataset, batch_size: int, np_rng) -> dict:
+    """One training pass in train mode; ``opt`` is any optimizer of
+    train/state.py (``opt.params``, ``opt.step(grads)``)."""
     model.train()
     perm, mask = dset.plan(batch_size, np_rng)
     losses = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
@@ -105,4 +106,5 @@ def run_eval_epoch(model, dset: DeviceDataset, batch_size: int) -> dict:
         "loss": loss,
         "acc": 100.0 * s[0] / max(s[1], 1),
         "asr": 100.0 * s[2] / max(s[3], 1),
+        "sums": s,  # [correct, total, asr_correct, poison_total]
     }

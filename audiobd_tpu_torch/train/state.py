@@ -1,5 +1,9 @@
-"""Optimizer state (port of the optax.adam the reference trains with,
-audiobd_tpu/train/trainer.py:91-96)."""
+"""Optimizers in optax's formulas: the adam the reference trains with
+(audiobd_tpu/train/trainer.py:91-96) and the sgd with momentum its defenses
+fine-tune with (audiobd_tpu/defend/ft_reg.py:204, tsbd.py:314).
+
+An optimizer holds ``params`` (the tensors it updates in place) and takes
+``step(grads)``, the gradients in the same order."""
 
 from __future__ import annotations
 
@@ -39,3 +43,18 @@ class Adam:
         torch._foreach_mul_(updates, -self.lr)
         torch._foreach_add_(self.params, updates)
 
+
+class SGD:
+    """optax.sgd(lr, momentum) with nesterov off: t ← g + momentum·t (t
+    starting at 0), p ← p + (−lr·t). In place, with multi-tensor ops."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9):
+        self.params = list(params)
+        self.lr, self.momentum = lr, momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor]) -> None:
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, grads)
+        torch._foreach_add_(self.params, torch._foreach_mul(self.trace, -self.lr))

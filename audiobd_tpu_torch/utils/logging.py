@@ -1,6 +1,7 @@
 """CSV metric logging with the reference's file/column contract
 (audiobd_tpu/utils/logging.py): ``loss_result.csv`` and ``acc_result.csv``
-under ``record/<result>/``."""
+under ``record/<result>/``; a defense's CSVs get their rows first and the
+header prepended last, as the reference's add_csv_head does."""
 
 from __future__ import annotations
 
@@ -15,6 +16,23 @@ def write_csv(path: str, header: Sequence[str], rows: Sequence[Sequence]) -> Non
         writer = csv.writer(f)
         writer.writerow(header)
         writer.writerows(rows)
+
+
+def append_csv_row(path: str, row: Sequence) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "a", newline="") as f:
+        csv.writer(f).writerow(row)
+
+
+def prepend_csv_header(path: str, header: Sequence[str]) -> None:
+    """The reference's add_csv_head (fp.py:78-85): ``header`` above the rows
+    already written."""
+    with open(path, newline="") as f:
+        lines = list(csv.reader(f))
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(header)
+        writer.writerows(lines)
 
 
 def save_attack_csvs(record_dir: str, history: dict[str, list]) -> None:

@@ -14,8 +14,10 @@ no result, without them. Phases, each printing its own lines:
      shared memory; the buffers alone in shared memory, n_fft 2205 by
      radix-7 stages; the buffers in device memory, n_fft 4097; FlowMur's
      n_fft 2048, 13 coefficients), 1b kernels B and C (both in train mode at
-     the main path's shape; at FlowMur's (256, 1, 32, 13) B in train mode,
-     as its surrogates and victim train, and C in eval mode, as its search runs),
+     the main path's shape, and B in eval mode there too, as the defenses'
+     SAM and unlearning steps launch it, on a row of its own; at FlowMur's
+     (256, 1, 32, 13) B in train mode, as its surrogates and victim train,
+     and C in eval mode, as its search runs),
      1c kernels D and E (E on the routing a D call wrote).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
@@ -46,6 +48,11 @@ no result, without them. Phases, each printing its own lines:
      Phase 1b also holds B at that shape.
      6b. LargeCNN, LSTMWithAttention, RNN and ResNet at full width through
      ultrasonic --synthetic --model <m> (3,000 clips, 2 epochs each).
+  7. the defense chain on phase 2's record (kept for it): python -m
+     audiobd_tpu_torch fp; ft_reg --ft_epochs 10; tsbd; tsbd --only_finetune
+     false --unlearn_epochs 100 --ft_epochs 10; correlation_analysis. Each
+     run's wall, outputs, CSVs and artifacts, and kernel B's launches by
+     mode (train: the fine-tunes; eval: the SAM steps and the unlearning).
   Kernel launch counts are zeroed just before each CLI run and read just
   after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
@@ -359,7 +366,6 @@ def phase_conv1(torch, ctx) -> list[dict]:
     ref_e = op.conv1_bn_pool_backward_plain(x, g, w, b, rmean, rinv, rscale, rshift, train_bn=False, need_dx=True)
     err_be = compare((None, *got_e[1:]), ref_e, "eval")
     err_c = max(err_c, compare((got_e[0], None, None, None, None), ref_e, "eval"))
-    err_b = max(err_b, err_be)
     torch.cuda.synchronize()
 
     h12 = out_b[7:9].contiguous()
@@ -411,6 +417,34 @@ def phase_conv1(torch, ctx) -> list[dict]:
           f"autograd yardstick {lib_b:.4f} ms, bound {bb:.4f} ms ({byb})", flush=True)
     print(f"  C input bwd, train mode, main path's shape x {tuple(x.shape)}: kernel {ms_c:.4f} ms, plain (B+C) "
           f"{plain_bc:.4f} ms, autograd dx yardstick {lib_c:.4f} ms, bound {bc:.4f} ms ({byc})", flush=True)
+    # B in eval mode (running statistics; the parameter gradients alone), as
+    # the defenses' SAM and unlearning steps launch it at this shape (phase 7).
+    out_be = op.conv1_bn_pool_bwd_params(x, g, w5, rmean, rinv, rscale, rshift, train_bn=False)
+    ref_be = op.conv1_bn_pool_backward_plain(x, g, w, b, rmean, rinv, rscale, rshift, train_bn=False, need_dx=False)
+    err_be = max(err_be, compare((None, out_be[:4].t().reshape(w.shape), out_be[4], out_be[5], out_be[6]), ref_be,
+                                 "eval, parameters alone"))
+    del ref_be
+    ms_be = time_ms(torch, lambda: op.conv1_bn_pool_bwd_params(x, g, w5, rmean, rinv, rscale, rshift,
+                                                               train_bn=False), 20)
+    plain_be = time_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
+        x, g, w, b, rmean, rinv, rscale, rshift, train_bn=False, need_dx=False), 5, warmup=1)
+    # Yardstick: autograd for the parameters through cuDNN's eval chain
+    # conv2d → relu → BN (running statistics) → max_pool2d.
+    params_e = [t.detach().clone().requires_grad_(True) for t in (w, b, gamma, beta)]
+    rr_e = torch.clamp(F.conv2d(x, params_e[0], params_e[1]), min=0.0)
+    pooled_e = F.max_pool2d((rr_e - c4(rmean)) * c4(rinv) * c4(params_e[2]) + c4(params_e[3]), (1, 3))
+    lib_be = time_ms(torch, lambda: torch.autograd.grad(pooled_e, params_e, g, retain_graph=True), 20)
+    del rr_e, pooled_e
+    # Eval mode's work, counted as train mode's above without the BN-mean
+    # terms: per pair the recompute and the winner (35), S1, S2 and x̂ on the
+    # winner (5); dwA on the active winners (9). The same bytes.
+    _, r_win, z_win = op._windows(x, w5, rscale, rshift)
+    n_win_active_e = int((op._first_match(z_win) & (r_win > 0)).sum())
+    del r_win, z_win
+    bbe, bybe = bound(n_pc * (33 + 2 + 3 + 2) + 9 * n_win_active_e, x_bytes + g_bytes + 4 * 11 * c)
+    print(f"  B params bwd, eval mode, main path's shape x {tuple(x.shape)} (the defenses' SAM and unlearning "
+          f"steps): kernel {ms_be:.4f} ms, plain {plain_be:.4f} ms, autograd yardstick (cuDNN, running statistics) "
+          f"{lib_be:.4f} ms, bound {bbe:.4f} ms ({bybe}); {n_win_active_e} active winners", flush=True)
     flow = flowmur_block1(torch, ctx["flowmur_feats"].contiguous(), compare)
     ultra = ultrasonic_block1(torch, ctx["ultrasonic_feats"].contiguous(), compare)
     src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
@@ -420,6 +454,10 @@ def phase_conv1(torch, ctx) -> list[dict]:
          "replaces": "audiobd_tpu/ops/fused_conv_block.py:226",
          "max_abs_err": max(err_b, flow["err_b"], ultra["err_b"]), "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb, "library_ms": lib_b},
+        # B's eval mode, its launches from the defense chain (phase 7).
+        {"name": "conv1_bn_pool_bwd_params_eval", "route": "cuda", "source": src,
+         "replaces": "audiobd_tpu/ops/fused_conv_block.py:226", "max_abs_err": err_be, "ms": ms_be,
+         "plain_ms": plain_be, "bound_ms": bbe, "bound_by": bybe, "library_ms": lib_be},
         # C's caller is FlowMur's trigger search: the row is its eval-mode shape.
         {"name": "conv1_bn_pool_bwd_input", "route": "cuda", "source": src,
          "replaces": "audiobd_tpu/ops/fused_conv_block.py:243", "max_abs_err": max(err_c, flow["err"]),
@@ -911,12 +949,16 @@ TRAIN_CLIPS = 16_000  # 80% of 20,000 synthetic clips
 BATCH = 256
 
 
-def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "float32"
+def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "float32", workdir: str | None = None
             ) -> tuple[dict[str, int], float, int]:
     """One CLI run of 2 epochs on 20,000 synthetic clips with ``flags``;
     checks its losses, CSV and checkpoint. A bf16 ``compute_dtype`` is
     given as a user gives it, by --config and a YAML with train:
-    {compute_dtype: bfloat16}. Returns (launches, clips/s, train steps)."""
+    {compute_dtype: bfloat16}. The run's record tree goes to a temporary
+    directory, or to ``workdir``, which outlives the call. Returns
+    (launches, clips/s, train steps)."""
+    import contextlib
+
     import numpy as np
 
     from audiobd_tpu_torch.cli import badnets as cli
@@ -924,7 +966,7 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
     from audiobd_tpu_torch.train.checkpoint import load_checkpoint
 
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(workdir) if workdir else tempfile.TemporaryDirectory() as tmp:
         if compute_dtype != "float32":
             yaml_path = os.path.join(tmp, "compute_dtype.yaml")
             with open(yaml_path, "w") as f:
@@ -975,14 +1017,140 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
     return launches, result.clips_per_sec, steps
 
 
-def phase_main_path(torch, kernels) -> tuple[dict[str, int], float]:
-    launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [])
+def phase_main_path(torch, kernels, workdir: str) -> tuple[dict[str, int], float]:
+    """Phase 2; its record tree stays in ``workdir`` for phase 7."""
+    launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [], workdir=workdir)
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
     for name in ("mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device"):
         check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none on this path)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
     return launches, clips
+
+
+def _csv_rows(path: str) -> list[list[str]]:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def _finite_rows(rows: list[list[str]]) -> bool:
+    """Every cell of the rows below the header that is a number is finite."""
+    values = []
+    for row in rows[1:]:
+        for cell in row:
+            try:
+                values.append(float(cell))
+            except ValueError:
+                pass
+    return bool(values) and all(math.isfinite(v) for v in values)
+
+
+DEFENSE_RUNS = (
+    # (name, argv, the depth cut against the reference)
+    ("fp", ["fp"], "defaults: one fine-tune epoch, as the reference"),
+    ("ft_reg", ["ft_reg", "--ft_epochs", "10"], "10 SAM epochs (the reference runs 300)"),
+    ("tsbd", ["tsbd"], "the default branch, stage A: one fine-tune epoch, as the reference"),
+    ("tsbd_full", ["tsbd", "--only_finetune", "false", "--unlearn_epochs", "100", "--ft_epochs", "10"],
+     "at most 100 unlearning epochs and 10 + 1 fine-tune epochs a ratio (the reference runs 1,000 and 51 + 1), "
+     "all 11 ratios"),
+    ("correlation", ["correlation_analysis"], "defaults: 10 unlearning epochs a copy, as the reference"),
+)
+
+
+def phase_defenses(torch, kernels, workdir: str) -> dict[str, int]:
+    """Phase 7: the three defenses and the correlation analysis at full
+    width, each through ``python -m audiobd_tpu_torch <defense>`` on phase
+    2's record (BadNets → SmallCNN, 20,000 clips, 2 epochs; the 5% val split
+    is 800 clips, 4 steps at batch 256). Block 1 is fused: the fine-tunes
+    launch kernel B in train mode, FT-reg's SAM steps (2 a step) and the
+    unlearning ascents (1 a step) in eval mode, each counted apart. Checks
+    every CSV and artifact, finite numbers, r in [-1, 1], and each run's
+    launches by mode against its step count. Returns the launches summed
+    over the five runs."""
+    import numpy as np
+
+    from audiobd_tpu_torch.__main__ import main as cli
+
+    base = os.path.join(workdir, "record", "chip_smoke", "defense")
+    steps = -(-int(TRAIN_CLIPS * 0.05) // BATCH)  # fine-tune and SAM steps an epoch on the val split
+    totals = {k.name: 0 for k in kernels}
+    print(f"phase 7: the defense chain on phase 2's record (SmallCNN, f32, block 1 fused; val split "
+          f"{int(TRAIN_CLIPS * 0.05)} clips, {steps} steps an epoch at batch {BATCH})", flush=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for name, argv, cut in DEFENSE_RUNS:
+            print(f"  {name}: python -m audiobd_tpu_torch {' '.join(argv)} --result chip_smoke; depth: {cut}",
+                  flush=True)
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            result = cli([*argv, "--result", "chip_smoke"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels if k.launches}
+            for k in kernels:
+                totals[k.name] += k.launches
+            train = launches.get("conv1_bn_pool_bwd_params", 0)
+            ev = launches.get("conv1_bn_pool_bwd_params_eval", 0)
+            print(f"  {name}: wall {wall:.2f} s; kernel B launches: train mode {train}, eval mode {ev}; all "
+                  f"launches {launches}", flush=True)
+            if name == "fp":
+                print(f"  fp: pruned {result.pruned_channels} of 128 inputs of fc2; after the fine-tune clean acc "
+                      f"{result.test_acc:.2f}, ASR {result.test_asr:.2f}", flush=True)
+                rows = _csv_rows(os.path.join(base, "fp", "pruning_data.csv"))
+                ft = _csv_rows(os.path.join(base, "fp", "ft_data.csv"))
+                check(rows[0] == ["num_pruned", "pruning_ratio", "test_acc", "test_asr"] and len(rows) >= 2
+                      and _finite_rows(rows) and len(ft) == 2 and _finite_rows(ft),
+                      f"fp: pruning_data.csv ({len(rows) - 1} levels) and ft_data.csv written, finite")
+                want = (steps, 0)
+            elif name == "ft_reg":
+                for ratio, acc, asr in result.per_ratio:
+                    print(f"  ft_reg: prune ratio {ratio}: clean acc {acc:.2f}, ASR {asr:.2f}", flush=True)
+                rows = _csv_rows(os.path.join(base, "ft_reg", "pruning_data.csv"))
+                check(len(rows) == 12 and _finite_rows(rows) and np.isfinite(result.scores).all()
+                      and result.scores.shape == (160,), "ft_reg: pruning_data.csv has 11 finite rows, 160 scores")
+                want = (0, 2 * steps * 10)
+            elif name == "tsbd":
+                print(f"  tsbd (stage A): clean acc {result.test_acc:.2f}, ASR {result.test_asr:.2f}", flush=True)
+                rows = _csv_rows(os.path.join(base, "tsbd", "finetuning_data.csv"))
+                check(result.stage == "finetune" and len(rows) == 2 and _finite_rows(rows),
+                      "tsbd stage A: finetuning_data.csv has one finite row")
+                want = (steps, 0)
+            elif name == "tsbd_full":
+                print(f"  tsbd (full): {result.unlearn_epochs} unlearning epochs", flush=True)
+                for ratio, acc, asr in result.per_ratio:
+                    print(f"  tsbd: reinit ratio {ratio}: clean acc {acc:.2f}, ASR {asr:.2f} after the fine-tune",
+                          flush=True)
+                ckpt = os.path.join(base, "tsbd", "checkpoint")
+                files = [os.path.join(ckpt, f) for f in ("ucn.txt", "n2w_dict.json", "unlearned_model.pt",
+                                                         "grad_avg_conv3.weight.csv", "grad_var_conv3.weight.csv")]
+                missing = [f for f in files if not os.path.exists(f)]
+                prune = _csv_rows(os.path.join(base, "tsbd", "pruning_data.csv"))
+                ft = _csv_rows(os.path.join(base, "tsbd", "finetuning_data.csv"))
+                grads = _csv_rows(files[3])
+                check(not missing and len(prune) == 12 and len(ft) == 1 + 11 * 2 and _finite_rows(prune)
+                      and _finite_rows(ft) and len(grads) == 1 + result.unlearn_epochs and _finite_rows(grads)
+                      and 1 <= result.unlearn_epochs <= 100,
+                      f"tsbd full: ucn.txt, n2w_dict.json, unlearned_model.pt, the grad CSVs "
+                      f"({result.unlearn_epochs} rows), pruning_data.csv (11 rows) and finetuning_data.csv (22 "
+                      f"rows: epochs 0 and 10 of each ratio) written, finite (missing: {missing})")
+                want = (11 * 11 * steps, result.unlearn_epochs)
+            else:
+                print(f"  correlation: Pearson r {result.pearson_r:.4f}", flush=True)
+                rows = _csv_rows(os.path.join(base, "correlation", "nwc_correlation.csv"))
+                check(-1.0 <= result.pearson_r <= 1.0 and len(rows) == 161 and _finite_rows(rows),
+                      f"correlation: r = {result.pearson_r:.4f} in [-1, 1], nwc_correlation.csv has 160 finite rows")
+                want = (0, 2 * 10)
+            check((train, ev) == want, f"{name}: kernel B launched {train} times in train mode and {ev} in eval "
+                  f"mode (expected {want[0]} and {want[1]})")
+            if name in ("ft_reg", "tsbd_full", "correlation"):
+                check(ev > 0, f"{name}: kernel B's eval mode launched ({ev})")
+    finally:
+        os.chdir(cwd)
+    return totals
 
 
 def phase_block23_paths(torch, kernels, main_clips: float) -> dict[str, int]:
@@ -1330,26 +1498,11 @@ def main() -> int:
     flowmur_route = ctx["flowmur_route"]
     del ctx
     torch.cuda.empty_cache()
-    launches, main_clips = phase_main_path(torch, KERNELS)
-    for row in main_rows:
-        row["launches"] = launches[row["name"]]
-    block23 = phase_block23_paths(torch, KERNELS, main_clips)
-    for row in block23_rows:
-        row["launches"] = block23[row["name"]]
-    flowmur = phase_flowmur(torch, KERNELS, flowmur_route)
-    for row in main_rows:
-        if row["name"] == "conv1_bn_pool_bwd_input":
-            row["launches"] = flowmur[row["name"]]
-    bf16 = phase_bf16_paths(torch, KERNELS)
-    for row in bf16_rows:
-        # C's bf16 mode has no caller on any path (as in the reference): 0.
-        row["launches"] = bf16[row["name"]]
-    ultrasonic = phase_ultrasonic(torch, KERNELS)
-    for row in main_rows:
-        if row["name"] == "mfcc_bluestein":
-            row["launches"] = ultrasonic[row["name"]]
-    phase_ultrasonic_models(torch, KERNELS)
-    rows = main_rows + block23_rows + bf16_rows
+    record_dir = tempfile.mkdtemp(prefix="chip_smoke_record_")  # phase 2's record, read again by phase 7
+    try:
+        rows = run_paths(torch, KERNELS, flowmur_route, main_rows, block23_rows, bf16_rows, record_dir)
+    finally:
+        shutil.rmtree(record_dir, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
@@ -1360,6 +1513,35 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_paths(torch, kernels, flowmur_route, main_rows, block23_rows, bf16_rows, record_dir) -> list[dict]:
+    """Phases 2-7; each kernel row gets its launches from the path that runs
+    it. Returns the rows of the ``kernels`` line."""
+    launches, main_clips = phase_main_path(torch, kernels, record_dir)
+    for row in main_rows:
+        row["launches"] = launches[row["name"]]
+    block23 = phase_block23_paths(torch, kernels, main_clips)
+    for row in block23_rows:
+        row["launches"] = block23[row["name"]]
+    flowmur = phase_flowmur(torch, kernels, flowmur_route)
+    for row in main_rows:
+        if row["name"] == "conv1_bn_pool_bwd_input":
+            row["launches"] = flowmur[row["name"]]
+    bf16 = phase_bf16_paths(torch, kernels)
+    for row in bf16_rows:
+        # C's bf16 mode has no caller on any path (as in the reference): 0.
+        row["launches"] = bf16[row["name"]]
+    ultrasonic = phase_ultrasonic(torch, kernels)
+    for row in main_rows:
+        if row["name"] == "mfcc_bluestein":
+            row["launches"] = ultrasonic[row["name"]]
+    phase_ultrasonic_models(torch, kernels)
+    defenses = phase_defenses(torch, kernels, record_dir)
+    for row in main_rows:
+        if row["name"] == "conv1_bn_pool_bwd_params_eval":
+            row["launches"] = defenses[row["name"]]
+    return main_rows + block23_rows + bf16_rows
 
 
 if __name__ == "__main__":

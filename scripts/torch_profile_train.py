@@ -4,7 +4,7 @@
     python3 scripts/torch_profile_train.py [--model smallcnn|smalllstm]
         [--fused_block2 auto|on|off] [--fused_block3 auto|on|off]
         [--per_class 2000] [--batch_size 256] [--compute_dtype float32|bfloat16]
-        [--trace PATH] [--flowmur]
+        [--trace PATH] [--flowmur | --defense]
 
 Builds the main path's data on the card (synthetic clips → MFCC kernel →
 BadNets patch), runs one warm-up epoch of training (SmallCNN by default;
@@ -25,6 +25,15 @@ eval mode; each step is poison/flowmur.py::trigger_step (deploy → plain matmul
 STFT → MFCC → surrogate → backward through kernel C → Adam). It also sums
 the device time by kind: cuBLAS matrix products (the STFT's), cuDNN
 convolutions (the surrogate's blocks 2-3), kernel C, the rest.
+
+``--defense`` times the two kinds of defense epoch on the 5% val split of
+the synthetic set (800 clips at the default size, 4 steps at batch 256),
+SmallCNN f32: an FT-reg SAM epoch (eval mode, two parameter gradients a
+step, defend/ft_reg.py::run_reg_epoch) and a TSBD stage-D fine-tune epoch
+(train mode, Adam). Each with block 1 fused (kernel B: eval mode in the SAM
+epoch, train mode in the fine-tune) and unfused (cuDNN autograd), in turns
+(fused, unfused, unfused, fused): the mean unprofiled epoch wall over 10
+epochs and the device busy time of 3 epochs under the profiler.
 """
 
 from __future__ import annotations
@@ -68,6 +77,8 @@ def main() -> int:
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--trace", type=str, default=None, help="write the Chrome trace here")
     parser.add_argument("--flowmur", action="store_true", help="profile an epoch of FlowMur's trigger search")
+    parser.add_argument("--defense", action="store_true",
+                        help="time the defenses' SAM and fine-tune epochs with block 1 fused and unfused")
     parser.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     args = parser.parse_args()
 
@@ -78,8 +89,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         clean = make_synthetic_clean_data(cfg, n_per_class=args.per_class)
-        poisoned = None if args.flowmur else badnets.poison(cfg, clean, save=False)
+        poisoned = None if args.flowmur or args.defense else badnets.poison(cfg, clean, save=False)
         os.chdir(REPO)
+    if args.defense:
+        return defense_epochs(cfg, clean, device)
     if args.flowmur:
         epoch, n_train, what = flowmur_search_epoch(cfg, clean, device)
     else:
@@ -114,17 +127,8 @@ def main() -> int:
     if not kernels:
         print("torch.profiler recorded no device kernels: no breakdown", file=sys.stderr)
         return 1
+    busy = busy_us(kernels)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
     first = min(s for s, _ in spans)
     last = max(e for _, e in spans)
     by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
@@ -161,6 +165,82 @@ def main() -> int:
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
+    return 0
+
+
+def busy_us(kernels) -> float:
+    """Device busy time in µs: the union of the kernels' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def defense_epochs(cfg, clean, device) -> int:
+    """``--defense``: see the module docstring."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiobd_tpu_torch.defend.ft_reg import run_reg_epoch
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_train_epoch
+    from audiobd_tpu_torch.train.state import SGD, Adam
+    from audiobd_tpu_torch.utils import random as rnd
+
+    n = len(clean.train_label)
+    val_idx = rnd.np_rng(cfg.train.seed, "defense_val").choice(n, size=int(n * 0.05), replace=False)
+    val = DeviceDataset(ArraySet(clean.train_mfcc[val_idx], clean.train_label[val_idx]), device)
+    bs = min(cfg.train.batch_size, len(val))
+    print(f"device {torch.cuda.get_device_name(0)}; defense epochs on the val split: {len(val)} clips, batch {bs}, "
+          f"{-(-len(val) // bs)} steps an epoch; SmallCNN f32")
+
+    def epochs(fused: bool):
+        model = build_model("smallcnn", cfg.num_classes, 3072, device, cfg.train.seed, fused=fused)
+        sgd, adam = SGD(model.parameters(), 1e-3, momentum=0.9), Adam(model.parameters(), 0.01)
+        rng = rnd.np_rng(cfg.train.seed, "defense_ft")
+        return {"FT-reg SAM epoch": lambda: run_reg_epoch(model, sgd, val, bs, rng, 0.05, 0.7),
+                "TSBD stage-D fine-tune epoch": lambda: run_train_epoch(model, adam, val, bs, rng)}
+
+    results: dict = {}
+    for fused in (True, False, False, True):
+        for kind, fn in epochs(fused).items():
+            fn()  # warm-up: cuDNN algorithm choice, allocator, kernel binding
+            torch.cuda.synchronize()
+            counts = (op.BWD_PARAMS_KERNEL.launches, op.BWD_PARAMS_EVAL_KERNEL.launches)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 10
+            launches = (op.BWD_PARAMS_KERNEL.launches - counts[0], op.BWD_PARAMS_EVAL_KERNEL.launches - counts[1])
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            if not kernels:
+                print("torch.profiler recorded no device kernels", file=sys.stderr)
+                return 1
+            busy = busy_us(kernels) / 3 / 1e3
+            b_ms = sum(e.time_range.end - e.time_range.start for e in kernels if "bwd_params_" in e.name) / 3 / 1e3
+            label = "block 1 on kernel B" if fused else "block 1 on cuDNN autograd"
+            results.setdefault((kind, label), []).append((wall * 1e3, busy))
+            print(f"  {kind}, {label}: wall {wall * 1e3:.3f} ms, device busy {busy:.3f} ms (kernel B {b_ms:.3f} ms); "
+                  f"kernel B launches an epoch: train mode {launches[0] // 10}, eval mode {launches[1] // 10}")
+    print("means of the two turns (wall ms, device busy ms):")
+    for (kind, label), runs in results.items():
+        print(f"  {kind}, {label}: {np.mean([r[0] for r in runs]):.3f}, {np.mean([r[1] for r in runs]):.3f}")
     return 0
 
 

@@ -233,8 +233,9 @@ def test_block1_input_kernel_matches_plain(cuda, shape, train_bn):
 
 def test_frozen_eval_block_launches_kernel_c_alone(cuda):
     """A frozen eval-mode block (FlowMur's surrogate) launches C once and B
-    never; with its parameters requiring gradients, B and C once each. dx
-    agrees with the CPU either way."""
+    never; with its parameters requiring gradients, B (its eval-mode counter,
+    never the train-mode one) and C once each. dx agrees with the CPU either
+    way."""
     x, _, weight, bias, _, _, _, _ = _block_inputs((8, 32, 13, 64), seed=9)
     gamma, beta = torch.linspace(-1.05, 1.45, 64), torch.linspace(-0.2, 0.3, 64)
     rmean, rvar = torch.linspace(0.1, 0.4, 64), torch.linspace(0.6, 1.4, 64)
@@ -249,12 +250,54 @@ def test_frozen_eval_block_launches_kernel_c_alone(cuda):
         return xd.grad
 
     for params_grad, launched in ((False, (0, 1)), (True, (1, 1))):
-        before = op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches
+        counters = (op.BWD_PARAMS_EVAL_KERNEL, op.BWD_INPUT_KERNEL, op.BWD_PARAMS_KERNEL)
+        before = [k.launches for k in counters]
         dx = run(cuda, params_grad)
         torch.cuda.synchronize()
-        after = op.BWD_PARAMS_KERNEL.launches, op.BWD_INPUT_KERNEL.launches
-        assert (after[0] - before[0], after[1] - before[1]) == launched
+        after = [k.launches for k in counters]
+        assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (*launched, 0)
         torch.testing.assert_close(dx.cpu(), run(torch.device("cpu"), params_grad), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["ties", "tanh"])
+def test_block1_eval_params_kernel_at_defense_shape(cuda, case):
+    """Kernel B's eval mode (running statistics, parameter gradients only, no
+    dx) at the shape the defenses' SAM and unlearning steps give it: x (256,
+    1, 101, 40), C 64. ``ties``: _block_inputs's parameters, whose relu zeros
+    tie pool windows exactly, and a random g. ``tanh``: g = d/d out of
+    sum(tanh(out) * wts), out the eval block's output, formed on the CPU on
+    one thread (ROADMAP §3); both sides take that g. It launches the
+    eval-mode counter once and the train-mode one never.
+
+    Tolerance: per output within 1e-5 · max|ref| + 1e-6, the bf16 tests'
+    rule (``_params_close``): each entry is a sum of 332,800 terms, and a
+    small one cancels (on the H100: one dweight entry of 256, -1.1016 in a
+    gradient whose largest is 1,491, lies 1.1e-4 from the plain version;
+    against a float64 sum over the same routing the kernel's largest error
+    is 1.7e-4, the plain version's 3.8e-4: scripts/block1_eval_precision.py)."""
+    x, g, weight, bias, *_ = _block_inputs((256, 101, 40, 64), seed=11)
+    gamma, beta = torch.linspace(-1.05, 1.45, 64), torch.linspace(-0.2, 0.3, 64)
+    rmean, rvar = torch.linspace(0.1, 0.4, 64), torch.linspace(0.6, 1.4, 64)
+    if case == "tanh":
+        weight, bias = weight * 0.6, bias + 0.8  # fewer relu zeros, so tanh' varies
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            out = op.conv1_bn_pool(x, weight, bias, gamma, beta, train=False, running_mean=rmean, running_var=rvar)
+            wts = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+            g = ((1.0 - torch.tanh(out) ** 2) * wts).contiguous()
+        finally:
+            torch.set_num_threads(threads)
+    inv = torch.rsqrt(rvar + op.EPS)
+    vecs = (rmean, inv, gamma * inv, beta - rmean * gamma * inv)
+    ref = op.conv1_bn_pool_backward_plain(x, g, weight, bias, *vecs, train_bn=False, need_dx=False)
+    before = op.BWD_PARAMS_EVAL_KERNEL.launches, op.BWD_PARAMS_KERNEL.launches
+    got = op.conv1_bn_pool_backward(*(a.to(cuda) for a in (x, g, weight, bias, *vecs)), train_bn=False,
+                                    need_dx=False)
+    torch.cuda.synchronize()
+    assert (op.BWD_PARAMS_EVAL_KERNEL.launches, op.BWD_PARAMS_KERNEL.launches) == (before[0] + 1, before[1])
+    assert got[0] is None and ref[0] is None
+    _params_close(got[1:], ref[1:])
 
 
 def test_block1_input_kernel_takes_h12_in_train_mode_only(cuda):
