@@ -1,9 +1,10 @@
 """CLI dispatcher: ``python -m audiobd_tpu_torch <command> [flags]``.
 
-Ported commands so far: the attacks badnets, ultrasonic and flowmur; the
-defenses fp, ft_reg, tsbd and correlation_analysis, which read an attack's
-``record/<result>/torch_checkpoint/``. The reference's other commands
-(``python -m audiobd_tpu``) are listed in ROADMAP.md.
+Ported commands so far: the five attacks badnets, jingleback, ultrasonic,
+daba and flowmur; the defenses fp, ft_reg, tsbd and correlation_analysis,
+which read an attack's ``record/<result>/torch_checkpoint/``. The
+reference's other commands (``python -m audiobd_tpu``) are listed in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import sys
 
 COMMANDS = {
     "badnets": "audiobd_tpu_torch.cli.badnets",
+    "jingleback": "audiobd_tpu_torch.cli.jingleback",
     "ultrasonic": "audiobd_tpu_torch.cli.ultrasonic",
+    "daba": "audiobd_tpu_torch.cli.daba",
     "flowmur": "audiobd_tpu_torch.cli.flowmur",
     "fp": "audiobd_tpu_torch.cli.fp",
     "ft_reg": "audiobd_tpu_torch.cli.ft_reg",

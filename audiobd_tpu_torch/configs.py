@@ -1,9 +1,9 @@
 """Typed, YAML-loadable, CLI-overridable configuration.
 
 An own copy of the reference's config tree (audiobd_tpu/configs.py:47-356),
-trimmed to the fields the ported BadNets, Ultrasonic and FlowMur paths read,
-plus the ``device`` the entry points run on. YAML is parsed only when ``--config`` is
-given (PyYAML is imported there and nowhere else).
+trimmed to the fields the five ported attacks read, plus the ``device``
+the entry points run on. YAML is parsed only when ``--config`` is given
+(PyYAML is imported there and nowhere else).
 """
 
 from __future__ import annotations
@@ -92,6 +92,16 @@ class AttackConfig:
     trigger_pos: str = "start"
     trigger_cont: bool = True
     ultra_trigger_size: int = 60   # percent of the 1 s trigger kept
+    # JingleBack (reference audiobd_tpu/configs.py:155-156): the style chain 0-5.
+    style: int = 0
+    # DABA (reference audiobd_tpu/configs.py:157-162). ``poison_label`` is
+    # read by no code (the target is ``target_label``); ``po_db`` is a dBFS
+    # number, "auto" (match the host) or "keep".
+    poison_label: str = "up"
+    trigger_selection_mode: str = "Cer&Inf"
+    variant: bool = True
+    po_db: float | str = -20.0
+    host_candidates: int = 3000
     # FlowMur (reference audiobd_tpu/configs.py:163-183).
     trigger_duration: float = 0.5
     snr_db: int = 30
@@ -127,8 +137,8 @@ class AttackConfig:
         return f"record/{self.result}"
 
 
-# The badnets, ultrasonic and flowmur rows of the reference's per-attack DSP +
-# model-shape table (attack_config.txt:1-23; audiobd_tpu/configs.py:205-246).
+# The reference's per-attack DSP + model-shape table (attack_config.txt:1-23;
+# audiobd_tpu/configs.py:205-246).
 ATTACK_PRESETS: dict[str, dict[str, Any]] = {
     "badnets": {
         "dsp": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
@@ -138,6 +148,14 @@ ATTACK_PRESETS: dict[str, dict[str, Any]] = {
         },
         "result": "badnets_smallcnn",
     },
+    "jingleback": {
+        "dsp": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
+        "linear_features": {
+            "smallcnn": 3072, "largecnn": 12288, "smalllstm": 128,
+            "lstmwithattention": 101, "rnn": 40, "resnet": 384,
+        },
+        "result": "jingleback_smallcnn",
+    },
     "ultrasonic": {
         "dsp": dict(sample_rate=44100, n_mfcc=40, n_fft=1103, hop_length=441, parity="torchaudio"),
         "linear_features": {
@@ -145,6 +163,14 @@ ATTACK_PRESETS: dict[str, dict[str, Any]] = {
             "lstmwithattention": 100, "rnn": 40, "resnet": 384,
         },
         "result": "ultrasonic_smallcnn",
+    },
+    "daba": {
+        "dsp": dict(sample_rate=16000, n_mfcc=40, n_fft=2048, hop_length=512, parity="librosa"),
+        "linear_features": {
+            "smallcnn": 896, "largecnn": 3072, "smalllstm": 128,
+            "lstmwithattention": 32, "rnn": 40, "resnet": 128,
+        },
+        "result": "daba_smallcnn",
     },
     "flowmur": {
         "dsp": dict(sample_rate=16000, n_mfcc=13, n_fft=2048, hop_length=512, parity="torchaudio"),

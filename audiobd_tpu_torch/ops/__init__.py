@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels and their wrappers.
 
 KERNELS lists every kernel of the port with its launch counter (kernel B in
-f32 twice: its train and eval modes count apart)."""
+f32 twice: its train and eval modes count apart; kernel F's two modes, the
+ladder and the phaser, apart too)."""
 
-from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, mfcc
+from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, effects, mfcc
 
 KERNELS = (
     mfcc.MFCC_FFT_KERNEL,
@@ -19,4 +20,6 @@ KERNELS = (
     conv1_bn_pool.BWD_INPUT_BF16_KERNEL,
     conv2_bn_pool.BWD_PARAMS_BF16_KERNEL,
     conv2_bn_pool.BWD_INPUT_BF16_KERNEL,
+    effects.LADDER_KERNEL,
+    effects.PHASER_KERNEL,
 )

@@ -25,7 +25,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("mfcc.cu", "conv1_bn_pool.cu", "conv2_bn_pool.cu")
+SOURCES = ("mfcc.cu", "conv1_bn_pool.cu", "conv2_bn_pool.cu", "effects.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,18 +13,24 @@ no result, without them. Phases, each printing its own lines:
      A's routes (the FFT path and the Bluestein path with everything in
      shared memory; the buffers alone in shared memory, n_fft 2205 by
      radix-7 stages; the buffers in device memory, n_fft 4097; FlowMur's
-     n_fft 2048, 13 coefficients), 1b kernels B and C (both in train mode at
+     n_fft 2048, 13 coefficients; DABA's n_fft 2048 in librosa parity at its
+     2048-clip chunk), 1b kernels B and C (both in train mode at
      the main path's shape, and B in eval mode there too, as the defenses'
      SAM and unlearning steps launch it, on a row of its own; at FlowMur's
      (256, 1, 32, 13) B in train mode, as its surrogates and victim train,
-     and C in eval mode, as its search runs),
-     1c kernels D and E (E on the routing a D call wrote).
+     and C in eval mode, as its search runs; B in train mode at Ultrasonic's
+     (256, 1, 100, 40) and DABA's (256, 1, 32, 40)),
+     1c kernels D and E (E on the routing a D call wrote),
+     1d kernel F's two modes (the ladder and the phaser of JingleBack's style
+     5) at (256, 16000) against their plain loops, with the plain loop's
+     wall, the bytes bound and the chain bound (the recursion's dependent
+     operations a sample).
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
   3. the block-2/3 path: the same run with --model smalllstm --fused_block2 on
      --fused_block3 on (blocks 2-3 backward through kernels D and E);
-     3b. the same flags on SmallCNN, its clips/s beside phase 2's.
+     3b. the same flags on SmallCNN, cut to 5,000 clips.
   4. the FlowMur path through its CLI: the same 20,000 clips → MFCC (kernel
      A at n_fft 2048) → 3 SmallCNN surrogates (kernel B) → trigger search
      through the frozen surrogate (kernel C, one launch a step, no B) →
@@ -37,7 +43,7 @@ no result, without them. Phases, each printing its own lines:
      a YAML of train: {compute_dtype: bfloat16} (BadNets → SmallCNN in bf16,
      block-1 backward through kernel B's bf16 mode);
      5b. path 2: SmallLSTM in bf16 with --fused_block2 on --fused_block3 on
-     (B, D and E in bf16).
+     (B, D and E in bf16), cut to 5,000 clips.
   6. Ultrasonic from a wav tree the phase writes (10 classes x 2,000
      one-second 16 kHz PCM16 clips, plus 5 shorter and 5 at 44.1 kHz a
      class): python -m audiobd_tpu_torch ultrasonic, 2 epochs at batch 256:
@@ -53,6 +59,20 @@ no result, without them. Phases, each printing its own lines:
      false --unlearn_epochs 100 --ft_epochs 10; correlation_analysis. Each
      run's wall, outputs, CSVs and artifacts, and kernel B's launches by
      mode (train: the fine-tunes; eval: the SAM steps and the unlearning).
+  8. JingleBack at full width: python -m audiobd_tpu_torch jingleback
+     --synthetic --synthetic_per_class 2000 --style 5 --num_epochs 2 (20,000
+     clips; 1,600 train and every non-target test row restyled through
+     kernel F; kernel A on the styled rows; SmallCNN with kernel B); stage
+     walls (prep, poison, train), train clips/s, launches of A, B and F.
+     8b. each of the six style boards on one 256-clip chunk on the card: its
+     wall (after a warm-up call) and its launches (reverb's in style 4).
+  9. DABA at full width: python -m audiobd_tpu_torch daba --synthetic
+     --synthetic_per_class 2000 --num_epochs 2 (librosa parity at n_fft 2048
+     through kernel A in the prep, the victim's scoring of the 60-clip pool
+     and 3,000 host candidates, and the overlaid rows; 1,600 hosts with
+     variant gains; SmallCNN at its 896-feature flatten, kernel B at (256,
+     1, 32, 40)); the selected trigger, stage walls (prep, select, poison,
+     train), train clips/s, launches of A and B.
   Kernel launch counts are zeroed just before each CLI run and read just
   after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
@@ -199,6 +219,8 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     kernels = {k.name: k for k in (op.MFCC_FFT_KERNEL, op.MFCC_BLUESTEIN_KERNEL, op.MFCC_LARGE_KERNEL,
                                    op.MFCC_DEVICE_KERNEL)}
     worst = dict.fromkeys(kernels, 0.0)
+    errs = {}
+    daba_case = "librosa f32 (2048, 16000) n_fft 2048 hop 512, DABA's chunk"
     pcm44 = torch.clamp(torch.round(wav44[:64] * 32768.0), -32768, 32767).to(torch.int16)
     # The device-memory route's grid is two blocks an SM, each looping over
     # clips: 37 clips more make blocks take a second clip.
@@ -208,6 +230,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         ("torchaudio f32 (1568, 16000), main-path tail", tail, ta),
         ("torchaudio int16 (256, 16000)", pcm, ta),
         ("librosa f32 (64, 16000) n_fft 2048", wav[:64], lib),
+        (daba_case, wav, lib),
         ("torchaudio f32 ragged (257, 16000)", torch.cat([wav[:256], wav[:1] * 0.5]), ta),
         ("torchaudio f32 (2048, 16000) n_fft 2048 hop 512, 13 coefficients, FlowMur's chunk", wav, flow),
         ("torchaudio f32 (2048, 44100) n_fft 1103 hop 441, Ultrasonic's chunk", wav44, us),
@@ -226,6 +249,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         ref = mfcc(dequantize_pcm(w), params)
         err, rel, ok = max_err(torch, got, ref, rtol, atol)
         worst[path] = max(worst[path], err)
+        errs[name] = err
         check(ok and tuple(got.shape) == tuple(ref.shape) and ran == {p: int(p == path) for p in kernels},
               f"{name} [{path} path, launches {ran}]: shape {tuple(got.shape)} max abs err {err:.3e} "
               f"(rel to max {rel:.3e})")
@@ -295,6 +319,16 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     lib_ms = time_ms(torch, lambda: op.fused_mfcc(wav[:64], lib), 10)
     print(f"  MFCC fft path (64, 16000) f32 n_fft 2048: kernel {lib_ms:.4f} ms, bound "
           f"{mfcc_bound(wav[:64], lib)[0]:.4f} ms", flush=True)
+    library = yardstick(wav, lib)
+    route = op.mfcc_route(lib, num_frames(16000, lib.n_fft, lib.hop_length)).kernel.name
+    bms, by, flops, nbytes = mfcc_bound(wav, lib)
+    print(f"  MFCC {route} path (2048, 16000) f32 n_fft 2048 hop 512, librosa parity (DABA): kernel "
+          f"{time_ms(torch, lambda: op.fused_mfcc(wav, lib), 10):.4f} ms, plain "
+          f"{time_ms(torch, lambda: mfcc(wav, lib), 5, warmup=1):.4f} ms, torch.stft yardstick "
+          f"{time_ms(torch, library, 10):.4f} ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB); max abs err {errs[daba_case]:.3e}",
+          flush=True)
+    ctx["daba_route"] = route
     # The sizes that ran two blocks an SM before keep them; the larger
     # transforms state theirs.
     for params, n_samples, two_blocks in ((ta, 16000, True), (lib, 16000, True), (us, 44100, True),
@@ -308,6 +342,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
     ctx["flowmur_feats"] = op.fused_mfcc(wav[:256], flow)[:, None]
     ctx["ultrasonic_feats"] = op.fused_mfcc(wav44[:256], us)[:, None]  # (256, 1, 100, 40): n_fft 1103 is odd
+    ctx["daba_feats"] = op.fused_mfcc(wav[:256], lib)[:, None]  # (256, 1, 32, 40)
     return rows
 
 
@@ -446,13 +481,14 @@ def phase_conv1(torch, ctx) -> list[dict]:
           f"steps): kernel {ms_be:.4f} ms, plain {plain_be:.4f} ms, autograd yardstick (cuDNN, running statistics) "
           f"{lib_be:.4f} ms, bound {bbe:.4f} ms ({bybe}); {n_win_active_e} active winners", flush=True)
     flow = flowmur_block1(torch, ctx["flowmur_feats"].contiguous(), compare)
-    ultra = ultrasonic_block1(torch, ctx["ultrasonic_feats"].contiguous(), compare)
+    ultra = block1_train(torch, ctx["ultrasonic_feats"].contiguous(), compare, "Ultrasonic", 3072, seed=4)
+    daba = block1_train(torch, ctx["daba_feats"].contiguous(), compare, "DABA", 896, seed=5, device_time=True)
     src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
     return [
         # B's row is the main path's shape; FlowMur's is checked and printed above.
         {"name": "conv1_bn_pool_bwd_params", "route": "cuda", "source": src,
          "replaces": "audiobd_tpu/ops/fused_conv_block.py:226",
-         "max_abs_err": max(err_b, flow["err_b"], ultra["err_b"]), "ms": ms_b,
+         "max_abs_err": max(err_b, flow["err_b"], ultra["err_b"], daba["err_b"]), "ms": ms_b,
          "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb, "library_ms": lib_b},
         # B's eval mode, its launches from the defense chain (phase 7).
         {"name": "conv1_bn_pool_bwd_params_eval", "route": "cuda", "source": src,
@@ -466,21 +502,24 @@ def phase_conv1(torch, ctx) -> list[dict]:
     ]
 
 
-def ultrasonic_block1(torch, x, compare) -> dict:
-    """Kernel B at Ultrasonic's training shape: x (256, 1, 100, 40) from
-    n_fft 1103 (100 frames), g (256, 64, 99, 13); train mode with batch
-    statistics, against the plain version; its time (CUDA events), the
-    plain version's and the bound on this run's data, as phase_conv1
-    counts it at the main path's shape."""
+def block1_train(torch, x, compare, label: str, linear_features: int, seed: int, device_time: bool = False) -> dict:
+    """Kernel B in train mode (batch statistics) at another attack's training
+    shape (Ultrasonic's x (256, 1, 100, 40), g (256, 64, 99, 13); DABA's x
+    (256, 1, 32, 40), g (256, 64, 31, 13)), against the plain version; its
+    time, the plain version's, the cuDNN autograd yardstick's and the bound
+    on this run's data, as phase_conv1 counts it at the main path's shape.
+    ``device_time``: times under torch.profiler, for calls so short that
+    events over back-to-back launches time the host (FlowMur's shape)."""
     import torch.nn.functional as F
 
     from audiobd_tpu_torch.models import build_model
     from audiobd_tpu_torch.ops import conv1_bn_pool as op
 
-    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True)
+    model = build_model("smallcnn", 10, linear_features, torch.device("cuda"), seed=35, fused=True)
     model.train()
     out1d = model.block1(x).detach().requires_grad_(True)
-    labels = torch.randint(0, 10, (x.shape[0],), device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    labels = torch.randint(0, 10, (x.shape[0],), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
     g = torch.autograd.grad(F.cross_entropy(model.head(out1d), labels), out1d)[0].contiguous()
     w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
     gamma, beta = model.bn1.weight.detach(), model.bn1.bias.detach()
@@ -492,10 +531,14 @@ def ultrasonic_block1(torch, x, compare) -> dict:
     vecs = (mu, inv, gamma * inv, beta - mu * gamma * inv)
     out_b = op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True)
     ref = op.conv1_bn_pool_backward_plain(x, g, w, b, *vecs, train_bn=True, need_dx=False)
-    err_b = compare((None, out_b[:4].t().reshape(w.shape), out_b[4], out_b[5], out_b[6]), ref, "Ultrasonic train")
-    ms = time_ms(torch, lambda: op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True), 20)
-    plain_ms = time_ms(torch, lambda: op.conv1_bn_pool_backward_plain(
-        x, g, w, b, *vecs, train_bn=True, need_dx=False), 5, warmup=1)
+    err_b = compare((None, out_b[:4].t().reshape(w.shape), out_b[4], out_b[5], out_b[6]), ref, f"{label} train")
+    kernel = lambda: op.conv1_bn_pool_bwd_params(x, g, w5, *vecs, train_bn=True)  # noqa: E731
+    plain = lambda: op.conv1_bn_pool_backward_plain(x, g, w, b, *vecs, train_bn=True, need_dx=False)  # noqa: E731
+    if device_time:
+        ms, plain_ms = device_ms(torch, kernel, 50), device_ms(torch, plain, 10)
+    else:
+        ms, plain_ms = time_ms(torch, kernel, 20), time_ms(torch, plain, 5, warmup=1)
+    library_ms = block_yardstick(torch, x, w, b, gamma, beta, (1, 3), 0, g, torch.float32)[0]
     _, r_win, z_win = op._windows(x, w5, vecs[2], vecs[3])
     winner, active = op._first_match(z_win), r_win > 0
     n_pc, n_active = winner.numel() // 3, int(active.sum())
@@ -503,11 +546,12 @@ def ultrasonic_block1(torch, x, compare) -> dict:
     del r_win, z_win, winner, active
     bms, by = bound(n_pc * (33 + 2 + 3) + 2 * n_xhat + 9 * n_win_active + 14 * n_active,
                     4 * (x.numel() + g.numel() + 11 * w.shape[0]))
-    print(f"  data (Ultrasonic, train): {n_pc} (position, channel) pairs, {n_active} active phases, "
+    print(f"  data ({label}, train): {n_pc} (position, channel) pairs, {n_active} active phases, "
           f"{n_win_active} active winners", flush=True)
-    print(f"  B params bwd, train mode, Ultrasonic's shape x {tuple(x.shape)}, g {tuple(g.shape)}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
-    return dict(err_b=err_b, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    print(f"  B params bwd, train mode, {label}'s shape x {tuple(x.shape)}, g {tuple(g.shape)}"
+          f"{', device times' if device_time else ''}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, autograd "
+          f"yardstick (cuDNN, events) {library_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    return dict(err_b=err_b, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
 def flowmur_block1(torch, x, compare) -> dict:
@@ -945,16 +989,102 @@ def phase_conv2_bf16(torch, ctx) -> list[dict]:
     ]
 
 
+# The recursions' loop-carried chains a sample, counted from csrc/effects.cu:
+# the ladder's s4 → s4 runs k·s4, the subtraction, tanhf (counted as one),
+# then u − s1, ·G, + s1, u − lp1, and three more one-poles of 3 and the state
+# add (17); the phaser's stages pipeline across samples, so its chain is one
+# stage's a_t·ys_i and subtraction (2).
+LADDER_CHAIN_OPS, PHASER_CHAIN_OPS = 17, 2
+# f32 operations a sample, all counted: the ladder 2 multiplies, a subtraction,
+# tanh, 4 one-poles of 4, 2 taps (22); the phaser 6 stages of 4 and the mix (27).
+LADDER_OPS, PHASER_OPS = 22, 27
+FP32_LATENCY_CYCLES = 4  # a dependent f32 add or multiply on Hopper
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def phase_effects(torch) -> list[dict]:
+    """Phase 1d: kernel F's two modes at (256, 16000), the rows of a style-5
+    chunk: the ladder with the chain's parameters (after its 12 dB gain) and
+    resonant and driven, the phaser with its defaults. Each against the plain
+    loop on the card; the kernel's time (CUDA events over 20 launches after a
+    warm-up), the plain loop's wall for one call, the bytes bound and the
+    chain bound: T x the chain's dependent operations a sample x 4 cycles at
+    the card's top SM clock."""
+    from audiobd_tpu_torch.ops import effects as op
+    from audiobd_tpu_torch.poison import effects as fx
+
+    print("phase 1d: kernel F (the effects' per-sample recursions) vs its plain loop at (256, 16000); tolerance "
+          "atol 1e-5 (both in the JAX step's order, no FMA, the same tanhf)", flush=True)
+    rows, t = 256, 16000
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n = torch.arange(t, device="cuda", dtype=torch.float32) / 16000
+    f0 = 200.0 + 1600.0 * torch.rand(rows, 1, device="cuda", generator=gen)
+    x = 0.4 * torch.sin(2 * math.pi * f0 * n) + 0.02 * torch.randn(rows, t, device="cuda", generator=gen)
+    chain_x = fx.gain(x, 12.0)
+    g = math.tan(math.pi * 1000.0 / 16000)
+    a = torch.from_numpy(fx.phaser_coefficients(t, 16000)).cuda()
+    clock = sm_clock_hz()
+    results = {}
+    for label, name, kernel, plain, ops, chain in (
+        ("ladder, the chain's parameters (after gain 12 dB; cutoff 1 kHz)", "effects_ladder",
+         lambda: op.ladder_hpf12(chain_x, g / (1 + g), 0.0, 1.0),
+         lambda: op.ladder_hpf12_plain(chain_x, g / (1 + g), 0.0, 1.0), LADDER_OPS, LADDER_CHAIN_OPS),
+        ("ladder, resonance 0.3, drive 6 dB", "effects_ladder resonant",
+         lambda: op.ladder_hpf12(x, g / (1 + g), 1.2, 10 ** (6 / 20)),
+         lambda: op.ladder_hpf12_plain(x, g / (1 + g), 1.2, 10 ** (6 / 20)), LADDER_OPS, LADDER_CHAIN_OPS),
+        ("phaser, defaults (6 stages, mix 0.5)", "effects_phaser", lambda: op.phaser(x, a, 6, 0.5),
+         lambda: op.phaser_plain(x, a, 6, 0.5), PHASER_OPS, PHASER_CHAIN_OPS),
+    ):
+        got = kernel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        err = float((got - ref).abs().max())
+        check(err <= 1e-5 and bool(torch.isfinite(got).all()) and got.shape == x.shape,
+              f"{label}: shape {tuple(got.shape)}, max abs err {err:.3e} against the plain loop "
+              f"({float((got == ref).double().mean()) * 100:.2f}% bit-equal)")
+        ms = time_ms(torch, kernel, 20)
+        nbytes = 2 * 4 * x.numel() + (4 * t if "phaser" in name else 0)
+        bms, by = bound(ops * x.numel(), nbytes)
+        chain_ms = t * chain * FP32_LATENCY_CYCLES / clock * 1e3
+        print(f"  {label}: kernel {ms:.4f} ms, plain loop {plain_s * 1e3:.1f} ms (one call), bound {bms:.4f} ms "
+              f"({by}: {nbytes / 1e6:.1f} MB), chain bound {chain_ms:.4f} ms ({t} samples x {chain} dependent "
+              f"operations x {FP32_LATENCY_CYCLES} cycles at {clock / 1e9:.3f} GHz)", flush=True)
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=bms, bound_by=by)
+        del got, ref
+    src = "audiobd_tpu_torch/csrc/effects.cu"
+    ladder, phaser = results["effects_ladder"], results["effects_phaser"]
+    return [
+        {"name": "effects_ladder", "route": "cuda", "source": src, "replaces": "audiobd_tpu/poison/effects.py:261",
+         "max_abs_err": max(ladder["err"], results["effects_ladder resonant"]["err"]), "ms": ladder["ms"],
+         "plain_ms": ladder["plain_ms"], "bound_ms": ladder["bound_ms"], "bound_by": ladder["bound_by"],
+         "library_ms": None},
+        {"name": "effects_phaser", "route": "cuda", "source": src, "replaces": "audiobd_tpu/poison/effects.py:300",
+         "max_abs_err": phaser["err"], "ms": phaser["ms"], "plain_ms": phaser["plain_ms"],
+         "bound_ms": phaser["bound_ms"], "bound_by": phaser["bound_by"], "library_ms": None},
+    ]
+
+
 TRAIN_CLIPS = 16_000  # 80% of 20,000 synthetic clips
+# Phases 3b and 5b, cut in depth to 5,000 clips to keep the script's wall
+# near its earlier length; each still launches every kernel it drives.
+CUT_PER_CLASS = 500
 BATCH = 256
 
 
-def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "float32", workdir: str | None = None
-            ) -> tuple[dict[str, int], float, int]:
-    """One CLI run of 2 epochs on 20,000 synthetic clips with ``flags``;
-    checks its losses, CSV and checkpoint. A bf16 ``compute_dtype`` is
-    given as a user gives it, by --config and a YAML with train:
-    {compute_dtype: bfloat16}. The run's record tree goes to a temporary
+def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "float32", workdir: str | None = None,
+            per_class: int = 2000) -> tuple[dict[str, int], float, int]:
+    """One CLI run of 2 epochs on ``10 * per_class`` synthetic clips (20,000
+    unless cut) with ``flags``; checks its losses, CSV and checkpoint. A
+    bf16 ``compute_dtype`` is given as a user gives it, by --config and a
+    YAML with train: {compute_dtype: bfloat16}. The run's record tree goes to a temporary
     directory, or to ``workdir``, which outlives the call. Returns
     (launches, clips/s, train steps)."""
     import contextlib
@@ -972,14 +1102,15 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
             with open(yaml_path, "w") as f:
                 f.write(f"train:\n  compute_dtype: {compute_dtype}\n")
             flags = ["--config", yaml_path, *flags]
-        print(f"{label}: python -m audiobd_tpu_torch badnets --synthetic --synthetic_per_class 2000 "
-              f"--num_epochs 2 {' '.join(flags)} (20,000 clips, batch {BATCH}, {compute_dtype})", flush=True)
+        print(f"{label}: python -m audiobd_tpu_torch badnets --synthetic --synthetic_per_class {per_class} "
+              f"--num_epochs 2 {' '.join(flags)} ({10 * per_class:,} clips, batch {BATCH}, {compute_dtype})",
+              flush=True)
         os.chdir(tmp)
         try:
             for k in kernels:
                 k.launches = 0
             t0 = time.perf_counter()
-            result = cli.main(["--synthetic", "--synthetic_per_class", "2000", "--num_epochs", "2",
+            result = cli.main(["--synthetic", "--synthetic_per_class", str(per_class), "--num_epochs", "2",
                                "--patience", "20", "--result", "chip_smoke", *flags])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1011,7 +1142,7 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
             check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (64, 10),
                   f"checkpoint reloads as {type(reloaded).__name__} on the CPU and gives finite "
                   f"(64, 10) logits")
-            steps = result.epochs_ran * -(-TRAIN_CLIPS // BATCH)
+            steps = result.epochs_ran * -(-(8 * per_class) // BATCH)  # 80% of the clips train
         finally:
             os.chdir(cwd)
     return launches, result.clips_per_sec, steps
@@ -1163,11 +1294,12 @@ def phase_block23_paths(torch, kernels, main_clips: float) -> dict[str, int]:
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
     cnn_launches, cnn_clips, cnn_steps = run_cli(
-        torch, kernels, "phase 3b: block-2/3 kernels on SmallCNN", flags)
+        torch, kernels, "phase 3b: block-2/3 kernels on SmallCNN", flags, per_class=CUT_PER_CLASS)
     check(cnn_launches["conv2_bn_pool_bwd_params"] == 2 * cnn_steps,
           f"conv2_bn_pool_bwd_params launched {cnn_launches['conv2_bn_pool_bwd_params']} times on SmallCNN")
-    print(f"  train clips/s: SmallCNN default {main_clips:.1f} (phase 2), SmallCNN blocks 2-3 on D/E "
-          f"{cnn_clips:.1f} (phase 3b), SmallLSTM blocks 2-3 on D/E {lstm_clips:.1f} (phase 3)", flush=True)
+    print(f"  train clips/s: SmallCNN default {main_clips:.1f} (phase 2), SmallLSTM blocks 2-3 on D/E "
+          f"{lstm_clips:.1f} (phase 3); SmallCNN blocks 2-3 on D/E {cnn_clips:.1f} (phase 3b, "
+          f"{10 * CUT_PER_CLASS:,} clips)", flush=True)
     return launches
 
 
@@ -1183,7 +1315,8 @@ def phase_bf16_paths(torch, kernels) -> dict[str, int]:
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
     lstm, lstm_clips, lstm_steps = run_cli(
         torch, kernels, "phase 5b: path 2, BadNets → SmallLSTM in bf16, blocks 2-3 on D/E",
-        ["--model", "smalllstm", "--fused_block2", "on", "--fused_block3", "on"], compute_dtype="bfloat16")
+        ["--model", "smalllstm", "--fused_block2", "on", "--fused_block3", "on"], compute_dtype="bfloat16",
+        per_class=CUT_PER_CLASS)
     for name in ("conv2_bn_pool_bwd_params_bf16", "conv2_bn_pool_bwd_input_bf16"):
         check(lstm[name] == 2 * lstm_steps, f"{name} launched {lstm[name]} times (2 blocks x {lstm_steps} steps)")
     check(lstm["conv1_bn_pool_bwd_params_bf16"] == lstm_steps,
@@ -1192,7 +1325,7 @@ def phase_bf16_paths(torch, kernels) -> dict[str, int]:
            if launches[n] or lstm[n]]
     check(not f32, f"no f32 block kernel launched in the bf16 runs (launched: {f32})")
     print(f"  train clips/s in bf16: SmallCNN {clips:.1f} (phase 5), SmallLSTM blocks 2-3 on D/E {lstm_clips:.1f} "
-          f"(phase 5b)", flush=True)
+          f"(phase 5b, {10 * CUT_PER_CLASS:,} clips)", flush=True)
     return {**launches, **{n: lstm[n] for n in ("conv2_bn_pool_bwd_params_bf16", "conv2_bn_pool_bwd_input_bf16")}}
 
 
@@ -1389,9 +1522,10 @@ def phase_ultrasonic(torch, kernels) -> dict[str, int]:
     return launches
 
 
-def check_record(torch, build_model, load_checkpoint, record: str, data: str) -> None:
+def check_record(torch, build_model, load_checkpoint, record: str, data: str,
+                 feats_shape: tuple[int, ...] = (1, 100, 40)) -> None:
     """The six clean npys, the eight bd npys and the CSVs exist, and the
-    checkpoint reloads on the CPU and gives finite logits on (1, 100, 40)
+    checkpoint reloads on the CPU and gives finite logits on ``feats_shape``
     features."""
     import numpy as np
 
@@ -1410,7 +1544,7 @@ def check_record(torch, build_model, load_checkpoint, record: str, data: str) ->
     feats = torch.from_numpy(np.load(os.path.join(data, "bd", "bd_test_mfcc.npy"), mmap_mode="r")[:64].copy())
     with torch.no_grad():
         logits = reloaded.eval()(feats)
-    check(tuple(feats.shape[1:]) == (1, 100, 40) and bool(torch.isfinite(logits).all())
+    check(tuple(feats.shape[1:]) == feats_shape and bool(torch.isfinite(logits).all())
           and tuple(logits.shape) == (64, 10),
           f"checkpoint reloads as {type(reloaded).__name__} on the CPU: finite {tuple(logits.shape)} logits on "
           f"{tuple(feats.shape[1:])} features")
@@ -1458,6 +1592,186 @@ def phase_ultrasonic_models(torch, kernels) -> None:
                 os.chdir(cwd)
 
 
+def _chunks(n, size: int) -> int:
+    return -(-int(n) // size)
+
+
+def _print_stages(run) -> None:
+    for name, st in run.stages.items():
+        print(f"  stage {name}: wall {st['wall_s']:.3f} s; launches {st['launches']}", flush=True)
+    h = run.result.history
+    print(f"  train clips/s {run.result.clips_per_sec:.1f}; train loss {_r(h['train_loss'])}, clean acc "
+          f"{_r(h['test_clean_acc'])}, ASR {_r(h['test_asr'])}", flush=True)
+    losses = h["train_loss"] + h["test_clean_loss"] + h["test_bd_loss"]
+    check(run.result.epochs_ran == 2 and all(math.isfinite(v) for v in losses), "2 epochs ran, every loss finite")
+
+
+def phase_jingleback(torch, kernels) -> dict[str, int]:
+    """Phase 8: ``python -m audiobd_tpu_torch jingleback --style 5`` at full
+    width (20,000 synthetic clips, SmallCNN with its 3072-feature flatten,
+    batch 256, f32), cut to 2 epochs: the 1,600 poisoned train rows and every
+    non-target test row go through gain → ladder → phaser in chunks of 256
+    (kernel F, one launch a mode a chunk), their MFCCs through kernel A."""
+    import numpy as np
+
+    from audiobd_tpu_torch.cli import jingleback as cli
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.train.checkpoint import load_checkpoint
+
+    flags = ["--synthetic", "--synthetic_per_class", "2000", "--style", "5", "--num_epochs", "2", "--patience", "20"]
+    print(f"phase 8: JingleBack: python -m audiobd_tpu_torch jingleback {' '.join(flags)} (20,000 clips, batch "
+          f"{BATCH}, f32)", flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            run = cli.main(flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            print(f"  wall {wall:.1f} s; launches: {({k: v for k, v in launches.items() if v})}", flush=True)
+            _print_stages(run)
+            cfg = make_config("jingleback")
+            data = os.path.join(cfg.record_dir, cfg.dataset)
+            ind = {s: np.load(os.path.join(data, "bd", f"poison_index_{s}.npy")) for s in ("train", "test")}
+            styled = {s: int(ind[s].sum()) for s in ind}
+            f_want = _chunks(styled["train"], 256) + _chunks(styled["test"], 256)
+            poison = run.stages["poison"]["launches"]
+            check(poison.get("effects_ladder", 0) == poison.get("effects_phaser", 0) == f_want
+                  and launches["effects_ladder"] == launches["effects_phaser"] == f_want,
+                  f"kernel F launched {launches['effects_ladder']} times as the ladder and "
+                  f"{launches['effects_phaser']} as the phaser, all in the poison stage (expected {f_want}: "
+                  f"{styled['train']} train and {styled['test']} test rows in chunks of 256)")
+            a_want = {"prep": _chunks(20000, 2048), "poison": _chunks(styled["train"], 2048)
+                      + _chunks(styled["test"], 2048)}
+            for stage, n in a_want.items():
+                got = run.stages[stage]["launches"].get("mfcc_fft", 0)
+                check(got == n, f"kernel A (mfcc_fft) launched {got} times in the {stage} stage (expected {n})")
+            steps = 2 * _chunks(len(ind["train"]), BATCH)
+            check(launches["conv1_bn_pool_bwd_params"] == steps,
+                  f"kernel B launched {launches['conv1_bn_pool_bwd_params']} times ({steps} training steps)")
+            wav = np.load(os.path.join(data, "bd", "bd_train_wav.npy"), mmap_mode="r")
+            rows = np.flatnonzero(ind["train"])[:64]
+            check(bool(np.isfinite(wav[rows]).all()), "the styled train rows are finite")
+            check_record(torch, build_model, load_checkpoint, cfg.record_dir, data, feats_shape=(1, 101, 40))
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def card_operations(torch, fn) -> int:
+    """The aten operations that ``fn`` dispatches with a result on the card,
+    views and bare allocations excluded: each launches a kernel or a copy.
+    Counted at dispatch, so the count does not depend on a profiler's trace
+    window (torch.profiler has dropped the kernels of such short windows)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            view = any(r.alias_info is not None and not r.alias_info.is_write for r in func._schema.returns)
+            on_card = any(isinstance(t, torch.Tensor) and t.is_cuda for t in tree_leaves(out))
+            if on_card and not view and not str(func).startswith("aten.empty"):
+                self.n += 1
+            return out
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def phase_boards(torch) -> None:
+    """Phase 8b: each of the six style boards on one 256-clip chunk of
+    one-second 16 kHz clips on the card (the synthetic set's tone bursts):
+    the wall of a call after a warm-up call, and its launches: the aten
+    operations it dispatches (``card_operations``) and kernel F's."""
+    from audiobd_tpu_torch.ops import effects as op
+    from audiobd_tpu_torch.poison.jingleback import STYLE_CHUNK, get_boards
+
+    print(f"phase 8b: the six style boards on one {STYLE_CHUNK}-clip chunk (256, 16000) on the card", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n = torch.arange(16000, device="cuda", dtype=torch.float32) / 16000
+    f0 = 200.0 + 1440.0 * torch.rand(STYLE_CHUNK, 1, device="cuda", generator=gen)
+    env = torch.exp(-((n - 0.3 - 0.4 * torch.rand(STYLE_CHUNK, 1, device="cuda", generator=gen)) ** 2) / 0.05)
+    x = env * (0.4 * torch.sin(2 * math.pi * f0 * n) + 0.3 * torch.sin(4 * math.pi * f0 * n))
+    x = x + 0.02 * torch.randn(STYLE_CHUNK, 16000, device="cuda", generator=gen)
+    for style, board in enumerate(get_boards(16000)):
+        board(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = board(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        before = op.LADDER_KERNEL.launches + op.PHASER_KERNEL.launches
+        ops = card_operations(torch, lambda: board(x))
+        f = op.LADDER_KERNEL.launches + op.PHASER_KERNEL.launches - before
+        check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all())
+              and float((y - x).abs().max()) > 1e-3, f"style {style}: finite, shaped {tuple(y.shape)}, changed")
+        print(f"  style {style}: wall {wall * 1e3:.2f} ms, {ops + f} launches ({ops} aten operations on the card, "
+              f"{f} of kernel F)", flush=True)
+
+
+def phase_daba(torch, kernels, route: str) -> dict[str, int]:
+    """Phase 9: ``python -m audiobd_tpu_torch daba`` at full width (20,000
+    synthetic clips; librosa parity at n_fft 2048; 3,000 host candidates,
+    1,600 hosts with variant gains; SmallCNN with its 896-feature flatten,
+    batch 256, f32), cut to 2 epochs. Kernel A on ``route`` in the prep, the
+    victim's scoring (the 60-clip pool, the trigger, the hosts in chunks of
+    512) and the overlaid rows; kernel B at (256, 1, 32, 40)."""
+    import numpy as np
+
+    from audiobd_tpu_torch.cli import daba as cli
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.poison.daba import INF_CHUNK
+    from audiobd_tpu_torch.train.checkpoint import load_checkpoint
+
+    flags = ["--synthetic", "--synthetic_per_class", "2000", "--num_epochs", "2", "--patience", "20"]
+    print(f"phase 9: DABA: python -m audiobd_tpu_torch daba {' '.join(flags)} (20,000 clips, n_fft 2048 librosa "
+          f"parity, 3,000 host candidates, batch {BATCH}, f32)", flush=True)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            run = cli.main(flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            print(f"  wall {wall:.1f} s; selected trigger #{run.trigger_index}, {run.n_poisoned} hosts poisoned; "
+                  f"launches: {({k: v for k, v in launches.items() if v})}", flush=True)
+            _print_stages(run)
+            cfg = make_config("daba")
+            data = os.path.join(cfg.record_dir, cfg.dataset)
+            ind = {s: np.load(os.path.join(data, "bd", f"poison_index_{s}.npy")) for s in ("train", "test")}
+            check(run.n_poisoned == int(ind["train"].sum()) == round(0.1 * len(ind["train"])),
+                  f"{run.n_poisoned} hosts poisoned (10% of {len(ind['train'])} train clips)")
+            a_want = {"prep": _chunks(20000, 2048), "select": 2 + _chunks(cfg.host_candidates, INF_CHUNK),
+                      "poison": _chunks(ind["train"].sum(), 2048) + _chunks(ind["test"].sum(), 2048)}
+            for stage, n in a_want.items():
+                got = run.stages[stage]["launches"]
+                check(got.get(route, 0) == n and set(got) == {route},
+                      f"kernel A ({route}) launched {got.get(route, 0)} times in the {stage} stage (expected {n}), "
+                      f"no other kernel there ({got})")
+            steps = 2 * _chunks(len(ind["train"]), BATCH)
+            check(launches["conv1_bn_pool_bwd_params"] == steps,
+                  f"kernel B launched {launches['conv1_bn_pool_bwd_params']} times ({steps} training steps)")
+            check(os.path.exists(os.path.join(cfg.record_dir, "trigger.wav")), "trigger.wav written")
+            check_record(torch, build_model, load_checkpoint, cfg.record_dir, data, feats_shape=(1, 32, 40))
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1495,12 +1809,14 @@ def main() -> int:
     main_rows = [*phase_mfcc(torch, ctx), *phase_conv1(torch, ctx)]
     block23_rows = phase_conv2(torch, ctx)
     bf16_rows = [*phase_conv1_bf16(torch, ctx), *phase_conv2_bf16(torch, ctx)]
-    flowmur_route = ctx["flowmur_route"]
+    effects_rows = phase_effects(torch)
+    flowmur_route, daba_route = ctx["flowmur_route"], ctx["daba_route"]
     del ctx
     torch.cuda.empty_cache()
     record_dir = tempfile.mkdtemp(prefix="chip_smoke_record_")  # phase 2's record, read again by phase 7
     try:
-        rows = run_paths(torch, KERNELS, flowmur_route, main_rows, block23_rows, bf16_rows, record_dir)
+        rows = run_paths(torch, KERNELS, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
+                         record_dir)
     finally:
         shutil.rmtree(record_dir, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
@@ -1515,8 +1831,9 @@ def main() -> int:
     return 0
 
 
-def run_paths(torch, kernels, flowmur_route, main_rows, block23_rows, bf16_rows, record_dir) -> list[dict]:
-    """Phases 2-7; each kernel row gets its launches from the path that runs
+def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
+              record_dir) -> list[dict]:
+    """Phases 2-9; each kernel row gets its launches from the path that runs
     it. Returns the rows of the ``kernels`` line."""
     launches, main_clips = phase_main_path(torch, kernels, record_dir)
     for row in main_rows:
@@ -1541,7 +1858,12 @@ def run_paths(torch, kernels, flowmur_route, main_rows, block23_rows, bf16_rows,
     for row in main_rows:
         if row["name"] == "conv1_bn_pool_bwd_params_eval":
             row["launches"] = defenses[row["name"]]
-    return main_rows + block23_rows + bf16_rows
+    jingleback = phase_jingleback(torch, kernels)
+    for row in effects_rows:
+        row["launches"] = jingleback[row["name"]]
+    phase_boards(torch)
+    phase_daba(torch, kernels, daba_route)
+    return main_rows + block23_rows + bf16_rows + effects_rows
 
 
 if __name__ == "__main__":

@@ -30,6 +30,11 @@ version alone is 0.83 of it against float64), and D's f32 tolerance above.
 dx is a bf16 sum of bf16-rounded taps, each tap an f32 sum over the
 channels in another order than the plain version's, so a tap can round the
 other way: dx within 2 bf16 ulps of max|dx| (2**-6 * max|dx|).
+
+Kernel F (the effects' recursions) against its plain loop on the card:
+atol 1e-5. Both form every product and sum in the JAX step's order without
+FMA and call the same tanhf, so they should agree bit for bit; the
+tolerance is the CPU tests' against JAX's scan.
 """
 
 import numpy as np
@@ -39,6 +44,7 @@ import torch
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.ops import conv1_bn_pool as op
 from audiobd_tpu_torch.ops import conv2_bn_pool as op2
+from audiobd_tpu_torch.ops import effects as op_fx
 from audiobd_tpu_torch.ops import mfcc as op_mfcc
 from audiobd_tpu_torch.ops.mfcc import fused_mfcc
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
@@ -566,3 +572,42 @@ def test_bf16_kernels_reject_mixed_dtypes(cuda):
     with pytest.raises(ValueError, match="w in torch.float32"):
         op2.conv2_bn_pool_bwd_params(args[0].to(torch.bfloat16), args[1].to(torch.bfloat16), w.to(torch.bfloat16),
                                      *args[4:], pool_padding=(1, 1))
+
+
+@pytest.mark.parametrize("mode,t", [("ladder", 16000), ("ladder resonant, driven", 16000), ("ladder", 1999),
+                                    ("phaser", 16000), ("phaser 4 stages", 16000), ("phaser", 1999)])
+def test_effects_kernel_matches_plain(cuda, mode, t):
+    """Both modes of kernel F at (64, T): T = 16000 as the kernel reads it,
+    T = 1999 through the wrapper's zero padding to a multiple of 4."""
+    from audiobd_tpu_torch.poison import effects as fx
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy((rng.standard_normal((64, t)) * 0.3).astype(np.float32)).to(cuda)
+    if mode.startswith("ladder"):
+        g = float(np.tan(np.pi * 1000.0 / 16000))
+        args = (g / (1 + g), 1.2, 10 ** (6 / 20)) if "resonant" in mode else (g / (1 + g), 0.0, 10 ** (12 / 20))
+        kernel, plain = op_fx.LADDER_KERNEL, lambda: op_fx.ladder_hpf12_plain(x, *args)
+        run = lambda: op_fx.ladder_hpf12(x, *args)  # noqa: E731
+    else:
+        stages = 4 if "4 stages" in mode else 6
+        a = torch.from_numpy(fx.phaser_coefficients(t, 16000)).to(cuda)
+        kernel, plain = op_fx.PHASER_KERNEL, lambda: op_fx.phaser_plain(x, a, stages, 0.5)
+        run = lambda: op_fx.phaser(x, a, stages, 0.5)  # noqa: E731
+    before = kernel.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain()
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+def test_effects_kernel_empty_input_launches_nothing(cuda):
+    """An empty batch returns an empty result without a launch, so every
+    count of kernel F is a launch that ran."""
+    x = torch.empty((0, 16000), device=cuda)
+    a = torch.zeros(16000, device=cuda)
+    before = (op_fx.LADDER_KERNEL.launches, op_fx.PHASER_KERNEL.launches)
+    assert op_fx.ladder_hpf12(x, 0.5, 0.0, 1.0).shape == (0, 16000)
+    assert op_fx.phaser(x, a, 6, 0.5).shape == (0, 16000)
+    assert (op_fx.LADDER_KERNEL.launches, op_fx.PHASER_KERNEL.launches) == before

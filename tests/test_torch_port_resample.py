@@ -1,7 +1,8 @@
 """The port's polyphase resampler (dsp/resample.py) against the JAX
 package's (audiobd_tpu/dsp/resample.py), and the ingest's batching of
 clips of unequal lengths (data/speech_commands.py::resample_rows) against
-the clips one at a time.
+the clips one at a time. The pitch shift's pairs (1000, 561) and (1000,
+1335) are checked at its stretched lengths (28,160 and 11,776 samples).
 
 Both packages build the same float64 kernel bank and cast it to f32; the
 convolutions are f32 sums of K = 2·width + orig products in another order
@@ -22,7 +23,9 @@ from audiobd_tpu.dsp.resample import resample as jax_resample
 from audiobd_tpu_torch.data.speech_commands import resample_rows
 from audiobd_tpu_torch.dsp.resample import _kernel, resample, resampled_length
 
-RATES = [(16000, 44100), (22050, 16000), (48000, 44100), (8000, 16000), (16000, 16000)]
+# The last two are the pitch shift's (poison/effects.py): 1000 → round(1000·2^(−s/12))
+# at +10 and −5 semitones.
+RATES = [(16000, 44100), (22050, 16000), (48000, 44100), (8000, 16000), (16000, 16000), (1000, 561), (1000, 1335)]
 TOL = 1e-6
 
 
@@ -77,7 +80,8 @@ def test_batch_of_unequal_lengths_equals_clips_alone(orig, new):
 
 
 @pytest.mark.parametrize("n,orig,new,expected", [(16000, 16000, 44100, 44100), (15999, 16000, 44100, 44098),
-                                                 (22050, 22050, 44100, 44100), (3, 48000, 44100, 3)])
+                                                 (22050, 22050, 44100, 44100), (3, 48000, 44100, 3),
+                                                 (28160, 1000, 561, 15798), (11776, 1000, 1335, 15721)])
 def test_resampled_length_is_the_reference_one(n, orig, new, expected):
     assert resampled_length(n, orig, new) == expected
     assert np.asarray(jax_resample(jnp.zeros((1, n), jnp.float32), orig, new)).shape[1] == expected
