@@ -1,10 +1,11 @@
 """CLI dispatcher: ``python -m audiobd_tpu_torch <command> [flags]``.
 
-Ported commands so far: the five attacks badnets, jingleback, ultrasonic,
-daba and flowmur; the defenses fp, ft_reg, tsbd and correlation_analysis,
-which read an attack's ``record/<result>/torch_checkpoint/``. The
-reference's other commands (``python -m audiobd_tpu``) are listed in
-ROADMAP.md.
+The reference's eleven commands (``python -m audiobd_tpu``):
+attacks   badnets, jingleback, ultrasonic, daba, flowmur
+defenses  fp, ft_reg, tsbd, correlation_analysis (they read an attack's
+          ``record/<result>/torch_checkpoint/``)
+data      get_dataset
+serving   infer (classify wav clips with an attack's checkpoint)
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ COMMANDS = {
     "ft_reg": "audiobd_tpu_torch.cli.ft_reg",
     "tsbd": "audiobd_tpu_torch.cli.tsbd",
     "correlation_analysis": "audiobd_tpu_torch.cli.correlation_analysis",
+    "get_dataset": "audiobd_tpu_torch.cli.get_dataset",
+    "infer": "audiobd_tpu_torch.cli.infer",
 }
 
 

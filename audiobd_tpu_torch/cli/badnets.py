@@ -2,8 +2,10 @@
 
     python -m audiobd_tpu_torch badnets --synthetic [--device cpu] ...
 
-The reference CLI's flags (audiobd_tpu/cli/badnets.py:23-34) without
-``--profile_dir`` and ``--resume``, plus ``--device``.
+The reference CLI's flags (audiobd_tpu/cli/badnets.py:23-34), plus
+``--device``. ``--resume`` restarts from ``record/<result>/torch_checkpoint/``
+(the model, the optimizer's state and the step); ``--profile_dir`` writes a
+torch.profiler trace of epochs 1-2 there.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
         help="use the deterministic synthetic dataset (no Speech Commands on disk)",
     )
     parser.add_argument("--synthetic_per_class", type=int, default=50)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of epochs 1-2 here")
+    parser.add_argument("--resume", action="store_true", help="resume from record/<result>/torch_checkpoint")
     return parser.parse_args(argv)
 
 
@@ -45,7 +50,8 @@ def main(argv: list[str] | None = None) -> TrainResult:
     else:
         clean = load_clean_data(cfg)
     poisoned = badnets.poison(cfg, clean)
-    result = train_attack(cfg, poisoned.bd_train, poisoned.clean_test, poisoned.bd_test)
+    result = train_attack(cfg, poisoned.bd_train, poisoned.clean_test, poisoned.bd_test,
+                          profile_dir=args.profile_dir, resume=args.resume)
     print(
         f"done: epochs={result.epochs_ran} "
         f"clean_acc={result.history['test_clean_acc'][-1]:.2f} "

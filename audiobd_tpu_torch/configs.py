@@ -61,6 +61,11 @@ class TrainConfig:
     num_epochs: int = 300
     patience: int = 20
     seed: int = 35
+    # "adam" or "sgd_momentum" (train/trainer.py::make_optimizer).
+    optimizer: str = "adam"
+    # Early stopping monitors 0.5*(clean_test_loss + bd_test_loss)
+    # (reference badnets.py:156); no code reads this field, as in the reference.
+    monitor: str = "mean_test_loss"
     # First SmallCNN block through ops/conv1_bn_pool (CUDA-kernel backward).
     # "auto" = on for CUDA, off elsewhere.
     fused_conv_block: str = "auto"

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audiobd_tpu_torch.configs import AttackConfig
 from audiobd_tpu_torch.data.native import decode_batch, decode_batch_pcm16
@@ -125,25 +126,32 @@ def load_clean_data(cfg: AttackConfig, load: bool | None = None) -> CleanData:
     return prepare_clean_dataset(cfg)
 
 
-def _sync(device: torch.device) -> None:
+def sync_device(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU), so a host clock
+    read next times it."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def resample_rows(rows: list[np.ndarray], orig_freq: int, new_freq: int, keep: int, device: torch.device,
                   chunk: int = RESAMPLE_CHUNK) -> torch.Tensor:
-    """Whole clips at one rate, of any lengths (each resampling to at least
-    ``keep`` samples) → (N, keep) f32 on ``device``: the first ``keep``
-    samples of each clip resampled alone. A chunk of clips is zero-padded on
-    the right to its longest and resampled as one batch; the zeros are the
-    ones ``resample`` pads a clip with, so no row changes."""
+    """Whole clips at one rate, of any lengths → (N, keep) f32 on
+    ``device``: each clip resampled alone, cut or zero-filled to ``keep``
+    samples. A chunk of clips is zero-padded on the right to its longest and
+    resampled as one batch; the zeros are the ones ``resample`` pads a clip
+    with, so each row is its clip's up to the clip's own resampled length
+    (``resampled_length``). Past it the batch holds the filter's tail over
+    the padding, which is zeroed here, as a clip resampled alone ends."""
     out = []
     for start in range(0, len(rows), chunk):
         block = rows[start : start + chunk]
         host = np.zeros((len(block), max(len(r) for r in block)), np.float32)
         for i, r in enumerate(block):
             host[i, : len(r)] = r
-        out.append(resample(torch.from_numpy(host).to(device), orig_freq, new_freq)[:, :keep])
+        res = resample(torch.from_numpy(host).to(device), orig_freq, new_freq)[:, :keep]
+        res = F.pad(res, (0, keep - res.shape[1]))
+        lengths = torch.tensor([resampled_length(len(r), orig_freq, new_freq) for r in block], device=device)
+        out.append(torch.where(torch.arange(keep, device=device)[None, :] < lengths[:, None], res, 0.0))
     return torch.cat(out)
 
 
@@ -212,7 +220,7 @@ def prepare_clean_dataset(cfg: AttackConfig, data_path: str | None = None, save:
         pool32.append(resample_rows(clips, file_sr, sr, sr, device))
         idx_f32 += idx
     pool32 = torch.cat(pool32) if pool32 else None
-    _sync(device)
+    sync_device(device)
     walls["resample"] = time.perf_counter() - t0
 
     # Host f32 waveforms for the clean npy contract, in clip order.
@@ -238,7 +246,7 @@ def prepare_clean_dataset(cfg: AttackConfig, data_path: str | None = None, save:
     train_dev = all_mfcc[torch.from_numpy(idx_train).to(device)]
     test_dev = all_mfcc[torch.from_numpy(idx_test).to(device)]
     del all_mfcc
-    _sync(device)
+    sync_device(device)
     walls["mfcc"] = time.perf_counter() - t0
     print(f"clean prep ({len(rows_i16)} clips as int16 PCM, {n_total - len(rows_i16)} as f32, "
           f"{sum(len(c) for c, _ in off_rate.values())} of them resampled to {sr} Hz): {n_total} clips; "

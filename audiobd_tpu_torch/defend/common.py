@@ -39,7 +39,7 @@ from audiobd_tpu_torch.models.convert import flax_kernel_path
 from audiobd_tpu_torch.train.checkpoint import load_checkpoint
 from audiobd_tpu_torch.train.loop import ArraySet, cross_entropy, masked_mean
 from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_eval_epoch, run_train_epoch
-from audiobd_tpu_torch.train.trainer import resolve_fused_conv
+from audiobd_tpu_torch.train.trainer import resolve_fused_conv, snapshot
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import resolve_device
 
@@ -87,11 +87,6 @@ def on_device(data: DefenseData, device: torch.device) -> DefenseData:
         bd_test=DeviceDataset(ArraySet(complete.feats, data.bd_test.labels), device),
         bd_test_complete=complete,
     )
-
-
-def snapshot(model: torch.nn.Module) -> State:
-    """A copy of the model's state_dict, on its device."""
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 def load_bd_model(cfg: AttackConfig):

@@ -9,7 +9,8 @@ with flax's auto-names TorchConv_i and TorchBatchNorm_i in creation order.
 Conv kernels go HWIO → OIHW, Dense and LSTM kernels (in, out) → (out, in);
 the LSTM's gate order (i, f, g, o) is torch's already, and a ``bwd``
 direction is torch's ``_reverse``. The flatten order already matches (the
-reference flattens NCHW-style).
+reference flattens NCHW-style). ``opt_state_from_flax`` carries optax's
+optimizer state (adam's moments, sgd's trace) by the same maps.
 """
 
 from __future__ import annotations
@@ -172,3 +173,38 @@ def flax_kernel_path(key: str, ndim: int) -> str:
         if m is not None:
             return f"{path(m)}/Conv_0/kernel"
     raise ValueError(f"{key!r} is not a conv kernel of the port's models")
+
+
+def _stats_like(params: dict) -> dict:
+    """A batch_stats tree beside ``params``'s BatchNorms, for the maps above,
+    which read one; its entries land in buffers that the caller drops."""
+    out = {}
+    for key, value in params.items():
+        if key == "BatchNorm_0":
+            out[key] = {"mean": value["scale"], "var": value["scale"]}
+        elif isinstance(value, dict):
+            out[key] = _stats_like(value)
+    return out
+
+
+def opt_state_from_flax(model_name: str, opt_state, param_names: list[str]) -> dict:
+    """optax's state of ``optax.adam`` (its first entry ``count``, and
+    ``mu``/``nu`` as flax parameter trees) or ``optax.sgd(lr, momentum)``
+    (its first entry ``trace``) → the
+    ``load_state_dict`` argument of train/state.py's ``Adam`` or ``SGD`` for
+    the port's ``model_name`` model whose parameters are named
+    ``param_names`` (``[n for n, _ in model.named_parameters()]``): each tree
+    carried by ``FROM_FLAX``, so the conv and dense transposes are the
+    weights' own, and listed in that order."""
+    carry = FROM_FLAX[model_name.lower()]
+
+    def ordered(tree: dict) -> list[torch.Tensor]:
+        state_dict = carry({"params": tree, "batch_stats": _stats_like(tree)})
+        return [state_dict[n] for n in param_names]
+
+    first = opt_state[0]  # the chain's first transform: scale_by_adam, or trace
+    if hasattr(first, "mu"):
+        return {"mu": ordered(first.mu), "nu": ordered(first.nu), "count": int(np.asarray(first.count))}
+    if hasattr(first, "trace"):
+        return {"trace": ordered(first.trace)}
+    raise ValueError(f"opt_state holds neither optax's adam state nor its sgd trace: {type(first).__name__}")

@@ -14,8 +14,9 @@ The genuine ``resources/Ultrasonic/trigger.wav`` is used where
 (21.0-21.7 kHz tones) and writes it as PCM16 into the run's directory, and
 later runs read that file back, quantized. Only the injected rows' MFCCs
 are recomputed (kernel A on the card) and merged into the device-resident
-clean features. The reference's ``debug`` plots are not ported (the curve
-PNGs wait with ``utils/visual.py``).
+clean features. ``UltrasonicTrigger(debug=True)`` draws the reference's
+three debug PNGs (the trigger's spectrum, waveform and MFCC) into
+``debug_dir``.
 """
 
 from __future__ import annotations
@@ -79,7 +80,10 @@ def synthesize_trigger_wave(path: str | None = None, seed: int = 7) -> np.ndarra
 class UltrasonicTrigger:
     """The masked ultrasonic trigger (reference GenerateTrigger)."""
 
-    def __init__(self, size: int, pos: str, cont: bool = True, wave_path: str = "resources/Ultrasonic/trigger.wav"):
+    def __init__(self, size: int, pos: str, cont: bool = True, wave_path: str = "resources/Ultrasonic/trigger.wav",
+                 debug: bool = False, debug_dir: str = "resources/Ultrasonic/debug"):
+        self.debug = debug
+        self.debug_dir = debug_dir
         if pos not in TriggerInfeasible.correct_pos:
             raise TriggerInfeasible(size, pos)
         if size <= 0 or size > DIVIDER:
@@ -125,7 +129,24 @@ class UltrasonicTrigger:
 
     def trigger(self) -> np.ndarray:
         keep = self._mask_cont() if self.cont else self._mask_non_cont()
-        return np.where(keep[None, :], self.data, 0.0).astype(np.float32)
+        out = np.where(keep[None, :], self.data, 0.0).astype(np.float32)
+        if self.debug:
+            self._plot(out)
+        return out
+
+    def _plot(self, out: np.ndarray) -> None:
+        """The reference's debug plots (utils/ultra_trigger.py:105-109): the
+        trigger's spectrum and waveform, and its MFCC by the plain
+        ``dsp.mfcc`` at n_fft 1103, hop 441 on the CPU."""
+        from audiobd_tpu_torch.dsp.mfcc import MFCCParams, mfcc
+        from audiobd_tpu_torch.utils.visual import plot_fft, plot_mfccs, plot_waveform
+
+        os.makedirs(self.debug_dir, exist_ok=True)
+        plot_fft(out, TRIGGER_SR, os.path.join(self.debug_dir, "trigger_fft.png"))
+        plot_waveform(out, TRIGGER_SR, os.path.join(self.debug_dir, "trigger_wave.png"))
+        feats = mfcc(torch.from_numpy(out[0]), MFCCParams(sample_rate=TRIGGER_SR, n_mfcc=40, n_fft=1103,
+                                                          hop_length=441))
+        plot_mfccs(feats.numpy(), os.path.join(self.debug_dir, "trigger_mfcc.png"))
 
 
 @dataclass

@@ -3,7 +3,8 @@
 fine-tune with (audiobd_tpu/defend/ft_reg.py:204, tsbd.py:314).
 
 An optimizer holds ``params`` (the tensors it updates in place) and takes
-``step(grads)``, the gradients in the same order."""
+``step(grads)``, the gradients in the same order. ``state_dict()`` and
+``load_state_dict()`` carry its state (optax's) across a restart."""
 
 from __future__ import annotations
 
@@ -43,6 +44,16 @@ class Adam:
         torch._foreach_mul_(updates, -self.lr)
         torch._foreach_add_(self.params, updates)
 
+    def state_dict(self) -> dict:
+        """optax's ScaleByAdamState: ``mu`` and ``nu`` in parameter order, and
+        ``count``, the steps taken."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.mu = _placed(state["mu"], self.params)
+        self.nu = _placed(state["nu"], self.params)
+        self.count = int(state["count"])
+
 
 class SGD:
     """optax.sgd(lr, momentum) with nesterov off: t ← g + momentum·t (t
@@ -58,3 +69,23 @@ class SGD:
         torch._foreach_mul_(self.trace, self.momentum)
         torch._foreach_add_(self.trace, grads)
         torch._foreach_add_(self.params, torch._foreach_mul(self.trace, -self.lr))
+
+    def state_dict(self) -> dict:
+        """optax's TraceState: ``trace`` in parameter order."""
+        return {"trace": list(self.trace)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.trace = _placed(state["trace"], self.params)
+
+
+def _placed(tensors: list[torch.Tensor], params: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Copies of ``tensors`` on their parameters' devices, in their dtypes;
+    a shape that differs from its parameter's raises."""
+    if len(tensors) != len(params):
+        raise ValueError(f"optimizer state holds {len(tensors)} tensors for {len(params)} parameters")
+    out = []
+    for t, p in zip(tensors, params):
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"optimizer state tensor shaped {tuple(t.shape)} for a parameter {tuple(p.shape)}")
+        out.append(t.detach().to(device=p.device, dtype=p.dtype, copy=True))
+    return out

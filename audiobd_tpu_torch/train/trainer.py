@@ -1,16 +1,20 @@
 """The attack-training orchestrator, single device (port of
-audiobd_tpu/train/trainer.py:143-392).
+audiobd_tpu/train/trainer.py:91-392).
 
-Build the model and Adam, keep every split on the device, run epochs with
-early stopping on ``0.5*(clean_test_loss + bd_test_loss)`` (reference
+Build the model and its optimizer (``make_optimizer``: optax's adam, or sgd
+with momentum), keep every split on the device, run epochs with early
+stopping on ``0.5*(clean_test_loss + bd_test_loss)`` (reference
 badnets.py:156; model selection deliberately uses the attacked test set,
-SURVEY §6b.10), write the loss/acc CSVs and the best model's checkpoint.
-Not ported: the curve PNGs (plots need matplotlib), ``--resume`` and
-``--profile_dir``.
+SURVEY §6b.10), write the best state's checkpoint each time the monitored
+loss improves, then the loss/acc CSVs and the curve PNGs. ``resume`` picks
+up the model, the optimizer's state and the step from that checkpoint;
+``profile_dir`` traces epochs 1-2. ``train_clean`` is the reference's plain
+supervised loop with val-loss early stopping, on the same epoch engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from dataclasses import dataclass, field
@@ -20,21 +24,26 @@ import torch
 
 from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.models import build_model
-from audiobd_tpu_torch.train.checkpoint import save_checkpoint
+from audiobd_tpu_torch.train.checkpoint import checkpoint_dir, load_checkpoint, load_train_state, save_checkpoint
 from audiobd_tpu_torch.train.loop import ArraySet, EarlyStopping
-from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_eval_epoch, run_train_epoch
-from audiobd_tpu_torch.train.state import Adam
+from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, pad_plan, run_eval_epoch, run_train_epoch
+from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import resolve_device
 from audiobd_tpu_torch.utils.logging import save_attack_csvs
+from audiobd_tpu_torch.utils.profiling import annotate, trace
 
 
 @dataclass
 class TrainResult:
     history: dict[str, list] = field(default_factory=dict)
     model: Any = None
+    optimizer: Any = None  # train/state.py's Adam or SGD, as the run left it
+    step: int = 0  # train steps taken, counting those of a resumed checkpoint
     epochs_ran: int = 0
     clips_per_sec: float = 0.0
+    # The wall of each best-state checkpoint write, seconds.
+    checkpoint_walls: list[float] = field(default_factory=list)
 
 
 def resolve_fused_conv(cfg: AttackConfig, device: torch.device) -> bool:
@@ -65,13 +74,72 @@ def resolve_compute_dtype(cfg: AttackConfig) -> torch.dtype:
     return dtypes[cfg.train.compute_dtype]
 
 
-def build_attack_model(cfg: AttackConfig, device: torch.device):
+def build_attack_model(cfg: AttackConfig, device: torch.device, **streams: str):
+    """The attack's model; ``streams`` may name its ``init_stream`` and
+    ``dropout_stream`` (models.build_model)."""
     return build_model(
         cfg.model, cfg.num_classes, linear_features_for(cfg.name, cfg.model), device,
         cfg.train.seed, n_mfcc=cfg.dsp.n_mfcc, fused=resolve_fused_conv(cfg, device),
         fused_block2=resolve_fused_block2(cfg), fused_block3=resolve_fused_block2(cfg, "fused_block3"),
-        compute_dtype=resolve_compute_dtype(cfg),
+        compute_dtype=resolve_compute_dtype(cfg), **streams,
     )
+
+
+def make_optimizer(cfg: AttackConfig, params):
+    """optax.adam(lr), or optax.sgd(lr, momentum=0.9) for "sgd_momentum", in
+    the formulas of train/state.py (reference trainer.py:91-96)."""
+    if cfg.train.optimizer == "adam":
+        return Adam(params, cfg.train.learning_rate)
+    if cfg.train.optimizer == "sgd_momentum":
+        return SGD(params, cfg.train.learning_rate, momentum=0.9)
+    raise ValueError(cfg.train.optimizer)
+
+
+def snapshot(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """A copy of the model's state_dict, on its device."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def train_clean(
+    cfg: AttackConfig,
+    train_set: ArraySet,
+    val_set: ArraySet,
+    model=None,
+    max_epochs: int | None = None,
+    patience: int | None = None,
+    verbose: bool = True,
+):
+    """Plain supervised training with val-loss early stopping (reference
+    trainer.py:99-140; the PyTorch reference's clean_train/clean_test loop,
+    utils/training_tools.py:136-180), on ``cfg.device``. Without ``model``
+    one is built with weights from ``torch_generator(seed, "clean_params")``
+    and dropout from ``"clean_dropout"``; a torch ``model`` given is trained
+    from the weights it holds. Shuffles from ``np_rng(seed,
+    "clean_shuffle")``. Returns (model, the best epoch's state_dict,
+    history)."""
+    device = resolve_device(cfg.device)
+    if model is None:
+        model = build_attack_model(cfg, device, init_stream="clean_params", dropout_stream="clean_dropout")
+    opt = make_optimizer(cfg, model.parameters())
+    d_train, d_val = DeviceDataset(train_set, device), DeviceDataset(val_set, device)
+    best: dict[str, torch.Tensor] = {}
+    stopper = EarlyStopping(patience or cfg.train.patience, save_fn=lambda: best.update(snapshot(model)),
+                            verbose=False)
+    np_rng = rnd.np_rng(cfg.train.seed, "clean_shuffle")
+    history: dict[str, list] = {"train_loss": [], "train_acc": [], "val_loss": [], "val_acc": []}
+    for epoch in range(1, (max_epochs or cfg.train.num_epochs) + 1):
+        tr = run_train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
+        ev = run_eval_epoch(model, d_val, cfg.train.batch_size)
+        history["train_loss"].append(tr["loss"])
+        history["train_acc"].append(tr["mix_acc"])
+        history["val_loss"].append(ev["loss"])
+        history["val_acc"].append(ev["acc"])
+        if verbose:
+            print(f"Epoch {epoch}: Train loss: {tr['loss']:.4f}, "
+                  f"Train acc: {tr['mix_acc']:.4f}, Val acc: {ev['acc']:.4f}")
+        if stopper(ev["loss"]):
+            break
+    return model, best or snapshot(model), history
 
 
 def train_attack(
@@ -81,15 +149,30 @@ def train_attack(
     bd_test: ArraySet,
     verbose: bool = True,
     save: bool = True,
+    resume: bool = False,
+    profile_dir: str | None = None,
 ) -> TrainResult:
     device = resolve_device(cfg.device)
     model = build_attack_model(cfg, device)
-    opt = Adam(model.parameters(), cfg.train.learning_rate)
+    opt = make_optimizer(cfg, model.parameters())
+    record_dir = cfg.record_dir
+    step = 0  # train steps taken; the checkpoint saves it beside the optimizer's state
+    if resume and os.path.exists(checkpoint_dir(record_dir)):
+        # Restart from the last best checkpoint: the model, the optimizer's
+        # state and the step. The epoch loop, the early stopper and the
+        # shuffle and dropout streams start afresh, as in the reference
+        # (trainer.py:177-197); no checkpoint means a cold start.
+        train_state = load_train_state(record_dir)
+        model.load_state_dict(load_checkpoint(record_dir)[0])
+        opt.load_state_dict(train_state["optimizer"])
+        step = train_state["step"]
+        if verbose:
+            print(f"resumed from step {step}")
     d_train = DeviceDataset(bd_train, device)
     d_clean = DeviceDataset(clean_test, device)
     d_bd = DeviceDataset(bd_test, device)
+    steps_per_epoch = pad_plan(len(d_train), cfg.train.batch_size)[0]
 
-    record_dir = cfg.record_dir
     model_spec = {
         "attack": cfg.name,
         "model": cfg.model,
@@ -99,12 +182,16 @@ def train_attack(
         "dataset": cfg.dataset,
         "batch_size": cfg.train.batch_size,
     }
-    best: dict[str, torch.Tensor] = {}
+    checkpoint_walls: list[float] = []
 
-    def keep_best():
-        best.update({k: v.detach().clone() for k, v in model.state_dict().items()})
+    def save_best():
+        # Written at each improvement, so a killed run leaves its last best
+        # state on disk.
+        t0 = time.perf_counter()
+        save_checkpoint(record_dir, model.state_dict(), model_spec, opt.state_dict(), step)
+        checkpoint_walls.append(time.perf_counter() - t0)
 
-    stopper = EarlyStopping(cfg.train.patience, save_fn=keep_best, verbose=verbose)
+    stopper = EarlyStopping(cfg.train.patience, save_fn=save_best if save else None, verbose=verbose)
     np_rng = rnd.np_rng(cfg.train.seed, "shuffle")
     history: dict[str, list] = {
         k: []
@@ -117,11 +204,17 @@ def train_attack(
     n_clips = 0
     epochs_ran = 0
     t_start = time.perf_counter()
-    try:
+    with contextlib.ExitStack() as profiler:
+        if profile_dir:
+            profiler.enter_context(trace(profile_dir, device))
         for epoch in range(1, cfg.train.num_epochs + 1):
-            tr = run_train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
-            ev_clean = run_eval_epoch(model, d_clean, cfg.train.batch_size)
-            ev_bd = run_eval_epoch(model, d_bd, cfg.train.batch_size)
+            with annotate(f"epoch_{epoch}"):
+                tr = run_train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
+                ev_clean = run_eval_epoch(model, d_clean, cfg.train.batch_size)
+                ev_bd = run_eval_epoch(model, d_bd, cfg.train.batch_size)
+            if epoch >= 2:
+                profiler.close()  # two epochs of trace, as the reference
+            step += steps_per_epoch
             n_clips += len(d_train)
             epochs_ran = epoch
 
@@ -143,16 +236,32 @@ def train_attack(
                 if verbose:
                     print("Early stopping")
                 break
-    finally:
-        # Write the best state even when training is unwinding from an error.
-        if save and best:
-            save_checkpoint(record_dir, best, model_spec)
     wall = time.perf_counter() - t_start
 
     if save:
         os.makedirs(record_dir, exist_ok=True)
         save_attack_csvs(record_dir, history)
+        _plot_curves(record_dir, history)
     return TrainResult(
-        history=history, model=model, epochs_ran=epochs_ran,
-        clips_per_sec=n_clips / max(wall, 1e-9),
+        history=history, model=model, optimizer=opt, step=step, epochs_ran=epochs_ran,
+        clips_per_sec=n_clips / max(wall, 1e-9), checkpoint_walls=checkpoint_walls,
     )
+
+
+def _plot_curves(record_dir: str, history: dict[str, list]) -> None:
+    """loss.png and "acc-like metrics.png" (reference trainer.py:375-391):
+    optional artefacts of a finished run. Where matplotlib is missing or
+    fails, the run says so and ends as it would have."""
+    from audiobd_tpu_torch.utils.visual import plot_loss, plot_metrics
+
+    try:
+        plot_loss(
+            history["train_loss"], history["test_clean_loss"], history["test_bd_loss"],
+            os.path.join(record_dir, "loss.png"),
+        )
+        plot_metrics(
+            history["train_mix_acc"], history["train_asr"], history["test_clean_acc"], history["test_asr"],
+            os.path.join(record_dir, "acc-like metrics.png"),
+        )
+    except Exception as e:  # as the reference: no plot failure ends a trained run
+        print(f"plotting skipped: {e}")

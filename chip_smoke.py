@@ -73,6 +73,20 @@ no result, without them. Phases, each printing its own lines:
      variant gains; SmallCNN at its 896-feature flatten, kernel B at (256,
      1, 32, 40)); the selected trigger, stage walls (prep, select, poison,
      train), train clips/s, launches of A and B.
+  10. serving on phase 2's record: python -m audiobd_tpu_torch infer --wav
+     <tree> --json over a tree it writes (10 classes x 400 one-second 16 kHz
+     clips, 20 one-second and 5 half-second 44.1 kHz clips, all PCM16;
+     resampled on the card, kernel A's FFT route, the eval model at batch
+     256): the walls of read, resample, MFCC and forward, clips/s, A's
+     launches; top-1 against the same model on A's plain version for the
+     same clips; then --eval_clean against the clean accuracy phase 2's CSV
+     logged at its best epoch (within 0.05 points).
+  11. last, the restart: phase 2's badnets run with --resume --num_epochs 1
+     --profile_dir <tmp> on its record: "resumed from step N" with N = 63 x
+     phase 2's best epoch, B's launches, a trace naming epoch_1 and B's
+     kernel, Adam's state in torch_checkpoint/train_state.pt, and the
+     checkpoint write's ms beside the epoch's wall (every CLI run prints its
+     writes).
   Kernel launch counts are zeroed just before each CLI run and read just
   after it.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
@@ -1072,6 +1086,7 @@ def phase_effects(torch) -> list[dict]:
     ]
 
 
+MAIN_PER_CLASS = 2000  # the main path's synthetic clips a class
 TRAIN_CLIPS = 16_000  # 80% of 20,000 synthetic clips
 # Phases 3b and 5b, cut in depth to 5,000 clips to keep the script's wall
 # near its earlier length; each still launches every kernel it drives.
@@ -1080,7 +1095,7 @@ BATCH = 256
 
 
 def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "float32", workdir: str | None = None,
-            per_class: int = 2000) -> tuple[dict[str, int], float, int]:
+            per_class: int | None = None) -> tuple[dict[str, int], float, int]:
     """One CLI run of 2 epochs on ``10 * per_class`` synthetic clips (20,000
     unless cut) with ``flags``; checks its losses, CSV and checkpoint. A
     bf16 ``compute_dtype`` is given as a user gives it, by --config and a
@@ -1095,6 +1110,7 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
     from audiobd_tpu_torch.models import build_model
     from audiobd_tpu_torch.train.checkpoint import load_checkpoint
 
+    per_class = per_class or MAIN_PER_CLASS
     cwd = os.getcwd()
     with contextlib.nullcontext(workdir) if workdir else tempfile.TemporaryDirectory() as tmp:
         if compute_dtype != "float32":
@@ -1117,6 +1133,8 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
             launches = {k.name: k.launches for k in kernels}
             h = result.history
             print(f"  wall {wall:.1f} s; train clips/s {result.clips_per_sec:.1f}", flush=True)
+            print(f"  checkpoint writes: {', '.join(f'{w * 1e3:.2f}' for w in result.checkpoint_walls)} ms beside "
+                  f"an epoch wall of {8 * per_class / result.clips_per_sec * 1e3:.1f} ms", flush=True)
             for e in range(result.epochs_ran):
                 print(f"  epoch {e + 1}: train loss {h['train_loss'][e]:.5f} clean loss "
                       f"{h['test_clean_loss'][e]:.5f} bd loss {h['test_bd_loss'][e]:.5f} "
@@ -1425,30 +1443,40 @@ def phase_flowmur(torch, kernels, route: str) -> dict[str, int]:
 ULTRA_PER_CLASS, ULTRA_EXTRA = 2000, 5  # 1-s 16 kHz clips a class; clips shorter than 1 s, and at 44.1 kHz, a class
 
 
-def write_wav_tree(root: str, labels: list[str]) -> None:
-    """The tree Ultrasonic's ingest reads, at ``root/<label>/*.wav``, PCM16:
-    per class ``ULTRA_PER_CLASS`` one-second 16 kHz clips (a tone burst of
-    the class's pitch and noise, as the synthetic set's), ``ULTRA_EXTRA``
-    16 kHz clips shorter than 1 s (8,000 to 15,999 samples, which the 1-s
-    filter drops) and ``ULTRA_EXTRA`` one-second 44.1 kHz clips (no resampling)."""
+def write_wav_tree(root: str, labels: list[str], per_class: int = ULTRA_PER_CLASS, at_44k: int = ULTRA_EXTRA,
+                   short_16k: int = ULTRA_EXTRA, short_44k: int = 0) -> None:
+    """A tree of PCM16 clips at ``root/<label>/*.wav``, per class:
+    ``per_class`` one-second 16 kHz clips (a tone burst of the class's
+    pitch and noise, as the synthetic set's), ``at_44k`` one-second 44.1 kHz
+    clips of the same kind, ``short_16k`` 16 kHz noise clips shorter than 1
+    s (8,000 to 15,999 samples) and ``short_44k`` half-second 44.1 kHz tone
+    bursts. Ultrasonic's ingest (phase 6) keeps the first two kinds (its
+    1-s filter drops the short clips; 44.1 kHz needs no resampling there);
+    the serving phase (10) classifies every clip."""
     import numpy as np
 
     from audiobd_tpu_torch.data.wavio import write_wav
 
     rng = np.random.default_rng(8)
+
+    def bursts(rate: int, n: int, count: int, cls: int) -> np.ndarray:
+        t = np.arange(n, dtype=np.float32) / rate
+        f0 = (200.0 + 160.0 * cls) * (1.0 + 0.03 * rng.standard_normal((count, 1)))
+        env = np.exp(-((t - rng.uniform(0.3, 0.7, (count, 1)) * n / rate) ** 2) / 0.05)
+        wav = 0.4 * env * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 2 * np.pi, (count, 1)))
+        wav += 0.3 * env * np.sin(4 * np.pi * f0 * t) + 0.02 * rng.standard_normal((count, n))
+        return wav.astype(np.float32)
+
     for cls, label in enumerate(labels):
         d = os.path.join(root, label)
         os.makedirs(d)
-        for rate, n, count in ((16000, 16000, ULTRA_PER_CLASS), (44100, 44100, ULTRA_EXTRA)):
-            t = np.arange(n, dtype=np.float32) / rate
-            f0 = (200.0 + 160.0 * cls) * (1.0 + 0.03 * rng.standard_normal((count, 1)))
-            env = np.exp(-((t - rng.uniform(0.3, 0.7, (count, 1))) ** 2) / 0.05)
-            wav = 0.4 * env * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 2 * np.pi, (count, 1)))
-            wav += 0.3 * env * np.sin(4 * np.pi * f0 * t) + 0.02 * rng.standard_normal((count, n))
-            for i, clip in enumerate(wav.astype(np.float32)):
+        for rate, count in ((16000, per_class), (44100, at_44k)):
+            for i, clip in enumerate(bursts(rate, rate, count, cls)):
                 write_wav(os.path.join(d, f"{rate}_{i:05d}.wav"), clip, rate)
-        for i, n in enumerate(np.linspace(8000, 15999, ULTRA_EXTRA).astype(int)):
+        for i, n in enumerate(np.linspace(8000, 15999, short_16k).astype(int)):
             write_wav(os.path.join(d, f"short_{i}.wav"), (0.1 * rng.standard_normal(n)).astype(np.float32), 16000)
+        for i, clip in enumerate(bursts(44100, 22050, short_44k, cls)):
+            write_wav(os.path.join(d, f"short44k_{i}.wav"), clip, 44100)
 
 
 def phase_ultrasonic(torch, kernels) -> dict[str, int]:
@@ -1772,6 +1800,168 @@ def phase_daba(torch, kernels, route: str) -> dict[str, int]:
     return launches
 
 
+SERVE_PER_CLASS, SERVE_AT_44K, SERVE_SHORT_44K = 400, 20, 5  # phase 10's tree, a class
+
+
+def _best_epoch(record: str) -> tuple[int, list[list[str]]]:
+    """(the 1-based epoch whose 0.5·(clean + bd loss) is least, as the early
+    stopper picks it, first on ties; the rows of acc_result.csv)."""
+    losses = _csv_rows(os.path.join(record, "loss_result.csv"))[1:]
+    monitored = [0.5 * (float(r[1]) + float(r[2])) for r in losses]
+    return monitored.index(min(monitored)) + 1, _csv_rows(os.path.join(record, "acc_result.csv"))
+
+
+def phase_serving(torch, kernels, workdir: str) -> dict[str, int]:
+    """Phase 10: ``python -m audiobd_tpu_torch infer`` on phase 2's record
+    (SmallCNN, f32) over a wav tree it writes: 10 classes x (400 one-second
+    16 kHz clips, 20 one-second 44.1 kHz clips, 5 half-second 44.1 kHz
+    clips), resampled on the card, kernel A (FFT route, n_fft 400) in chunks
+    of 2,048, the eval model at batch 256. Its walls by stage, clips/s and
+    A's launches; top-1 against the same model on A's plain version
+    (``dsp.mfcc`` on the card) for the same clips; then ``--eval_clean``
+    against the clean accuracy phase 2's CSV logged at its best epoch."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from audiobd_tpu_torch.__main__ import main as cli
+    from audiobd_tpu_torch.cli import infer
+    from audiobd_tpu_torch.configs import DATASET_LABELS
+    from audiobd_tpu_torch.data.speech_commands import mfcc_params
+    from audiobd_tpu_torch.dsp.mfcc import mfcc
+
+    n_clips = 10 * (SERVE_PER_CLASS + SERVE_AT_44K + SERVE_SHORT_44K)
+    print(f"phase 10: serving, python -m audiobd_tpu_torch infer --result chip_smoke --wav <tree> --json "
+          f"({n_clips:,} clips: {SERVE_PER_CLASS} one-second 16 kHz, {SERVE_AT_44K} one-second and "
+          f"{SERVE_SHORT_44K} half-second 44.1 kHz a class), then --eval_clean", flush=True)
+    cwd = os.getcwd()
+    tree = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    os.chdir(workdir)
+    try:
+        write_wav_tree(tree, DATASET_LABELS["SCDv1-10"], per_class=SERVE_PER_CLASS, at_44k=SERVE_AT_44K,
+                       short_16k=0, short_44k=SERVE_SHORT_44K)
+        for k in kernels:
+            k.launches = 0
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            probs = cli(["infer", "--result", "chip_smoke", "--wav", tree, "--json"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        walls = json.loads(err.getvalue().split("infer walls (s): ", 1)[1].splitlines()[0])
+        rows = [json.loads(line) for line in out.getvalue().splitlines()]
+        stages = sum(walls[s] for s in ("read", "resample", "mfcc", "forward"))
+        print(f"  wall {wall:.3f} s ({n_clips / wall:.1f} clips/s; model load included); stages: read "
+              f"{walls['read']:.4f} s, resample {walls['resample']:.4f} s, MFCC {walls['mfcc']:.4f} s, forward "
+              f"{walls['forward']:.4f} s; {n_clips / stages:.1f} clips/s over the four stages", flush=True)
+        print(f"  launches: {launches}", flush=True)
+        want_a = -(-n_clips // 2048)
+        check(launches.get("mfcc_fft") == want_a and set(launches) == {"mfcc_fft"},
+              f"infer launched kernel A's FFT route {launches.get('mfcc_fft')} times ({want_a} chunks of 2,048) "
+              "and no other kernel")
+        check(len(rows) == n_clips and probs.shape == (n_clips, 10) and bool(np.isfinite(probs).all())
+              and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-5
+              and all(r["label"] == r["top"][0]["label"] for r in rows),
+              f"{len(rows)} JSON lines; probabilities ({n_clips}, 10), finite, each row summing to 1")
+
+        cfg, model = infer.load_model("chip_smoke")
+        device = next(model.parameters()).device
+        wavs, _ = infer.load_waveforms(cfg, infer.expand_wavs([tree]), device)
+        params = mfcc_params(cfg)
+        with torch.no_grad():
+            feats = torch.cat([mfcc(wavs[s : s + 2048], params)[:, None] for s in range(0, n_clips, 2048)])
+        ref = infer.classify(model, feats, cfg.train.batch_size)
+        top2 = np.sort(ref, axis=-1)[:, -2:]
+        agree = int((probs.argmax(-1) == ref.argmax(-1)).sum())
+        check(agree == n_clips,
+              f"served top-1 equals the model on A's plain version for {agree} of {n_clips} clips (largest "
+              f"probability difference {float(np.abs(probs - ref).max()):.3e}; smallest top-2 margin "
+              f"{float((top2[:, 1] - top2[:, 0]).min()):.3e})")
+        print(f"  served classes: {np.bincount(probs.argmax(-1), minlength=10).tolist()}", flush=True)
+
+        for k in kernels:
+            k.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ev = cli(["infer", "--result", "chip_smoke", "--eval_clean", "--json"])
+        torch.cuda.synchronize()
+        print(f"  --eval_clean: {out.getvalue().strip()} in {time.perf_counter() - t0:.3f} s", flush=True)
+        best, acc_rows = _best_epoch(os.path.join("record", "chip_smoke"))
+        logged = float(acc_rows[best][2])
+        check(abs(ev["acc"] - logged) <= 0.05 and math.isfinite(ev["loss"]),
+              f"--eval_clean accuracy {ev['acc']:.4f} within 0.05 points of phase 2's clean accuracy "
+              f"{logged:.4f} at its best epoch ({best})")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tree, ignore_errors=True)
+    return launches
+
+
+def phase_restart(torch, kernels, workdir: str) -> dict[str, int]:
+    """Phase 11, last: phase 2's badnets run again on its record with
+    --resume --num_epochs 1 --profile_dir <tmp>: it must resume at 63 x the
+    best epoch's steps, take one epoch through kernel B, write a trace that
+    names epoch_1 and B, and leave the optimizer's state in
+    torch_checkpoint/train_state.pt. Prints the checkpoint write's ms beside
+    the epoch's wall."""
+    import contextlib
+    import io
+
+    from audiobd_tpu_torch.cli import badnets as cli
+    from audiobd_tpu_torch.train.checkpoint import load_train_state
+
+    record = os.path.join(workdir, "record", "chip_smoke")
+    steps = -(-TRAIN_CLIPS // BATCH)
+    best, _ = _best_epoch(record)
+    n = steps * best
+    prof = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    flags = ["--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--num_epochs", "1", "--patience", "20",
+             "--result", "chip_smoke", "--resume", "--profile_dir", prof]
+    print(f"phase 11: restart, python -m audiobd_tpu_torch badnets {' '.join(flags)} (phase 2's record, best "
+          f"epoch {best})", flush=True)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        for k in kernels:
+            k.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = cli.main(flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        text = out.getvalue()
+        for line in text.splitlines():
+            if line.startswith(("resumed", "Epoch", "done", "plotting")):
+                print(f"  {line}", flush=True)
+        print(f"  wall {wall:.1f} s; launches: {launches}", flush=True)
+        check(f"resumed from step {n}\n" in text, f"the run printed 'resumed from step {n}' ({steps} x epoch {best})")
+        saved = load_train_state(record)
+        opt = saved["optimizer"]
+        n_params = len(list(result.model.parameters()))
+        check(result.step == saved["step"] == opt["count"] == n + steps and len(opt["mu"]) == len(opt["nu"]) == n_params
+              and all(bool(torch.isfinite(t).all()) for t in opt["mu"] + opt["nu"]),
+              f"torch_checkpoint/train_state.pt holds Adam's mu and nu ({n_params} tensors each, finite) and count "
+              f"at step {saved['step']} (expected {n + steps})")
+        check(launches.get("conv1_bn_pool_bwd_params") == steps,
+              f"kernel B launched {launches.get('conv1_bn_pool_bwd_params')} times in the resumed epoch")
+        traces = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".json")]
+        body = open(traces[0]).read() if len(traces) == 1 else ""
+        check('"epoch_1"' in body and "bwd_params_partial" in body,
+              f"one trace in --profile_dir ({len(body) / 1e6:.1f} MB) names epoch_1 and kernel B's bwd_params_partial")
+        epoch_ms = TRAIN_CLIPS / result.clips_per_sec * 1e3
+        print(f"  checkpoint write: {', '.join(f'{w * 1e3:.2f}' for w in result.checkpoint_walls)} ms beside the "
+              f"profiled epoch's {epoch_ms:.1f} ms", flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(prof, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1813,7 +2003,7 @@ def main() -> int:
     flowmur_route, daba_route = ctx["flowmur_route"], ctx["daba_route"]
     del ctx
     torch.cuda.empty_cache()
-    record_dir = tempfile.mkdtemp(prefix="chip_smoke_record_")  # phase 2's record, read again by phase 7
+    record_dir = tempfile.mkdtemp(prefix="chip_smoke_record_")  # phase 2's record, read again by phases 7, 10, 11
     try:
         rows = run_paths(torch, KERNELS, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
                          record_dir)
@@ -1833,8 +2023,9 @@ def main() -> int:
 
 def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
               record_dir) -> list[dict]:
-    """Phases 2-9; each kernel row gets its launches from the path that runs
-    it. Returns the rows of the ``kernels`` line."""
+    """Phases 2-11; each kernel row gets its launches from the path that runs
+    it (A's FFT route and B's train mode from phase 2; phases 10 and 11 print
+    their own). Returns the rows of the ``kernels`` line."""
     launches, main_clips = phase_main_path(torch, kernels, record_dir)
     for row in main_rows:
         row["launches"] = launches[row["name"]]
@@ -1858,11 +2049,13 @@ def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows
     for row in main_rows:
         if row["name"] == "conv1_bn_pool_bwd_params_eval":
             row["launches"] = defenses[row["name"]]
+    phase_serving(torch, kernels, record_dir)
     jingleback = phase_jingleback(torch, kernels)
     for row in effects_rows:
         row["launches"] = jingleback[row["name"]]
     phase_boards(torch)
     phase_daba(torch, kernels, daba_route)
+    phase_restart(torch, kernels, record_dir)
     return main_rows + block23_rows + bf16_rows + effects_rows
 
 

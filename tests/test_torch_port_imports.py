@@ -51,6 +51,7 @@ def test_importing_every_module_loads_no_jax():
         f"{sorted(FORBIDDEN)!r})\n"
         "assert not bad, bad\n"
         "assert 'yaml' not in sys.modules, 'yaml is imported only for --config'\n"
+        "assert 'matplotlib' not in sys.modules, 'matplotlib is imported only to draw a plot'\n"
         "print('ok', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
