@@ -6,12 +6,17 @@ defenses  fp, ft_reg, tsbd, correlation_analysis (they read an attack's
           ``record/<result>/torch_checkpoint/``)
 data      get_dataset
 serving   infer (classify wav clips with an attack's checkpoint)
+
+N ranks, data-parallel training (one process a rank):
+    python -m torch.distributed.run --standalone --nproc_per_node N -m audiobd_tpu_torch <command> [flags]
 """
 
 from __future__ import annotations
 
 import importlib
 import sys
+
+from audiobd_tpu_torch.parallel.distributed import destroy, maybe_initialize_distributed
 
 COMMANDS = {
     "badnets": "audiobd_tpu_torch.cli.badnets",
@@ -34,7 +39,14 @@ def main(argv: list[str] | None = None):
         print(__doc__)
         print("available commands:", ", ".join(COMMANDS))
         raise SystemExit(0 if argv and argv[0] in ("-h", "--help") else 1)
-    return importlib.import_module(COMMANDS[argv[0]]).main(argv[1:])
+    # A no-op without a multi-rank launcher; under torchrun, join the group
+    # before the command touches a device (parallel/distributed.py).
+    joined = maybe_initialize_distributed()
+    try:
+        return importlib.import_module(COMMANDS[argv[0]]).main(argv[1:])
+    finally:
+        if joined:
+            destroy()
 
 
 if __name__ == "__main__":

@@ -83,6 +83,15 @@ COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 @dataclass
+class MeshConfig:
+    """The (data, model) grid of ranks (reference audiobd_tpu/configs.py:131-136;
+    parallel/mesh.py::make_mesh)."""
+
+    data: int = -1   # -1 = every rank not on the model axis
+    model: int = 1   # ranks a data shard is replicated over
+
+
+@dataclass
 class AttackConfig:
     name: str = "badnets"
     model: str = "smallcnn"
@@ -128,6 +137,7 @@ class AttackConfig:
 
     dsp: DSPConfig = field(default_factory=DSPConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
     @property
     def labels(self) -> list[str]:
@@ -203,7 +213,9 @@ def make_config(attack: str, **overrides: Any) -> AttackConfig:
     for key, value in overrides.items():
         if value is None:
             continue
-        for target in (cfg, cfg.dsp, cfg.train):
+        # The reference's order: a key of AttackConfig wins, so "model" names
+        # the architecture and MeshConfig.model is set only from code.
+        for target in (cfg, cfg.dsp, cfg.train, cfg.mesh):
             if hasattr(target, key):
                 setattr(target, key, value)
                 break
@@ -225,7 +237,7 @@ def config_from_yaml(path: str, attack: str | None = None, **cli_overrides: Any)
     if attack is None:
         raise ValueError(f"YAML {path} must name an 'attack'")
     nested = {}
-    for section in ("dsp", "train"):
+    for section in ("dsp", "train", "mesh"):
         nested.update(raw.pop(section, None) or {})
     raw.update(nested)
     raw.update({k: v for k, v in cli_overrides.items() if v is not None})
@@ -270,7 +282,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 
 def _is_config_key(key: str) -> bool:
     probe = AttackConfig()
-    return hasattr(probe, key) or hasattr(probe.dsp, key) or hasattr(probe.train, key)
+    return any(hasattr(target, key) for target in (probe, probe.dsp, probe.train, probe.mesh))
 
 
 def config_from_args(attack: str, args: argparse.Namespace, **extra: Any) -> AttackConfig:

@@ -29,6 +29,7 @@ from audiobd_tpu_torch.data.wavio import read_wav
 from audiobd_tpu_torch.dsp import MFCCParams
 from audiobd_tpu_torch.dsp.resample import resample, resampled_length
 from audiobd_tpu_torch.ops.mfcc import fused_mfcc_features
+from audiobd_tpu_torch.parallel.distributed import agreed, main_rank_only
 from audiobd_tpu_torch.utils.device import resolve_device
 
 DECODE_CHUNK = 2048  # files a native batch decode takes at once
@@ -105,6 +106,7 @@ def clean_dir(cfg: AttackConfig) -> str:
     return os.path.join(cfg.record_dir, cfg.dataset, "clean")
 
 
+@main_rank_only
 def save_clean_data(cfg: AttackConfig, data: CleanData) -> None:
     path = clean_dir(cfg)
     os.makedirs(path, exist_ok=True)
@@ -121,7 +123,8 @@ def load_clean_data(cfg: AttackConfig, load: bool | None = None) -> CleanData:
     from the wav tree (``load`` False, or no cache)."""
     load = cfg.load_clean_data if load is None else load
     path = clean_dir(cfg)
-    if load and os.path.exists(os.path.join(path, "clean_train_mfcc.npy")):
+    # Every rank decides before rank 0 writes the cache.
+    if load and agreed(os.path.exists(os.path.join(path, "clean_train_mfcc.npy")), path):
         return CleanData(*[np.load(os.path.join(path, n + ".npy")) for n in _CLEAN_FILES])
     return prepare_clean_dataset(cfg)
 

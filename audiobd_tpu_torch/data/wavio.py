@@ -7,9 +7,12 @@ trigger, test trees).
 
 from __future__ import annotations
 
+import os
 import wave
 
 import numpy as np
+
+from audiobd_tpu_torch.parallel.distributed import main_rank_only
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -32,8 +35,11 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
     return data.reshape(-1, n_ch).T.copy(), sr
 
 
+@main_rank_only
 def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
-    """Write a float waveform (T,) or (channels, T) as PCM16."""
+    """Write a float waveform (T,) or (channels, T) as PCM16, making its
+    directory."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     wav = np.asarray(wav)
     if wav.ndim == 1:
         wav = wav[None, :]

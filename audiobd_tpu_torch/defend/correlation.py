@@ -33,6 +33,7 @@ from audiobd_tpu_torch.train.scan_epoch import DeviceDataset
 from audiobd_tpu_torch.train.state import Adam
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.logging import write_csv
+from audiobd_tpu_torch.utils.visual import save_or_show
 
 
 def unlearn_copy(model, state_o: State, data: DeviceDataset, record_layer: str, lr: float, epochs: int, bs: int,
@@ -67,7 +68,6 @@ def analyze(
     verbose: bool = True,
 ) -> CorrelationResult:
     save_dir = os.path.join(cfg.record_dir, "defense", "correlation")
-    os.makedirs(save_dir, exist_ok=True)
     data = data or load_defense_data(cfg)
     model, state_o, _spec = load_bd_model(cfg)
     device = next(model.parameters()).device
@@ -107,8 +107,7 @@ def analyze(
         plt.xlabel("NWC (clean unlearning)")
         plt.ylabel("NWC (backdoor unlearning)")
         plt.title(f"Pearson r = {r:.3f}")
-        plt.savefig(os.path.join(save_dir, "nwc_scatter.png"), dpi=120, bbox_inches="tight")
-        plt.close()
+        save_or_show(plt, os.path.join(save_dir, "nwc_scatter.png"))
     except ImportError as e:
         print(f"plot skipped: {e}")
     if verbose:

@@ -38,7 +38,7 @@ from audiobd_tpu_torch.defend.common import (
 from audiobd_tpu_torch.models.zoo import final_layer_inputs
 from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_eval_epoch
 from audiobd_tpu_torch.train.state import Adam
-from audiobd_tpu_torch.utils.logging import append_csv_row, prepend_csv_header
+from audiobd_tpu_torch.utils.logging import append_csv_row, prepend_csv_header, remove_file
 
 
 def final_layer_name(model) -> str:
@@ -106,7 +106,6 @@ def mitigation(
     verbose: bool = True,
 ) -> FPResult:
     save_dir = os.path.join(cfg.record_dir, "defense", "fp")
-    os.makedirs(save_dir, exist_ok=True)
     model, state, _spec = load_bd_model(cfg)
     data = on_device(data or load_defense_data(cfg, val_ratio), next(model.parameters()).device)
     bs = cfg.train.batch_size
@@ -121,8 +120,7 @@ def mitigation(
 
     full_tester = make_full_tester(model, bs)
     csv_path = os.path.join(save_dir, "pruning_data.csv")
-    if os.path.exists(csv_path):
-        os.remove(csv_path)
+    remove_file(csv_path)
 
     step_size = math.ceil(n_channels * once_prune_ratio)
     # The reference's break rule (fp.py:164-195): rows are logged up to and

@@ -46,7 +46,7 @@ from audiobd_tpu_torch.defend.common import (
 from audiobd_tpu_torch.train.scan_epoch import DeviceDataset
 from audiobd_tpu_torch.train.state import SGD
 from audiobd_tpu_torch.utils import random as rnd
-from audiobd_tpu_torch.utils.logging import append_csv_row, prepend_csv_header
+from audiobd_tpu_torch.utils.logging import append_csv_row, prepend_csv_header, remove_file
 
 PRUNE_RATIOS = [0.01, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.4, 0.5, 0.7, 0.9]
 
@@ -128,7 +128,6 @@ def mitigation(
     verbose: bool = True,
 ) -> FTRegResult:
     save_dir = os.path.join(cfg.record_dir, "defense", "ft_reg")
-    os.makedirs(save_dir, exist_ok=True)
     model, state_o, _spec = load_bd_model(cfg)
     data = on_device(data or load_defense_data(cfg, val_ratio), next(model.parameters()).device)
     bs = cfg.train.batch_size
@@ -160,8 +159,7 @@ def mitigation(
     # 3. prune at ratios
     order = np.argsort(scores)[::-1]
     csv_path = os.path.join(save_dir, "pruning_data.csv")
-    if os.path.exists(csv_path):
-        os.remove(csv_path)
+    remove_file(csv_path)
     per_ratio = []
     for ratio in prune_ratios or PRUNE_RATIOS:
         top = [neurons[i] for i in order[: int(ratio * len(neurons))]]

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from audiobd_tpu_torch.configs import AttackConfig
+from audiobd_tpu_torch.parallel.distributed import main_rank_only
 from audiobd_tpu_torch.defend.common import (
     DefenseData,
     State,
@@ -59,7 +60,7 @@ from audiobd_tpu_torch.defend.common import (
 from audiobd_tpu_torch.train.scan_epoch import DeviceDataset
 from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
-from audiobd_tpu_torch.utils.logging import append_csv_row, prepend_csv_header, write_csv
+from audiobd_tpu_torch.utils.logging import append_csv_row, prepend_csv_header, remove_file, write_csv
 
 REINIT_RATIOS = [0.01, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.4, 0.5, 0.7, 0.9]
 
@@ -152,6 +153,20 @@ class TSBDResult:
     unlearn_epochs: int = 0
 
 
+@main_rank_only
+def _write_stage_c(checkpoint_dir: str, nwc: list, n2w: dict, params: State) -> None:
+    """Stage C's files: the ranked NWC scores, the neuron-to-weight map and
+    the unlearned model."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    with open(os.path.join(checkpoint_dir, "ucn.txt"), "w") as f:
+        f.write("No \t Layer_Name \t Neuron_Idx \t Score \n")
+        for count, (layer, idx, value) in enumerate(nwc):
+            f.write(f"{count} \t {layer} \t {idx} \t {value:.4f} \n")
+    with open(os.path.join(checkpoint_dir, "n2w_dict.json"), "w") as f:
+        json.dump(n2w, f)
+    torch.save({k: v.cpu() for k, v in params.items()}, os.path.join(checkpoint_dir, "unlearned_model.pt"))
+
+
 def mitigation(
     cfg: AttackConfig,
     only_finetune: bool = True,
@@ -176,7 +191,6 @@ def mitigation(
             print(f"[tsbd +{time.perf_counter() - t0:.1f}s] {msg}", flush=True)
 
     save_dir = os.path.join(cfg.record_dir, "defense", "tsbd")
-    os.makedirs(save_dir, exist_ok=True)
     model, state_o, _spec = load_bd_model(cfg)
     data = on_device(data or load_defense_data(cfg, val_ratio), next(model.parameters()).device)
     stage("data + model loaded")
@@ -187,8 +201,7 @@ def mitigation(
     # ---------------- stage A: plain fine-tune (default branch)
     if only_finetune:
         ft_csv = os.path.join(save_dir, "finetuning_data.csv")
-        if os.path.exists(ft_csv):
-            os.remove(ft_csv)
+        remove_file(ft_csv)
         ft_state, _ = finetune_epochs(
             model, state_o, data.clean_val, functools.partial(SGD, lr=lr_ft, momentum=0.9), epochs=1,
             batch_size=bs, seed=cfg.train.seed,
@@ -203,7 +216,6 @@ def mitigation(
     # ---------------- stage B: unlearning
     record_layer = record_layer or default_record_layer(state_o)
     checkpoint_dir = os.path.join(save_dir, "checkpoint")
-    os.makedirs(checkpoint_dir, exist_ok=True)
     loader = {"clean_val": data.clean_val, "clean_test": data.clean_test, "poison_test": data.bd_test}[data_type]
     n_neurons = state_o[record_layer].shape[0]
     model.load_state_dict(state_o)
@@ -220,13 +232,7 @@ def mitigation(
 
     # ---------------- stage C: NWC
     nwc, n2w = neuron_weight_changes(params, state_o, "conv")
-    with open(os.path.join(checkpoint_dir, "ucn.txt"), "w") as f:
-        f.write("No \t Layer_Name \t Neuron_Idx \t Score \n")
-        for count, (layer, idx, value) in enumerate(nwc):
-            f.write(f"{count} \t {layer} \t {idx} \t {value:.4f} \n")
-    with open(os.path.join(checkpoint_dir, "n2w_dict.json"), "w") as f:
-        json.dump(n2w, f)
-    torch.save({k: v.cpu() for k, v in params.items()}, os.path.join(checkpoint_dir, "unlearned_model.pt"))
+    _write_stage_c(checkpoint_dir, nwc, n2w, params)
     stage("stage C NWC done")
 
     # ---------------- stage D: reinit + fine-tune per ratio
@@ -234,8 +240,7 @@ def mitigation(
     prune_csv = os.path.join(save_dir, "pruning_data.csv")
     ft_csv = os.path.join(save_dir, "finetuning_data.csv")
     for path in (prune_csv, ft_csv):
-        if os.path.exists(path):
-            os.remove(path)
+        remove_file(path)
     per_ratio = []
     for ratio in reinit_ratios or REINIT_RATIOS:
         reinit_state = zero_reinit_weight(state_o, ranked[: int(len(ranked) * ratio)], n2w, reinit_weight_ratio)

@@ -19,6 +19,11 @@ sequence). Two things differ and are written out here:
     and drift from the reference at every step).
 Dropout takes a generator too, since ``F.dropout`` cannot.
 
+Sync-BN: a BatchNorm given a process ``group`` (its data axis) takes the
+means of its batch mean and E[x²] over the group's ranks in training, as
+flax's BatchNorm with ``axis_name`` pmeans them; the local batches are
+equal in size, so the mean of means is the global batch's mean.
+
 Compute dtype: the blocks and layers take ``dtype`` (torch.float32 or
 torch.bfloat16; the reference's flax ``dtype``). In bf16 the casts are
 flax's, made explicitly (autocast would compute BatchNorm's statistics in
@@ -36,11 +41,13 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from audiobd_tpu_torch.ops import conv1_bn_pool as fused
 from audiobd_tpu_torch.ops import conv2_bn_pool as fused2
+from audiobd_tpu_torch.parallel.distributed import all_reduce_sum
 
 BN_MOMENTUM = 0.9  # flax convention: the running average's decay
 BN_EPS = 1e-5
@@ -77,7 +84,8 @@ def init_tree_(model: nn.Module, generator: torch.Generator) -> None:
 
 
 class BatchNorm2d(nn.Module):
-    """BatchNorm over the channel axis of NCHW with flax's statistics."""
+    """BatchNorm over the channel axis of NCHW with flax's statistics;
+    ``group`` (a process group, None for local statistics) syncs them."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -85,6 +93,7 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -98,7 +107,11 @@ class BatchNorm2d(nn.Module):
         x32 = x.to(torch.float32)
         if self.training:
             mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+            if self.group is not None:
+                stats = all_reduce_sum(torch.cat([mean, mean2]), self.group) / dist.get_world_size(self.group)
+                mean, mean2 = stats.chunk(2)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

@@ -50,6 +50,14 @@ class _Model(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_tree_(self, generator)
 
+    def sync_batchnorm(self, group) -> None:
+        """Hand every BatchNorm of the model the data axis's process group
+        (the reference's ``bn_axis``, audiobd_tpu/train/scan_epoch.py:274-277);
+        None goes back to local statistics."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.group = group
+
 
 class ConvStack(_Model):
     """The three (conv2x2 → relu → BN → maxpool) blocks SmallCNN and
@@ -58,7 +66,10 @@ class ConvStack(_Model):
     ``fused_block1`` routes block 1 through ops/conv1_bn_pool and
     ``fused_block2`` / ``fused_block3`` route blocks 2 and 3 through
     ops/conv2_bn_pool in training mode: the same parameters and forward, a
-    CUDA-kernel backward. ``dropout_generator`` draws the dropout masks."""
+    CUDA-kernel backward. ``dropout_generator`` draws the dropout masks.
+    Under sync-BN every block takes the unfused chain, whatever the flags
+    (reference zoo.py:66-77): the kernels compute batch statistics from
+    their own rows only."""
 
     def __init__(self, fused_block1: bool = False, fused_block2: bool = False, fused_block3: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
@@ -74,13 +85,16 @@ class ConvStack(_Model):
         self.fused_block3 = fused_block3
 
     def block1(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_bn_pool_block1(self.conv1, self.bn1, x, self.fused_block1, self.compute_dtype)
+        return conv_bn_pool_block1(self.conv1, self.bn1, x, self.fused_block1 and self.bn1.group is None,
+                                   self.compute_dtype)
 
     def block2(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_bn_pool_block2(self.conv2, self.bn2, x, self.fused_block2, (1, 1), self.compute_dtype)
+        return conv_bn_pool_block2(self.conv2, self.bn2, x, self.fused_block2 and self.bn2.group is None, (1, 1),
+                                   self.compute_dtype)
 
     def block3(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_bn_pool_block2(self.conv3, self.bn3, x, self.fused_block3, (0, 1), self.compute_dtype)
+        return conv_bn_pool_block2(self.conv3, self.bn3, x, self.fused_block3 and self.bn3.group is None, (0, 1),
+                                   self.compute_dtype)
 
 
 class SmallCNN(ConvStack):

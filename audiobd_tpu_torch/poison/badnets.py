@@ -21,9 +21,11 @@ import torch
 
 from audiobd_tpu_torch.configs import AttackConfig
 from audiobd_tpu_torch.data.speech_commands import CleanData
+from audiobd_tpu_torch.parallel.distributed import main_rank_only
 from audiobd_tpu_torch.train.loop import ArraySet
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import resolve_device
+from audiobd_tpu_torch.utils.logging import save_npy
 
 
 def generate_trigger(
@@ -43,8 +45,7 @@ def generate_trigger(
     c1 = n_mfcc - distance_to_right
     trig[:, r0:r1, c0:c1] = value
     if save_path:
-        os.makedirs(os.path.dirname(save_path), exist_ok=True)
-        np.save(save_path, trig)
+        save_npy(save_path, trig)
     return trig
 
 
@@ -131,6 +132,7 @@ def bd_dir(cfg: AttackConfig) -> str:
     return os.path.join(cfg.record_dir, cfg.dataset, "bd")
 
 
+@main_rank_only
 def save_bd_arrays(cfg: AttackConfig, **arrays: np.ndarray) -> None:
     path = bd_dir(cfg)
     os.makedirs(path, exist_ok=True)

@@ -38,6 +38,7 @@ import torch.nn as nn
 from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.data.speech_commands import CleanData, batched_mfcc_device, mfcc_params
 from audiobd_tpu_torch.data.wavio import read_wav, write_wav
+from audiobd_tpu_torch.parallel.distributed import agreed, main_rank_only
 from audiobd_tpu_torch.models import build_model
 from audiobd_tpu_torch.ops.mfcc import fused_mfcc_features
 from audiobd_tpu_torch.poison.badnets import save_bd_arrays
@@ -114,7 +115,6 @@ def synthesize_trigger_pool(path: str | None, n_songs: int = 20, variants: int =
             names.append(f"music{song:02d}_{var}.wav")
     pool_arr = np.stack(pool)
     if path:
-        os.makedirs(path, exist_ok=True)
         for name, wav in zip(names, pool_arr):
             write_wav(os.path.join(path, name), wav, sr)
     return pool_arr
@@ -132,8 +132,10 @@ def resolve_trigger_pool_dir(cfg: AttackConfig) -> str:
 
 def load_trigger_pool(path: str, sr: int = 16000) -> np.ndarray:
     """The wavs of ``path`` in sorted order (as the reference globs), their
-    first second each; a pool synthesized into ``path`` if it holds none."""
-    if os.path.isdir(path) and any(n.endswith(".wav") for n in os.listdir(path)):
+    first second each; a pool synthesized into ``path`` if it holds none.
+    Every rank decides before rank 0 writes: all read the same files, or
+    all take the same synthesized pool."""
+    if agreed(os.path.isdir(path) and any(n.endswith(".wav") for n in os.listdir(path)), path):
         clips = []
         for name in sorted(os.listdir(path)):
             if name.endswith(".wav"):
@@ -334,6 +336,7 @@ def poison(cfg: AttackConfig, clean: CleanData, selection: DabaSelection | None 
     )
 
 
+@main_rank_only
 def _export_wav_tree(cfg: AttackConfig, clean: CleanData, bd_train_wav: np.ndarray, bd_test_wav: np.ndarray,
                      ind_train: np.ndarray, nontarget_test: np.ndarray) -> None:
     """The reference's poisoned-file trees under ``record/<result>/``:

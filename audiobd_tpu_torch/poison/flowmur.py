@@ -47,6 +47,7 @@ from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.data.speech_commands import CleanData, batched_mfcc_device, mfcc_params, split_indices
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.models import build_model
+from audiobd_tpu_torch.parallel.distributed import main_rank_only
 from audiobd_tpu_torch.poison.badnets import save_bd_arrays
 from audiobd_tpu_torch.poison.device_prep import scatter_rows
 from audiobd_tpu_torch.train.checkpoint import save_checkpoint
@@ -57,6 +58,7 @@ from audiobd_tpu_torch.train.state import Adam
 from audiobd_tpu_torch.train.trainer import resolve_fused_conv, train_attack
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import resolve_device
+from audiobd_tpu_torch.utils.logging import save_npy
 
 SURROGATE_LR = 1e-4  # reference utils/flowmur_generate_trigger.py:27
 SURROGATE_PATIENCE = 20
@@ -243,12 +245,12 @@ def optimize_trigger(
             if verbose and (epoch % 25 == 0 or epoch == 1):
                 print(f"flowmur trigger epoch {epoch}: summed loss {loss:.4f}")
             if save_snapshots and epoch % 100 == 0:
-                os.makedirs(snap_dir, exist_ok=True)
-                np.save(os.path.join(snap_dir, f"sp_trigger{epoch}{suffix}.npy"),
-                        trigger.detach().cpu().numpy()[None, :])
+                save_npy(os.path.join(snap_dir, f"sp_trigger{epoch}{suffix}.npy"),
+                         trigger.detach().cpu().numpy()[None, :])
     return trigger.detach().cpu().numpy()[None, :]
 
 
+@main_rank_only
 def _promote_snapshots(snap_dir: str, best_r: int) -> None:
     """Copy restart ``best_r``'s sp_trigger<epoch>_r<best_r>.npy snapshots to
     the canonical sp_trigger<epoch>.npy names; the per-restart files stay."""

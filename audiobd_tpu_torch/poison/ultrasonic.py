@@ -31,6 +31,7 @@ import torch
 from audiobd_tpu_torch.configs import AttackConfig
 from audiobd_tpu_torch.data.speech_commands import CleanData, batched_mfcc_device, mfcc_params
 from audiobd_tpu_torch.data.wavio import read_wav, write_wav
+from audiobd_tpu_torch.parallel.distributed import agreed
 from audiobd_tpu_torch.poison.badnets import save_bd_arrays
 from audiobd_tpu_torch.poison.device_prep import scatter_rows
 from audiobd_tpu_torch.train.loop import ArraySet
@@ -72,7 +73,6 @@ def synthesize_trigger_wave(path: str | None = None, seed: int = 7) -> np.ndarra
     wav *= 0.25 / np.abs(wav).max()
     wav = wav.astype(np.float32)[None, :]
     if path:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
         write_wav(path, wav, TRIGGER_SR)
     return wav
 
@@ -88,7 +88,9 @@ class UltrasonicTrigger:
             raise TriggerInfeasible(size, pos)
         if size <= 0 or size > DIVIDER:
             raise TriggerInfeasible(size, pos)
-        if os.path.exists(wave_path):
+        # Every rank decides before rank 0 writes: all read the file, or
+        # all synthesize the same full-precision wave.
+        if agreed(os.path.exists(wave_path), wave_path):
             data, sr = read_wav(wave_path)
             if sr != TRIGGER_SR:
                 raise ValueError(f"trigger wav {wave_path} is {sr} Hz; it must be {TRIGGER_SR} Hz")
@@ -141,7 +143,6 @@ class UltrasonicTrigger:
         from audiobd_tpu_torch.dsp.mfcc import MFCCParams, mfcc
         from audiobd_tpu_torch.utils.visual import plot_fft, plot_mfccs, plot_waveform
 
-        os.makedirs(self.debug_dir, exist_ok=True)
         plot_fft(out, TRIGGER_SR, os.path.join(self.debug_dir, "trigger_fft.png"))
         plot_waveform(out, TRIGGER_SR, os.path.join(self.debug_dir, "trigger_wave.png"))
         feats = mfcc(torch.from_numpy(out[0]), MFCCParams(sample_rate=TRIGGER_SR, n_mfcc=40, n_fft=1103,

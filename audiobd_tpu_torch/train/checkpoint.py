@@ -21,6 +21,8 @@ from typing import Any
 
 import torch
 
+from audiobd_tpu_torch.parallel.distributed import main_rank_only
+
 _SPEC_FILE = "model_spec.json"
 _MODEL_FILE = "model.pt"
 _TRAIN_STATE_FILE = "train_state.pt"
@@ -47,6 +49,7 @@ def _replace(path: str, write) -> None:
     os.replace(tmp, path)
 
 
+@main_rank_only
 def save_checkpoint(record_dir: str, state_dict: dict[str, torch.Tensor], model_spec: dict[str, Any],
                     opt_state: dict | None = None, step: int = 0) -> None:
     """The model (and, given ``opt_state``, the optimizer's state with the

@@ -10,11 +10,20 @@ loss improves, then the loss/acc CSVs and the curve PNGs. ``resume`` picks
 up the model, the optimizer's state and the step from that checkpoint;
 ``profile_dir`` traces epochs 1-2. ``train_clean`` is the reference's plain
 supervised loop with val-loss early stopping, on the same epoch engine.
+
+Under a group of more than one rank (``torchrun``; parallel/distributed.py)
+``train_attack`` trains data-parallel on the sharded engine (reference
+trainer.py:207-250), BatchNorm synced over the mesh's data axis; every rank
+runs the same epochs and stops at the same one, and rank 0 alone writes
+the checkpoint, CSVs, PNGs and trace and prints the epoch lines.
+``train_clean`` stays single-device work, each rank running it whole.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import json
 import os
 import time
 from dataclasses import dataclass, field
@@ -24,9 +33,19 @@ import torch
 
 from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.models import build_model
+from audiobd_tpu_torch.ops import KERNELS
+from audiobd_tpu_torch.parallel.distributed import agreed, is_main, rank, world_size
+from audiobd_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_replicated
 from audiobd_tpu_torch.train.checkpoint import checkpoint_dir, load_checkpoint, load_train_state, save_checkpoint
 from audiobd_tpu_torch.train.loop import ArraySet, EarlyStopping
-from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, pad_plan, run_eval_epoch, run_train_epoch
+from audiobd_tpu_torch.train.scan_epoch import (
+    DeviceDataset,
+    ShardedDeviceDataset,
+    run_eval_epoch,
+    run_eval_sharded,
+    run_train_epoch,
+    run_train_epoch_sharded,
+)
 from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import resolve_device
@@ -47,21 +66,22 @@ class TrainResult:
 
 
 def resolve_fused_conv(cfg: AttackConfig, device: torch.device) -> bool:
-    """'auto' → the kernel-backward first block on CUDA only."""
+    """'auto' → the kernel-backward first block on CUDA in a world of one
+    rank only (reference trainer.py:50-58)."""
     mode = cfg.train.fused_conv_block
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"fused_conv_block must be auto, on or off, got {mode!r}")
-    return mode == "on" or (mode == "auto" and device.type == "cuda")
+    return mode == "on" or (mode == "auto" and device.type == "cuda" and world_size() == 1)
 
 
 def resolve_fused_block2(cfg: AttackConfig, field: str = "fused_block2") -> bool:
     """'on' → the kernel-backward second (or third, ``field="fused_block3"``)
-    block; 'auto' and 'off' → off, as the reference (trainer.py:68-76)
-    keeps it until measurements say otherwise."""
+    block in a world of one rank; 'auto' and 'off' → off, as the reference
+    (trainer.py:68-76) keeps it until measurements say otherwise."""
     mode = getattr(cfg.train, field)
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"{field} must be auto, on or off, got {mode!r}")
-    return mode == "on"
+    return mode == "on" and world_size() == 1
 
 
 def resolve_compute_dtype(cfg: AttackConfig) -> torch.dtype:
@@ -153,11 +173,22 @@ def train_attack(
     profile_dir: str | None = None,
 ) -> TrainResult:
     device = resolve_device(cfg.device)
-    model = build_attack_model(cfg, device)
+    mesh = make_mesh(cfg.mesh.data, cfg.mesh.model)
+    sharded = mesh.size > 1
+    if sharded:
+        _check_shardable(mesh, cfg.train.batch_size, bd_train, clean_test, bd_test)
+    # Each data shard draws its own dropout masks (the reference folds the
+    # shard's index into the step key); shard 0 keeps the one-rank stream.
+    model = build_attack_model(cfg, device, **({"dropout_stream": f"dropout_{mesh.data_index}"}
+                                               if mesh.data_index else {}))
+    if sharded:
+        model.sync_batchnorm(mesh.data_group)
     opt = make_optimizer(cfg, model.parameters())
     record_dir = cfg.record_dir
+    main = is_main()
+    verbose = verbose and main
     step = 0  # train steps taken; the checkpoint saves it beside the optimizer's state
-    if resume and os.path.exists(checkpoint_dir(record_dir)):
+    if resume and agreed(os.path.exists(checkpoint_dir(record_dir)), checkpoint_dir(record_dir)):
         # Restart from the last best checkpoint: the model, the optimizer's
         # state and the step. The epoch loop, the early stopper and the
         # shuffle and dropout streams start afresh, as in the reference
@@ -168,10 +199,20 @@ def train_attack(
         step = train_state["step"]
         if verbose:
             print(f"resumed from step {step}")
-    d_train = DeviceDataset(bd_train, device)
-    d_clean = DeviceDataset(clean_test, device)
-    d_bd = DeviceDataset(bd_test, device)
-    steps_per_epoch = pad_plan(len(d_train), cfg.train.batch_size)[0]
+    if sharded:
+        # Every rank starts from rank 0's state (reference shard_replicated),
+        # the step and Adam's count included.
+        counts = torch.tensor([step, getattr(opt, "count", 0)])
+        shard_replicated([*model.state_dict().values(), *_optimizer_tensors(opt), counts])
+        step = int(counts[0])
+        if hasattr(opt, "count"):
+            opt.count = int(counts[1])
+        d_train, d_clean, d_bd = (ShardedDeviceDataset(s, mesh, device) for s in (bd_train, clean_test, bd_test))
+        train_epoch, eval_epoch = run_train_epoch_sharded, run_eval_sharded
+    else:
+        d_train, d_clean, d_bd = (DeviceDataset(s, device) for s in (bd_train, clean_test, bd_test))
+        train_epoch, eval_epoch = run_train_epoch, run_eval_epoch
+    steps_per_epoch = d_train.n_batches(cfg.train.batch_size)
 
     model_spec = {
         "attack": cfg.name,
@@ -205,13 +246,13 @@ def train_attack(
     epochs_ran = 0
     t_start = time.perf_counter()
     with contextlib.ExitStack() as profiler:
-        if profile_dir:
+        if profile_dir and main:
             profiler.enter_context(trace(profile_dir, device))
         for epoch in range(1, cfg.train.num_epochs + 1):
             with annotate(f"epoch_{epoch}"):
-                tr = run_train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
-                ev_clean = run_eval_epoch(model, d_clean, cfg.train.batch_size)
-                ev_bd = run_eval_epoch(model, d_bd, cfg.train.batch_size)
+                tr = train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
+                ev_clean = eval_epoch(model, d_clean, cfg.train.batch_size)
+                ev_bd = eval_epoch(model, d_bd, cfg.train.batch_size)
             if epoch >= 2:
                 profiler.close()  # two epochs of trace, as the reference
             step += steps_per_epoch
@@ -237,15 +278,43 @@ def train_attack(
                     print("Early stopping")
                 break
     wall = time.perf_counter() - t_start
+    if sharded:
+        print(f"rank {rank()}/{mesh.size}: {replica_line(model)}", flush=True)
 
     if save:
-        os.makedirs(record_dir, exist_ok=True)
         save_attack_csvs(record_dir, history)
         _plot_curves(record_dir, history)
     return TrainResult(
         history=history, model=model, optimizer=opt, step=step, epochs_ran=epochs_ran,
         clips_per_sec=n_clips / max(wall, 1e-9), checkpoint_walls=checkpoint_walls,
     )
+
+
+def _check_shardable(mesh: Mesh, batch_size: int, *splits: ArraySet) -> None:
+    """The sharded engine's conditions; where the reference would fall back
+    to its per-batch path (trainer.py:216-220), this raises."""
+    n_data = mesh.shape["data"]
+    if batch_size % n_data:
+        raise ValueError(f"batch size {batch_size} does not split over {n_data} data shards")
+    if min(len(s) for s in splits) < n_data:
+        raise ValueError(f"a split of {min(len(s) for s in splits)} rows cannot give each of "
+                         f"{n_data} data shards a row")
+
+
+def _optimizer_tensors(opt) -> list[torch.Tensor]:
+    """The tensors of the optimizer's state (Adam's mu and nu, SGD's trace)."""
+    return [t for v in opt.state_dict().values() if isinstance(v, list) for t in v]
+
+
+def replica_line(model: torch.nn.Module) -> str:
+    """A digest of the model's parameters and buffers, and this process's
+    kernel launches: equal digests across ranks mean equal replicas."""
+    digest = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        digest.update(name.encode())
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    launches = {k.name: k.launches for k in KERNELS}
+    return f"parameters sha256 {digest.hexdigest()}; kernel launches {json.dumps(launches)}"
 
 
 def _plot_curves(record_dir: str, history: dict[str, list]) -> None:

@@ -12,6 +12,8 @@ import os
 
 import numpy as np
 
+from audiobd_tpu_torch.parallel.distributed import main_rank_only
+
 
 def _pyplot():
     import matplotlib
@@ -24,11 +26,16 @@ def _pyplot():
 
 def save_or_show(plt, path: str | None) -> None:
     if path:
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        plt.savefig(path, dpi=120, bbox_inches="tight")
+        _savefig(plt, path)
         plt.close()
     else:
         plt.show()
+
+
+@main_rank_only
+def _savefig(plt, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    plt.savefig(path, dpi=120, bbox_inches="tight")
 
 
 def plot_waveform(wav: np.ndarray, sample_rate: int, path: str | None = None) -> None:

@@ -87,8 +87,23 @@ no result, without them. Phases, each printing its own lines:
      kernel, Adam's state in torch_checkpoint/train_state.pt, and the
      checkpoint write's ms beside the epoch's wall (every CLI run prints its
      writes).
+  12. data-parallel training, two ranks on the one card (gloo; NCCL refuses
+     two ranks on one device), which they time-share: 12a. one step of
+     full-width SmallCNN on a global batch of 256 of phase 2's features, 128
+     rows a rank, from ranks spawned by torch.multiprocessing (file://
+     rendezvous), against the same step in this process, unfused and with
+     block 1 on kernel B, and all three against the float64 step; the step
+     written out in f32 with the batch's statistics, with the ranks'
+     (halves averaged), and run as the ranks run it, with the max-pool
+     windows whose chosen input differs between them (the source of the
+     two-rank step's distance from one process); the ranks' parameters
+     bit-equal; the gradient buffer's all-reduce timed. 12b. the main path's badnets CLI through
+     python -m torch.distributed.run --nproc_per_node 2: rank 0 alone writes
+     (every rank's writes under the run's directory recorded by audit
+     hooks), each rank's kernel launches (A 10, B 0: sync-BN takes the
+     unfused chain) and parameter digest, accuracy against phase 2's.
   Kernel launch counts are zeroed just before each CLI run and read just
-  after it.
+  after it; the ranks of phase 12 count their own.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -1166,15 +1181,18 @@ def run_cli(torch, kernels, label: str, flags: list[str], compute_dtype: str = "
     return launches, result.clips_per_sec, steps
 
 
-def phase_main_path(torch, kernels, workdir: str) -> tuple[dict[str, int], float]:
-    """Phase 2; its record tree stays in ``workdir`` for phase 7."""
+def phase_main_path(torch, kernels, workdir: str) -> tuple[dict[str, int], float, tuple[float, float]]:
+    """Phase 2; its record tree stays in ``workdir`` for phase 7. Returns
+    its launches, clips/s, and clean accuracy and ASR at epoch 2 (for phase
+    12b)."""
     launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [], workdir=workdir)
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
     for name in ("mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device"):
         check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none on this path)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
-    return launches, clips
+    acc = _csv_rows(os.path.join(workdir, "record", "chip_smoke", "acc_result.csv"))[-1]
+    return launches, clips, (float(acc[2]), float(acc[3]))
 
 
 def _csv_rows(path: str) -> list[list[str]]:
@@ -1961,6 +1979,376 @@ def phase_restart(torch, kernels, workdir: str) -> dict[str, int]:
         shutil.rmtree(prof, ignore_errors=True)
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 12: data-parallel training, two ranks on the one card (gloo: NCCL
+# refuses two ranks on one device). Two ranks time-share the card, so its
+# walls are the cost of the collectives and the duplicated prep, not a
+# scaling figure.
+
+DP_RANKS = 2
+# Phase 12a's gradients, each relative to its tensor's largest entry: the
+# two-rank step's distance from the float64 step may be at most
+# DP_GRAD_RATIO times the one-process step's (or DP_GRAD_FLOOR, where both
+# are at f32's last digits), and never more than DP_GRAD_CAP.
+DP_GRAD_RATIO, DP_GRAD_FLOOR, DP_GRAD_CAP = 1.5, 1e-5, 1.5e-3
+DP_LR = 1e-4  # TrainConfig's learning rate
+DP_TIMEOUT_S = 300
+
+
+def _dp_rank(rank: int, tmp: str) -> None:
+    """Phase 12a's rank: one sharded step of the global batch on cuda:0,
+    then the gradient buffer's all-reduce timed; results to ``tmp``."""
+    import torch
+
+    from audiobd_tpu_torch.models import SmallCNN
+    from audiobd_tpu_torch.ops import KERNELS
+    from audiobd_tpu_torch.parallel.distributed import all_reduce_flat, destroy, maybe_initialize_distributed
+    from audiobd_tpu_torch.parallel.mesh import make_mesh
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import ShardedDeviceDataset, run_train_epoch_sharded
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils.device import resolve_device
+
+    maybe_initialize_distributed(f"file://{tmp}/rendezvous", DP_RANKS, rank)
+    device = resolve_device(None)
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh()
+    model = SmallCNN(10, 3072, fused_block1=True, dropout_rates=(0.0, 0.0))
+    model.load_state_dict(inputs["state"])
+    model.to(device).sync_batchnorm(mesh.data_group)
+    opt = Adam(model.parameters(), DP_LR)
+    grads = _grad_recorder(opt)
+    dset = ShardedDeviceDataset(ArraySet(*inputs["batch"]), mesh, device)
+    out = {"train": run_train_epoch_sharded(model, opt, dset, len(inputs["batch"][1]), None),
+           "launches": {k.name: k.launches for k in KERNELS if k.launches}, "device": str(device)}
+    out["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    out["grads"] = [g.cpu() for g in grads[0]]
+    buf = [g.clone() for g in grads[0]]
+    for _ in range(2):
+        all_reduce_flat(buf, mesh.data_group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        all_reduce_flat(buf, mesh.data_group)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    out["allreduce_bytes"] = sum(g.numel() for g in buf) * 4
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    destroy()
+
+
+def _grad_recorder(opt) -> list:
+    """Copies of the gradients of each ``opt.step``."""
+    seen: list = []
+    step = opt.step
+
+    def recording(grads):
+        seen.append([g.detach().clone() for g in grads])
+        return step(grads)
+
+    opt.step = recording
+    return seen
+
+
+def _rel_err(got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max().clamp_min(1e-12))
+
+
+def smallcnn_grads_ref(torch, state: dict, x, y, dtype, mode: str = "whole") -> tuple[dict, list, list]:
+    """The gradients of SmallCNN's batch-mean loss (dropout off, batch
+    statistics, flax's fast variance E[x²] − E[x]²) written out in ``dtype``
+    on the card; each BatchNorm's largest E[x²]/var over its channels (how
+    many digits the fast variance cancels); and each max-pool's indices, the
+    input each window passes its gradient to. ``mode``: "whole" takes the
+    batch at once; "stats" takes each BatchNorm's mean and E[x²] as the mean
+    of the two halves' (the ranks' forward arithmetic), the rest whole;
+    "ranks" runs each half apart with those statistics, as the two ranks do.
+    In float64 "whole" is the reference phase 12a judges the f32 steps by."""
+    import torch.nn.functional as F
+
+    params = {k: v.to("cuda", dtype).requires_grad_(True) for k, v in state.items() if "running" not in k}
+    ratios, indices = [], []
+
+    def block(hs, i, pool, padding):
+        rs = [F.relu(F.conv2d(h, params[f"conv{i}.weight"], params[f"conv{i}.bias"])) for h in hs]
+        if mode == "stats":
+            halves = rs[0].chunk(DP_RANKS)
+            mean = sum(r.mean(dim=(0, 2, 3)) for r in halves) / DP_RANKS
+            mean2 = sum((r * r).mean(dim=(0, 2, 3)) for r in halves) / DP_RANKS
+        else:
+            mean = sum(r.mean(dim=(0, 2, 3)) for r in rs) / len(rs)
+            mean2 = sum((r * r).mean(dim=(0, 2, 3)) for r in rs) / len(rs)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        ratios.append(float((mean2 / var.clamp_min(1e-30)).max().detach()))
+        mul = torch.rsqrt(var + 1e-5) * params[f"bn{i}.weight"]
+        c = lambda v: v.reshape(1, -1, 1, 1)  # noqa: E731
+        pooled = [F.max_pool2d((r - c(mean)) * c(mul) + c(params[f"bn{i}.bias"]), pool, padding=padding,
+                               return_indices=True) for r in rs]
+        indices.append(torch.cat([p[1] for p in pooled]).cpu())
+        return [p[0] for p in pooled]
+
+    h = torch.as_tensor(x, device="cuda", dtype=dtype)
+    labels = torch.as_tensor(y, device="cuda").long()
+    hs = list(h.chunk(DP_RANKS)) if mode == "ranks" else [h]
+    hs = block(block(block(hs, 1, (1, 3), 0), 2, (2, 2), (1, 1)), 3, (2, 2), (0, 1))
+    loss = 0.0
+    for hk, yk in zip(hs, labels.chunk(len(hs))):
+        logits = F.linear(F.relu(F.linear(hk.flatten(1), params["fc1.weight"], params["fc1.bias"])),
+                          params["fc2.weight"], params["fc2.bias"])
+        loss = loss + F.cross_entropy(logits, yk, reduction="sum") / len(labels)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return dict(zip(params, (g.cpu() for g in grads))), ratios, indices
+
+
+def phase_dp_step(torch, kernels, record_dir: str) -> None:
+    """Phase 12a: the two-rank step against the same step in this process."""
+    import numpy as np
+
+    import torch.multiprocessing as mp
+
+    from audiobd_tpu_torch.models import SmallCNN
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_train_epoch
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils.random import torch_generator
+
+    bd = os.path.join(record_dir, "record", "chip_smoke", "SCDv1-10", "bd")
+    x = np.load(os.path.join(bd, "bd_train_mfcc.npy"))[:BATCH].astype(np.float32)
+    y = np.load(os.path.join(bd, "bd_train_label.npy"))[:BATCH]
+    ind = np.load(os.path.join(bd, "poison_index_train.npy"))[:BATCH]
+    model = SmallCNN(10, 3072, dropout_rates=(0.0, 0.0))
+    model.reset_parameters(torch_generator(35, "params"))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    print(f"phase 12a: one data-parallel step, {DP_RANKS} ranks on cuda:0 (gloo, file:// rendezvous), full-width "
+          f"SmallCNN (badnets, flatten 3072, dropout 0), global batch {BATCH} of phase 2's features "
+          f"{tuple(x.shape)}, {BATCH // DP_RANKS} rows a rank, sync-BN; against this process's step, unfused and "
+          f"with block 1 on kernel B, and the float64 step; tolerance: loss rtol 1e-5; each gradient's distance "
+          f"from float64 at most max({DP_GRAD_RATIO} x the one-process step's, {DP_GRAD_FLOOR:.0e}) and at most "
+          f"{DP_GRAD_CAP:.1e}, and within 1e-4 of this process's step written out with the ranks' statistics; "
+          f"running statistics 1e-4, all relative to the tensor's largest entry; parameters after one Adam step "
+          f"0.25 lr; the ranks' parameters bit-equal", flush=True)
+    refs = {}
+    for fused in (False, True):
+        ref = SmallCNN(10, 3072, fused_block1=fused, dropout_rates=(0.0, 0.0))
+        ref.load_state_dict(state)
+        ref.to("cuda")
+        opt = Adam(ref.parameters(), DP_LR)
+        grads = _grad_recorder(opt)
+        for k in kernels:
+            k.launches = 0
+        tr = run_train_epoch(ref, opt, DeviceDataset(ArraySet(x, y, ind), torch.device("cuda")), BATCH, None)
+        b = next(k.launches for k in kernels if k.name == "conv1_bn_pool_bwd_params")
+        check(b == (1 if fused else 0), f"single process, block 1 {'on kernel B' if fused else 'unfused'}: "
+                                        f"B launched {b} times")
+        refs["kernel B" if fused else "unfused"] = (tr, [g.cpu() for g in grads[0]],
+                                                    {k: v.cpu() for k, v in ref.state_dict().items()})
+    # The same one-process step on the rows in another order: the same
+    # function, summed in another order.
+    perm = np.random.default_rng(12).permutation(BATCH)
+    ref = SmallCNN(10, 3072, fused_block1=False, dropout_rates=(0.0, 0.0))
+    ref.load_state_dict(state)
+    ref.to("cuda")
+    opt = Adam(ref.parameters(), DP_LR)
+    grads = _grad_recorder(opt)
+    run_train_epoch(ref, opt, DeviceDataset(ArraySet(x[perm], y[perm], ind[perm]), torch.device("cuda")), BATCH,
+                    None)
+    permuted = [g.cpu() for g in grads[0]]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        torch.save({"state": state, "batch": (x, y, ind)}, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_dp_rank, args=(tmp,), nprocs=DP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the ranks did not finish in {DP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+        print(f"  {DP_RANKS} ranks spawned, stepped and joined in {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    names = [n for n, _ in model.named_parameters()]
+    # The ranks average their halves' BatchNorm statistics. That changes the
+    # statistics' last digits, and so which of a max-pool window's
+    # near-equal inputs is the largest: on phase 2's features one window of
+    # pool 2 (of 5.7 M) then sends its gradient to another input, which
+    # moves conv1's, bn1's and conv2's gradients by up to 6.5e-4 of their
+    # largest entry (the f32 one-process step itself routes 3 windows
+    # otherwise than the float64 step). So the two-rank step is held (1) to
+    # the float64 step, beside the one-process step's own distance from it,
+    # and (2) within 1e-4 to the one-process step written out with the
+    # ranks' statistics (smallcnn_grads_ref, "ranks").
+    g64, cancel, idx64 = smallcnn_grads_ref(torch, state, x, y, torch.float64)
+    print("  float64: each BatchNorm's largest E[x²]/var over its channels: "
+          + ", ".join(f"bn{i + 1} {v:.3g}" for i, v in enumerate(cancel)), flush=True)
+    steps = {label: grads for label, (_, grads, _) in refs.items()}
+    steps["unfused, rows permuted"] = permuted
+    steps["two ranks"] = outs[0]["grads"]
+    to64 = {label: {n: _rel_err(g, g64[n]) for n, g in zip(names, grads)} for label, grads in steps.items()}
+    for label, errs in to64.items():
+        print(f"  {label} vs float64 (relative to each tensor's largest entry): "
+              + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()), flush=True)
+    # The step written out in f32 (smallcnn_grads_ref): whole, with the
+    # ranks' statistics, and run as the ranks run it, to find which part of
+    # the ranks' arithmetic moves the gradients.
+    idx = {"float64": idx64}
+    for mode in ("whole", "stats", "ranks"):
+        g32, _, idx[mode] = smallcnn_grads_ref(torch, state, x, y, torch.float32, mode)
+        steps[f"f32 written out, {mode}"] = [g32[n] for n in names]
+    for label, a, b in (("f32 stats vs f32 whole", "stats", "whole"), ("f32 ranks vs f32 whole", "ranks", "whole"),
+                        ("f32 whole vs float64", "whole", "float64")):
+        print(f"  max-pool windows that pass their gradient to another input, {label}: "
+              + ", ".join(f"pool{i + 1} {int((ia != ib).sum())} of {ia.numel()}"
+                          for i, (ia, ib) in enumerate(zip(idx[a], idx[b]))), flush=True)
+    for label, against in (("unfused, rows permuted", "unfused"), ("two ranks", "unfused"),
+                           ("f32 written out, whole", "unfused"), ("f32 written out, ranks", "two ranks"),
+                           ("f32 written out, stats", "f32 written out, whole"),
+                           ("f32 written out, ranks", "f32 written out, whole")):
+        print(f"  {label} vs {against} (relative to each tensor's largest entry): "
+              + ", ".join(f"{n} {_rel_err(g, gr):.1e}" for n, g, gr in zip(names, steps[label], steps[against])),
+              flush=True)
+    for r, out in enumerate(outs):
+        check(out["device"] == "cuda:0" and not out["launches"],
+              f"rank {r} on {out['device']}, kernel launches {out['launches']} (sync-BN: block 1 unfused, no B)")
+        same = max(_rel_err(g, gr) for g, gr in zip(out["grads"], steps["f32 written out, ranks"]))
+        check(same <= 1e-4, f"rank {r} vs this process's step with the ranks' statistics (written out): gradients "
+                            f"{same:.1e} of each tensor's largest entry at most (bound 1e-4)")
+        for label, (tr, grads, ref_state) in refs.items():
+            loss_err = abs(out["train"]["loss"] - tr["loss"]) / abs(tr["loss"])
+            diffs = {n: _rel_err(g, gr) for n, g, gr in zip(names, out["grads"], grads)}
+            to64_r = {n: _rel_err(g, g64[n]) for n, g in zip(names, out["grads"])}
+            bound = {n: min(max(DP_GRAD_RATIO * to64[label][n], DP_GRAD_FLOOR), DP_GRAD_CAP) for n in names}
+            worst = max(names, key=lambda n: to64_r[n] / bound[n])
+            stat_err = max(_rel_err(out["state"][k], ref_state[k]) for k in ref_state if "running" in k)
+            param_err = max(float((out["state"][n] - ref_state[n]).abs().max()) for n in names) / DP_LR
+            check(loss_err <= 1e-5 and to64_r[worst] <= bound[worst] and stat_err <= 1e-4 and param_err <= 0.25
+                  and out["train"]["mix_acc"] == tr["mix_acc"],
+                  f"rank {r} vs single process ({label}): loss {out['train']['loss']:.6f} vs {tr['loss']:.6f} "
+                  f"(rel {loss_err:.1e}); gradients from float64, nearest its bound: {worst} {to64_r[worst]:.1e} "
+                  f"(one process {to64[label][worst]:.1e}, bound {bound[worst]:.1e}), from the one-process step "
+                  f"at most {max(diffs.values()):.1e}; running statistics {stat_err:.1e}; parameters after the "
+                  f"step {param_err:.3f} lr")
+    equal = all(torch.equal(outs[0]["state"][k], outs[1]["state"][k]) for k in outs[0]["state"])
+    check(equal, "the two ranks' parameters and running statistics after the step are bit-equal")
+    for r, out in enumerate(outs):
+        print(f"  rank {r}: all-reduce of the gradient buffer ({out['allreduce_bytes'] / 1e6:.2f} MB f32, gloo on "
+              f"CUDA tensors, mean of 20 calls): {out['allreduce_ms']:.3f} ms", flush=True)
+
+
+# Phase 12b's rank writes: a sitecustomize the ranks import at start records
+# every file each rank opens for writing, creates, renames or removes under
+# the run's directory (the interpreter's audit hooks), then hands on to any
+# sitecustomize it shadows.
+AUDIT_SITECUSTOMIZE = """
+import importlib.machinery, importlib.util, os, sys
+
+def _audit():
+    root, logs = os.environ["CHIP_SMOKE_AUDIT_ROOT"], os.environ["CHIP_SMOKE_AUDIT_LOGS"]
+    fd = os.open(os.path.join(logs, "rank" + os.environ.get("RANK", "-agent") + ".txt"),
+                 os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+    writing = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND | os.O_TRUNC
+
+    def hook(event, args):
+        if event == "open":
+            mode, flags = args[1], args[2]
+            if not (any(c in mode for c in "wax+") if isinstance(mode, str) else flags & writing):
+                return
+        elif event not in ("os.mkdir", "os.rename", "os.remove", "os.rmdir"):
+            return
+        if not isinstance(args[0], (str, bytes, os.PathLike)):
+            return
+        path = os.path.abspath(os.fsdecode(args[0]))
+        if path.startswith(root):
+            os.write(fd, (event + " " + path + "\\n").encode())
+
+    sys.addaudithook(hook)
+
+_audit()
+_here = os.path.dirname(os.path.abspath(__file__))
+_rest = [p for p in sys.path if os.path.abspath(p or ".") != _here]
+_spec = importlib.machinery.PathFinder.find_spec("sitecustomize", _rest)
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+"""
+
+
+def phase_dp_cli(torch, main_acc: tuple[float, float]) -> None:
+    """Phase 12b: the BadNets CLI through torchrun, two ranks on the card."""
+    import signal
+
+    flags = ["badnets", "--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--num_epochs", "2",
+             "--patience", "20"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(DP_RANKS),
+           "-m", "audiobd_tpu_torch", *flags]
+    print(f"phase 12b: python -m torch.distributed.run --standalone --nproc_per_node {DP_RANKS} -m audiobd_tpu_torch "
+          f"{' '.join(flags)} (the main path, {10 * MAIN_PER_CLASS:,} clips, global batch {BATCH}, f32, full width; "
+          f"both ranks on cuda:0, which they time-share)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
+    site, logs, run = (os.path.join(tmp, d) for d in ("site", "logs", "run"))
+    for d in (site, logs, run):
+        os.makedirs(d)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(AUDIT_SITECUSTOMIZE)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, site, os.environ.get("PYTHONPATH", "")]),
+               CHIP_SMOKE_AUDIT_ROOT=run, CHIP_SMOKE_AUDIT_LOGS=logs)
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=run, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            text, _ = proc.communicate()
+        wall = time.perf_counter() - t0
+        lines = text.splitlines()
+        for line in lines:
+            if line.startswith(("distributed:", "Epoch", "done", "rank ", "Traceback", "RuntimeError", "ValueError")):
+                print(f"  {line[:400]}", flush=True)
+        check(proc.returncode == 0, f"torchrun exited {proc.returncode} after {wall:.1f} s")
+        if proc.returncode != 0:
+            print("\n".join(f"  | {line}" for line in lines[-40:]), flush=True)
+            return
+        rec = os.path.join(run, "record", "badnets_smallcnn")
+        rows = _csv_rows(os.path.join(rec, "loss_result.csv"))
+        check(len(rows) == 3 and _finite_rows(rows), f"loss_result.csv: a header and 2 rows, every loss finite "
+                                                     f"({rows[1:]})")
+        check(os.path.exists(os.path.join(rec, "torch_checkpoint", "model.pt")), "torch_checkpoint/ written")
+        acc = _csv_rows(os.path.join(rec, "acc_result.csv"))[-1]
+        clean_acc, asr = float(acc[2]), float(acc[3])
+        check(abs(clean_acc - main_acc[0]) <= 5 and abs(asr - main_acc[1]) <= 5,
+              f"epoch 2: clean acc {clean_acc:.2f}, ASR {asr:.2f}; phase 2's {main_acc[0]:.2f}, {main_acc[1]:.2f} "
+              f"(within 5 points)")
+        writes = {}
+        for r in range(DP_RANKS):
+            with open(os.path.join(logs, f"rank{r}.txt")) as f:
+                writes[r] = f.read().splitlines()
+        check(any(w.endswith("loss_result.csv") for w in writes[0]) and writes[1] == [],
+              f"rank 0 made {len(writes[0])} writes under the run's directory, rank 1 {len(writes[1])} "
+              f"{writes[1][:3]}")
+        replicas = {}
+        for line in lines:
+            if line.startswith("rank ") and "parameters sha256" in line:
+                r = int(line.split()[1].split("/")[0])
+                digest = line.split("sha256 ")[1].split(";")[0]
+                replicas[r] = (digest, json.loads(line.split("kernel launches ")[1]))
+        check(sorted(replicas) == list(range(DP_RANKS)), f"each rank printed its digest ({sorted(replicas)})")
+        for r, (_, launches) in sorted(replicas.items()):
+            a, b = launches.get("mfcc_fft"), launches.get("conv1_bn_pool_bwd_params")
+            check(a == 10 and b == 0, f"rank {r}: A launched {a} times, B {b}")
+        check(len({d for d, _ in replicas.values()}) == 1, "the ranks' final parameter digests are equal")
+        done = [line for line in lines if line.startswith("done:")]
+        clips = [float(line.split("throughput=")[1].split()[0]) for line in done]
+        print(f"  wall {wall:.1f} s (2 process starts, each rank's whole prep, 2 epochs); train clips/s "
+              f"{', '.join(f'{c:.1f}' for c in clips)} (by rank; two ranks time-share one card: the cost of the "
+              f"collectives and the duplicated prep, not a scaling figure)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def main() -> int:
     try:
@@ -2023,10 +2411,10 @@ def main() -> int:
 
 def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
               record_dir) -> list[dict]:
-    """Phases 2-11; each kernel row gets its launches from the path that runs
-    it (A's FFT route and B's train mode from phase 2; phases 10 and 11 print
+    """Phases 2-12; each kernel row gets its launches from the path that runs
+    it (A's FFT route and B's train mode from phase 2; phases 10-12 print
     their own). Returns the rows of the ``kernels`` line."""
-    launches, main_clips = phase_main_path(torch, kernels, record_dir)
+    launches, main_clips, main_acc = phase_main_path(torch, kernels, record_dir)
     for row in main_rows:
         row["launches"] = launches[row["name"]]
     block23 = phase_block23_paths(torch, kernels, main_clips)
@@ -2056,6 +2444,8 @@ def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows
     phase_boards(torch)
     phase_daba(torch, kernels, daba_route)
     phase_restart(torch, kernels, record_dir)
+    phase_dp_step(torch, kernels, record_dir)
+    phase_dp_cli(torch, main_acc)
     return main_rows + block23_rows + bf16_rows + effects_rows
 
 
