@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels and their wrappers.
 
 KERNELS lists every kernel of the port with its launch counter (kernel B in
-f32 twice: its train and eval modes count apart; kernel F's two modes, the
-ladder and the phaser, apart too)."""
+f32 twice: its train and eval modes count apart; kernel F's three routes, the
+ladder at k = 0, the resonant ladder and the phaser, apart too)."""
 
 from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, effects, mfcc
 
@@ -21,5 +21,6 @@ KERNELS = (
     conv2_bn_pool.BWD_PARAMS_BF16_KERNEL,
     conv2_bn_pool.BWD_INPUT_BF16_KERNEL,
     effects.LADDER_KERNEL,
+    effects.LADDER_RESONANT_KERNEL,
     effects.PHASER_KERNEL,
 )

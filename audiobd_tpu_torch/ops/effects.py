@@ -5,11 +5,13 @@ Counterparts of audiobd_tpu/poison/effects.py::ladder_hpf12 (line 261) and
 ::phaser (line 300), which the JAX package runs as a ``jax.lax.scan`` over
 every sample. ``poison/effects.py`` computes their host coefficients in
 float64 as the JAX package does and calls the wrappers here. On a CUDA
-tensor a wrapper launches its mode of kernel F (``effects_ladder``,
-``effects_phaser``, each with its own launch counter) or raises; on a CPU
-tensor it runs the plain version, a loop over time vectorized over rows
-whose step is the JAX step op for op (eager torch would launch every op of
-every sample on the card, ~20 a sample).
+tensor a wrapper launches its route of kernel F or raises, each route with
+its own launch counter: ``effects_ladder`` (the ladder at k = 0, the route
+JingleBack's style 5 takes: a stage pipeline without stages 3-4),
+``effects_ladder_resonant`` (k != 0: one thread a row) and ``effects_phaser``
+(a stage pipeline); on a CPU tensor it runs the plain version, a loop over
+time vectorized over rows whose step is the JAX step op for op (eager torch
+would launch every op of every sample on the card, ~20 a sample).
 """
 
 from __future__ import annotations
@@ -22,8 +24,28 @@ from audiobd_tpu_torch.ops.build import CudaKernel, ptr
 
 MAX_STAGES = 8  # the phaser stages the kernel unrolls (csrc/effects.cu)
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-LADDER_KERNEL = CudaKernel("effects_ladder", "effects.cu", "effects_ladder", [_P, _P, _I, _I, _F, _F, _F])
-PHASER_KERNEL = CudaKernel("effects_phaser", "effects.cu", "effects_phaser", [_P, _P, _P, _I, _I, _I, _F, _F])
+LADDER_KERNEL = CudaKernel("effects_ladder", "effects.cu", "effects_ladder", [_P, _P, _I, _I, _F, _F, _I])
+LADDER_RESONANT_KERNEL = CudaKernel("effects_ladder_resonant", "effects.cu", "effects_ladder_resonant",
+                                    [_P, _P, _I, _I, _F, _F, _F])
+PHASER_KERNEL = CudaKernel("effects_phaser", "effects.cu", "effects_phaser", [_P, _P, _P, _I, _I, _I, _F, _F, _I])
+
+# The stage pipelines' tiling, as csrc/effects.cu fixes it: 8 rows a block,
+# tiles of 64 samples a row at a pitch of 68 floats, a ring of depth + 3 + 2
+# slots (3 tiles loading ahead, one being stored). The ladder's depth is 3
+# (tanh, two one-poles) and a slot one tile; the phaser's depth is its stage
+# count and a slot two tiles (x and the output) and 64 coefficients. The C
+# entries refuse any other count of shared memory.
+_ROWS, _TILE, _PITCH, _LOOKAHEAD = 8, 64, 68, 3
+
+
+def ladder_shared_bytes() -> int:
+    """The k = 0 ladder pipeline's dynamic shared memory a block."""
+    return (3 + _LOOKAHEAD + 2) * _ROWS * _PITCH * 4
+
+
+def phaser_shared_bytes(stages: int) -> int:
+    """The phaser pipeline's dynamic shared memory a block at ``stages``."""
+    return (stages + _LOOKAHEAD + 2) * (2 * _ROWS * _PITCH + _TILE) * 4
 
 
 def _check(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -70,7 +92,9 @@ def ladder_hpf12_plain(x: torch.Tensor, big_g: float, k: float, drive: float) ->
 def ladder_hpf12(x: torch.Tensor, big_g: float, k: float, drive: float) -> torch.Tensor:
     """(rows, T) f32 → the ladder's HPF12 tap; G = g/(1+g), k = 4·resonance
     and drive = 10^(dB/20) as host floats (rounded to f32 where they meet
-    the signal, as JAX's weak-typed scalars are)."""
+    the signal, as JAX's weak-typed scalars are). On the card k == 0 takes
+    the pipeline that leaves out stages 3-4, which feed only k·s4: its
+    output equals the plain loop's as values (a zero's sign may differ)."""
     x = _check(x, "ladder_hpf12")
     if not x.is_cuda:
         return ladder_hpf12_plain(x, big_g, k, drive)
@@ -80,7 +104,10 @@ def ladder_hpf12(x: torch.Tensor, big_g: float, k: float, drive: float) -> torch
     width = -(-t // 4) * 4
     xp = _float4_rows(x, width)
     y = torch.empty_like(xp)
-    LADDER_KERNEL(x.device, ptr(xp), ptr(y), rows, width, big_g, k, drive)
+    if k == 0.0:
+        LADDER_KERNEL(x.device, ptr(xp), ptr(y), rows, width, big_g, drive, ladder_shared_bytes())
+    else:
+        LADDER_RESONANT_KERNEL(x.device, ptr(xp), ptr(y), rows, width, big_g, k, drive)
     return y if width == t else y[:, :t].contiguous()
 
 
@@ -120,5 +147,5 @@ def phaser(x: torch.Tensor, a: torch.Tensor, stages: int, mix: float) -> torch.T
     width = -(-t // 4) * 4
     xp, ap = _float4_rows(x, width), _float4_rows(a, width)
     y = torch.empty_like(xp)
-    PHASER_KERNEL(x.device, ptr(xp), ptr(ap), ptr(y), rows, width, stages, mix, 1.0 - mix)
+    PHASER_KERNEL(x.device, ptr(xp), ptr(ap), ptr(y), rows, width, stages, mix, 1.0 - mix, phaser_shared_bytes(stages))
     return y if width == t else y[:, :t].contiguous()

@@ -21,10 +21,12 @@ no result, without them. Phases, each printing its own lines:
      and C in eval mode, as its search runs; B in train mode at Ultrasonic's
      (256, 1, 100, 40) and DABA's (256, 1, 32, 40)),
      1c kernels D and E (E on the routing a D call wrote),
-     1d kernel F's two modes (the ladder and the phaser of JingleBack's style
-     5) at (256, 16000) against their plain loops, with the plain loop's
-     wall, the bytes bound and the chain bound (the recursion's dependent
-     operations a sample).
+     1d kernel F's three routes (the ladder at k = 0 and the phaser of
+     JingleBack's style 5, and the resonant ladder) held exactly equal to
+     their plain loops at (256, 16000) and (37, 4001), with the plain loop's
+     wall, the bytes bound and the route's chain bound (the recursion's
+     dependent operations a sample), and the one-thread kernel on the k = 0
+     ladder's work timed beside its pipeline.
   2. the main path through the CLI entry point: 20,000 synthetic one-second
      16 kHz clips → MFCC (kernel A, FFT path) → BadNets patch → full-width SmallCNN
      trained 2 epochs at batch 256 in f32, block-1 backward through kernel B.
@@ -62,8 +64,10 @@ no result, without them. Phases, each printing its own lines:
   8. JingleBack at full width: python -m audiobd_tpu_torch jingleback
      --synthetic --synthetic_per_class 2000 --style 5 --num_epochs 2 (20,000
      clips; 1,600 train and every non-target test row restyled through
-     kernel F; kernel A on the styled rows; SmallCNN with kernel B); stage
-     walls (prep, poison, train), train clips/s, launches of A, B and F.
+     kernel F; kernel A on the styled rows; SmallCNN with kernel B), run
+     under torch.profiler (device activity only); stage walls (prep, poison,
+     train), train clips/s, launches of A, B and F, and F's device time in
+     the poison stage.
      8b. each of the six style boards on one 256-clip chunk on the card: its
      wall (after a warm-up call) and its launches (reverb's in style 4).
   9. DABA at full width: python -m audiobd_tpu_torch daba --synthetic
@@ -1018,16 +1022,29 @@ def phase_conv2_bf16(torch, ctx) -> list[dict]:
     ]
 
 
-# The recursions' loop-carried chains a sample, counted from csrc/effects.cu:
-# the ladder's s4 → s4 runs k·s4, the subtraction, tanhf (counted as one),
-# then u − s1, ·G, + s1, u − lp1, and three more one-poles of 3 and the state
-# add (17); the phaser's stages pipeline across samples, so its chain is one
-# stage's a_t·ys_i and subtraction (2).
-LADDER_CHAIN_OPS, PHASER_CHAIN_OPS = 17, 2
-# f32 operations a sample, all counted: the ladder 2 multiplies, a subtraction,
-# tanh, 4 one-poles of 4, 2 taps (22); the phaser 6 stages of 4 and the mix (27).
-LADDER_OPS, PHASER_OPS = 22, 27
+# The recursions' loop-carried chains a sample, by route, counted from
+# csrc/effects.cu: the ladder at k = 0 (style 5's route) a one-pole's s → s′
+# (u − s, ·G, + s, + v: 4; tanhf and stages 3-4 lie on no loop-carried chain,
+# stage 2's chain runs behind stage 1's); the resonant ladder's s4 → s4 runs
+# k·s4, the subtraction, tanhf (counted as one), then u − s1, ·G, + s1,
+# u − lp1, and three more one-poles of 3 and the state add (17); the phaser's
+# stages pipeline across samples, so its chain is one stage's a_t·ys_i and
+# subtraction (2).
+LADDER_CHAIN_OPS, LADDER_RESONANT_CHAIN_OPS, PHASER_CHAIN_OPS = 4, 17, 2
+# f32 operations a sample the function needs: the k = 0 ladder x·drive, tanh
+# (as one), 2 one-poles of 4 and 2 taps (12); the resonant ladder 2
+# multiplies, a subtraction, tanh, 4 one-poles of 4, 2 taps (22); the phaser
+# 4 a stage and the mix's 3.
+LADDER_OPS, LADDER_RESONANT_OPS = 12, 22
 FP32_LATENCY_CYCLES = 4  # a dependent f32 add or multiply on Hopper
+# Kernel F's times at (256, 16000) before its redesign, the one-thread-a-row
+# kernels (chip_smoke.py of that tree, H100 80GB HBM3 at 700.00 W), printed
+# beside this run's.
+F_ONE_THREAD_MS = {"effects_ladder": 1.546, "effects_ladder_resonant": 1.543, "effects_phaser": 1.066}
+
+
+def phaser_ops(stages: int) -> int:
+    return 4 * stages + 3
 
 
 def sm_clock_hz() -> float:
@@ -1036,69 +1053,94 @@ def sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
-def phase_effects(torch) -> list[dict]:
-    """Phase 1d: kernel F's two modes at (256, 16000), the rows of a style-5
-    chunk: the ladder with the chain's parameters (after its 12 dB gain) and
-    resonant and driven, the phaser with its defaults. Each against the plain
-    loop on the card; the kernel's time (CUDA events over 20 launches after a
-    warm-up), the plain loop's wall for one call, the bytes bound and the
-    chain bound: T x the chain's dependent operations a sample x 4 cycles at
-    the card's top SM clock."""
-    from audiobd_tpu_torch.ops import effects as op
-    from audiobd_tpu_torch.poison import effects as fx
-
-    print("phase 1d: kernel F (the effects' per-sample recursions) vs its plain loop at (256, 16000); tolerance "
-          "atol 1e-5 (both in the JAX step's order, no FMA, the same tanhf)", flush=True)
-    rows, t = 256, 16000
+def effects_inputs(torch, fx, rows: int, t: int):
+    """Phase 1d's rows: tones of 200-1800 Hz with noise (seed 7), the same
+    rows after style 5's 12 dB gain, and the phaser's a_t."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     n = torch.arange(t, device="cuda", dtype=torch.float32) / 16000
     f0 = 200.0 + 1600.0 * torch.rand(rows, 1, device="cuda", generator=gen)
     x = 0.4 * torch.sin(2 * math.pi * f0 * n) + 0.02 * torch.randn(rows, t, device="cuda", generator=gen)
-    chain_x = fx.gain(x, 12.0)
-    g = math.tan(math.pi * 1000.0 / 16000)
-    a = torch.from_numpy(fx.phaser_coefficients(t, 16000)).cuda()
+    return x, fx.gain(x, 12.0), torch.from_numpy(fx.phaser_coefficients(t, 16000)).cuda()
+
+
+def phase_effects(torch) -> list[dict]:
+    """Phase 1d: kernel F's three routes against their plain loops on the
+    card, each held exactly equal (torch.equal): at (256, 16000), the rows
+    of a style-5 chunk, the k = 0 ladder with the chain's parameters (after
+    its 12 dB gain), the resonant, driven ladder and the phaser with 6
+    stages; at (37, 4001), a last chunk with an odd T, the k = 0 ladder, the
+    phaser with 4 stages and the resonant ladder. At (256, 16000) each
+    route's time (CUDA events over 20 launches after a warm-up) beside the
+    one-thread kernels' before the redesign, and the one-thread kernel on
+    the k = 0 ladder's work timed in this run; the plain loop's wall for one
+    call, the bytes bound and the route's chain bound: T x the chain's
+    dependent operations a sample x 4 cycles at the card's top SM clock."""
+    from audiobd_tpu_torch.ops import effects as op
+    from audiobd_tpu_torch.ops.build import ptr
+    from audiobd_tpu_torch.poison import effects as fx
+
+    print("phase 1d: kernel F (the effects' per-sample recursions) vs its plain loops; tolerance: exactly equal "
+          "(the JAX step's order, no FMA, the same tanhf; the k = 0 ladder leaves out stages 3-4, which can change "
+          "only a zero's sign)", flush=True)
     clock = sm_clock_hz()
+    g = math.tan(math.pi * 1000.0 / 16000)
+    big_g = g / (1 + g)
     results = {}
-    for label, name, kernel, plain, ops, chain in (
-        ("ladder, the chain's parameters (after gain 12 dB; cutoff 1 kHz)", "effects_ladder",
-         lambda: op.ladder_hpf12(chain_x, g / (1 + g), 0.0, 1.0),
-         lambda: op.ladder_hpf12_plain(chain_x, g / (1 + g), 0.0, 1.0), LADDER_OPS, LADDER_CHAIN_OPS),
-        ("ladder, resonance 0.3, drive 6 dB", "effects_ladder resonant",
-         lambda: op.ladder_hpf12(x, g / (1 + g), 1.2, 10 ** (6 / 20)),
-         lambda: op.ladder_hpf12_plain(x, g / (1 + g), 1.2, 10 ** (6 / 20)), LADDER_OPS, LADDER_CHAIN_OPS),
-        ("phaser, defaults (6 stages, mix 0.5)", "effects_phaser", lambda: op.phaser(x, a, 6, 0.5),
-         lambda: op.phaser_plain(x, a, 6, 0.5), PHASER_OPS, PHASER_CHAIN_OPS),
-    ):
-        got = kernel()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = plain()
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        err = float((got - ref).abs().max())
-        check(err <= 1e-5 and bool(torch.isfinite(got).all()) and got.shape == x.shape,
-              f"{label}: shape {tuple(got.shape)}, max abs err {err:.3e} against the plain loop "
-              f"({float((got == ref).double().mean()) * 100:.2f}% bit-equal)")
-        ms = time_ms(torch, kernel, 20)
-        nbytes = 2 * 4 * x.numel() + (4 * t if "phaser" in name else 0)
-        bms, by = bound(ops * x.numel(), nbytes)
-        chain_ms = t * chain * FP32_LATENCY_CYCLES / clock * 1e3
-        print(f"  {label}: kernel {ms:.4f} ms, plain loop {plain_s * 1e3:.1f} ms (one call), bound {bms:.4f} ms "
-              f"({by}: {nbytes / 1e6:.1f} MB), chain bound {chain_ms:.4f} ms ({t} samples x {chain} dependent "
-              f"operations x {FP32_LATENCY_CYCLES} cycles at {clock / 1e9:.3f} GHz)", flush=True)
-        results[name] = dict(err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=bms, bound_by=by)
-        del got, ref
+    for rows, t in ((256, 16000), (37, 4001)):
+        x, chain_x, a = effects_inputs(torch, fx, rows, t)
+        stages = 6 if rows == 256 else 4
+        routes = (
+            ("effects_ladder", "ladder, k = 0, the chain's parameters (after gain 12 dB; cutoff 1 kHz)",
+             lambda: op.ladder_hpf12(chain_x, big_g, 0.0, 1.0),
+             lambda: op.ladder_hpf12_plain(chain_x, big_g, 0.0, 1.0), LADDER_OPS, LADDER_CHAIN_OPS, 0),
+            ("effects_ladder_resonant", "ladder, resonance 0.3 (k = 1.2), drive 6 dB",
+             lambda: op.ladder_hpf12(x, big_g, 1.2, 10 ** (6 / 20)),
+             lambda: op.ladder_hpf12_plain(x, big_g, 1.2, 10 ** (6 / 20)), LADDER_RESONANT_OPS,
+             LADDER_RESONANT_CHAIN_OPS, 0),
+            ("effects_phaser", f"phaser, {stages} stages, mix 0.5", lambda: op.phaser(x, a, stages, 0.5),
+             lambda: op.phaser_plain(x, a, stages, 0.5), phaser_ops(stages), PHASER_CHAIN_OPS, 4 * t),
+        )
+        for name, label, kernel, plain, ops, chain, extra_bytes in routes:
+            got = kernel()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = plain()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            err = float((got - ref).abs().max())
+            check(torch.equal(got, ref) and bool(torch.isfinite(got).all()) and got.shape == x.shape,
+                  f"{label} at ({rows}, {t}): shape {tuple(got.shape)}, equal to the plain loop (max abs err "
+                  f"{err:.3e}, {float((got == ref).double().mean()) * 100:.2f}% bit-equal)")
+            row = results.setdefault(name, dict(err=0.0))
+            row["err"] = max(row["err"], err)
+            if rows == 256:
+                ms = time_ms(torch, kernel, 20)
+                nbytes = 2 * 4 * x.numel() + extra_bytes
+                bms, by = bound(ops * x.numel(), nbytes)
+                chain_ms = t * chain * FP32_LATENCY_CYCLES / clock * 1e3
+                print(f"  {label}: kernel {ms:.4f} ms (one-thread kernel before the redesign "
+                      f"{F_ONE_THREAD_MS[name]:.3f}), plain loop {plain_s * 1e3:.1f} ms (one call), bound "
+                      f"{bms:.4f} ms ({by}: {nbytes / 1e6:.1f} MB), chain bound {chain_ms:.4f} ms ({t} samples x "
+                      f"{chain} dependent operations x {FP32_LATENCY_CYCLES} cycles at {clock / 1e9:.3f} GHz), "
+                      f"{chain_ms / ms * 100:.0f}% of it", flush=True)
+                row.update(ms=ms, plain_ms=plain_s * 1e3, bound_ms=bms, bound_by=by)
+            del got, ref
+        if rows == 256:
+            # The one-thread kernel (the resonant route's) on the k = 0 ladder's work, timed in this run.
+            y = torch.empty_like(chain_x)
+            one_thread_ms = time_ms(torch, lambda: op.LADDER_RESONANT_KERNEL(
+                chain_x.device, ptr(chain_x), ptr(y), rows, t, big_g, 0.0, 1.0), 20)
+            same = torch.equal(y, op.ladder_hpf12(chain_x, big_g, 0.0, 1.0))
+            check(same, "the one-thread kernel at k = 0 equals the k = 0 pipeline")
+            print(f"  the one-thread kernel on the k = 0 ladder's work: {one_thread_ms:.4f} ms; the pipeline "
+                  f"{results['effects_ladder']['ms'] / one_thread_ms:.3f}x of it", flush=True)
     src = "audiobd_tpu_torch/csrc/effects.cu"
-    ladder, phaser = results["effects_ladder"], results["effects_phaser"]
-    return [
-        {"name": "effects_ladder", "route": "cuda", "source": src, "replaces": "audiobd_tpu/poison/effects.py:261",
-         "max_abs_err": max(ladder["err"], results["effects_ladder resonant"]["err"]), "ms": ladder["ms"],
-         "plain_ms": ladder["plain_ms"], "bound_ms": ladder["bound_ms"], "bound_by": ladder["bound_by"],
-         "library_ms": None},
-        {"name": "effects_phaser", "route": "cuda", "source": src, "replaces": "audiobd_tpu/poison/effects.py:300",
-         "max_abs_err": phaser["err"], "ms": phaser["ms"], "plain_ms": phaser["plain_ms"],
-         "bound_ms": phaser["bound_ms"], "bound_by": phaser["bound_by"], "library_ms": None},
-    ]
+    replaces = {"effects_ladder": "audiobd_tpu/poison/effects.py:261",
+                "effects_ladder_resonant": "audiobd_tpu/poison/effects.py:261",
+                "effects_phaser": "audiobd_tpu/poison/effects.py:300"}
+    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces[name], "max_abs_err": r["err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": None} for name, r in results.items()]
 
 
 MAIN_PER_CLASS = 2000  # the main path's synthetic clips a class
@@ -1675,12 +1717,23 @@ def phase_jingleback(torch, kernels) -> dict[str, int]:
             for k in kernels:
                 k.launches = 0
             t0 = time.perf_counter()
-            run = cli.main(flags)
-            torch.cuda.synchronize()
+            # Device activity only (no host ops recorded): kernel F's time in the poison stage, by kernel name.
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run = cli.main(flags)
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.name: k.launches for k in kernels}
-            print(f"  wall {wall:.1f} s; launches: {({k: v for k, v in launches.items() if v})}", flush=True)
+            print(f"  wall {wall:.1f} s (under torch.profiler, device activity only); launches: "
+                  f"{({k: v for k, v in launches.items() if v})}", flush=True)
             _print_stages(run)
+            f_names = ("ladder_pipeline_kernel", "phaser_kernel", "ladder_kernel")
+            f_us = [e.time_range.end - e.time_range.start for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.name for n in f_names)]
+            poison_s = run.stages["poison"]["wall_s"]
+            print(f"  kernel F in the poison stage: {sum(f_us) / 1e3:.3f} ms of device time over {len(f_us)} "
+                  f"kernels the profiler saw ({launches['effects_ladder'] + launches['effects_phaser']} launched; "
+                  f"{sum(f_us) / 1e3 / max(len(f_us), 1):.4f} ms each), {sum(f_us) / 1e4 / poison_s:.2f}% of the "
+                  f"stage's {poison_s:.3f} s wall", flush=True)
             cfg = make_config("jingleback")
             data = os.path.join(cfg.record_dir, cfg.dataset)
             ind = {s: np.load(os.path.join(data, "bd", f"poison_index_{s}.npy")) for s in ("train", "test")}
@@ -1688,9 +1741,11 @@ def phase_jingleback(torch, kernels) -> dict[str, int]:
             f_want = _chunks(styled["train"], 256) + _chunks(styled["test"], 256)
             poison = run.stages["poison"]["launches"]
             check(poison.get("effects_ladder", 0) == poison.get("effects_phaser", 0) == f_want
-                  and launches["effects_ladder"] == launches["effects_phaser"] == f_want,
-                  f"kernel F launched {launches['effects_ladder']} times as the ladder and "
-                  f"{launches['effects_phaser']} as the phaser, all in the poison stage (expected {f_want}: "
+                  and launches["effects_ladder"] == launches["effects_phaser"] == f_want
+                  and launches["effects_ladder_resonant"] == 0,
+                  f"kernel F launched {launches['effects_ladder']} times as the k = 0 ladder, "
+                  f"{launches['effects_ladder_resonant']} as the resonant one and "
+                  f"{launches['effects_phaser']} as the phaser, all in the poison stage (expected {f_want}, {f_want}, 0: "
                   f"{styled['train']} train and {styled['test']} test rows in chunks of 256)")
             a_want = {"prep": _chunks(20000, 2048), "poison": _chunks(styled["train"], 2048)
                       + _chunks(styled["test"], 2048)}
@@ -1755,9 +1810,10 @@ def phase_boards(torch) -> None:
         y = board(x)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        before = op.LADDER_KERNEL.launches + op.PHASER_KERNEL.launches
+        f_kernels = (op.LADDER_KERNEL, op.LADDER_RESONANT_KERNEL, op.PHASER_KERNEL)
+        before = sum(k.launches for k in f_kernels)
         ops = card_operations(torch, lambda: board(x))
-        f = op.LADDER_KERNEL.launches + op.PHASER_KERNEL.launches - before
+        f = sum(k.launches for k in f_kernels) - before
         check(tuple(y.shape) == tuple(x.shape) and bool(torch.isfinite(y).all())
               and float((y - x).abs().max()) > 1e-3, f"style {style}: finite, shaped {tuple(y.shape)}, changed")
         print(f"  style {style}: wall {wall * 1e3:.2f} ms, {ops + f} launches ({ops} aten operations on the card, "

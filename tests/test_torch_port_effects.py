@@ -14,7 +14,9 @@ Tolerances, on clips of peak 0.5 made from a seed with numpy:
 * reverb (block form; the port's damping product against JAX's
   associative_scan): atol 1e-5 (measured ~5e-8).
 * ladder_hpf12 and phaser, the plain loops against JAX's lax.scan: atol 1e-5
-  (measured ~2e-7).
+  (measured ~2e-7); kernel F's k = 0 ladder route, written as a loop without
+  stages 3-4, the same against JAX at resonance 0, and equal as values to
+  the full plain loop at k = 0.
 * pitch_shift: the synthesized phase is a cumulative sum over ~110 frames of
   f32 phase advances up to ~800 rad, kept in f32 (an ulp is ~0.008 rad past
   65,536 rad), so the two frameworks' f32 runs differ by ~5e-4 (measured).
@@ -39,6 +41,7 @@ import torch
 from audiobd_tpu.poison import effects as jfx
 from audiobd_tpu.poison.jingleback import get_boards as jax_boards
 from audiobd_tpu_torch.ops import effects as op
+from audiobd_tpu_torch.ops.build import MAX_SHARED_BYTES
 from audiobd_tpu_torch.poison import effects as fx
 from audiobd_tpu_torch.poison.jingleback import get_boards
 
@@ -151,6 +154,80 @@ def test_ladder_plain_loop_matches_jax_scan(resonance, drive_db, gain_db):
     got = run_port(lambda v: fx.ladder_hpf12(v, SR, 1000.0, resonance, drive_db), x)
     ref = run_jax(lambda v: jfx.ladder_hpf12(v, SR, 1000.0, resonance, drive_db), x)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def ladder_k0_route(x: torch.Tensor, big_g: float, drive: float) -> torch.Tensor:
+    """Kernel F's ladder route at k = 0 (csrc/effects.cu) as a loop over
+    time: u = tanh(x·drive) first, then the two one-pole HP stages (hp1 =
+    u − lp1, y = hp1 − lp2); nothing of stages 3-4, which feed only k·s4."""
+    u = torch.tanh(x * drive)
+    s1 = s2 = x.new_zeros(x.shape[0])
+    out = []
+    for u_t in u.t():
+        v = (u_t - s1) * big_g
+        lp1 = v + s1
+        s1 = lp1 + v
+        hp1 = u_t - lp1
+        v = (hp1 - s2) * big_g
+        lp2 = v + s2
+        s2 = lp2 + v
+        out.append(hp1 - lp2)
+    return torch.stack(out, dim=1)
+
+
+def ladder_k0_rows(case: str) -> torch.Tensor:
+    """Style 5's rows after its 12 dB gain (peak ~2: tanh saturates), and
+    those rows with runs of +0.0 and −0.0 (a whole row of −0.0, a row that
+    starts silent, −0.0 after a negative run, where s4 < 0 and the full
+    loop's u is +0.0 against the route's −0.0) or with a NaN in the middle
+    of a row."""
+    x = torch.from_numpy(clips(5, 1200, seed=8)) * 10 ** (12 / 20)
+    if case == "signed zeros":
+        x[0] = -0.0
+        x[1, :300] = 0.0
+        x[1, 300:600:2] = -0.0
+        x[2, ::7] = -0.0
+        x[4, :300] = -1.5
+        x[4, 300:] = -0.0
+    elif case == "NaN":
+        x[2, 500] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("drive_db", [0.0, 6.0])
+@pytest.mark.parametrize("case", ["style 5 after 12 dB", "signed zeros", "NaN"])
+def test_ladder_k0_route_equals_the_full_loop(case, drive_db):
+    """Leaving out stages 3-4 at k = 0 changes no value: the k = 0 route
+    equals ladder_hpf12_plain at k = 0 (torch.equal, which holds −0.0 equal
+    to +0.0; NaN where the full loop has NaN, from the NaN on)."""
+    x = ladder_k0_rows(case)
+    g = np.tan(np.pi * 1000.0 / SR)
+    big_g, drive = g / (1 + g), 10 ** (drive_db / 20)
+    got, ref = ladder_k0_route(x, big_g, drive), op.ladder_hpf12_plain(x, big_g, 0.0, drive)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    if case == "NaN":
+        assert torch.isnan(got[2, 500:]).all() and not torch.isnan(got[2, :500]).any()
+        assert not torch.isnan(got[[0, 1, 3, 4]]).any()
+
+
+@pytest.mark.parametrize("drive_db", [0.0, 6.0])
+def test_ladder_k0_route_matches_jax_scan(drive_db):
+    """The k = 0 route against JAX's ladder_hpf12 at resonance 0, the
+    scan's stages 3-4 included, on style 5's rows after the 12 dB gain."""
+    x = ladder_k0_rows("style 5 after 12 dB").numpy()
+    g = np.tan(np.pi * 1000.0 / SR)
+    got = ladder_k0_route(torch.from_numpy(x), g / (1 + g), 10 ** (drive_db / 20)).numpy()
+    ref = run_jax(lambda v: jfx.ladder_hpf12(v, SR, 1000.0, 0.0, drive_db), x)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_pipeline_shared_memory_fits_every_stage_count():
+    """The pipelines' rings of 8-row tiles fit the card's 227 KB at every
+    stage count the phaser takes."""
+    assert op.ladder_shared_bytes() == 17_408
+    assert [op.phaser_shared_bytes(st) for st in (1, op.MAX_STAGES)] == [27_648, 59_904]
+    assert op.phaser_shared_bytes(op.MAX_STAGES) <= MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("stages", [6, 4])

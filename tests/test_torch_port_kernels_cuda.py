@@ -32,9 +32,10 @@ channels in another order than the plain version's, so a tap can round the
 other way: dx within 2 bf16 ulps of max|dx| (2**-6 * max|dx|).
 
 Kernel F (the effects' recursions) against its plain loop on the card:
-atol 1e-5. Both form every product and sum in the JAX step's order without
-FMA and call the same tanhf, so they should agree bit for bit; the
-tolerance is the CPU tests' against JAX's scan.
+exactly equal (torch.equal). Every route forms every product and sum in the
+JAX step's order without FMA and calls the same tanhf; the k = 0 ladder
+leaves out stages 3-4, which can change only the sign of a zero, and
+torch.equal compares values.
 """
 
 import numpy as np
@@ -50,6 +51,7 @@ from audiobd_tpu_torch.ops.mfcc import fused_mfcc
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
 pytestmark = pytest.mark.cuda
+F_KERNELS = (op_fx.LADDER_KERNEL, op_fx.LADDER_RESONANT_KERNEL, op_fx.PHASER_KERNEL)
 
 SETTINGS = {
     "torchaudio": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
@@ -574,32 +576,40 @@ def test_bf16_kernels_reject_mixed_dtypes(cuda):
                                      *args[4:], pool_padding=(1, 1))
 
 
-@pytest.mark.parametrize("mode,t", [("ladder", 16000), ("ladder resonant, driven", 16000), ("ladder", 1999),
-                                    ("phaser", 16000), ("phaser 4 stages", 16000), ("phaser", 1999)])
-def test_effects_kernel_matches_plain(cuda, mode, t):
-    """Both modes of kernel F at (64, T): T = 16000 as the kernel reads it,
-    T = 1999 through the wrapper's zero padding to a multiple of 4."""
+@pytest.mark.parametrize("mode,rows,t", [
+    ("ladder", 64, 16000), ("ladder resonant, driven", 64, 16000), ("ladder", 64, 1999),
+    ("phaser", 64, 16000), ("phaser 4 stages", 64, 16000), ("phaser", 64, 1999),
+    ("ladder", 1, 16000), ("phaser", 1, 4001), ("ladder", 37, 4001), ("ladder resonant, driven", 37, 4001),
+    ("phaser 4 stages", 37, 4001), ("ladder", 300, 1999), ("phaser", 300, 1999),
+])
+def test_effects_kernel_matches_plain(cuda, mode, rows, t):
+    """Every route of kernel F at (rows, T): T = 16000 as the kernels read
+    it, T = 1999 and 4001 through the wrapper's zero padding to a multiple of
+    4 and a ragged last tile; 1, 37 and 300 rows leave rows of the
+    pipelines' last 8-row block idle. The ladder at k = 0 counts on
+    ``effects_ladder``, at k != 0 on ``effects_ladder_resonant``."""
     from audiobd_tpu_torch.poison import effects as fx
 
     rng = np.random.default_rng(21)
-    x = torch.from_numpy((rng.standard_normal((64, t)) * 0.3).astype(np.float32)).to(cuda)
+    x = torch.from_numpy((rng.standard_normal((rows, t)) * 0.3).astype(np.float32)).to(cuda)
     if mode.startswith("ladder"):
         g = float(np.tan(np.pi * 1000.0 / 16000))
         args = (g / (1 + g), 1.2, 10 ** (6 / 20)) if "resonant" in mode else (g / (1 + g), 0.0, 10 ** (12 / 20))
-        kernel, plain = op_fx.LADDER_KERNEL, lambda: op_fx.ladder_hpf12_plain(x, *args)
+        kernel = op_fx.LADDER_RESONANT_KERNEL if "resonant" in mode else op_fx.LADDER_KERNEL
+        plain = lambda: op_fx.ladder_hpf12_plain(x, *args)  # noqa: E731
         run = lambda: op_fx.ladder_hpf12(x, *args)  # noqa: E731
     else:
         stages = 4 if "4 stages" in mode else 6
         a = torch.from_numpy(fx.phaser_coefficients(t, 16000)).to(cuda)
         kernel, plain = op_fx.PHASER_KERNEL, lambda: op_fx.phaser_plain(x, a, stages, 0.5)
         run = lambda: op_fx.phaser(x, a, stages, 0.5)  # noqa: E731
-    before = kernel.launches
+    before = {k.name: k.launches for k in F_KERNELS}
     got = run()
     torch.cuda.synchronize()
-    assert kernel.launches == before + 1
+    assert {k.name: k.launches - before[k.name] for k in F_KERNELS} == {k.name: int(k is kernel) for k in F_KERNELS}
     ref = plain()
     assert got.shape == x.shape and torch.isfinite(got).all()
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    assert torch.equal(got, ref), f"max abs err {float((got - ref).abs().max()):.3e}"
 
 
 def test_effects_kernel_empty_input_launches_nothing(cuda):
@@ -607,7 +617,23 @@ def test_effects_kernel_empty_input_launches_nothing(cuda):
     count of kernel F is a launch that ran."""
     x = torch.empty((0, 16000), device=cuda)
     a = torch.zeros(16000, device=cuda)
-    before = (op_fx.LADDER_KERNEL.launches, op_fx.PHASER_KERNEL.launches)
+    before = [k.launches for k in F_KERNELS]
     assert op_fx.ladder_hpf12(x, 0.5, 0.0, 1.0).shape == (0, 16000)
+    assert op_fx.ladder_hpf12(x, 0.5, 1.2, 1.0).shape == (0, 16000)
     assert op_fx.phaser(x, a, 6, 0.5).shape == (0, 16000)
-    assert (op_fx.LADDER_KERNEL.launches, op_fx.PHASER_KERNEL.launches) == before
+    assert [k.launches for k in F_KERNELS] == before
+
+
+def test_effects_pipeline_refuses_a_launch_it_cannot_run(cuda):
+    """A pipeline launch whose shared memory is not the pipeline's, or whose
+    T is not a multiple of 4, is refused in the C entry, and the wrapper's
+    kernel raises without counting it."""
+    x = torch.zeros((2, 64), device=cuda)
+    y, a = torch.empty_like(x), torch.zeros(64, device=cuda)
+    before = [k.launches for k in F_KERNELS]
+    with pytest.raises(RuntimeError, match="effects_ladder failed"):
+        op_fx.LADDER_KERNEL(cuda, op_fx.ptr(x), op_fx.ptr(y), 2, 64, 0.1, 1.0, op_fx.ladder_shared_bytes() + 16)
+    with pytest.raises(RuntimeError, match="effects_phaser failed"):
+        op_fx.PHASER_KERNEL(cuda, op_fx.ptr(x), op_fx.ptr(a), op_fx.ptr(y), 2, 62, 6, 0.5, 0.5,
+                            op_fx.phaser_shared_bytes(6))
+    assert [k.launches for k in F_KERNELS] == before
