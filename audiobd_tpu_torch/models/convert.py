@@ -195,7 +195,11 @@ def opt_state_from_flax(model_name: str, opt_state, param_names: list[str]) -> d
     the port's ``model_name`` model whose parameters are named
     ``param_names`` (``[n for n, _ in model.named_parameters()]``): each tree
     carried by ``FROM_FLAX``, so the conv and dense transposes are the
-    weights' own, and listed in that order."""
+    weights' own, and listed in that order. A state the JAX package laid out
+    with ``shard_params_tp`` is carried whole (``np.asarray`` of each leaf
+    gathers it), loaded, then cut by the port's
+    ``parallel/mesh.py::shard_params_tp(mesh, model, opt)``: each rank's
+    moments are then its JAX device's ``addressable_shards``."""
     carry = FROM_FLAX[model_name.lower()]
 
     def ordered(tree: dict) -> list[torch.Tensor]:

@@ -24,6 +24,12 @@ means of its batch mean and E[x²] over the group's ranks in training, as
 flax's BatchNorm with ``axis_name`` pmeans them; the local batches are
 equal in size, so the mean of means is the global batch's mean.
 
+Tensor parallel: a conv, dense layer or LSTM that parallel/mesh.py::
+shard_params_tp marked (``tp_shard``) runs column-parallel over its grid
+row (parallel/tp.py) in ``conv2d``, ``linear`` and ``lstm``; the fused
+blocks take the unfused chain for a sharded conv. Every other module runs
+as below.
+
 Compute dtype: the blocks and layers take ``dtype`` (torch.float32 or
 torch.bfloat16; the reference's flax ``dtype``). In bf16 the casts are
 flax's, made explicitly (autocast would compute BatchNorm's statistics in
@@ -47,6 +53,7 @@ import torch.nn.functional as F
 
 from audiobd_tpu_torch.ops import conv1_bn_pool as fused
 from audiobd_tpu_torch.ops import conv2_bn_pool as fused2
+from audiobd_tpu_torch.parallel import tp
 from audiobd_tpu_torch.parallel.distributed import all_reduce_sum
 
 BN_MOMENTUM = 0.9  # flax convention: the running average's decay
@@ -129,6 +136,8 @@ def dropout(x: torch.Tensor, p: float, training: bool, generator: torch.Generato
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``conv(x)`` in the compute ``dtype`` (flax nn.Conv's casts)."""
+    if (shard := tp.shard_of(conv)) is not None:
+        return tp.conv2d(conv, shard, x, dtype)
     if dtype == torch.float32:
         return conv(x)
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding)
@@ -137,6 +146,8 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor
 
 def linear(fc: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``fc(x)`` in the compute ``dtype`` (flax nn.Dense's casts)."""
+    if (shard := tp.shard_of(fc)) is not None:
+        return tp.linear(fc, shard, x, dtype)
     if dtype == torch.float32:
         return fc(x)
     return F.linear(x.to(dtype), fc.weight.to(dtype)) + fc.bias.to(dtype)
@@ -146,6 +157,8 @@ def lstm(module: nn.LSTM, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The LSTM's output sequence (B, T, H·directions) in the compute
     ``dtype``: in bf16 on bf16 copies of its weights, as the reference casts
     its parameters and input (layers.py:236-259)."""
+    if (shard := tp.shard_of(module)) is not None:
+        return tp.lstm(module, shard, x, dtype)
     if dtype == torch.float32:
         return module(x)[0]
     weights = {name: p.to(dtype) for name, p in module.named_parameters()}
@@ -162,7 +175,7 @@ def conv_bn_pool_block1(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused
     updated from the op's batch μ and σ² (clamped at 0, as the reference's
     two-sample update does). Otherwise the unfused chain runs. Either way
     the output is in the compute ``dtype``."""
-    if not fused_block or not fused.supports(x):
+    if not fused_block or tp.shard_of(conv) is not None or not fused.supports(x):
         return F.max_pool2d(bn(F.relu(conv2d(conv, x, dtype))), (1, 3))
     if bn.training:
         out, mu, var = fused.conv1_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, train=True,
@@ -186,7 +199,8 @@ def conv_bn_pool_block2(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused
     the CUDA kernel pair D, E; the running statistics are updated from the
     op's batch μ and σ² (clamped at 0). Eval calls always take the unfused
     chain: the fused op is train mode only. The output is in ``dtype``."""
-    if not fused_block or not bn.training or x.shape[2] < 2 or x.shape[3] < 2:
+    if (not fused_block or tp.shard_of(conv) is not None or not bn.training or x.shape[2] < 2
+            or x.shape[3] < 2):
         return F.max_pool2d(bn(F.relu(conv2d(conv, x, dtype))), (2, 2), padding=pool_padding)
     out, mu, var = fused2.conv2_bn_pool(x, conv.weight, conv.bias, bn.weight, bn.bias, pool_padding=pool_padding,
                                         compute_dtype=dtype)

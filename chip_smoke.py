@@ -106,8 +106,19 @@ no result, without them. Phases, each printing its own lines:
      (every rank's writes under the run's directory recorded by audit
      hooks), each rank's kernel launches (A 10, B 0: sync-BN takes the
      unfused chain) and parameter digest, accuracy against phase 2's.
+  13. tensor parallel (parallel/mesh.py::shard_params_tp, min_features
+     128; the column-parallel routes of parallel/tp.py), ranks spawned on the
+     card as in 12a, each case one step on a global batch of 256 of phase 2's
+     features from shared weights against the same step in this process (and
+     the float64 step): 13a LargeCNN (flatten 12288) on a 1 x 2 and a 2 x 2
+     mesh; 13b SmallCNN with block 1 on kernel B (1 x 2: BatchNorm keeps
+     local statistics, so B runs on each rank); 13c RNN (3 x 768 LSTM, 101
+     steps: the gate-sharded loop against cuDNN); 13d LargeCNN in bf16. Each
+     rank's parameter and Adam-moment bytes against the replicated layout,
+     the gathers and row all-reduces a step, the walls of the step and of a
+     second one, B's launches a rank.
   Kernel launch counts are zeroed just before each CLI run and read just
-  after it; the ranks of phase 12 count their own.
+  after it; the ranks of phases 12 and 13 count their own.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
@@ -2406,6 +2417,431 @@ def phase_dp_cli(torch, main_acc: tuple[float, float]) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 13: tensor parallel. The ranks share the one card over gloo, spawned
+# as phase 12a's (NCCL refuses two ranks on one device), so a collective goes
+# device → host → device: the walls measure that host path, not NVLink TP.
+TP_MODEL = 2  # ranks a grid row (the mesh's model axis)
+TP_TIMEOUT_S = 300
+# f32, against one process's step on the card: logits within 1e-5 of their
+# largest entry; loss and metric sums as phase 12a; each gradient's distance
+# from the float64 step at most max(DP_GRAD_RATIO x the one-process step's,
+# DP_GRAD_FLOOR) and at most DP_GRAD_CAP, relative to the tensor's largest
+# entry; running statistics 1e-4; parameters after one Adam step 0.25 lr.
+TP_LOGITS_RTOL = 1e-5
+# LargeCNN's sharded convs round otherwise than one process's, which moves
+# relu and max-pool near-ties: a moved tie shifts a conv gradient by ~1e-3
+# of its largest entry, so its f32 steps are judged against the float64 step
+# run on their own routing (largecnn_step), within 1e-4 (the CPU tests'
+# gradient tolerance), and within 1e-4 of the step written out as the ranks
+# run it.
+TP_ROUTED_RTOL = 1e-4
+# bf16 (13d), against one process's bf16 step: logits within 1e-2 of their
+# largest entry, loss 1e-2 relative, gradients 2e-2 of each tensor's largest
+# entry (a sharded layer's input gradient is the sum of the ranks' bf16
+# partial products: one bf16 rounding more than one process's).
+TP_BF16_RTOL, TP_BF16_GRAD = 1e-2, 2e-2
+TP_CASES = (  # label, model, compute dtype, block 1 on kernel B, world sizes (1 x 2, 2 x 2)
+    ("13a LargeCNN", "largecnn", "float32", False, (2, 4)),
+    ("13b SmallCNN, fused_conv_block on", "smallcnn", "float32", True, (2,)),
+    ("13c RNN", "rnn", "float32", False, (2,)),
+    ("13d LargeCNN bf16", "largecnn", "bfloat16", False, (2,)),
+)
+
+
+def _tp_model(torch, kind: str, dtype: str, fused: bool):
+    """Phase 13's models at full width (BadNets' shapes), dropout off."""
+    from audiobd_tpu_torch.models import RNN, LargeCNN, SmallCNN
+
+    dt = getattr(torch, dtype)
+    if kind == "largecnn":
+        return LargeCNN(10, 12288, dropout_rate=0.0, compute_dtype=dt)
+    if kind == "smallcnn":
+        return SmallCNN(10, 3072, fused_block1=fused, dropout_rates=(0.0, 0.0), compute_dtype=dt)
+    return RNN(10, 40, compute_dtype=dt)
+
+
+def _tp_rank(rank: int, tmp: str, world: int) -> None:
+    """Phase 13's rank of a (world / 2) x 2 mesh on cuda:0: for each case,
+    shard_params_tp (min_features 128), one step on the global batch from
+    the shared weights, then one more on the same batch for a warm wall;
+    results to ``tmp``."""
+    import torch
+
+    from audiobd_tpu_torch.ops import KERNELS
+    from audiobd_tpu_torch.parallel import tp
+    from audiobd_tpu_torch.parallel.distributed import destroy, maybe_initialize_distributed
+    from audiobd_tpu_torch.parallel.mesh import make_mesh, shard_params_tp, unshard_params_tp
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import ShardedDeviceDataset, run_train_epoch_sharded
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils.device import resolve_device
+
+    maybe_initialize_distributed(f"file://{tmp}/rendezvous{world}", world, rank)
+    device = resolve_device(None)
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    mesh = make_mesh(world // TP_MODEL, TP_MODEL)
+    dset = ShardedDeviceDataset(ArraySet(*inputs["batch"]), mesh, device)
+    out = {"device": str(device), "mesh": (mesh.data_index, mesh.model_index)}
+    for label, kind, dtype, fused, worlds in TP_CASES:
+        if world not in worlds:
+            continue
+        model = _tp_model(torch, kind, dtype, fused)
+        model.load_state_dict(inputs["state"][kind])
+        model.to(device)
+        if mesh.shape["data"] > 1:  # a 1 x 2 mesh keeps local statistics, so block 1 keeps kernel B
+            model.sync_batchnorm(mesh.data_group)
+        opt = Adam(model.parameters(), DP_LR)
+        shard_params_tp(mesh, model, opt)
+        grads = _grad_recorder(opt)
+        logits = []
+        hook = model.register_forward_hook(lambda _m, _a, y: logits.append(y.detach().float().cpu()))
+        res = {"walls_ms": []}
+        for step in range(2):
+            for k in KERNELS:
+                k.launches = 0
+            before = dict(tp.COUNTS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train = run_train_epoch_sharded(model, opt, dset, BATCH, None)
+            torch.cuda.synchronize()
+            res["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+            if step == 0:
+                res.update(train=train, logits=logits[0], grads=[g.float().cpu() for g in grads[0]],
+                           launches={k.name: k.launches for k in KERNELS if k.launches},
+                           collectives={k: tp.COUNTS[k] - before[k] for k in before},
+                           local={k: v.cpu() for k, v in model.state_dict().items()},
+                           full={k: v.cpu() for k, v in unshard_params_tp(mesh, model).items()},
+                           sharded={k: (s.n, s.index, s.full) for k, s in model.tp_sharded.items()},
+                           bytes=sum(t.numel() * t.element_size() for t in (*opt.params, *opt.mu, *opt.nu)))
+        hook.remove()
+        out[label] = res
+        del model, opt, grads
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"rank{rank}_of_{world}.pt"))
+    destroy()
+
+
+def _tp_grads64(torch, kind: str, state: dict, x, y) -> dict:
+    """The float64 gradients of SmallCNN's and RNN's batch-mean loss on the
+    card (SmallCNN written out, as phase 12a's reference; RNN's LSTM and
+    head in float64; LargeCNN's come from largecnn_step)."""
+    import torch.nn.functional as F
+
+    if kind == "smallcnn":
+        return smallcnn_grads_ref(torch, state, x, y, torch.float64)[0]
+    model = _tp_model(torch, kind, "float32", False)
+    model.load_state_dict(state)
+    model.to("cuda", torch.float64).train()
+    h = torch.as_tensor(x, device="cuda", dtype=torch.float64)
+    with torch.backends.cudnn.flags(enabled=False):  # ATen's LSTM in float64
+        logits = model.fc(model.lstm(h.squeeze(1))[0][:, -1])
+    loss = F.cross_entropy(logits, torch.as_tensor(y, device="cuda").long())
+    names = [n for n, _ in model.named_parameters()]
+    return dict(zip(names, (g.cpu() for g in torch.autograd.grad(loss, list(model.parameters())))))
+
+
+def largecnn_step(torch, state: dict, x, y, dtype: str, n_data: int, blocks: int, routes=None) -> tuple:
+    """LargeCNN's step (models/zoo.py::LargeCNN, dropout 0) written out in
+    this process, each of ``n_data`` data shards' rows apart and their
+    gradients summed. With ``blocks`` = TP_MODEL, as the ranks of an n_data
+    x TP_MODEL mesh run it: each layer shard_params_tp shards (dim 0 at
+    least 128 and splitting over TP_MODEL) as ``blocks`` products on the
+    blocks of its weight, joined along the feature axis, then the bias (the
+    casts of models/layers.py in bf16); with 1, as one process runs it.
+    Each relu and max pool records its routing, the inputs it passes the
+    gradient to; given ``routes`` (another call's), it takes those instead:
+    a float64 step on an f32 step's routing. Returns (logits on the CPU,
+    {name: gradient} on the CPU, routes on the card)."""
+    import torch.nn.functional as F
+
+    from audiobd_tpu_torch.train.loop import cross_entropy
+
+    dt = getattr(torch, dtype)
+    full = torch.float64 if dt == torch.float64 else torch.float32  # the parameters' dtype
+    params = {k: v.to("cuda", full, copy=True).requires_grad_(True) for k, v in state.items()}
+    replay = None if routes is None else iter(routes)
+    taken = []
+
+    def layer(h, name: str, conv: bool):
+        w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+        op = (lambda a, ww, bb: F.conv2d(a, ww, bb, padding=1)) if conv else F.linear
+        if blocks > 1 and w.shape[0] >= 128 and w.shape[0] % blocks == 0:
+            y = torch.cat([op(h.to(dt), wb.to(dt), None) for wb in w.chunk(blocks)], dim=1 if conv else -1)
+        elif dt != torch.bfloat16:
+            return op(h, w, b)
+        else:
+            y = op(h.to(dt), w.to(dt), None)
+        return y + (b.to(dt).reshape(1, -1, 1, 1) if conv else b.to(dt))
+
+    def relu(z):
+        if replay is None:
+            taken.append(z > 0)
+            return F.relu(z)
+        taken.append(next(replay))
+        return z * taken[-1]
+
+    def pool(z, k: int, stride: int):
+        if replay is None:
+            out, idx = F.max_pool2d(z, k, stride=stride, return_indices=True)
+            taken.append(idx)
+            return out
+        taken.append(next(replay))
+        return z.flatten(2).gather(2, taken[-1].flatten(2)).view(taken[-1].shape)
+
+    grads, logits = None, []
+    xs_all = torch.as_tensor(x, device="cuda", dtype=full)
+    for xs, ys in zip(xs_all.chunk(n_data), torch.as_tensor(y, device="cuda").chunk(n_data)):
+        h = pool(layer(xs, "convs.0", True), 2, 2)
+        h = pool(layer(h, "convs.1", True), 2, 2)
+        for i in (2, 3, 4):
+            h = relu(layer(h, f"convs.{i}", True))
+        h = pool(h, 3, 2).flatten(1)
+        h = relu(layer(relu(layer(h, "fc1", False)), "fc2", False))
+        out = layer(h, "fc3", False)
+        loss = cross_entropy(out, ys.long()).sum() / len(x) if full == torch.float32 else \
+            F.cross_entropy(out, ys.long(), reduction="sum") / len(x)
+        g = torch.autograd.grad(loss, list(params.values()))
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        logits.append(out.detach().float().cpu())
+    return torch.cat(logits), dict(zip(params, (g.cpu() for g in grads))), taken
+
+
+def _routing_diffs(a: list, b: list) -> tuple[int, int]:
+    """(decisions that differ, decisions) between two calls' routes."""
+    return sum(int((u != v).sum()) for u, v in zip(a, b)), sum(u.numel() for u in a)
+
+
+def _adam_first_step(p, g, lr: float):
+    """Parameters after one optax-adam step from zero moments on gradient g."""
+    return p - lr * g / (g.abs() + 1e-8)
+
+
+def _tp_block(full, sharded: dict, name: str):
+    """The block of ``full`` that a rank with layout ``sharded`` holds."""
+    if name not in sharded:
+        return full
+    n, index, size = sharded[name]
+    return full[index * size // n:(index + 1) * size // n]
+
+
+def phase_tp(torch, record_dir: str) -> None:
+    """Phase 13: tensor-parallel train steps (shard_params_tp and the
+    column-parallel routes) by 2 and 4 ranks on the card, each against the
+    same step in this process."""
+    import numpy as np
+
+    import torch.multiprocessing as mp
+
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_train_epoch
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils.random import torch_generator
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    bd = os.path.join(record_dir, "record", "chip_smoke", "SCDv1-10", "bd")
+    x = np.array(np.load(os.path.join(bd, "bd_train_mfcc.npy"), mmap_mode="r")[:BATCH], np.float32)
+    y = np.load(os.path.join(bd, "bd_train_label.npy"))[:BATCH]
+    ind = np.load(os.path.join(bd, "poison_index_train.npy"))[:BATCH]
+    print(f"phase 13: tensor parallel (shard_params_tp, min_features 128), ranks on cuda:0 ({smi}; gloo, file:// "
+          f"rendezvous: a collective goes through the host, so walls are gloo's on one shared card, not NVLink TP); "
+          f"one step on a global batch {tuple(x.shape)} of phase 2's features, full width, dropout 0, against this "
+          f"process's step from the same weights (cuDNN deterministic, as shard_params_tp sets it); f32 bounds: loss "
+          f"rtol 1e-5, metric sums equal, logits {TP_LOGITS_RTOL:.0e} of their largest entry, running statistics "
+          f"1e-4 and gradients relative to each tensor's largest entry: each gradient's distance from float64 at "
+          f"most max({DP_GRAD_RATIO} x the one-process step's, {DP_GRAD_FLOOR:.0e}) and at most {DP_GRAD_CAP:.1e} "
+          f"(SmallCNN, RNN); LargeCNN's within {TP_ROUTED_RTOL:.0e} of float64 on the step's own relu and max-pool "
+          f"routing and of the step written out as the ranks run it; parameters after one Adam step 0.25 lr (of "
+          f"that step's update for LargeCNN); bf16: loss and logits {TP_BF16_RTOL:.0e}, gradients "
+          f"{TP_BF16_GRAD:.0e} of the written-out bf16 step; a row's ranks bit-equal in what they replicate, a "
+          f"column's in everything", flush=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    states, refs, g64, written, routes = {}, {}, {}, {}, {}
+    for kind in ("largecnn", "smallcnn", "rnn"):
+        model = _tp_model(torch, kind, "float32", False)
+        model.reset_parameters(torch_generator(35, "params"))
+        states[kind] = {k: v.clone() for k, v in model.state_dict().items()}
+    dset = DeviceDataset(ArraySet(x, y, ind), torch.device("cuda"))
+    for label, kind, dtype, fused, worlds in TP_CASES:
+        model = _tp_model(torch, kind, dtype, fused)
+        model.load_state_dict(states[kind])
+        model.to("cuda")
+        opt = Adam(model.parameters(), DP_LR)
+        grads = _grad_recorder(opt)
+        logits = []
+        model.register_forward_hook(lambda _m, _a, out: logits.append(out.detach().float().cpu()))
+        train = run_train_epoch(model, opt, dset, BATCH, None)
+        refs[label] = {"train": train, "logits": logits[0], "grads": [g.float().cpu() for g in grads[0]],
+                       "state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                       "names": [n for n, _ in model.named_parameters()]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_train_epoch(model, opt, dset, BATCH, None)  # a second step: the warm wall
+        torch.cuda.synchronize()
+        refs[label]["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        if dtype == "float32" and kind == "largecnn":
+            _, g64[kind], routes["float64"] = largecnn_step(torch, states[kind], x, y, "float64", 1, 1)
+            routes["one process"] = largecnn_step(torch, states[kind], x, y, dtype, 1, 1)[2]
+            g64["largecnn, one process's routing"] = largecnn_step(torch, states[kind], x, y, "float64", 1, 1,
+                                                                   routes["one process"])[1]
+        elif dtype == "float32":
+            g64[kind] = _tp_grads64(torch, kind, states[kind], x, y)
+        for world in worlds if kind == "largecnn" else ():
+            n_data = world // TP_MODEL
+            w_logits, w_grads, tp_routes = largecnn_step(torch, states[kind], x, y, dtype, n_data, TP_MODEL)
+            written[label, world] = {"logits": w_logits, "grads": w_grads}
+            if dtype == "float32":
+                written[label, world]["routed64"] = largecnn_step(torch, states[kind], x, y, "float64", n_data, 1,
+                                                                  tp_routes)[1]
+                k = len(tp_routes) // n_data
+                whole = [torch.cat(tp_routes[i::k]) for i in range(k)]  # the data shards' rows, in order
+                written[label, world]["routing"] = {
+                    "row vs float64": _routing_diffs(whole, routes["float64"]),
+                    "one process vs float64": _routing_diffs(routes["one process"], routes["float64"]),
+                    "row vs one process": _routing_diffs(whole, routes["one process"])}
+        del model, opt, grads
+        torch.cuda.empty_cache()
+    routes.clear()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    outs = {}
+    try:
+        torch.save({"state": states, "batch": (x, y, ind)}, os.path.join(tmp, "inputs.pt"))
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            ctx = mp.start_processes(_tp_rank, args=(tmp, world), nprocs=world, join=False, start_method="spawn")
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            try:
+                while not ctx.join(timeout=1):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"the {world} ranks did not finish in {TP_TIMEOUT_S} s")
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+            outs[world] = [torch.load(os.path.join(tmp, f"rank{r}_of_{world}.pt"), weights_only=False)
+                           for r in range(world)]
+            print(f"  {world} ranks ({world // TP_MODEL} x {TP_MODEL}) spawned, stepped and joined in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    devices = {world: [out["device"] for out in ranks] for world, ranks in outs.items()}
+    check(all(d == "cuda:0" for ds in devices.values() for d in ds), f"the ranks' devices: {devices}")
+    for label, kind, dtype, fused, worlds in TP_CASES:
+        ref = refs[label]
+        names = ref["names"]
+        for world in worlds:
+            ranks = outs[world]
+            n_data = world // TP_MODEL
+            tag = f"{label}, {n_data} x {TP_MODEL}"
+            w = written.get((label, world))
+            for r, out in enumerate(ranks):
+                res = out[label]
+                d, m = out["mesh"]
+                rows = np.arange(BATCH).reshape(n_data, -1)[d]
+                sharded = res["sharded"]
+                loss_err = abs(res["train"]["loss"] - ref["train"]["loss"]) / abs(ref["train"]["loss"])
+                logit_err = _rel_err(res["logits"], ref["logits"][rows])
+                grad_err = {n: _rel_err(g, _tp_block(gr, sharded, n)) for n, g, gr in zip(names, res["grads"],
+                                                                                          ref["grads"])}
+                same = res["train"]["mix_acc"] == ref["train"]["mix_acc"] and res["train"]["asr"] == ref["train"]["asr"]
+                to_w = ""
+                if w is not None:
+                    w_err = {n: _rel_err(g, _tp_block(w["grads"][n], sharded, n)) for n, g in zip(names, res["grads"])}
+                    w_logit = _rel_err(res["logits"], w["logits"][rows])
+                    to_w = (f"; from the step written out as the ranks run it: gradients at most "
+                            f"{max(w_err.values()):.1e} ({max(w_err, key=w_err.get)}), logits {w_logit:.1e}")
+                if dtype == "float32":
+                    own64 = {n: _rel_err(g, _tp_block(g64[kind][n], sharded, n)) for n, g in zip(names, res["grads"])}
+                    one64 = {n: _rel_err(_tp_block(g, sharded, n), _tp_block(g64[kind][n], sharded, n))
+                             for n, g in zip(names, ref["grads"])}
+                    stat_err = max([_rel_err(res["full"][k], ref["state"][k]) for k in ref["state"] if "running" in k],
+                                   default=0.0)
+                    if w is None:  # the row routes every relu and max-pool tie as one process does
+                        to64 = own64
+                        lim = {n: min(max(DP_GRAD_RATIO * one64[n], DP_GRAD_FLOOR), DP_GRAD_CAP) for n in names}
+                        judged = "from float64"
+                        after = {n: ref["state"][n] for n in names}
+                        ok_w = True
+                    else:  # sharded convs round otherwise and move near-ties: judged on their own routing
+                        to64 = {n: _rel_err(g, _tp_block(w["routed64"][n], sharded, n))
+                                for n, g in zip(names, res["grads"])}
+                        lim = {n: TP_ROUTED_RTOL for n in names}
+                        judged = "from float64 on this step's relu and max-pool routing"
+                        after = {n: _adam_first_step(states[kind][n], w["grads"][n], DP_LR) for n in names}
+                        ok_w = max(w_err.values()) <= 1e-4 and w_logit <= TP_LOGITS_RTOL
+                    worst = max(names, key=lambda n: to64[n] / lim[n])
+                    param_err = max(float((res["full"][n] - after[n]).abs().max()) for n in names) / DP_LR
+                    check(loss_err <= 1e-5 and same and logit_err <= TP_LOGITS_RTOL and to64[worst] <= lim[worst]
+                          and stat_err <= 1e-4 and param_err <= 0.25 and ok_w,
+                          f"{tag}, rank {r} (d {d}, m {m}) vs one process: loss {res['train']['loss']:.6f} vs "
+                          f"{ref['train']['loss']:.6f} (rel {loss_err:.1e}), mix_acc {res['train']['mix_acc']:.4f} "
+                          f"vs {ref['train']['mix_acc']:.4f}, asr {res['train']['asr']:.4f} vs "
+                          f"{ref['train']['asr']:.4f}; logits {logit_err:.1e}; gradients {judged}, nearest its "
+                          f"bound: {worst} {to64[worst]:.1e} (bound {lim[worst]:.1e}), from the one-process step at "
+                          f"most {max(grad_err.values()):.1e}{to_w}; running statistics {stat_err:.1e}; parameters "
+                          f"after the step {param_err:.3f} lr")
+                    if r == 0:
+                        print(f"  {tag}: gradients' distance from the float64 step, this rank / one process "
+                              f"(relative to each tensor's largest entry): "
+                              + ", ".join(f"{n} {own64[n]:.1e} / {one64[n]:.1e}" for n in names), flush=True)
+                        if w is not None:
+                            one_routed = g64["largecnn, one process's routing"]
+                            print(f"  {tag}: from float64 on each f32 step's own relu and max-pool routing, this "
+                                  f"rank / one process: "
+                                  + ", ".join(f"{n} {to64[n]:.1e} / "
+                                              f"{_rel_err(_tp_block(g, sharded, n), _tp_block(one_routed[n], sharded, n)):.1e}"
+                                              for n, g in zip(names, ref["grads"])), flush=True)
+                            print(f"  {tag}: relu and max-pool decisions (the input each passes its gradient to) "
+                                  f"that differ: " + ", ".join(f"{k} {a:,} of {b:,}" for k, (a, b) in
+                                                               w["routing"].items()), flush=True)
+                else:
+                    check(loss_err <= TP_BF16_RTOL and logit_err <= TP_BF16_RTOL
+                          and max(w_err.values()) <= TP_BF16_GRAD and w_logit <= TP_BF16_RTOL,
+                          f"{tag}, rank {r} vs one process (bf16): loss {res['train']['loss']:.6f} vs "
+                          f"{ref['train']['loss']:.6f} (rel {loss_err:.1e}), mix_acc {res['train']['mix_acc']:.4f} vs "
+                          f"{ref['train']['mix_acc']:.4f}; logits {logit_err:.1e}; gradients at most "
+                          f"{max(grad_err.values()):.1e}{to_w}")
+                if r == 0:
+                    errs = {n: _rel_err(res["full"][n], ref["state"][n]) for n in names}
+                    print(f"  {tag}: gathered parameters after the step vs one process, largest relative error "
+                          f"(to each tensor's largest entry): " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()),
+                          flush=True)
+            res0 = ranks[0][label]
+            whole = sum(ref["state"][n].numel() for n in names) * 4 * 3  # parameters, mu, nu (f32)
+            cut = sum(ref["state"][n].numel() for n in res0["sharded"]) * 4 * 3
+            want = whole - cut + cut // TP_MODEL
+            rank_bytes = [o[label]["bytes"] for o in ranks]
+            check(all(b == want for b in rank_bytes) and cut > 0,
+                  f"{tag}: parameters + Adam moments a rank {', '.join(f'{b / 1e6:.2f}' for b in rank_bytes)} MB "
+                  f"against {whole / 1e6:.2f} MB replicated; sharded tensors {cut / 1e6:.2f} MB of it "
+                  f"({len(res0['sharded'])}: {', '.join(res0['sharded'])}), so {want / 1e6:.2f} MB expected "
+                  f"({smi})")
+            unequal = set()
+            for r in range(world):
+                d, m = divmod(r, TP_MODEL)
+                for k, v in ranks[r][label]["local"].items():
+                    partners = [] if k in res0["sharded"] else [d * TP_MODEL + j for j in range(TP_MODEL)]
+                    partners += [e * TP_MODEL + m for e in range(n_data)]
+                    unequal |= {k for p in partners if not torch.equal(v, ranks[p][label]["local"][k])}
+            check(not unequal, f"{tag}: a row's ranks bit-equal in every replicated tensor, a column's in every "
+                               f"tensor (unequal: {sorted(unequal)})")
+            counts = res0["collectives"]
+            check(counts["gathers"] > 0, f"{tag}: a step's collectives a rank: {counts['gathers']} gathers (forward), "
+                                          f"{counts['row_all_reduces']} row all-reduces (backward)")
+            launches = [o[label]["launches"] for o in ranks]
+            b = [lc.get("conv1_bn_pool_bwd_params", 0) for lc in launches]
+            if fused:
+                check(all(v > 0 for v in b), f"{tag}: kernel B launched {b} times a rank in the step "
+                                             f"(block 1 replicated, local statistics)")
+            print(f"  {tag}: launches a rank {launches}; step wall a rank, first and second step "
+                  + "; ".join(f"rank {r} {w[0]:.1f}, {w[1]:.1f} ms" for r, w in
+                              enumerate(o[label]["walls_ms"] for o in ranks))
+                  + f" (one process {ref['wall_ms']:.1f} ms, second step; {smi}; gloo on one shared card)",
+                  flush=True)
+
 def main() -> int:
     try:
         import torch
@@ -2467,8 +2903,8 @@ def main() -> int:
 
 def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
               record_dir) -> list[dict]:
-    """Phases 2-12; each kernel row gets its launches from the path that runs
-    it (A's FFT route and B's train mode from phase 2; phases 10-12 print
+    """Phases 2-13; each kernel row gets its launches from the path that runs
+    it (A's FFT route and B's train mode from phase 2; phases 10-13 print
     their own). Returns the rows of the ``kernels`` line."""
     launches, main_clips, main_acc = phase_main_path(torch, kernels, record_dir)
     for row in main_rows:
@@ -2502,6 +2938,7 @@ def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows
     phase_restart(torch, kernels, record_dir)
     phase_dp_step(torch, kernels, record_dir)
     phase_dp_cli(torch, main_acc)
+    phase_tp(torch, record_dir)
     return main_rows + block23_rows + bf16_rows + effects_rows
 
 
