@@ -9,8 +9,11 @@ helper here answers for a world of one rank and nothing is initialized.
 
 Backend: ``nccl`` (CPU tensors through gloo) when every rank of the node
 has a card of its own; ``gloo`` for CPU ranks and for ranks that share a
-card, since NCCL refuses two ranks on one device. The collectives are
-``all_reduce`` and ``broadcast`` only: gloo has no other on CUDA tensors.
+card, since NCCL refuses two ranks on one device. A rank takes card
+``local_rank() % device_count``: its ``LOCAL_RANK`` under a launcher, its
+rank in an explicit join. On CUDA tensors the collectives are
+``all_reduce``, ``broadcast`` and parallel/tp.py's list-form
+``all_gather``, which gloo runs too.
 """
 
 from __future__ import annotations
@@ -48,13 +51,16 @@ def maybe_initialize_distributed(
     n_cuda = torch.cuda.device_count()
     own_cards = 0 < local_world <= n_cuda
     backend = "cpu:gloo,cuda:nccl" if own_cards else "gloo"
+    card = local_rank(rank_) % n_cuda if n_cuda else -1  # the card this rank runs on; -1: none
     if own_cards:
-        torch.cuda.set_device(local_rank() % n_cuda)
+        torch.cuda.set_device(card)
     dist.init_process_group(backend, init_method=coordinator_address, world_size=world, rank=rank_)
+    # Each rank's card as the rank placed itself: one all-gather of a CPU
+    # tensor (gloo under either backend) at the join.
+    cards = [torch.empty(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(cards, torch.tensor([card]))
     if rank_ == 0:
-        devices = ", ".join(
-            f"rank {r}: {f'cuda:{(r % local_world) % n_cuda}' if n_cuda else 'cpu'}" for r in range(world)
-        )
+        devices = ", ".join(f"rank {r}: {f'cuda:{int(c)}' if int(c) >= 0 else 'cpu'}" for r, c in enumerate(cards))
         print(f"distributed: world {world}, backend {'nccl' if own_cards else 'gloo'} ({devices})", flush=True)
     return True
 
@@ -111,9 +117,17 @@ def agreed(flag: bool, what: str) -> bool:
     return flag
 
 
-def local_rank() -> int:
-    """This rank's index on its node (``LOCAL_RANK``; 0 without a launcher)."""
-    return int(os.environ.get("LOCAL_RANK", "0"))
+def local_rank(process_id: int | None = None) -> int:
+    """This rank's index on its node, the one rule that places a rank on a
+    card: the join's ``set_device`` and utils/device.py::resolve_device
+    both take ``local_rank() % device_count``. ``LOCAL_RANK`` where a
+    launcher set it; otherwise the rank of an explicit join, whose ranks are
+    taken to be one node's: ``process_id`` before the group is live, the
+    group's rank after; 0 without either."""
+    env = os.environ.get("LOCAL_RANK")
+    if env is not None:
+        return int(env)
+    return rank() if process_id is None else process_id
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -48,7 +48,7 @@ from audiobd_tpu_torch.train.scan_epoch import (
 )
 from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
-from audiobd_tpu_torch.utils.device import resolve_device
+from audiobd_tpu_torch.utils.device import card_label, resolve_device
 from audiobd_tpu_torch.utils.logging import save_attack_csvs
 from audiobd_tpu_torch.utils.profiling import annotate, trace
 
@@ -279,7 +279,7 @@ def train_attack(
                 break
     wall = time.perf_counter() - t_start
     if sharded:
-        print(f"rank {rank()}/{mesh.size}: {replica_line(model)}", flush=True)
+        print(f"rank {rank()}/{mesh.size} on {card_label(device)}: {replica_line(model)}", flush=True)
 
     if save:
         save_attack_csvs(record_dir, history)

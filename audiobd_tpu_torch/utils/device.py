@@ -13,7 +13,8 @@ def resolve_device(name: str | None) -> torch.device:
     never carries on on the CPU unasked.
 
     Under a live group of ranks, no name or ``cuda`` means this rank's card,
-    ``cuda:{LOCAL_RANK % device_count}``; an explicit index wins.
+    ``cuda:{local_rank() % device_count}``, the card the join set
+    (parallel/distributed.py::local_rank); an explicit index wins.
 
     Also turns TF32 off. The reference computes in f32 at full precision
     (``Precision.HIGHEST`` in audiobd_tpu/dsp/mfcc.py and ops/pallas_mfcc.py),
@@ -34,3 +35,18 @@ def resolve_device(name: str | None) -> torch.device:
     if device.type == "cuda" and device.index is None and live():
         return torch.device("cuda", local_rank() % torch.cuda.device_count())
     return device
+
+
+def card_label(device: torch.device) -> str:
+    """``device`` and, on CUDA, its card's PCI bus id (``cuda:1, PCI
+    00000000:19:00.0``; ``unknown`` where this torch's device properties
+    lack it), which names the physical card whatever
+    ``CUDA_VISIBLE_DEVICES`` renumbers: how ranks show they hold distinct
+    cards."""
+    if device.type != "cuda":
+        return str(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    props = torch.cuda.get_device_properties(index)
+    bus = (f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}:{props.pci_device_id:02X}.0"
+           if hasattr(props, "pci_bus_id") else "unknown")
+    return f"cuda:{index}, PCI {bus}"

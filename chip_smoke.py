@@ -92,7 +92,9 @@ no result, without them. Phases, each printing its own lines:
      checkpoint write's ms beside the epoch's wall (every CLI run prints its
      writes).
   12. data-parallel training, two ranks on the one card (gloo; NCCL refuses
-     two ranks on one device), which they time-share: 12a. one step of
+     two ranks on one device), which they time-share (on a machine of more
+     cards too: phases 12 and 13 start their ranks seeing only the first
+     card): 12a. one step of
      full-width SmallCNN on a global batch of 256 of phase 2's features, 128
      rows a rank, from ranks spawned by torch.multiprocessing (file://
      rendezvous), against the same step in this process, unfused and with
@@ -117,17 +119,40 @@ no result, without them. Phases, each printing its own lines:
      rank's parameter and Adam-moment bytes against the replicated layout,
      the gathers and row all-reduces a step, the walls of the step and of a
      second one, B's launches a rank.
+  14. only on a machine of at least four cards (elsewhere one line says so;
+     scripts/multicard_phase.py runs it alone): data and tensor parallelism
+     across four cards, one a rank, over NCCL. Spawned ranks join
+     explicitly (rank r on card r); each reports its device, the group's
+     backend and its card's PCI bus id, which must be cuda:{rank}, NCCL and
+     four distinct cards. 14a, dryrun_multichip(4) (__graft_entry__.py) on
+     four cards: (i) a SmallCNN step on a 2 x 2 dp x tp mesh (fc1 sharded,
+     sync-BN over the data group) held as phase 13 holds its steps; (ii)
+     its data-parallel phase: SmallCNN and LargeCNN at full width on 16
+     seeded rows, the sharded eval epoch (metric sums equal, mean loss
+     1e-5) and a train epoch of one global batch (running statistics 2e-5)
+     against this process; (iii) phase 12a's step and checks by four ranks,
+     64 rows a rank, and (iv) its gradient buffer's all-reduce over NCCL.
+     14b, the main path's badnets CLI through torchrun --nproc_per_node 4
+     at global batches 256 and 1024, each after the same command on one
+     card: phase 12b's checks for four ranks (A 10 and B 0 launches a rank,
+     equal digests, rank 0 alone writes, accuracy within 5 points of the
+     one-card run), the banner's nccl, train clips/s on one card and four.
+     14c, phase 13's cases with a card a rank: LargeCNN on 1 x 4 and 2 x 2
+     and in bf16 on 1 x 4, SmallCNN 1 x 4 with B (launches a rank > 0), RNN
+     1 x 4 (a gate axis of 3072 / 4); walls beside phase 13's over gloo.
   Kernel launch counts are zeroed just before each CLI run and read just
-  after it; the ranks of phases 12 and 13 count their own.
+  after it; the ranks of phases 12-14 count their own.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2047,10 +2072,78 @@ def phase_restart(torch, kernels, workdir: str) -> dict[str, int]:
     return launches
 
 # ---------------------------------------------------------------------------
+# Ranks. Phases 12-13 keep their ranks on one shared card on a machine of
+# any number of cards: they are spawned seeing only the first card (an
+# explicit join places rank r on card r when every rank has one). Phase 14
+# spawns its ranks seeing every card.
+
+
+def first_card_env() -> dict[str, str]:
+    """``CUDA_VISIBLE_DEVICES`` naming only the first card this process sees."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").strip()
+    return {"CUDA_VISIBLE_DEVICES": visible.split(",")[0] if visible else "0"}
+
+
+@contextlib.contextmanager
+def environ(extra: dict[str, str]):
+    """``os.environ`` with ``extra`` while the block runs (processes started
+    in it inherit it)."""
+    saved = {k: os.environ.get(k) for k in extra}
+    os.environ.update(extra)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def spawn_ranks(fn, args: tuple, n: int, timeout_s: float, env: dict[str, str]) -> None:
+    """``fn(rank, *args)`` in ``n`` processes started by torch.multiprocessing's
+    spawn with ``env`` added to their environment; a rank that raises raises
+    here, and ranks still alive after ``timeout_s`` (a hung collective) are
+    killed and raise ``TimeoutError``. No process outlives the call."""
+    import torch.multiprocessing as mp
+
+    with environ(env):
+        ctx = mp.start_processes(fn, args=args, nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the {n} ranks did not finish in {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def rank_placement(device) -> dict:
+    """What a spawned rank reports of its placement: its device, the
+    group's backend and its card's PCI bus id."""
+    import torch.distributed as dist
+
+    from audiobd_tpu_torch.utils.device import card_label
+
+    return {"device": str(device), "backend": str(dist.get_backend()), "card": card_label(device)}
+
+
+def check_placement(outs: list[dict], what: str) -> None:
+    """Ranks with a card each: rank r on cuda:r over NCCL, on distinct
+    cards (PCI bus ids)."""
+    buses = [o["card"].split("PCI ")[-1] for o in outs]
+    check(all(o["device"] == f"cuda:{r}" and "nccl" in o["backend"] for r, o in enumerate(outs))
+          and len(set(buses)) == len(outs),
+          f"{what}: each rank on cuda:{{rank}} over NCCL, distinct cards: "
+          + "; ".join(f"rank {r} {o['card']} ({o['backend']})" for r, o in enumerate(outs)))
+
+
 # Phase 12: data-parallel training, two ranks on the one card (gloo: NCCL
 # refuses two ranks on one device). Two ranks time-share the card, so its
 # walls are the cost of the collectives and the duplicated prep, not a
-# scaling figure.
+# scaling figure. Phase 14a(iii) runs 12a's step by four ranks, a card each.
 
 DP_RANKS = 2
 # Phase 12a's gradients, each relative to its tensor's largest entry: the
@@ -2059,15 +2152,19 @@ DP_RANKS = 2
 # are at f32's last digits), and never more than DP_GRAD_CAP.
 DP_GRAD_RATIO, DP_GRAD_FLOOR, DP_GRAD_CAP = 1.5, 1e-5, 1.5e-3
 DP_LR = 1e-4  # TrainConfig's learning rate
+# Over more than two ranks, rank 0's all-reduced BatchNorm sums against the
+# shards' statistics summed in one process: f32 rounding of four terms.
+BN_SUMS_RTOL = 1e-6
 DP_TIMEOUT_S = 300
 
 
 def _dp_rank(rank: int, tmp: str) -> None:
-    """Phase 12a's rank: one sharded step of the global batch on cuda:0,
-    then the gradient buffer's all-reduce timed; results to ``tmp``."""
+    """Phase 12a's rank (14a(iii)'s): one sharded step of the global batch
+    on its device, then the gradient buffer's all-reduce timed; results to
+    ``tmp``."""
     import torch
 
-    from audiobd_tpu_torch.models import SmallCNN
+    from audiobd_tpu_torch.models import SmallCNN, layers
     from audiobd_tpu_torch.ops import KERNELS
     from audiobd_tpu_torch.parallel.distributed import all_reduce_flat, destroy, maybe_initialize_distributed
     from audiobd_tpu_torch.parallel.mesh import make_mesh
@@ -2076,10 +2173,19 @@ def _dp_rank(rank: int, tmp: str) -> None:
     from audiobd_tpu_torch.train.state import Adam
     from audiobd_tpu_torch.utils.device import resolve_device
 
-    maybe_initialize_distributed(f"file://{tmp}/rendezvous", DP_RANKS, rank)
-    device = resolve_device(None)
     inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    maybe_initialize_distributed(f"file://{tmp}/rendezvous", inputs["world"], rank)
+    device = resolve_device(None)
     mesh = make_mesh()
+    bn_sums = []  # each sync-BN's all-reduced [Σ mean, Σ E[x²]] in the step, as the collective summed them
+    reduce = layers.all_reduce_sum
+
+    def recording(x, group):
+        y = reduce(x, group)
+        bn_sums.append(y.detach().cpu())
+        return y
+
+    layers.all_reduce_sum = recording
     model = SmallCNN(10, 3072, fused_block1=True, dropout_rates=(0.0, 0.0))
     model.load_state_dict(inputs["state"])
     model.to(device).sync_batchnorm(mesh.data_group)
@@ -2087,7 +2193,8 @@ def _dp_rank(rank: int, tmp: str) -> None:
     grads = _grad_recorder(opt)
     dset = ShardedDeviceDataset(ArraySet(*inputs["batch"]), mesh, device)
     out = {"train": run_train_epoch_sharded(model, opt, dset, len(inputs["batch"][1]), None),
-           "launches": {k.name: k.launches for k in KERNELS if k.launches}, "device": str(device)}
+           "launches": {k.name: k.launches for k in KERNELS if k.launches}, **rank_placement(device),
+           "bn_sums": bn_sums}
     out["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
     out["grads"] = [g.cpu() for g in grads[0]]
     buf = [g.clone() for g in grads[0]]
@@ -2121,16 +2228,24 @@ def _rel_err(got, ref) -> float:
     return float((got.double() - ref.double()).abs().max() / ref.double().abs().max().clamp_min(1e-12))
 
 
-def smallcnn_grads_ref(torch, state: dict, x, y, dtype, mode: str = "whole") -> tuple[dict, list, list]:
+def smallcnn_grads_ref(torch, state: dict, x, y, dtype, mode: str = "whole", parts: int = DP_RANKS,
+                       sums: list | None = None, sum_errs: list | None = None) -> tuple[dict, list, list]:
     """The gradients of SmallCNN's batch-mean loss (dropout off, batch
     statistics, flax's fast variance E[x²] − E[x]²) written out in ``dtype``
     on the card; each BatchNorm's largest E[x²]/var over its channels (how
     many digits the fast variance cancels); and each max-pool's indices, the
     input each window passes its gradient to. ``mode``: "whole" takes the
     batch at once; "stats" takes each BatchNorm's mean and E[x²] as the mean
-    of the two halves' (the ranks' forward arithmetic), the rest whole;
-    "ranks" runs each half apart with those statistics, as the two ranks do.
-    In float64 "whole" is the reference phase 12a judges the f32 steps by."""
+    of the ``parts`` shards' (the ranks' forward arithmetic), the rest whole;
+    "ranks" runs each shard apart with those statistics, as the ranks do.
+    ``sums`` (each BatchNorm's all-reduced [Σ mean, Σ E[x²]] as a rank
+    recorded it) replaces the shards' statistics in "stats" and "ranks":
+    over more than two ranks the collective sums in an order of its own.
+    In "ranks" with ``sums``, each BatchNorm's recorded [Σ mean, Σ E[x²]]
+    is held against the shards' statistics summed here, on the inputs the
+    ranks had: the distance of each half, relative to its largest entry,
+    is appended to ``sum_errs``. In float64 "whole" is the reference phase
+    12a judges the f32 steps by."""
     import torch.nn.functional as F
 
     params = {k: v.to("cuda", dtype).requires_grad_(True) for k, v in state.items() if "running" not in k}
@@ -2139,12 +2254,18 @@ def smallcnn_grads_ref(torch, state: dict, x, y, dtype, mode: str = "whole") -> 
     def block(hs, i, pool, padding):
         rs = [F.relu(F.conv2d(h, params[f"conv{i}.weight"], params[f"conv{i}.bias"])) for h in hs]
         if mode == "stats":
-            halves = rs[0].chunk(DP_RANKS)
-            mean = sum(r.mean(dim=(0, 2, 3)) for r in halves) / DP_RANKS
-            mean2 = sum((r * r).mean(dim=(0, 2, 3)) for r in halves) / DP_RANKS
+            shards = rs[0].chunk(parts)
+            mean = sum(r.mean(dim=(0, 2, 3)) for r in shards) / parts
+            mean2 = sum((r * r).mean(dim=(0, 2, 3)) for r in shards) / parts
         else:
             mean = sum(r.mean(dim=(0, 2, 3)) for r in rs) / len(rs)
             mean2 = sum((r * r).mean(dim=(0, 2, 3)) for r in rs) / len(rs)
+        if sums is not None and mode != "whole":  # the ranks' values; the gradient's path through the shards
+            if mode == "ranks" and sum_errs is not None:
+                own = torch.cat([mean, mean2]).detach().cpu().double() * len(rs)
+                sum_errs.extend(_rel_err(o, g) for o, g in zip(own.chunk(2), sums[i - 1].chunk(2)))
+            given, given2 = (sums[i - 1].to("cuda", dtype) / parts).chunk(2)
+            mean, mean2 = mean - mean.detach() + given, mean2 - mean2.detach() + given2
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         ratios.append(float((mean2 / var.clamp_min(1e-30)).max().detach()))
         mul = torch.rsqrt(var + 1e-5) * params[f"bn{i}.weight"]
@@ -2156,7 +2277,7 @@ def smallcnn_grads_ref(torch, state: dict, x, y, dtype, mode: str = "whole") -> 
 
     h = torch.as_tensor(x, device="cuda", dtype=dtype)
     labels = torch.as_tensor(y, device="cuda").long()
-    hs = list(h.chunk(DP_RANKS)) if mode == "ranks" else [h]
+    hs = list(h.chunk(parts)) if mode == "ranks" else [h]
     hs = block(block(block(hs, 1, (1, 3), 0), 2, (2, 2), (1, 1)), 3, (2, 2), (0, 1))
     loss = 0.0
     for hk, yk in zip(hs, labels.chunk(len(hs))):
@@ -2167,11 +2288,11 @@ def smallcnn_grads_ref(torch, state: dict, x, y, dtype, mode: str = "whole") -> 
     return dict(zip(params, (g.cpu() for g in grads))), ratios, indices
 
 
-def phase_dp_step(torch, kernels, record_dir: str) -> None:
-    """Phase 12a: the two-rank step against the same step in this process."""
+def phase_dp_step(torch, kernels, record_dir: str, ranks: int = DP_RANKS, cards: bool = False) -> None:
+    """Phase 12a: the two-rank step against the same step in this process;
+    with ``ranks`` 4 and ``cards``, phase 14a(iii)-(iv): the same step and
+    checks by four ranks, a card each over NCCL."""
     import numpy as np
-
-    import torch.multiprocessing as mp
 
     from audiobd_tpu_torch.models import SmallCNN
     from audiobd_tpu_torch.train.loop import ArraySet
@@ -2186,12 +2307,18 @@ def phase_dp_step(torch, kernels, record_dir: str) -> None:
     model = SmallCNN(10, 3072, dropout_rates=(0.0, 0.0))
     model.reset_parameters(torch_generator(35, "params"))
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    print(f"phase 12a: one data-parallel step, {DP_RANKS} ranks on cuda:0 (gloo, file:// rendezvous), full-width "
-          f"SmallCNN (badnets, flatten 3072, dropout 0), global batch {BATCH} of phase 2's features "
-          f"{tuple(x.shape)}, {BATCH // DP_RANKS} rows a rank, sync-BN; against this process's step, unfused and "
+    crowd = {2: "two", 4: "four"}[ranks] + " ranks"
+    where = "a card each (NCCL" if cards else "on cuda:0 (gloo"
+    recorded = (f" (as rank 0 recorded them: the collective sums in an order of its own; the recorded sums held to "
+                f"the shards' sum within {BN_SUMS_RTOL:.0e})" if ranks > 2 else "")
+    print(f"phase {'14a(iii)' if cards else '12a'}: one data-parallel step, {ranks} ranks {where}, file:// "
+          f"rendezvous), full-width SmallCNN (badnets, flatten 3072, dropout 0), global batch {BATCH} of "
+          f"{'the phase' if cards else 'phase 2'}'s features {tuple(x.shape)}, {BATCH // ranks} rows a rank, sync-BN; "
+          f"against this process's step, unfused and "
           f"with block 1 on kernel B, and the float64 step; tolerance: loss rtol 1e-5; each gradient's distance "
           f"from float64 at most max({DP_GRAD_RATIO} x the one-process step's, {DP_GRAD_FLOOR:.0e}) and at most "
-          f"{DP_GRAD_CAP:.1e}, and within 1e-4 of this process's step written out with the ranks' statistics; "
+          f"{DP_GRAD_CAP:.1e}, and within 1e-4 of this process's step written out with the ranks' statistics"
+          f"{recorded}; "
           f"running statistics 1e-4, all relative to the tensor's largest entry; parameters after one Adam step "
           f"0.25 lr; the ranks' parameters bit-equal", flush=True)
     refs = {}
@@ -2222,20 +2349,12 @@ def phase_dp_step(torch, kernels, record_dir: str) -> None:
     permuted = [g.cpu() for g in grads[0]]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
-        torch.save({"state": state, "batch": (x, y, ind)}, os.path.join(tmp, "inputs.pt"))
+        torch.save({"state": state, "batch": (x, y, ind), "world": ranks}, os.path.join(tmp, "inputs.pt"))
         t0 = time.perf_counter()
-        ctx = mp.start_processes(_dp_rank, args=(tmp,), nprocs=DP_RANKS, join=False, start_method="spawn")
-        deadline = time.monotonic() + DP_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=1):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"the ranks did not finish in {DP_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
-        print(f"  {DP_RANKS} ranks spawned, stepped and joined in {time.perf_counter() - t0:.1f} s", flush=True)
+        spawn_ranks(_dp_rank, (tmp,), ranks, MULTICARD_TIMEOUT_S if cards else DP_TIMEOUT_S,
+                    {} if cards else first_card_env())
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(ranks)]
+        print(f"  {ranks} ranks spawned, stepped and joined in {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     names = [n for n, _ in model.named_parameters()]
@@ -2254,7 +2373,7 @@ def phase_dp_step(torch, kernels, record_dir: str) -> None:
           + ", ".join(f"bn{i + 1} {v:.3g}" for i, v in enumerate(cancel)), flush=True)
     steps = {label: grads for label, (_, grads, _) in refs.items()}
     steps["unfused, rows permuted"] = permuted
-    steps["two ranks"] = outs[0]["grads"]
+    steps[crowd] = outs[0]["grads"]
     to64 = {label: {n: _rel_err(g, g64[n]) for n, g in zip(names, grads)} for label, grads in steps.items()}
     for label, errs in to64.items():
         print(f"  {label} vs float64 (relative to each tensor's largest entry): "
@@ -2263,23 +2382,36 @@ def phase_dp_step(torch, kernels, record_dir: str) -> None:
     # ranks' statistics, and run as the ranks run it, to find which part of
     # the ranks' arithmetic moves the gradients.
     idx = {"float64": idx64}
+    sums = outs[0]["bn_sums"] if ranks > 2 else None  # two ranks' sum is the same in any order
+    sum_errs: list[float] = []
     for mode in ("whole", "stats", "ranks"):
-        g32, _, idx[mode] = smallcnn_grads_ref(torch, state, x, y, torch.float32, mode)
+        g32, _, idx[mode] = smallcnn_grads_ref(torch, state, x, y, torch.float32, mode, ranks, sums, sum_errs)
         steps[f"f32 written out, {mode}"] = [g32[n] for n in names]
+    if sums is not None:
+        # The recorded sums stand in for the collective's only as far as
+        # they are its shards' sum: a wrong group, a missing rank or a wrong
+        # scale moves them by far more than f32's last digits.
+        check(len(sum_errs) == 6 and max(sum_errs) <= BN_SUMS_RTOL,
+              f"rank 0's sync-BN sums [Σ mean, Σ E[x²]] against the {ranks} shards' statistics summed in this "
+              f"process, relative to each tensor's largest entry: "
+              + ", ".join(f"bn{i // 2 + 1} {('Σ mean', 'Σ E[x²]')[i % 2]} {e:.1e}" for i, e in enumerate(sum_errs))
+              + f" (bound {BN_SUMS_RTOL:.0e})")
     for label, a, b in (("f32 stats vs f32 whole", "stats", "whole"), ("f32 ranks vs f32 whole", "ranks", "whole"),
                         ("f32 whole vs float64", "whole", "float64")):
         print(f"  max-pool windows that pass their gradient to another input, {label}: "
               + ", ".join(f"pool{i + 1} {int((ia != ib).sum())} of {ia.numel()}"
                           for i, (ia, ib) in enumerate(zip(idx[a], idx[b]))), flush=True)
-    for label, against in (("unfused, rows permuted", "unfused"), ("two ranks", "unfused"),
-                           ("f32 written out, whole", "unfused"), ("f32 written out, ranks", "two ranks"),
+    for label, against in (("unfused, rows permuted", "unfused"), (crowd, "unfused"),
+                           ("f32 written out, whole", "unfused"), ("f32 written out, ranks", crowd),
                            ("f32 written out, stats", "f32 written out, whole"),
                            ("f32 written out, ranks", "f32 written out, whole")):
         print(f"  {label} vs {against} (relative to each tensor's largest entry): "
               + ", ".join(f"{n} {_rel_err(g, gr):.1e}" for n, g, gr in zip(names, steps[label], steps[against])),
               flush=True)
+    if cards:
+        check_placement(outs, f"{ranks} ranks")
     for r, out in enumerate(outs):
-        check(out["device"] == "cuda:0" and not out["launches"],
+        check(out["device"] == (f"cuda:{r}" if cards else "cuda:0") and not out["launches"],
               f"rank {r} on {out['device']}, kernel launches {out['launches']} (sync-BN: block 1 unfused, no B)")
         same = max(_rel_err(g, gr) for g, gr in zip(out["grads"], steps["f32 written out, ranks"]))
         check(same <= 1e-4, f"rank {r} vs this process's step with the ranks' statistics (written out): gradients "
@@ -2299,11 +2431,12 @@ def phase_dp_step(torch, kernels, record_dir: str) -> None:
                   f"(one process {to64[label][worst]:.1e}, bound {bound[worst]:.1e}), from the one-process step "
                   f"at most {max(diffs.values()):.1e}; running statistics {stat_err:.1e}; parameters after the "
                   f"step {param_err:.3f} lr")
-    equal = all(torch.equal(outs[0]["state"][k], outs[1]["state"][k]) for k in outs[0]["state"])
-    check(equal, "the two ranks' parameters and running statistics after the step are bit-equal")
+    equal = all(torch.equal(outs[0]["state"][k], o["state"][k]) for o in outs[1:] for k in outs[0]["state"])
+    check(equal, f"the {crowd}' parameters and running statistics after the step are bit-equal")
     for r, out in enumerate(outs):
-        print(f"  rank {r}: all-reduce of the gradient buffer ({out['allreduce_bytes'] / 1e6:.2f} MB f32, gloo on "
-              f"CUDA tensors, mean of 20 calls): {out['allreduce_ms']:.3f} ms", flush=True)
+        print(f"  rank {r}: all-reduce of the gradient buffer ({out['allreduce_bytes'] / 1e6:.2f} MB f32, "
+              f"{'NCCL' if 'nccl' in out['backend'] else 'gloo'} on CUDA tensors, mean of 20 calls): "
+              f"{out['allreduce_ms']:.3f} ms", flush=True)
 
 
 # Phase 12b's rank writes: a sitecustomize the ranks import at start records
@@ -2343,17 +2476,20 @@ if _spec is not None:
 """
 
 
-def phase_dp_cli(torch, main_acc: tuple[float, float]) -> None:
-    """Phase 12b: the BadNets CLI through torchrun, two ranks on the card."""
+def run_badnets(n_ranks: int, flags: list[str], env: dict[str, str], timeout_s: float) -> dict:
+    """The badnets CLI with ``flags`` in a fresh run directory, through
+    ``python -m torch.distributed.run --standalone --nproc_per_node
+    n_ranks`` (or, ``n_ranks`` 0, as one plain process), with ``env`` added
+    to its environment and every rank's writes under the run's directory
+    recorded (AUDIT_SITECUSTOMIZE). The whole process group is killed at
+    ``timeout_s``. Returns its rc, output lines, each line's arrival time
+    (s after the start), wall (s) and directories; the caller removes
+    ``tmp``."""
     import signal
+    import threading
 
-    flags = ["badnets", "--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--num_epochs", "2",
-             "--patience", "20"]
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(DP_RANKS),
-           "-m", "audiobd_tpu_torch", *flags]
-    print(f"phase 12b: python -m torch.distributed.run --standalone --nproc_per_node {DP_RANKS} -m audiobd_tpu_torch "
-          f"{' '.join(flags)} (the main path, {10 * MAIN_PER_CLASS:,} clips, global batch {BATCH}, f32, full width; "
-          f"both ranks on cuda:0, which they time-share)", flush=True)
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n_ranks)] if n_ranks else []
+    cmd = [sys.executable, *launcher, "-m", "audiobd_tpu_torch", "badnets", *flags]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
     site, logs, run = (os.path.join(tmp, d) for d in ("site", "logs", "run"))
     for d in (site, logs, run):
@@ -2361,60 +2497,99 @@ def phase_dp_cli(torch, main_acc: tuple[float, float]) -> None:
     with open(os.path.join(site, "sitecustomize.py"), "w") as f:
         f.write(AUDIT_SITECUSTOMIZE)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, site, os.environ.get("PYTHONPATH", "")]),
-               CHIP_SMOKE_AUDIT_ROOT=run, CHIP_SMOKE_AUDIT_LOGS=logs)
-    try:
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=run, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                                start_new_session=True)
-        try:
-            text, _ = proc.communicate(timeout=DP_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
+               CHIP_SMOKE_AUDIT_ROOT=run, CHIP_SMOKE_AUDIT_LOGS=logs, **env)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=run, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def kill():
+        with contextlib.suppress(ProcessLookupError):
             os.killpg(proc.pid, signal.SIGKILL)
-            text, _ = proc.communicate()
-        wall = time.perf_counter() - t0
-        lines = text.splitlines()
-        for line in lines:
-            if line.startswith(("distributed:", "Epoch", "done", "rank ", "Traceback", "RuntimeError", "ValueError")):
-                print(f"  {line[:400]}", flush=True)
-        check(proc.returncode == 0, f"torchrun exited {proc.returncode} after {wall:.1f} s")
-        if proc.returncode != 0:
-            print("\n".join(f"  | {line}" for line in lines[-40:]), flush=True)
-            return
-        rec = os.path.join(run, "record", "badnets_smallcnn")
-        rows = _csv_rows(os.path.join(rec, "loss_result.csv"))
-        check(len(rows) == 3 and _finite_rows(rows), f"loss_result.csv: a header and 2 rows, every loss finite "
-                                                     f"({rows[1:]})")
-        check(os.path.exists(os.path.join(rec, "torch_checkpoint", "model.pt")), "torch_checkpoint/ written")
-        acc = _csv_rows(os.path.join(rec, "acc_result.csv"))[-1]
-        clean_acc, asr = float(acc[2]), float(acc[3])
-        check(abs(clean_acc - main_acc[0]) <= 5 and abs(asr - main_acc[1]) <= 5,
-              f"epoch 2: clean acc {clean_acc:.2f}, ASR {asr:.2f}; phase 2's {main_acc[0]:.2f}, {main_acc[1]:.2f} "
-              f"(within 5 points)")
-        writes = {}
-        for r in range(DP_RANKS):
-            with open(os.path.join(logs, f"rank{r}.txt")) as f:
-                writes[r] = f.read().splitlines()
-        check(any(w.endswith("loss_result.csv") for w in writes[0]) and writes[1] == [],
-              f"rank 0 made {len(writes[0])} writes under the run's directory, rank 1 {len(writes[1])} "
-              f"{writes[1][:3]}")
-        replicas = {}
-        for line in lines:
-            if line.startswith("rank ") and "parameters sha256" in line:
-                r = int(line.split()[1].split("/")[0])
-                digest = line.split("sha256 ")[1].split(";")[0]
-                replicas[r] = (digest, json.loads(line.split("kernel launches ")[1]))
-        check(sorted(replicas) == list(range(DP_RANKS)), f"each rank printed its digest ({sorted(replicas)})")
-        for r, (_, launches) in sorted(replicas.items()):
-            a, b = launches.get("mfcc_fft"), launches.get("conv1_bn_pool_bwd_params")
-            check(a == 10 and b == 0, f"rank {r}: A launched {a} times, B {b}")
-        check(len({d for d, _ in replicas.values()}) == 1, "the ranks' final parameter digests are equal")
-        done = [line for line in lines if line.startswith("done:")]
-        clips = [float(line.split("throughput=")[1].split()[0]) for line in done]
-        print(f"  wall {wall:.1f} s (2 process starts, each rank's whole prep, 2 epochs); train clips/s "
-              f"{', '.join(f'{c:.1f}' for c in clips)} (by rank; two ranks time-share one card: the cost of the "
-              f"collectives and the duplicated prep, not a scaling figure)", flush=True)
+
+    timer = threading.Timer(timeout_s, kill)
+    timer.start()
+    lines, stamps = [], []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            stamps.append(time.perf_counter() - t0)
+        proc.wait()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        timer.cancel()
+    return {"rc": proc.returncode, "lines": lines, "stamps": stamps, "wall": time.perf_counter() - t0, "tmp": tmp,
+            "run": run, "logs": logs}
+
+
+def check_rank_run(out: dict, n_ranks: int, acc_ref: tuple[float, float], ref_name: str,
+                   cards: bool = False) -> list[float] | None:
+    """Phase 12b's checks of a badnets run by ``n_ranks`` ranks (14b's too):
+    it exited 0; its CSVs and checkpoint; epoch 2's clean accuracy and ASR
+    within 5 points of ``acc_ref`` (``ref_name``'s); rank 0 alone wrote
+    under the run's directory; each rank printed its digest, launched A 10
+    times and B none, and the digests are equal. With ``cards``: the banner
+    says nccl, and rank r ran on cuda:r of a card no other rank had.
+    Returns each rank's train clips/s, or None where the run failed."""
+    lines = out["lines"]
+    for line in lines:
+        if line.startswith(("distributed:", "Epoch", "done", "rank ", "Traceback", "RuntimeError", "ValueError")):
+            print(f"  {line[:400]}", flush=True)
+    check(out["rc"] == 0, f"torchrun exited {out['rc']} after {out['wall']:.1f} s")
+    if out["rc"] != 0:
+        print("\n".join(f"  | {line}" for line in lines[-40:]), flush=True)
+        return None
+    rec = os.path.join(out["run"], "record", "badnets_smallcnn")
+    rows = _csv_rows(os.path.join(rec, "loss_result.csv"))
+    check(len(rows) == 3 and _finite_rows(rows), f"loss_result.csv: a header and 2 rows, every loss finite "
+                                                 f"({rows[1:]})")
+    check(os.path.exists(os.path.join(rec, "torch_checkpoint", "model.pt")), "torch_checkpoint/ written")
+    acc = _csv_rows(os.path.join(rec, "acc_result.csv"))[-1]
+    clean_acc, asr = float(acc[2]), float(acc[3])
+    check(abs(clean_acc - acc_ref[0]) <= 5 and abs(asr - acc_ref[1]) <= 5,
+          f"epoch 2: clean acc {clean_acc:.2f}, ASR {asr:.2f}; {ref_name} {acc_ref[0]:.2f}, {acc_ref[1]:.2f} "
+          f"(within 5 points)")
+    writes = {}
+    for r in range(n_ranks):
+        with open(os.path.join(out["logs"], f"rank{r}.txt")) as f:
+            writes[r] = f.read().splitlines()
+    check(any(w.endswith("loss_result.csv") for w in writes[0]) and not any(writes[r] for r in range(1, n_ranks)),
+          f"rank 0 made {len(writes[0])} writes under the run's directory, "
+          + ", ".join(f"rank {r} {len(writes[r])} {writes[r][:3]}" for r in range(1, n_ranks)))
+    # The ranks share one pipe, and a print's newline may be a write of its
+    # own (unbuffered output), so another rank's line can land between a
+    # line and its newline: each record is read by its own pattern.
+    text = "\n".join(lines)
+    replicas = {int(m[1]): (m[3], json.loads(m[4]), m[2]) for m in re.finditer(
+        r"rank (\d+)/\d+ on (.*?): parameters sha256 ([0-9a-f]{64}); kernel launches (\{[^{}]*\})", text)}
+    check(sorted(replicas) == list(range(n_ranks)), f"each rank printed its digest ({sorted(replicas)})")
+    for r, (_, launches, _) in sorted(replicas.items()):
+        a, b = launches.get("mfcc_fft"), launches.get("conv1_bn_pool_bwd_params")
+        check(a == 10 and b == 0, f"rank {r}: A launched {a} times, B {b}")
+    check(len({d for d, _, _ in replicas.values()}) == 1, "the ranks' final parameter digests are equal")
+    if cards:
+        banner = next((line for line in lines if line.startswith("distributed:")), "")
+        buses = {c.split("PCI ")[-1] for _, _, c in replicas.values()}
+        check("backend nccl" in banner and len(buses) == n_ranks
+              and all(c.startswith(f"cuda:{r},") for r, (_, _, c) in replicas.items()),
+              f"the banner says nccl, rank r on cuda:r, {len(buses)} distinct cards: "
+              + "; ".join(f"rank {r} {c}" for r, (_, _, c) in sorted(replicas.items())))
+    return [float(c) for c in re.findall(r"done: [^\n]*?throughput=([0-9.]+) clips/s", text)]
+
+
+def phase_dp_cli(torch, main_acc: tuple[float, float]) -> None:
+    """Phase 12b: the BadNets CLI through torchrun, two ranks on the card."""
+    flags = ["--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--num_epochs", "2", "--patience", "20"]
+    print(f"phase 12b: python -m torch.distributed.run --standalone --nproc_per_node {DP_RANKS} -m audiobd_tpu_torch "
+          f"badnets {' '.join(flags)} (the main path, {10 * MAIN_PER_CLASS:,} clips, global batch {BATCH}, f32, full "
+          f"width; both ranks on cuda:0, which they time-share)", flush=True)
+    out = run_badnets(DP_RANKS, flags, first_card_env(), DP_TIMEOUT_S)
+    try:
+        clips = check_rank_run(out, DP_RANKS, main_acc, "phase 2's")
+        if clips is not None:
+            print(f"  wall {out['wall']:.1f} s (2 process starts, each rank's whole prep, 2 epochs); train clips/s "
+                  f"{', '.join(f'{c:.1f}' for c in clips)} (by rank; two ranks time-share one card: the cost of the "
+                  f"collectives and the duplicated prep, not a scaling figure)", flush=True)
+    finally:
+        shutil.rmtree(out["tmp"], ignore_errors=True)
 
 
 # Phase 13: tensor parallel. The ranks share the one card over gloo, spawned
@@ -2440,11 +2615,11 @@ TP_ROUTED_RTOL = 1e-4
 # entry (a sharded layer's input gradient is the sum of the ranks' bf16
 # partial products: one bf16 rounding more than one process's).
 TP_BF16_RTOL, TP_BF16_GRAD = 1e-2, 2e-2
-TP_CASES = (  # label, model, compute dtype, block 1 on kernel B, world sizes (1 x 2, 2 x 2)
-    ("13a LargeCNN", "largecnn", "float32", False, (2, 4)),
-    ("13b SmallCNN, fused_conv_block on", "smallcnn", "float32", True, (2,)),
-    ("13c RNN", "rnn", "float32", False, (2,)),
-    ("13d LargeCNN bf16", "largecnn", "bfloat16", False, (2,)),
+TP_CASES = (  # label, model, compute dtype, block 1 on kernel B, meshes (n_data, n_model)
+    ("13a LargeCNN", "largecnn", "float32", False, ((1, TP_MODEL), (2, TP_MODEL))),
+    ("13b SmallCNN, fused_conv_block on", "smallcnn", "float32", True, ((1, TP_MODEL),)),
+    ("13c RNN", "rnn", "float32", False, ((1, TP_MODEL),)),
+    ("13d LargeCNN bf16", "largecnn", "bfloat16", False, ((1, TP_MODEL),)),
 )
 
 
@@ -2461,64 +2636,75 @@ def _tp_model(torch, kind: str, dtype: str, fused: bool):
 
 
 def _tp_rank(rank: int, tmp: str, world: int) -> None:
-    """Phase 13's rank of a (world / 2) x 2 mesh on cuda:0: for each case,
-    shard_params_tp (min_features 128), one step on the global batch from
-    the shared weights, then one more on the same batch for a warm wall;
-    results to ``tmp``."""
+    """Phase 13's rank (14a(i)'s and 14c's): for each case and each of its
+    meshes of ``world`` ranks, shard_params_tp (min_features 128), one step
+    on the global batch from the shared weights, then one more on the same
+    batch for a warm wall; results to ``tmp``."""
     import torch
 
-    from audiobd_tpu_torch.ops import KERNELS
-    from audiobd_tpu_torch.parallel import tp
     from audiobd_tpu_torch.parallel.distributed import destroy, maybe_initialize_distributed
-    from audiobd_tpu_torch.parallel.mesh import make_mesh, shard_params_tp, unshard_params_tp
+    from audiobd_tpu_torch.parallel.mesh import make_mesh
     from audiobd_tpu_torch.train.loop import ArraySet
-    from audiobd_tpu_torch.train.scan_epoch import ShardedDeviceDataset, run_train_epoch_sharded
-    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.train.scan_epoch import ShardedDeviceDataset
     from audiobd_tpu_torch.utils.device import resolve_device
 
     maybe_initialize_distributed(f"file://{tmp}/rendezvous{world}", world, rank)
     device = resolve_device(None)
     inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
-    mesh = make_mesh(world // TP_MODEL, TP_MODEL)
-    dset = ShardedDeviceDataset(ArraySet(*inputs["batch"]), mesh, device)
-    out = {"device": str(device), "mesh": (mesh.data_index, mesh.model_index)}
-    for label, kind, dtype, fused, worlds in TP_CASES:
-        if world not in worlds:
-            continue
-        model = _tp_model(torch, kind, dtype, fused)
-        model.load_state_dict(inputs["state"][kind])
-        model.to(device)
-        if mesh.shape["data"] > 1:  # a 1 x 2 mesh keeps local statistics, so block 1 keeps kernel B
-            model.sync_batchnorm(mesh.data_group)
-        opt = Adam(model.parameters(), DP_LR)
-        shard_params_tp(mesh, model, opt)
-        grads = _grad_recorder(opt)
-        logits = []
-        hook = model.register_forward_hook(lambda _m, _a, y: logits.append(y.detach().float().cpu()))
-        res = {"walls_ms": []}
-        for step in range(2):
-            for k in KERNELS:
-                k.launches = 0
-            before = dict(tp.COUNTS)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            train = run_train_epoch_sharded(model, opt, dset, BATCH, None)
-            torch.cuda.synchronize()
-            res["walls_ms"].append((time.perf_counter() - t0) * 1e3)
-            if step == 0:
-                res.update(train=train, logits=logits[0], grads=[g.float().cpu() for g in grads[0]],
-                           launches={k.name: k.launches for k in KERNELS if k.launches},
-                           collectives={k: tp.COUNTS[k] - before[k] for k in before},
-                           local={k: v.cpu() for k, v in model.state_dict().items()},
-                           full={k: v.cpu() for k, v in unshard_params_tp(mesh, model).items()},
-                           sharded={k: (s.n, s.index, s.full) for k, s in model.tp_sharded.items()},
-                           bytes=sum(t.numel() * t.element_size() for t in (*opt.params, *opt.mu, *opt.nu)))
-        hook.remove()
-        out[label] = res
-        del model, opt, grads
-        torch.cuda.empty_cache()
+    out = rank_placement(device)
+    grids = {}  # (n_data, n_model): the mesh, and this rank's rows of the batch on it
+    for label, kind, dtype, fused, meshes in inputs["cases"]:
+        for shape in meshes:
+            if shape[0] * shape[1] != world:
+                continue
+            if shape not in grids:  # every rank makes the meshes in one order
+                mesh = make_mesh(*shape)
+                grids[shape] = (mesh, ShardedDeviceDataset(ArraySet(*inputs["batch"]), mesh, device))
+                out[shape] = (mesh.data_index, mesh.model_index)
+            out[label, shape] = _tp_case(torch, kind, dtype, fused, inputs["state"][kind], *grids[shape])
+            torch.cuda.empty_cache()
     torch.save(out, os.path.join(tmp, f"rank{rank}_of_{world}.pt"))
     destroy()
+
+
+def _tp_case(torch, kind: str, dtype: str, fused: bool, state: dict, mesh, dset) -> dict:
+    """A TP rank's case on ``mesh``: its two steps, and what they showed."""
+    from audiobd_tpu_torch.ops import KERNELS
+    from audiobd_tpu_torch.parallel import tp
+    from audiobd_tpu_torch.parallel.mesh import shard_params_tp, unshard_params_tp
+    from audiobd_tpu_torch.train.scan_epoch import run_train_epoch_sharded
+    from audiobd_tpu_torch.train.state import Adam
+
+    model = _tp_model(torch, kind, dtype, fused)
+    model.load_state_dict(state)
+    model.to(dset.device)
+    if mesh.shape["data"] > 1:  # a 1 x n mesh keeps local statistics, so block 1 keeps kernel B
+        model.sync_batchnorm(mesh.data_group)
+    opt = Adam(model.parameters(), DP_LR)
+    shard_params_tp(mesh, model, opt)
+    grads = _grad_recorder(opt)
+    logits = []
+    hook = model.register_forward_hook(lambda _m, _a, y: logits.append(y.detach().float().cpu()))
+    res = {"walls_ms": []}
+    for step in range(2):
+        for k in KERNELS:
+            k.launches = 0
+        before = dict(tp.COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train = run_train_epoch_sharded(model, opt, dset, BATCH, None)
+        torch.cuda.synchronize()
+        res["walls_ms"].append((time.perf_counter() - t0) * 1e3)
+        if step == 0:
+            res.update(train=train, logits=logits[0], grads=[g.float().cpu() for g in grads[0]],
+                       launches={k.name: k.launches for k in KERNELS if k.launches},
+                       collectives={k: tp.COUNTS[k] - before[k] for k in before},
+                       local={k: v.cpu() for k, v in model.state_dict().items()},
+                       full={k: v.cpu() for k, v in unshard_params_tp(mesh, model).items()},
+                       sharded={k: (s.n, s.index, s.full) for k, s in model.tp_sharded.items()},
+                       bytes=sum(t.numel() * t.element_size() for t in (*opt.params, *opt.mu, *opt.nu)))
+    hook.remove()
+    return res
 
 
 def _tp_grads64(torch, kind: str, state: dict, x, y) -> dict:
@@ -2543,9 +2729,9 @@ def _tp_grads64(torch, kind: str, state: dict, x, y) -> dict:
 def largecnn_step(torch, state: dict, x, y, dtype: str, n_data: int, blocks: int, routes=None) -> tuple:
     """LargeCNN's step (models/zoo.py::LargeCNN, dropout 0) written out in
     this process, each of ``n_data`` data shards' rows apart and their
-    gradients summed. With ``blocks`` = TP_MODEL, as the ranks of an n_data
-    x TP_MODEL mesh run it: each layer shard_params_tp shards (dim 0 at
-    least 128 and splitting over TP_MODEL) as ``blocks`` products on the
+    gradients summed. With ``blocks`` = n_model, as the ranks of an n_data
+    x n_model mesh run it: each layer shard_params_tp shards (dim 0 at
+    least 128 and splitting over n_model) as ``blocks`` products on the
     blocks of its weight, joined along the feature axis, then the bias (the
     casts of models/layers.py in bf16); with 1, as one process runs it.
     Each relu and max pool records its routing, the inputs it passes the
@@ -2624,13 +2810,13 @@ def _tp_block(full, sharded: dict, name: str):
     return full[index * size // n:(index + 1) * size // n]
 
 
-def phase_tp(torch, record_dir: str) -> None:
+def phase_tp(torch, record_dir: str, cases=TP_CASES, cards: bool = False) -> None:
     """Phase 13: tensor-parallel train steps (shard_params_tp and the
     column-parallel routes) by 2 and 4 ranks on the card, each against the
-    same step in this process."""
+    same step in this process. With ``cases`` MULTICARD_TP_CASES and
+    ``cards``, phase 14a(i) and 14c: the same steps and checks by four
+    ranks, a card each over NCCL."""
     import numpy as np
-
-    import torch.multiprocessing as mp
 
     from audiobd_tpu_torch.train.loop import ArraySet
     from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_train_epoch
@@ -2643,9 +2829,12 @@ def phase_tp(torch, record_dir: str) -> None:
     x = np.array(np.load(os.path.join(bd, "bd_train_mfcc.npy"), mmap_mode="r")[:BATCH], np.float32)
     y = np.load(os.path.join(bd, "bd_train_label.npy"))[:BATCH]
     ind = np.load(os.path.join(bd, "poison_index_train.npy"))[:BATCH]
-    print(f"phase 13: tensor parallel (shard_params_tp, min_features 128), ranks on cuda:0 ({smi}; gloo, file:// "
-          f"rendezvous: a collective goes through the host, so walls are gloo's on one shared card, not NVLink TP); "
-          f"one step on a global batch {tuple(x.shape)} of phase 2's features, full width, dropout 0, against this "
+    where = (f"{len(smi_lines())} cards, a card a rank ({'; '.join(smi_lines())}; NCCL, file:// rendezvous)" if cards
+             else f"ranks on cuda:0 ({smi}; gloo, file:// rendezvous: a collective goes through the host, so walls "
+                  f"are gloo's on one shared card, not NVLink TP)")
+    print(f"phase {'14a(i) and 14c' if cards else '13'}: tensor parallel (shard_params_tp, min_features 128), {where}; "
+          f"one step on a global batch {tuple(x.shape)} of {'the phase' if cards else 'phase 2'}'s features, full "
+          f"width, dropout 0, against this "
           f"process's step from the same weights (cuDNN deterministic, as shard_params_tp sets it); f32 bounds: loss "
           f"rtol 1e-5, metric sums equal, logits {TP_LOGITS_RTOL:.0e} of their largest entry, running statistics "
           f"1e-4 and gradients relative to each tensor's largest entry: each gradient's distance from float64 at "
@@ -2658,12 +2847,12 @@ def phase_tp(torch, record_dir: str) -> None:
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     states, refs, g64, written, routes = {}, {}, {}, {}, {}
-    for kind in ("largecnn", "smallcnn", "rnn"):
+    for kind in dict.fromkeys(case[1] for case in cases):
         model = _tp_model(torch, kind, "float32", False)
         model.reset_parameters(torch_generator(35, "params"))
         states[kind] = {k: v.clone() for k, v in model.state_dict().items()}
     dset = DeviceDataset(ArraySet(x, y, ind), torch.device("cuda"))
-    for label, kind, dtype, fused, worlds in TP_CASES:
+    for label, kind, dtype, fused, meshes in cases:
         model = _tp_model(torch, kind, dtype, fused)
         model.load_state_dict(states[kind])
         model.to("cuda")
@@ -2680,23 +2869,21 @@ def phase_tp(torch, record_dir: str) -> None:
         run_train_epoch(model, opt, dset, BATCH, None)  # a second step: the warm wall
         torch.cuda.synchronize()
         refs[label]["wall_ms"] = (time.perf_counter() - t0) * 1e3
-        if dtype == "float32" and kind == "largecnn":
+        if dtype == "float32" and kind == "largecnn" and kind not in g64:
             _, g64[kind], routes["float64"] = largecnn_step(torch, states[kind], x, y, "float64", 1, 1)
             routes["one process"] = largecnn_step(torch, states[kind], x, y, dtype, 1, 1)[2]
             g64["largecnn, one process's routing"] = largecnn_step(torch, states[kind], x, y, "float64", 1, 1,
                                                                    routes["one process"])[1]
-        elif dtype == "float32":
+        elif dtype == "float32" and kind not in g64:
             g64[kind] = _tp_grads64(torch, kind, states[kind], x, y)
-        for world in worlds if kind == "largecnn" else ():
-            n_data = world // TP_MODEL
-            w_logits, w_grads, tp_routes = largecnn_step(torch, states[kind], x, y, dtype, n_data, TP_MODEL)
-            written[label, world] = {"logits": w_logits, "grads": w_grads}
+        for n_data, n_model in meshes if kind == "largecnn" else ():
+            w_logits, w_grads, tp_routes = largecnn_step(torch, states[kind], x, y, dtype, n_data, n_model)
+            written[label, (n_data, n_model)] = w = {"logits": w_logits, "grads": w_grads}
             if dtype == "float32":
-                written[label, world]["routed64"] = largecnn_step(torch, states[kind], x, y, "float64", n_data, 1,
-                                                                  tp_routes)[1]
+                w["routed64"] = largecnn_step(torch, states[kind], x, y, "float64", n_data, 1, tp_routes)[1]
                 k = len(tp_routes) // n_data
                 whole = [torch.cat(tp_routes[i::k]) for i in range(k)]  # the data shards' rows, in order
-                written[label, world]["routing"] = {
+                w["routing"] = {
                     "row vs float64": _routing_diffs(whole, routes["float64"]),
                     "one process vs float64": _routing_diffs(routes["one process"], routes["float64"]),
                     "row vs one process": _routing_diffs(whole, routes["one process"])}
@@ -2708,38 +2895,37 @@ def phase_tp(torch, record_dir: str) -> None:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     outs = {}
     try:
-        torch.save({"state": states, "batch": (x, y, ind)}, os.path.join(tmp, "inputs.pt"))
-        for world in (2, 4):
+        torch.save({"state": states, "batch": (x, y, ind), "cases": cases}, os.path.join(tmp, "inputs.pt"))
+        grids = {}  # world: its meshes
+        for _, _, _, _, meshes in cases:
+            for shape in meshes:
+                grids.setdefault(shape[0] * shape[1], {})[shape] = None
+        for world, shapes in sorted(grids.items()):
             t0 = time.perf_counter()
-            ctx = mp.start_processes(_tp_rank, args=(tmp, world), nprocs=world, join=False, start_method="spawn")
-            deadline = time.monotonic() + TP_TIMEOUT_S
-            try:
-                while not ctx.join(timeout=1):
-                    if time.monotonic() > deadline:
-                        raise TimeoutError(f"the {world} ranks did not finish in {TP_TIMEOUT_S} s")
-            finally:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.kill()
+            spawn_ranks(_tp_rank, (tmp, world), world, MULTICARD_TIMEOUT_S if cards else TP_TIMEOUT_S,
+                        {} if cards else first_card_env())
             outs[world] = [torch.load(os.path.join(tmp, f"rank{r}_of_{world}.pt"), weights_only=False)
                            for r in range(world)]
-            print(f"  {world} ranks ({world // TP_MODEL} x {TP_MODEL}) spawned, stepped and joined in "
+            print(f"  {world} ranks ({', '.join(f'{a} x {b}' for a, b in shapes)}) spawned, stepped and joined in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    devices = {world: [out["device"] for out in ranks] for world, ranks in outs.items()}
-    check(all(d == "cuda:0" for ds in devices.values() for d in ds), f"the ranks' devices: {devices}")
-    for label, kind, dtype, fused, worlds in TP_CASES:
+    if cards:
+        for world, ranks in outs.items():
+            check_placement(ranks, f"{world} ranks")
+    else:
+        devices = {world: [out["device"] for out in ranks] for world, ranks in outs.items()}
+        check(all(d == "cuda:0" for ds in devices.values() for d in ds), f"the ranks' devices: {devices}")
+    for label, kind, dtype, fused, meshes in cases:
         ref = refs[label]
         names = ref["names"]
-        for world in worlds:
-            ranks = outs[world]
-            n_data = world // TP_MODEL
-            tag = f"{label}, {n_data} x {TP_MODEL}"
-            w = written.get((label, world))
-            for r, out in enumerate(ranks):
-                res = out[label]
-                d, m = out["mesh"]
+        for n_data, n_model in meshes:
+            world = n_data * n_model
+            ranks = [out[label, (n_data, n_model)] for out in outs[world]]
+            tag = f"{label}, {n_data} x {n_model}"
+            w = written.get((label, (n_data, n_model)))
+            for r, res in enumerate(ranks):
+                d, m = outs[world][r][n_data, n_model]
                 rows = np.arange(BATCH).reshape(n_data, -1)[d]
                 sharded = res["sharded"]
                 loss_err = abs(res["train"]["loss"] - ref["train"]["loss"]) / abs(ref["train"]["loss"])
@@ -2809,11 +2995,11 @@ def phase_tp(torch, record_dir: str) -> None:
                     print(f"  {tag}: gathered parameters after the step vs one process, largest relative error "
                           f"(to each tensor's largest entry): " + ", ".join(f"{n} {e:.1e}" for n, e in errs.items()),
                           flush=True)
-            res0 = ranks[0][label]
+            res0 = ranks[0]
             whole = sum(ref["state"][n].numel() for n in names) * 4 * 3  # parameters, mu, nu (f32)
             cut = sum(ref["state"][n].numel() for n in res0["sharded"]) * 4 * 3
-            want = whole - cut + cut // TP_MODEL
-            rank_bytes = [o[label]["bytes"] for o in ranks]
+            want = whole - cut + cut // n_model
+            rank_bytes = [o["bytes"] for o in ranks]
             check(all(b == want for b in rank_bytes) and cut > 0,
                   f"{tag}: parameters + Adam moments a rank {', '.join(f'{b / 1e6:.2f}' for b in rank_bytes)} MB "
                   f"against {whole / 1e6:.2f} MB replicated; sharded tensors {cut / 1e6:.2f} MB of it "
@@ -2821,26 +3007,227 @@ def phase_tp(torch, record_dir: str) -> None:
                   f"({smi})")
             unequal = set()
             for r in range(world):
-                d, m = divmod(r, TP_MODEL)
-                for k, v in ranks[r][label]["local"].items():
-                    partners = [] if k in res0["sharded"] else [d * TP_MODEL + j for j in range(TP_MODEL)]
-                    partners += [e * TP_MODEL + m for e in range(n_data)]
-                    unequal |= {k for p in partners if not torch.equal(v, ranks[p][label]["local"][k])}
+                d, m = divmod(r, n_model)
+                for k, v in ranks[r]["local"].items():
+                    partners = [] if k in res0["sharded"] else [d * n_model + j for j in range(n_model)]
+                    partners += [e * n_model + m for e in range(n_data)]
+                    unequal |= {k for p in partners if not torch.equal(v, ranks[p]["local"][k])}
             check(not unequal, f"{tag}: a row's ranks bit-equal in every replicated tensor, a column's in every "
                                f"tensor (unequal: {sorted(unequal)})")
             counts = res0["collectives"]
             check(counts["gathers"] > 0, f"{tag}: a step's collectives a rank: {counts['gathers']} gathers (forward), "
                                           f"{counts['row_all_reduces']} row all-reduces (backward)")
-            launches = [o[label]["launches"] for o in ranks]
+            launches = [o["launches"] for o in ranks]
             b = [lc.get("conv1_bn_pool_bwd_params", 0) for lc in launches]
             if fused:
                 check(all(v > 0 for v in b), f"{tag}: kernel B launched {b} times a rank in the step "
                                              f"(block 1 replicated, local statistics)")
             print(f"  {tag}: launches a rank {launches}; step wall a rank, first and second step "
                   + "; ".join(f"rank {r} {w[0]:.1f}, {w[1]:.1f} ms" for r, w in
-                              enumerate(o[label]["walls_ms"] for o in ranks))
-                  + f" (one process {ref['wall_ms']:.1f} ms, second step; {smi}; gloo on one shared card)",
-                  flush=True)
+                              enumerate(o["walls_ms"] for o in ranks))
+                  + f" (one process {ref['wall_ms']:.1f} ms, second step; {smi}; "
+                  + ("NCCL, a card a rank" if cards else "gloo on one shared card")
+                  + ")", flush=True)
+
+# Phase 14: four cards, one a rank, NCCL (a machine of at least four cards;
+# scripts/multicard_phase.py runs it alone). Ranks are spawned seeing every
+# card and join explicitly (file:// rendezvous), so rank r takes card r; 14b
+# goes through torchrun, whose LOCAL_RANK places each rank.
+MULTICARD_RANKS = 4
+MULTICARD_TIMEOUT_S = 180
+MULTICARD_BATCHES = (256, 1024)  # 14b's global batches: 64 and 256 rows a rank
+DRYRUN_ROWS, DRYRUN_EVAL_BATCH = 4 * MULTICARD_RANKS, 2 * MULTICARD_RANKS  # dryrun_multichip(n): 4n rows, batch 2n
+MULTICARD_TP_CASES = (  # as TP_CASES
+    ("14a(i) SmallCNN dp x tp", "smallcnn", "float32", False, ((2, 2),)),
+    ("14c LargeCNN", "largecnn", "float32", False, ((1, 4), (2, 2))),
+    ("14c SmallCNN, fused_conv_block on", "smallcnn", "float32", True, ((1, 4),)),
+    ("14c RNN", "rnn", "float32", False, ((1, 4),)),
+    ("14c LargeCNN bf16", "largecnn", "bfloat16", False, ((1, 4),)),
+)
+
+
+def write_random_features(record_dir: str, rows: int = 300) -> None:
+    """A (rows, 1, 101, 40) batch of N(0, 8²) features with random labels and
+    poison flags (numpy seed 0) where phases 12-14 read phase 2's record,
+    for scripts that run a phase alone."""
+    import numpy as np
+
+    bd = os.path.join(record_dir, "record", "chip_smoke", "SCDv1-10", "bd")
+    os.makedirs(bd)
+    rng = np.random.default_rng(0)
+    np.save(os.path.join(bd, "bd_train_mfcc.npy"), (rng.standard_normal((rows, 1, 101, 40)) * 8).astype(np.float32))
+    np.save(os.path.join(bd, "bd_train_label.npy"), rng.integers(0, 10, rows))
+    np.save(os.path.join(bd, "poison_index_train.npy"), (rng.random(rows) < 0.3).astype(np.int64))
+
+
+def smi_lines() -> list[str]:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``, a line a card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
+
+
+def _dryrun_rank(rank: int, tmp: str) -> None:
+    """Phase 14a(ii)'s rank: for SmallCNN and LargeCNN, the sharded eval
+    epoch, then a train epoch of one global batch of all rows, on this
+    rank's card; results to ``tmp``."""
+    import torch
+
+    from audiobd_tpu_torch.parallel.distributed import destroy, maybe_initialize_distributed
+    from audiobd_tpu_torch.parallel.mesh import make_mesh
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import ShardedDeviceDataset, run_eval_sharded, run_train_epoch_sharded
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils.device import resolve_device
+
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    maybe_initialize_distributed(f"file://{tmp}/rendezvous", MULTICARD_RANKS, rank)
+    device = resolve_device(None)
+    mesh = make_mesh()
+    out = rank_placement(device)
+    for kind, state in inputs["state"].items():
+        model = _tp_model(torch, kind, "float32", False)
+        model.load_state_dict(state)
+        model.to(device).sync_batchnorm(mesh.data_group)
+        dset = ShardedDeviceDataset(ArraySet(*inputs["data"][kind]), mesh, device)
+        ev = run_eval_sharded(model, dset, DRYRUN_EVAL_BATCH)
+        tr = run_train_epoch_sharded(model, Adam(model.parameters(), DP_LR), dset, DRYRUN_ROWS, None)
+        out[kind] = {"eval": ev, "train": tr, "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    destroy()
+
+
+def phase_dryrun_dp(torch) -> None:
+    """Phase 14a(ii): dryrun_multichip(4)'s phase 2 (__graft_entry__.py) on
+    four cards against this process."""
+    import numpy as np
+
+    from audiobd_tpu_torch.train.loop import ArraySet
+    from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_eval_epoch, run_train_epoch
+    from audiobd_tpu_torch.train.state import Adam
+    from audiobd_tpu_torch.utils.random import torch_generator
+
+    print(f"phase 14a(ii): dryrun_multichip({MULTICARD_RANKS})'s data-parallel phase, {MULTICARD_RANKS} ranks a card "
+          f"each (NCCL): SmallCNN and LargeCNN at full width (dropout 0, seeded weights), {DRYRUN_ROWS} rows of N(0, 1) "
+          f"features (1, 101, 40) from numpy seed 7; the sharded eval epoch at batch {DRYRUN_EVAL_BATCH} against this "
+          f"process's eval epoch (metric sums equal, mean loss within 1e-5), a train epoch of one global batch of "
+          f"all rows against this process's (BatchNorm running statistics within 2e-5, mix_acc equal); the ranks "
+          f"bit-equal", flush=True)
+    rng = np.random.default_rng(7)
+    inputs, refs = {"state": {}, "data": {}}, {}
+    for kind in ("smallcnn", "largecnn"):
+        data = (rng.normal(size=(DRYRUN_ROWS, 1, 101, 40)).astype(np.float32), rng.integers(0, 10, DRYRUN_ROWS),
+                (rng.random(DRYRUN_ROWS) < 0.3).astype(np.int64))
+        model = _tp_model(torch, kind, "float32", False)
+        model.reset_parameters(torch_generator(35, "params"))
+        inputs["state"][kind], inputs["data"][kind] = {k: v.clone() for k, v in model.state_dict().items()}, data
+        model.to("cuda")
+        dset = DeviceDataset(ArraySet(*data), torch.device("cuda"))
+        ev = run_eval_epoch(model, dset, DRYRUN_EVAL_BATCH)
+        tr = run_train_epoch(model, Adam(model.parameters(), DP_LR), dset, DRYRUN_ROWS, None)
+        refs[kind] = {"eval": ev, "train": tr, "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        torch.save(inputs, os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        spawn_ranks(_dryrun_rank, (tmp,), MULTICARD_RANKS, MULTICARD_TIMEOUT_S, {})
+        outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(MULTICARD_RANKS)]
+        print(f"  {MULTICARD_RANKS} ranks spawned, ran and joined in {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check_placement(outs, f"{MULTICARD_RANKS} ranks")
+    for kind, ref in refs.items():
+        for r, out in enumerate(o[kind] for o in outs):
+            stats = [k for k in ref["state"] if "running" in k]
+            stat_err = max((float((out["state"][k] - ref["state"][k]).abs().max()) for k in stats), default=0.0)
+            loss_err = abs(out["eval"]["loss"] - ref["eval"]["loss"])
+            check(np.array_equal(out["eval"]["sums"], ref["eval"]["sums"]) and int(out["eval"]["sums"][1]) == DRYRUN_ROWS
+                  and loss_err <= 1e-5 and stat_err <= 2e-5 and out["train"]["mix_acc"] == ref["train"]["mix_acc"],
+                  f"{kind}, rank {r}: eval sums {out['eval']['sums'].tolist()} vs {ref['eval']['sums'].tolist()}, "
+                  f"mean loss {out['eval']['loss']:.6f} vs {ref['eval']['loss']:.6f} ({loss_err:.1e}); train epoch: "
+                  f"{len(stats)} running statistics within {stat_err:.1e}, mix_acc {out['train']['mix_acc']:.2f} vs "
+                  f"{ref['train']['mix_acc']:.2f}")
+        unequal = {k for o in outs[1:] for k, v in o[kind]["state"].items() if not torch.equal(v, outs[0][kind]["state"][k])}
+        check(not unequal, f"{kind}: the ranks' parameters and running statistics bit-equal (unequal: {sorted(unequal)})")
+
+
+def epoch_wall(out: dict) -> float | None:
+    """Seconds between rank 0's 'Epoch 1' and 'Epoch 2' lines of a
+    ``run_badnets`` output as they reached the pipe, None where either is
+    missing."""
+    at = {line.split(":")[0]: t for line, t in zip(out["lines"], out["stamps"])
+          if line.startswith(("Epoch 1:", "Epoch 2:"))}
+    return at["Epoch 2"] - at["Epoch 1"] if len(at) == 2 else None
+
+
+def phase_multicard_cli(torch) -> None:
+    """Phase 14b: the main path through torchrun, a card a rank, at each of
+    MULTICARD_BATCHES, against the same command on one card."""
+    base = ["--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--num_epochs", "2", "--patience", "20"]
+    print(f"phase 14b: python -m torch.distributed.run --standalone --nproc_per_node {MULTICARD_RANKS} -m "
+          f"audiobd_tpu_torch badnets {' '.join(base)} --batch_size B, B in {MULTICARD_BATCHES} (the main path, "
+          f"{10 * MAIN_PER_CLASS:,} clips, f32, full width, a card a rank; B / {MULTICARD_RANKS} rows a rank), each "
+          f"after python -m audiobd_tpu_torch badnets with the same flags on one card, its reference", flush=True)
+    unbuffered = {"PYTHONUNBUFFERED": "1"}  # each line reaches the pipe when printed, for epoch_wall
+    for batch in MULTICARD_BATCHES:
+        flags = [*base, "--batch_size", str(batch)]
+        one = run_badnets(0, flags, unbuffered, MULTICARD_TIMEOUT_S)
+        try:
+            for line in one["lines"]:
+                if line.startswith(("Epoch", "done", "Traceback", "RuntimeError", "ValueError")):
+                    print(f"  one card: {line[:400]}", flush=True)
+            check(one["rc"] == 0, f"batch {batch}, one card: exited {one['rc']} after {one['wall']:.1f} s")
+            if one["rc"] != 0:
+                print("\n".join(f"  | {line}" for line in one["lines"][-40:]), flush=True)
+                continue
+            acc = _csv_rows(os.path.join(one["run"], "record", "badnets_smallcnn", "acc_result.csv"))[-1]
+            one_acc = (float(acc[2]), float(acc[3]))
+            one_clips = next(float(line.split("throughput=")[1].split()[0]) for line in one["lines"]
+                             if line.startswith("done:"))
+        finally:
+            shutil.rmtree(one["tmp"], ignore_errors=True)
+        four = run_badnets(MULTICARD_RANKS, flags, unbuffered, MULTICARD_TIMEOUT_S)
+        try:
+            clips = check_rank_run(four, MULTICARD_RANKS, one_acc, "the one-card run's", cards=True)
+        finally:
+            shutil.rmtree(four["tmp"], ignore_errors=True)
+        walls = (epoch_wall(one), epoch_wall(four))
+        check(None not in walls, f"batch {batch}: rank 0 printed epochs 1 and 2 (one card, {MULTICARD_RANKS} cards)")
+        if clips and None not in walls:
+            rate1, rate4 = (TRAIN_CLIPS / w for w in walls)
+            # Each rank's throughput is the whole split's clips over its own
+            # wall, so the run's is the slowest rank's, not their sum.
+            print(f"  batch {batch}: train clips/s in epoch 2 ({TRAIN_CLIPS:,} clips over the time from rank 0's "
+                  f"'Epoch 1' line to its 'Epoch 2' line: epoch 1's checkpoint, epoch 2's train and both eval "
+                  f"passes): one card {rate1:.1f} ({walls[0]:.3f} s), {MULTICARD_RANKS} cards {rate4:.1f} "
+                  f"({walls[1]:.3f} s), {rate4 / rate1:.2f}x; over both epochs (epoch 1's warm-up included; the "
+                  f"slowest rank's throughput= figure): one card {one_clips:.1f}, {MULTICARD_RANKS} cards "
+                  f"{min(clips):.1f} (by rank {', '.join(f'{c:.1f}' for c in clips)}), {min(clips) / one_clips:.2f}x; "
+                  f"command walls {one['wall']:.1f} s and {four['wall']:.1f} s (process starts and each rank's "
+                  f"whole prep included)", flush=True)
+
+
+def phase_multicard(torch, kernels, record_dir: str) -> None:
+    """Phase 14: data and tensor parallelism across four cards, one a rank,
+    over NCCL; the caller has seen four cards. Each part runs though an
+    earlier one failed; a part that raises (a rank that failed, a hang past
+    its timeout) fails the phase."""
+    import traceback
+
+    print(f"phase 14: {MULTICARD_RANKS} cards, one a rank, NCCL: "
+          + "; ".join(f"card {i}: {line}" for i, line in enumerate(smi_lines())), flush=True)
+    t0 = time.perf_counter()
+    parts = (("14a(iii)-(iv)", lambda: phase_dp_step(torch, kernels, record_dir, MULTICARD_RANKS, cards=True)),
+             ("14a(ii)", lambda: phase_dryrun_dp(torch)),
+             ("14a(i), 14c", lambda: phase_tp(torch, record_dir, MULTICARD_TP_CASES, cards=True)),
+             ("14b", lambda: phase_multicard_cli(torch)))
+    for name, part in parts:
+        try:
+            part()
+        except Exception as e:  # noqa: BLE001 - recorded as the part's failure; the next part still runs
+            traceback.print_exc()
+            check(False, f"phase {name} raised {e!r}")
+    print(f"  phase 14 wall {time.perf_counter() - t0:.1f} s", flush=True)
+
 
 def main() -> int:
     try:
@@ -2903,8 +3290,8 @@ def main() -> int:
 
 def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows, bf16_rows, effects_rows,
               record_dir) -> list[dict]:
-    """Phases 2-13; each kernel row gets its launches from the path that runs
-    it (A's FFT route and B's train mode from phase 2; phases 10-13 print
+    """Phases 2-14; each kernel row gets its launches from the path that runs
+    it (A's FFT route and B's train mode from phase 2; phases 10-14 print
     their own). Returns the rows of the ``kernels`` line."""
     launches, main_clips, main_acc = phase_main_path(torch, kernels, record_dir)
     for row in main_rows:
@@ -2939,6 +3326,12 @@ def run_paths(torch, kernels, flowmur_route, daba_route, main_rows, block23_rows
     phase_dp_step(torch, kernels, record_dir)
     phase_dp_cli(torch, main_acc)
     phase_tp(torch, record_dir)
+    if torch.cuda.device_count() >= MULTICARD_RANKS:
+        phase_multicard(torch, kernels, record_dir)
+    else:
+        print(f"phase 14 (data and tensor parallel across {MULTICARD_RANKS} cards, one a rank, NCCL) needs "
+              f"{MULTICARD_RANKS} cards, this machine has {torch.cuda.device_count()}: run python3 "
+              f"scripts/multicard_phase.py on a machine of {MULTICARD_RANKS}", flush=True)
     return main_rows + block23_rows + bf16_rows + effects_rows
 
 

@@ -21,8 +21,6 @@ import sys
 import tempfile
 import time
 
-import numpy as np
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
@@ -40,13 +38,7 @@ def main() -> int:
     build_all()
     workdir = tempfile.mkdtemp(prefix="tp_phase_")
     try:
-        bd = os.path.join(workdir, "record", "chip_smoke", "SCDv1-10", "bd")
-        os.makedirs(bd)
-        rng = np.random.default_rng(0)
-        n = 300
-        np.save(os.path.join(bd, "bd_train_mfcc.npy"), (rng.standard_normal((n, 1, 101, 40)) * 8).astype(np.float32))
-        np.save(os.path.join(bd, "bd_train_label.npy"), rng.integers(0, 10, n))
-        np.save(os.path.join(bd, "poison_index_train.npy"), (rng.random(n) < 0.3).astype(np.int64))
+        chip_smoke.write_random_features(workdir)
         t0 = time.perf_counter()
         chip_smoke.phase_tp(torch, workdir)
         print(f"phase 13 wall {time.perf_counter() - t0:.1f} s; {len(chip_smoke.failures)} check(s) failed", flush=True)
