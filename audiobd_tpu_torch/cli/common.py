@@ -5,10 +5,17 @@ audiobd_tpu/cli/common.py, reading the port's checkpoint)."""
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import os
 
+import numpy as np
+
+from audiobd_tpu_torch.ops import KERNELS
+from audiobd_tpu_torch.parallel.distributed import world_size
 from audiobd_tpu_torch.train.checkpoint import checkpoint_dir
+from audiobd_tpu_torch.utils.device import rank_label
 
 
 def infer_attack(result: str, fallback: str) -> tuple[str, str | None]:
@@ -33,3 +40,20 @@ def add_defense_args(parser, with_model: bool = True) -> None:
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device to run on (default: cuda; raises if CUDA is missing)")
+
+
+def report_rank(command: str, result, device) -> None:
+    """Under a group of ranks, where each rank runs a defense whole: this
+    rank's line, ``rank r/N on <card>: <command> result sha256 ...; kernel
+    launches {...}``, a digest of the result's fields in order (arrays by
+    their bytes, the rest by repr). Silent on one rank."""
+    if world_size() == 1:
+        return
+    digest = hashlib.sha256()
+    for f in dataclasses.fields(result):
+        value = getattr(result, f.name)
+        digest.update(f.name.encode())
+        digest.update(value.tobytes() if isinstance(value, np.ndarray) else repr(value).encode())
+    launches = {k.name: k.launches for k in KERNELS}
+    print(f"{rank_label(device)}: {command} result sha256 {digest.hexdigest()}; kernel launches "
+          f"{json.dumps(launches)}", flush=True)

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import argparse
 
-from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack
+from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack, report_rank
 from audiobd_tpu_torch.configs import make_config
 from audiobd_tpu_torch.defend import correlation
+from audiobd_tpu_torch.utils.device import resolve_device
 
 
 def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
@@ -31,6 +32,7 @@ def main(argv: list[str] | None = None) -> correlation.CorrelationResult:
                       device=args.device)
     result = correlation.analyze(cfg, lr_un=args.lr_un, unlearn_epochs=args.unlearn_epochs, subset=args.subset)
     print(f"pearson r = {result.pearson_r:.4f}")
+    report_rank("correlation_analysis", result, resolve_device(cfg.device))
     return result
 
 

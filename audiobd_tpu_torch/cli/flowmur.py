@@ -6,6 +6,10 @@ The reference CLI's flags (audiobd_tpu/cli/flowmur.py:27-47) plus
 ``--device``. Every stage runs: the surrogates, the trigger search (or
 ``--load_trigger``), the poisoning and the victim's training. Each stage's
 wall time and the kernel launches it made are printed and returned.
+
+Under a group of ranks every rank first reads whether the ``--load_trigger``
+file exists (ranks that disagree raise), and each rank prints the sha256 of
+the trigger it poisons with: rank 0's, broadcast by the search.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ from audiobd_tpu_torch.data.speech_commands import (
     make_synthetic_clean_data,
     save_clean_data,
 )
+from audiobd_tpu_torch.parallel.distributed import agreed, world_size
 from audiobd_tpu_torch.poison import flowmur
 from audiobd_tpu_torch.train.ensemble import MemberResult
-from audiobd_tpu_torch.train.trainer import TrainResult, train_attack
-from audiobd_tpu_torch.utils.device import resolve_device
+from audiobd_tpu_torch.train.trainer import TrainResult, sha256_hex, train_attack
+from audiobd_tpu_torch.utils.device import rank_label, resolve_device
 
 
 @dataclass
@@ -70,6 +75,10 @@ def main(argv: list[str] | None = None) -> FlowmurRun:
         flowmur_opt_epochs=args.opt_epochs,
     )
     device = resolve_device(cfg.device)
+    # Every rank reads the trigger file's presence before any rank goes on:
+    # ranks that split between loading and searching would not pair up in
+    # the probe victims' collectives.
+    load_trigger = bool(args.load_trigger) and agreed(os.path.exists(args.load_trigger), args.load_trigger)
     print("----------FlowMur attack (audiobd_tpu_torch)----------")
     for key, value in vars(args).items():
         print(f"{key}: {value}")
@@ -85,13 +94,15 @@ def main(argv: list[str] | None = None) -> FlowmurRun:
         model, surrogates = flowmur.pretrain_surrogate(cfg, clean)
     trigger_losses: list[float] = []
     with stage("trigger"):
-        if args.load_trigger and os.path.exists(args.load_trigger):
+        if load_trigger:
             trigger = np.load(args.load_trigger).astype(np.float32)
             print(f"loaded trigger {args.load_trigger} {trigger.shape}")
         else:
             print("Generating optimal trigger...")
             hosts = flowmur.select_trigger_hosts(cfg, clean)
             trigger = flowmur.select_trigger(cfg, model, hosts, clean, loss_history=trigger_losses)
+    if world_size() > 1:
+        print(f"{rank_label(device)}: flowmur poisons with trigger sha256 {sha256_hex(trigger)}", flush=True)
     with stage("poison"):
         poisoned = flowmur.poison(cfg, clean, trigger)
     with stage("victim"):
@@ -99,7 +110,8 @@ def main(argv: list[str] | None = None) -> FlowmurRun:
     print(
         f"done: epochs={result.epochs_ran} "
         f"clean_acc={result.history['test_clean_acc'][-1]:.2f} "
-        f"asr={result.history['test_asr'][-1]:.2f}"
+        f"asr={result.history['test_asr'][-1]:.2f} "
+        f"throughput={result.clips_per_sec:.1f} clips/s"
     )
     return FlowmurRun(victim=result, trigger=trigger, surrogates=surrogates,
                       trigger_losses=trigger_losses, stages=stage.records)

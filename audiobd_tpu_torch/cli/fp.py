@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import argparse
 
-from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack
+from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack, report_rank
 from audiobd_tpu_torch.configs import make_config
 from audiobd_tpu_torch.defend import fp
+from audiobd_tpu_torch.utils.device import resolve_device
 
 
 def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
@@ -33,6 +34,7 @@ def main(argv: list[str] | None = None) -> fp.FPResult:
     result = fp.mitigation(cfg, val_ratio=args.val_ratio, acc_ratio=args.acc_ratio,
                            once_prune_ratio=args.once_prune_ratio, lr_ft=args.lr_ft)
     print(f"fp done: pruned={result.pruned_channels} acc={result.test_acc:.2f} asr={result.test_asr:.2f}")
+    report_rank("fp", result, resolve_device(cfg.device))
     return result
 
 

@@ -10,9 +10,10 @@ from __future__ import annotations
 
 import argparse
 
-from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack
+from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack, report_rank
 from audiobd_tpu_torch.configs import make_config
 from audiobd_tpu_torch.defend import ft_reg
+from audiobd_tpu_torch.utils.device import resolve_device
 
 
 def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
@@ -36,6 +37,7 @@ def main(argv: list[str] | None = None) -> ft_reg.FTRegResult:
                                r=args.r, alpha=args.alpha)
     for ratio, acc, asr in result.per_ratio:
         print(f"ratio {ratio}: acc={acc:.2f} asr={asr:.2f}")
+    report_rank("ft_reg", result, resolve_device(cfg.device))
     return result
 
 

@@ -11,9 +11,10 @@ from __future__ import annotations
 
 import argparse
 
-from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack
+from audiobd_tpu_torch.cli.common import add_defense_args, infer_attack, report_rank
 from audiobd_tpu_torch.configs import make_config
 from audiobd_tpu_torch.defend import tsbd
+from audiobd_tpu_torch.utils.device import resolve_device
 
 
 def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
@@ -46,6 +47,7 @@ def main(argv: list[str] | None = None) -> tsbd.TSBDResult:
         vectorized_ft=args.vectorized_ft,
     )
     print(f"tsbd done ({result.stage}): acc={result.test_acc:.2f} asr={result.test_asr:.2f}")
+    report_rank("tsbd", result, resolve_device(cfg.device))
     return result
 
 

@@ -47,7 +47,8 @@ from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.data.speech_commands import CleanData, batched_mfcc_device, mfcc_params, split_indices
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.models import build_model
-from audiobd_tpu_torch.parallel.distributed import main_rank_only
+from audiobd_tpu_torch.parallel.distributed import main_rank_only, world_size
+from audiobd_tpu_torch.parallel.mesh import shard_replicated
 from audiobd_tpu_torch.poison.badnets import save_bd_arrays
 from audiobd_tpu_torch.poison.device_prep import scatter_rows
 from audiobd_tpu_torch.train.checkpoint import save_checkpoint
@@ -55,9 +56,9 @@ from audiobd_tpu_torch.train.ensemble import MemberResult, train_member
 from audiobd_tpu_torch.train.loop import ArraySet
 from audiobd_tpu_torch.train.scan_epoch import DeviceDataset
 from audiobd_tpu_torch.train.state import Adam
-from audiobd_tpu_torch.train.trainer import resolve_fused_conv, train_attack
+from audiobd_tpu_torch.train.trainer import resolve_fused_conv, sha256_hex, train_attack
 from audiobd_tpu_torch.utils import random as rnd
-from audiobd_tpu_torch.utils.device import resolve_device
+from audiobd_tpu_torch.utils.device import rank_label, resolve_device
 from audiobd_tpu_torch.utils.logging import save_npy
 
 SURROGATE_LR = 1e-4  # reference utils/flowmur_generate_trigger.py:27
@@ -214,7 +215,13 @@ def optimize_trigger(
     """The trigger (1, L) after ``epochs`` search epochs over the hosts;
     ``loss_history`` gets each epoch's summed loss. ``restart`` > 0 draws
     from streams of its own (suffix ``_r<restart>``), and its snapshots
-    ``sp_trigger<epoch>.npy`` (every 100 epochs) carry the suffix."""
+    ``sp_trigger<epoch>.npy`` (every 100 epochs) carry the suffix.
+
+    Under a group of ranks every rank searches apart (its surrogate may
+    differ from rank 0's in last bits: cuDNN's default algorithms), and the
+    trigger returned is rank 0's, broadcast, so a run poisons with one
+    trigger, the one rank 0's snapshots record. Each rank prints the sha256
+    of its own search's trigger and of the one it returns."""
     if cfg.flowmur_update not in ("per_batch", "accumulated"):
         raise ValueError(f"flowmur_update must be per_batch or accumulated, got {cfg.flowmur_update!r}")
     device = resolve_device(cfg.device)
@@ -247,7 +254,13 @@ def optimize_trigger(
             if save_snapshots and epoch % 100 == 0:
                 save_npy(os.path.join(snap_dir, f"sp_trigger{epoch}{suffix}.npy"),
                          trigger.detach().cpu().numpy()[None, :])
-    return trigger.detach().cpu().numpy()[None, :]
+    found = trigger.detach().clone()
+    searched = sha256_hex(found)
+    shard_replicated([found])  # one trigger a run: rank 0's
+    if world_size() > 1:
+        print(f"{rank_label(device)}: flowmur trigger search{suffix} sha256 {searched} on this rank, "
+              f"{sha256_hex(found)} after rank 0's broadcast", flush=True)
+    return found.cpu().numpy()[None, :]
 
 
 @main_rank_only

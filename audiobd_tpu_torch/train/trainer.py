@@ -29,12 +29,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
 from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.models import build_model
 from audiobd_tpu_torch.ops import KERNELS
-from audiobd_tpu_torch.parallel.distributed import agreed, is_main, rank, world_size
+from audiobd_tpu_torch.parallel.distributed import agreed, is_main, world_size
 from audiobd_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_replicated
 from audiobd_tpu_torch.train.checkpoint import checkpoint_dir, load_checkpoint, load_train_state, save_checkpoint
 from audiobd_tpu_torch.train.loop import ArraySet, EarlyStopping
@@ -48,7 +49,7 @@ from audiobd_tpu_torch.train.scan_epoch import (
 )
 from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
-from audiobd_tpu_torch.utils.device import card_label, resolve_device
+from audiobd_tpu_torch.utils.device import rank_label, resolve_device
 from audiobd_tpu_torch.utils.logging import save_attack_csvs
 from audiobd_tpu_torch.utils.profiling import annotate, trace
 
@@ -279,7 +280,7 @@ def train_attack(
                 break
     wall = time.perf_counter() - t_start
     if sharded:
-        print(f"rank {rank()}/{mesh.size} on {card_label(device)}: {replica_line(model)}", flush=True)
+        print(f"{rank_label(device)}: {replica_line(model, bd_train)}", flush=True)
 
     if save:
         save_attack_csvs(record_dir, history)
@@ -306,15 +307,30 @@ def _optimizer_tensors(opt) -> list[torch.Tensor]:
     return [t for v in opt.state_dict().values() if isinstance(v, list) for t in v]
 
 
-def replica_line(model: torch.nn.Module) -> str:
-    """A digest of the model's parameters and buffers, and this process's
-    kernel launches: equal digests across ranks mean equal replicas."""
+def sha256_hex(*arrays) -> str:
+    """The sha256 of the arrays' bytes, one after another (tensors read back
+    to the host; None skipped)."""
+    digest = hashlib.sha256()
+    for a in arrays:
+        if a is None:
+            continue
+        a = a.detach().cpu().contiguous().numpy() if isinstance(a, torch.Tensor) else np.ascontiguousarray(a)
+        digest.update(a.tobytes())
+    return digest.hexdigest()
+
+
+def replica_line(model: torch.nn.Module, bd_train: ArraySet) -> str:
+    """A digest of the model's parameters and buffers, this process's kernel
+    launches, and a digest of the split it trained on (``bd_train``'s
+    features, labels and indicators): equal digests across ranks mean equal
+    replicas trained on one poisoned split."""
     digest = hashlib.sha256()
     for name, t in model.state_dict().items():
         digest.update(name.encode())
         digest.update(t.detach().cpu().contiguous().numpy().tobytes())
     launches = {k.name: k.launches for k in KERNELS}
-    return f"parameters sha256 {digest.hexdigest()}; kernel launches {json.dumps(launches)}"
+    return (f"parameters sha256 {digest.hexdigest()}; kernel launches {json.dumps(launches)}; "
+            f"bd_train sha256 {sha256_hex(bd_train.feats, bd_train.labels, bd_train.indicators)}")
 
 
 def _plot_curves(record_dir: str, history: dict[str, list]) -> None:

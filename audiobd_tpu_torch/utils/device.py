@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from audiobd_tpu_torch.parallel.distributed import live, local_rank
+from audiobd_tpu_torch.parallel.distributed import live, local_rank, rank, world_size
 
 
 def resolve_device(name: str | None) -> torch.device:
@@ -50,3 +50,9 @@ def card_label(device: torch.device) -> str:
     bus = (f"{props.pci_domain_id:08X}:{props.pci_bus_id:02X}:{props.pci_device_id:02X}.0"
            if hasattr(props, "pci_bus_id") else "unknown")
     return f"cuda:{index}, PCI {bus}"
+
+
+def rank_label(device: torch.device) -> str:
+    """``rank r/N on <card_label>``: how a rank names itself in the lines
+    each rank prints of its own run."""
+    return f"rank {rank()}/{world_size()} on {card_label(device)}"

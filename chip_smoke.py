@@ -131,7 +131,11 @@ no result, without them. Phases, each printing its own lines:
      seeded rows, the sharded eval epoch (metric sums equal, mean loss
      1e-5) and a train epoch of one global batch (running statistics 2e-5)
      against this process; (iii) phase 12a's step and checks by four ranks,
-     64 rows a rank, and (iv) its gradient buffer's all-reduce over NCCL.
+     64 rows a rank, and (iv) its gradient buffer's all-reduce over NCCL;
+     its phase 3(a): each rank's host_shard rows of the poisoning prep
+     (32 clips of N(0, 0.1²); kernel A, then BadNets' patch) against this
+     process's within the hook's 1e-6; phase 3(b), a row-sharded TSBD
+     step, is not ported (one line says why).
      14b, the main path's badnets CLI through torchrun --nproc_per_node 4
      at global batches 256 and 1024, each after the same command on one
      card: phase 12b's checks for four ranks (A 10 and B 0 launches a rank,
@@ -140,6 +144,16 @@ no result, without them. Phases, each printing its own lines:
      14c, phase 13's cases with a card a rank: LargeCNN on 1 x 4 and 2 x 2
      and in bf16 on 1 x 4, SmallCNN 1 x 4 with B (launches a rank > 0), RNN
      1 x 4 (a gate axis of 3072 / 4); walls beside phase 13's over gloo.
+     14d, flowmur, ultrasonic (phase 6's wav tree), jingleback --style 5
+     and daba through torchrun --nproc_per_node 4 at phases 4, 6, 8 and 9's
+     flags, each after the same command on one card: 12b's checks, with
+     each rank's A and F launches held to the one-card run's (summed over
+     its stages) and B-E none, equal bd_train digests, and for FlowMur each
+     rank's own search's trigger digest printed and one trigger, rank 0's,
+     poisoned with; then fp, ft_reg, full tsbd and correlation_analysis
+     (phase 7's depths) through torchrun on the four-card DABA record:
+     every rank finishes on its card, rank 0 alone writes, the ranks'
+     result digests printed. Every wall beside the cards' name and limit.
   Kernel launch counts are zeroed just before each CLI run and read just
   after it; the ranks of phases 12-14 count their own.
 Then one JSON line listing the kernels, the nvidia-smi line, and last
@@ -2476,24 +2490,31 @@ if _spec is not None:
 """
 
 
-def run_badnets(n_ranks: int, flags: list[str], env: dict[str, str], timeout_s: float) -> dict:
-    """The badnets CLI with ``flags`` in a fresh run directory, through
-    ``python -m torch.distributed.run --standalone --nproc_per_node
-    n_ranks`` (or, ``n_ranks`` 0, as one plain process), with ``env`` added
-    to its environment and every rank's writes under the run's directory
-    recorded (AUDIT_SITECUSTOMIZE). The whole process group is killed at
-    ``timeout_s``. Returns its rc, output lines, each line's arrival time
-    (s after the start), wall (s) and directories; the caller removes
-    ``tmp``."""
+def run_command(command: str, n_ranks: int, flags: list[str], env: dict[str, str], timeout_s: float,
+                run: str | None = None, setup=None) -> dict:
+    """``python -m audiobd_tpu_torch <command>`` with ``flags`` in a fresh run
+    directory (or in ``run``, an existing one, such as an attack run's for a
+    defense), through ``python -m torch.distributed.run --standalone
+    --nproc_per_node n_ranks`` (or, ``n_ranks`` 0, as one plain process), with
+    ``env`` added to its environment and every rank's writes under the run's
+    directory recorded (AUDIT_SITECUSTOMIZE). ``setup(run)`` prepares a fresh
+    run directory first. The whole process group is killed at ``timeout_s``.
+    Returns its rc, output lines, each line's arrival time (s after the
+    start), wall (s) and directories; the caller removes ``tmp``."""
     import signal
     import threading
 
     launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(n_ranks)] if n_ranks else []
-    cmd = [sys.executable, *launcher, "-m", "audiobd_tpu_torch", "badnets", *flags]
+    cmd = [sys.executable, *launcher, "-m", "audiobd_tpu_torch", command, *flags]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
-    site, logs, run = (os.path.join(tmp, d) for d in ("site", "logs", "run"))
-    for d in (site, logs, run):
+    site, logs = os.path.join(tmp, "site"), os.path.join(tmp, "logs")
+    for d in (site, logs):
         os.makedirs(d)
+    if run is None:
+        run = os.path.join(tmp, "run")
+        os.makedirs(run)
+        if setup is not None:
+            setup(run)
     with open(os.path.join(site, "sitecustomize.py"), "w") as f:
         f.write(AUDIT_SITECUSTOMIZE)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, site, os.environ.get("PYTHONPATH", "")]),
@@ -2520,15 +2541,48 @@ def run_badnets(n_ranks: int, flags: list[str], env: dict[str, str], timeout_s: 
             "run": run, "logs": logs}
 
 
-def check_rank_run(out: dict, n_ranks: int, acc_ref: tuple[float, float], ref_name: str,
-                   cards: bool = False) -> list[float] | None:
-    """Phase 12b's checks of a badnets run by ``n_ranks`` ranks (14b's too):
-    it exited 0; its CSVs and checkpoint; epoch 2's clean accuracy and ASR
-    within 5 points of ``acc_ref`` (``ref_name``'s); rank 0 alone wrote
-    under the run's directory; each rank printed its digest, launched A 10
-    times and B none, and the digests are equal. With ``cards``: the banner
-    says nccl, and rank r ran on cuda:r of a card no other rank had.
-    Returns each rank's train clips/s, or None where the run failed."""
+def run_badnets(n_ranks: int, flags: list[str], env: dict[str, str], timeout_s: float) -> dict:
+    """``run_command`` of the badnets CLI (phases 12b and 14b)."""
+    return run_command("badnets", n_ranks, flags, env, timeout_s)
+
+
+def rank_writes(out: dict, n_ranks: int) -> dict[int, list[str]]:
+    """Each rank's writes under the run's directory, as its audit hook
+    recorded them."""
+    writes = {}
+    for r in range(n_ranks):
+        with open(os.path.join(out["logs"], f"rank{r}.txt")) as f:
+            writes[r] = f.read().splitlines()
+    return writes
+
+
+def rank_records(lines: list[str], pattern: str) -> dict[int, re.Match]:
+    """Each rank's record printed by ``pattern`` (its first group the rank).
+    The ranks share one pipe, and a print's newline may be a write of its
+    own (unbuffered output), so another rank's line can land between a line
+    and its newline: each record is read by its own pattern."""
+    return {int(m[1]): m for m in re.finditer(pattern, "\n".join(lines))}
+
+
+# A rank's line at the end of train_attack (train/trainer.py::replica_line).
+REPLICA = (r"rank (\d+)/\d+ on (.*?): parameters sha256 ([0-9a-f]{64}); kernel launches (\{[^{}]*\}); "
+           r"bd_train sha256 ([0-9a-f]{64})")
+MAIN_PATH_LAUNCHES = {"mfcc_fft": 10, "conv1_bn_pool_bwd_params": 0}  # a rank of the main path: A 10, B none
+
+
+def check_rank_run(out: dict, n_ranks: int, acc_ref: tuple[float, float], ref_name: str, cards: bool = False,
+                   record: str = "badnets_smallcnn", launches: dict[str, int] | None = None) -> list[float] | None:
+    """Phase 12b's checks of an attack's run by ``n_ranks`` ranks (14b's and
+    14d's too): it exited 0; its CSVs and checkpoint under record/``record``;
+    epoch 2's clean accuracy and ASR within 5 points of ``acc_ref``
+    (``ref_name``'s); rank 0 alone wrote under the run's directory; each
+    rank printed its digests and launched each kernel of ``launches`` (by
+    name; the main path's A 10 and B 0 by default) that many times; the
+    parameter digests are equal, and so are the digests of the bd_train
+    each rank trained on. With ``cards``: the banner says nccl, and rank r
+    ran on cuda:r of a card no other rank had. Returns each rank's train
+    clips/s, or None where the run failed."""
+    launches = MAIN_PATH_LAUNCHES if launches is None else launches
     lines = out["lines"]
     for line in lines:
         if line.startswith(("distributed:", "Epoch", "done", "rank ", "Traceback", "RuntimeError", "ValueError")):
@@ -2537,7 +2591,7 @@ def check_rank_run(out: dict, n_ranks: int, acc_ref: tuple[float, float], ref_na
     if out["rc"] != 0:
         print("\n".join(f"  | {line}" for line in lines[-40:]), flush=True)
         return None
-    rec = os.path.join(out["run"], "record", "badnets_smallcnn")
+    rec = os.path.join(out["run"], "record", record)
     rows = _csv_rows(os.path.join(rec, "loss_result.csv"))
     check(len(rows) == 3 and _finite_rows(rows), f"loss_result.csv: a header and 2 rows, every loss finite "
                                                  f"({rows[1:]})")
@@ -2547,32 +2601,27 @@ def check_rank_run(out: dict, n_ranks: int, acc_ref: tuple[float, float], ref_na
     check(abs(clean_acc - acc_ref[0]) <= 5 and abs(asr - acc_ref[1]) <= 5,
           f"epoch 2: clean acc {clean_acc:.2f}, ASR {asr:.2f}; {ref_name} {acc_ref[0]:.2f}, {acc_ref[1]:.2f} "
           f"(within 5 points)")
-    writes = {}
-    for r in range(n_ranks):
-        with open(os.path.join(out["logs"], f"rank{r}.txt")) as f:
-            writes[r] = f.read().splitlines()
+    writes = rank_writes(out, n_ranks)
     check(any(w.endswith("loss_result.csv") for w in writes[0]) and not any(writes[r] for r in range(1, n_ranks)),
           f"rank 0 made {len(writes[0])} writes under the run's directory, "
           + ", ".join(f"rank {r} {len(writes[r])} {writes[r][:3]}" for r in range(1, n_ranks)))
-    # The ranks share one pipe, and a print's newline may be a write of its
-    # own (unbuffered output), so another rank's line can land between a
-    # line and its newline: each record is read by its own pattern.
-    text = "\n".join(lines)
-    replicas = {int(m[1]): (m[3], json.loads(m[4]), m[2]) for m in re.finditer(
-        r"rank (\d+)/\d+ on (.*?): parameters sha256 ([0-9a-f]{64}); kernel launches (\{[^{}]*\})", text)}
-    check(sorted(replicas) == list(range(n_ranks)), f"each rank printed its digest ({sorted(replicas)})")
-    for r, (_, launches, _) in sorted(replicas.items()):
-        a, b = launches.get("mfcc_fft"), launches.get("conv1_bn_pool_bwd_params")
-        check(a == 10 and b == 0, f"rank {r}: A launched {a} times, B {b}")
-    check(len({d for d, _, _ in replicas.values()}) == 1, "the ranks' final parameter digests are equal")
+    replicas = rank_records(lines, REPLICA)
+    check(sorted(replicas) == list(range(n_ranks)), f"each rank printed its digests ({sorted(replicas)})")
+    for r, m in sorted(replicas.items()):
+        got = json.loads(m[4])
+        check(all(got.get(k) == n for k, n in launches.items()),
+              f"rank {r}: launches {({k: got.get(k) for k in launches})} (expected {launches})")
+    check(len({m[3] for m in replicas.values()}) == 1, "the ranks' final parameter digests are equal")
+    check(len({m[5] for m in replicas.values()}) == 1,
+          f"the ranks trained on one bd_train (digests {sorted({m[5][:12] for m in replicas.values()})})")
     if cards:
         banner = next((line for line in lines if line.startswith("distributed:")), "")
-        buses = {c.split("PCI ")[-1] for _, _, c in replicas.values()}
+        buses = {m[2].split("PCI ")[-1] for m in replicas.values()}
         check("backend nccl" in banner and len(buses) == n_ranks
-              and all(c.startswith(f"cuda:{r},") for r, (_, _, c) in replicas.items()),
+              and all(m[2].startswith(f"cuda:{r},") for r, m in replicas.items()),
               f"the banner says nccl, rank r on cuda:r, {len(buses)} distinct cards: "
-              + "; ".join(f"rank {r} {c}" for r, (_, _, c) in sorted(replicas.items())))
-    return [float(c) for c in re.findall(r"done: [^\n]*?throughput=([0-9.]+) clips/s", text)]
+              + "; ".join(f"rank {r} {m[2]}" for r, m in sorted(replicas.items())))
+    return [float(c) for c in re.findall(r"done: [^\n]*?throughput=([0-9.]+) clips/s", "\n".join(lines))]
 
 
 def phase_dp_cli(torch, main_acc: tuple[float, float]) -> None:
@@ -3037,6 +3086,7 @@ MULTICARD_RANKS = 4
 MULTICARD_TIMEOUT_S = 180
 MULTICARD_BATCHES = (256, 1024)  # 14b's global batches: 64 and 256 rows a rank
 DRYRUN_ROWS, DRYRUN_EVAL_BATCH = 4 * MULTICARD_RANKS, 2 * MULTICARD_RANKS  # dryrun_multichip(n): 4n rows, batch 2n
+DRYRUN_PREP_ROWS, DRYRUN_PREP_TOL = 8 * MULTICARD_RANKS, 1e-6  # its phase 3(a): 8n clips, rtol = atol = 1e-6
 MULTICARD_TP_CASES = (  # as TP_CASES
     ("14a(i) SmallCNN dp x tp", "smallcnn", "float32", False, ((2, 2),)),
     ("14c LargeCNN", "largecnn", "float32", False, ((1, 4), (2, 2))),
@@ -3066,13 +3116,29 @@ def smi_lines() -> list[str]:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()
 
 
+def badnets_prep(torch, wavs, inds, device):
+    """The port's fused poisoning prep of dryrun_multichip's phase 3(a): the
+    clips' MFCC (kernel A on the card), then BadNets' patch on the
+    indicated rows; numpy."""
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.data.speech_commands import batched_mfcc_device, mfcc_params
+    from audiobd_tpu_torch.poison.badnets import _patch_indicated, generate_trigger
+
+    cfg = make_config("badnets")
+    trigger = torch.from_numpy(generate_trigger(cfg.dsp.n_mfcc, 101, cfg.trigger_size)).to(device)
+    feats = batched_mfcc_device(wavs, mfcc_params(cfg), device)
+    return _patch_indicated(feats, torch.from_numpy(inds).long().to(device), trigger).cpu().numpy()
+
+
 def _dryrun_rank(rank: int, tmp: str) -> None:
     """Phase 14a(ii)'s rank: for SmallCNN and LargeCNN, the sharded eval
     epoch, then a train epoch of one global batch of all rows, on this
-    rank's card; results to ``tmp``."""
+    rank's card; then phase 3(a): this rank's ``host_shard`` rows of the
+    poisoning prep, with kernel A's launches; results to ``tmp``."""
     import torch
 
-    from audiobd_tpu_torch.parallel.distributed import destroy, maybe_initialize_distributed
+    from audiobd_tpu_torch.ops.mfcc import MFCC_FFT_KERNEL
+    from audiobd_tpu_torch.parallel.distributed import destroy, host_shard, maybe_initialize_distributed
     from audiobd_tpu_torch.parallel.mesh import make_mesh
     from audiobd_tpu_torch.train.loop import ArraySet
     from audiobd_tpu_torch.train.scan_epoch import ShardedDeviceDataset, run_eval_sharded, run_train_epoch_sharded
@@ -3092,6 +3158,10 @@ def _dryrun_rank(rank: int, tmp: str) -> None:
         ev = run_eval_sharded(model, dset, DRYRUN_EVAL_BATCH)
         tr = run_train_epoch_sharded(model, Adam(model.parameters(), DP_LR), dset, DRYRUN_ROWS, None)
         out[kind] = {"eval": ev, "train": tr, "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    wavs, inds = inputs["prep"]
+    rows = host_shard(len(wavs)).indices()
+    MFCC_FFT_KERNEL.launches = 0
+    out["prep"] = (rows, badnets_prep(torch, wavs[rows], inds[rows], device), MFCC_FFT_KERNEL.launches)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     destroy()
 
@@ -3125,6 +3195,11 @@ def phase_dryrun_dp(torch) -> None:
         ev = run_eval_epoch(model, dset, DRYRUN_EVAL_BATCH)
         tr = run_train_epoch(model, Adam(model.parameters(), DP_LR), dset, DRYRUN_ROWS, None)
         refs[kind] = {"eval": ev, "train": tr, "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    # Phase 3(a)'s clips and indicators, drawn after phase 2's data as the hook draws them.
+    wavs = rng.normal(size=(DRYRUN_PREP_ROWS, 16000)).astype(np.float32) * 0.1
+    inds = (rng.random(DRYRUN_PREP_ROWS) < 0.4).astype(np.int32)
+    inputs["prep"] = (wavs, inds)
+    prep_ref = badnets_prep(torch, wavs, inds, torch.device("cuda"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     try:
         torch.save(inputs, os.path.join(tmp, "inputs.pt"))
@@ -3148,6 +3223,41 @@ def phase_dryrun_dp(torch) -> None:
                   f"{ref['train']['mix_acc']:.2f}")
         unequal = {k for o in outs[1:] for k, v in o[kind]["state"].items() if not torch.equal(v, outs[0][kind]["state"][k])}
         check(not unequal, f"{kind}: the ranks' parameters and running statistics bit-equal (unequal: {sorted(unequal)})")
+    print(f"phase 14a, dryrun_multichip({MULTICARD_RANKS})'s phase 3(a): the poisoning prep row-sharded, "
+          f"{DRYRUN_PREP_ROWS} clips of N(0, 0.1²) from the same generator, indicators at p 0.4, BadNets' patch; "
+          f"each rank preps its host_shard rows on its card (kernel A, FFT route) against this process's rows "
+          f"(within {DRYRUN_PREP_TOL:g}, the hook's bound)", flush=True)
+    covered = []
+    for r, out in enumerate(outs):
+        rows, feats, launches = out["prep"]
+        covered.extend(rows.tolist())
+        want = prep_ref[rows]
+        err = "bit-equal" if np.array_equal(feats, want) else f"max abs err {float(np.abs(feats - want).max()):.1e}"
+        check(feats.shape == (DRYRUN_PREP_ROWS // MULTICARD_RANKS, 1, 101, 40) and launches >= 1
+              and np.allclose(feats, want, rtol=DRYRUN_PREP_TOL, atol=DRYRUN_PREP_TOL),
+              f"rank {r}: rows {rows[0]}-{rows[-1]} {feats.shape}, {err} to this process's, kernel A launched "
+              f"{launches} times")
+    check(covered == list(range(DRYRUN_PREP_ROWS)), "the ranks' rows cover the clips once, in order")
+    print(f"phase 14a, dryrun_multichip({MULTICARD_RANKS})'s phase 3(b), a TSBD unlearning step on a row-sharded "
+          f"batch: not ported, by design (ROADMAP.md queue 1): no path of either package shards a defense; each "
+          f"rank runs a defense whole (phase 14d)", flush=True)
+
+
+def one_card_reference(one: dict, label: str, prefix: str, record: str,
+                       show=("Epoch", "done")) -> tuple[float, float] | None:
+    """A one-process run a four-card run is held against: prints its lines
+    that start with ``show`` (and any error) after ``prefix``, checks that it
+    exited 0, and returns epoch 2's clean accuracy and ASR from
+    record/``record``, or None where it failed."""
+    for line in one["lines"]:
+        if line.startswith((*show, "Traceback", "RuntimeError", "ValueError")):
+            print(f"  {prefix}: {line[:400]}", flush=True)
+    check(one["rc"] == 0, f"{label}: exited {one['rc']} after {one['wall']:.1f} s")
+    if one["rc"] != 0:
+        print("\n".join(f"  | {line}" for line in one["lines"][-40:]), flush=True)
+        return None
+    acc = _csv_rows(os.path.join(one["run"], "record", record, "acc_result.csv"))[-1]
+    return float(acc[2]), float(acc[3])
 
 
 def epoch_wall(out: dict) -> float | None:
@@ -3172,15 +3282,9 @@ def phase_multicard_cli(torch) -> None:
         flags = [*base, "--batch_size", str(batch)]
         one = run_badnets(0, flags, unbuffered, MULTICARD_TIMEOUT_S)
         try:
-            for line in one["lines"]:
-                if line.startswith(("Epoch", "done", "Traceback", "RuntimeError", "ValueError")):
-                    print(f"  one card: {line[:400]}", flush=True)
-            check(one["rc"] == 0, f"batch {batch}, one card: exited {one['rc']} after {one['wall']:.1f} s")
-            if one["rc"] != 0:
-                print("\n".join(f"  | {line}" for line in one["lines"][-40:]), flush=True)
+            one_acc = one_card_reference(one, f"batch {batch}, one card", "one card", "badnets_smallcnn")
+            if one_acc is None:
                 continue
-            acc = _csv_rows(os.path.join(one["run"], "record", "badnets_smallcnn", "acc_result.csv"))[-1]
-            one_acc = (float(acc[2]), float(acc[3]))
             one_clips = next(float(line.split("throughput=")[1].split()[0]) for line in one["lines"]
                              if line.startswith("done:"))
         finally:
@@ -3206,6 +3310,185 @@ def phase_multicard_cli(torch) -> None:
                   f"whole prep included)", flush=True)
 
 
+# Phase 14d: the other four attacks through torchrun on four cards, each
+# after the same command on one card, at phases 4, 6, 8 and 9's cuts; then the
+# defenses on the four-card DABA run's record (DEFENSE_RUNS' depths; each rank
+# runs a defense whole, with no collective).
+MULTICARD_ATTACKS = (  # (command, flags, the one-card phase it repeats)
+    ("flowmur", ["--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--surrogate_epochs", "2",
+                 "--opt_epochs", str(FLOWMUR_OPT_EPOCHS), "--num_epochs", "2", "--patience", "20"], "phase 4"),
+    ("ultrasonic", ["--num_epochs", "2", "--patience", "20"], "phase 6"),
+    ("jingleback", ["--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--style", "5", "--num_epochs",
+                    "2", "--patience", "20"], "phase 8"),
+    ("daba", ["--synthetic", "--synthetic_per_class", str(MAIN_PER_CLASS), "--num_epochs", "2", "--patience", "20"],
+     "phase 9"),
+)
+MULTICARD_DEFENSES = ("fp", "ft_reg", "tsbd_full", "correlation")  # DEFENSE_RUNS' names; tsbd_full: stages B-D
+MULTICARD_ATTACK_TIMEOUT_S = 300
+A_F_KERNELS = ("mfcc_fft", "mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device", "effects_ladder",
+               "effects_ladder_resonant", "effects_phaser")
+STAGE = r"stage (\w+): wall ([0-9.]+) s, kernel launches (\{[^{}]*\})"
+SEARCHED = (r"rank (\d+)/\d+ on [^\n]*?: flowmur trigger search sha256 ([0-9a-f]{64}) on this rank, "
+            r"([0-9a-f]{64}) after rank 0's broadcast")
+POISONS_WITH = r"rank (\d+)/\d+ on [^\n]*?: flowmur poisons with trigger sha256 ([0-9a-f]{64})"
+
+
+def cards_label() -> str:
+    """The cards' names and power limits (nvidia-smi), identical lines
+    counted once: ``4 x NVIDIA H100 80GB HBM3, 700.00 W``."""
+    lines = smi_lines()
+    return "; ".join(f"{lines.count(line)} x {line}" for line in dict.fromkeys(lines))
+
+
+def _one_card_stages(out: dict) -> dict[str, dict[str, int]]:
+    """A one-process run's stage lines (cli/stages.py): name → launches."""
+    import ast
+
+    return {m[1]: ast.literal_eval(m[3]) for m in re.finditer(STAGE, "\n".join(out["lines"]))}
+
+
+def _ultrasonic_tree(root: str):
+    """The setup of an ultrasonic run: phase 6's wav tree, written once
+    under ``root``, linked into each run's directory (the runs read it and
+    write nothing there)."""
+    from audiobd_tpu_torch.configs import make_config
+
+    cfg = make_config("ultrasonic")
+    if not os.path.isdir(os.path.join(root, "data")):
+        t0 = time.perf_counter()
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            write_wav_tree(cfg.data_path, cfg.labels)
+        finally:
+            os.chdir(cwd)
+        print(f"  wrote phase 6's wav tree in {time.perf_counter() - t0:.1f} s", flush=True)
+    return lambda run: os.symlink(os.path.join(root, "data"), os.path.join(run, "data"))
+
+
+def _check_flowmur_trigger(out: dict) -> None:
+    """FlowMur under ranks: each rank's own search's trigger digest (the
+    witness: do the ranks' searches end apart?), and one trigger poisoned
+    with, rank 0's."""
+    searched, poisons = rank_records(out["lines"], SEARCHED), rank_records(out["lines"], POISONS_WITH)
+    own = {r: m[2] for r, m in sorted(searched.items())}
+    print(f"  FlowMur's searches before rank 0's broadcast: {len(set(own.values()))} distinct trigger(s) over "
+          f"{len(own)} ranks: " + "; ".join(f"rank {r} sha256 {d}" for r, d in own.items()), flush=True)
+    used = {r: m[2] for r, m in sorted(poisons.items())}
+    check(sorted(used) == sorted(own) == list(range(MULTICARD_RANKS)) and len(set(used.values())) == 1
+          and used[0] == own[0] and all(m[3] == own[0] for m in searched.values()),
+          f"every rank poisons with rank 0's trigger (sha256 {own.get(0, '?')[:16]}...; poisoned with "
+          + ", ".join(f"rank {r} {d[:16]}..." for r, d in used.items()) + ")")
+
+
+def phase_multicard_attacks(torch, kernels) -> None:
+    """Phase 14d: jingleback --style 5, ultrasonic on a wav tree, daba and
+    flowmur through torchrun, a card a rank, each after the same command on
+    one card; then fp, ft_reg, full tsbd and correlation_analysis on the
+    four-card DABA run's record."""
+    from audiobd_tpu_torch.configs import make_config
+
+    label = cards_label()
+    print(f"phase 14d: python -m torch.distributed.run --standalone --nproc_per_node {MULTICARD_RANKS} -m "
+          f"audiobd_tpu_torch <attack> for " + ", ".join(f"{c} ({ref}'s flags: {' '.join(f)})"
+                                                    for c, f, ref in MULTICARD_ATTACKS)
+          + f"; each after the same command on one card, its reference; then "
+          + ", ".join(f"{n} ({' '.join(a)})" for n, a, _ in DEFENSE_RUNS if n in MULTICARD_DEFENSES)
+          + f" through torchrun on the four-card DABA run's record. Full width, at phases 4, 6, 8 and 9's cuts (20,000 "
+          f"clips, 2 epochs), none further; on {label}", flush=True)
+    unbuffered = {"PYTHONUNBUFFERED": "1"}  # each line reaches the pipe when printed, for epoch_wall
+    t_phase = time.perf_counter()
+    tree = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    daba_run = None
+    try:
+        for command, flags, ref in MULTICARD_ATTACKS:
+            setup = _ultrasonic_tree(tree) if command == "ultrasonic" else None
+            record = make_config(command).result
+            one = run_command(command, 0, flags, unbuffered, MULTICARD_ATTACK_TIMEOUT_S, setup=setup)
+            try:
+                label_one = f"{command}, one card"
+                one_acc = one_card_reference(one, label_one, label_one, record, ("Epoch", "done", "stage"))
+                if one_acc is None:
+                    continue
+                stages = _one_card_stages(one)
+            finally:
+                shutil.rmtree(one["tmp"], ignore_errors=True)
+            # A rank preps and poisons the whole set, as one card does, so it
+            # launches A and F as often; B-E stay off at world > 1.
+            want = {k: sum(st.get(k, 0) for st in stages.values()) for k in A_F_KERNELS}
+            want.update({k.name: 0 for k in kernels if k.name not in want})
+            four = run_command(command, MULTICARD_RANKS, flags, unbuffered, MULTICARD_ATTACK_TIMEOUT_S, setup=setup)
+            keep = False
+            try:
+                print(f"  {command}: each rank's A and F launches held to the one-card run's, summed over its stages "
+                      f"({({k: n for k, n in want.items() if n})}; by stage "
+                      f"{({n: {k: v for k, v in st.items() if k in A_F_KERNELS} for n, st in stages.items()})}), "
+                      f"B-E none", flush=True)
+                clips = check_rank_run(four, MULTICARD_RANKS, one_acc, "the one-card run's", cards=True,
+                                       record=record, launches=want)
+                if clips is not None and command == "flowmur":
+                    _check_flowmur_trigger(four)
+                walls = (epoch_wall(one), epoch_wall(four))
+                if clips is not None:
+                    print(f"  {command}: command walls one card {one['wall']:.1f} s, {MULTICARD_RANKS} cards "
+                          f"{four['wall']:.1f} s; epoch 2 (rank 0's 'Epoch 1' to 'Epoch 2' lines) "
+                          + " and ".join("not printed" if w is None else f"{w:.3f} s" for w in walls)
+                          + f"; train clips/s over both epochs, {MULTICARD_RANKS} cards (slowest rank) "
+                          f"{min(clips, default=float('nan')):.1f}; on {label}", flush=True)
+                keep = command == "daba" and clips is not None
+            finally:
+                if keep:
+                    daba_run = four
+                else:
+                    shutil.rmtree(four["tmp"], ignore_errors=True)
+        check(daba_run is not None, "the four-card DABA run left a record for the defenses")
+        if daba_run is not None:
+            phase_multicard_defenses(daba_run, label)
+    finally:
+        if daba_run is not None:
+            shutil.rmtree(daba_run["tmp"], ignore_errors=True)
+        shutil.rmtree(tree, ignore_errors=True)
+    print(f"  phase 14d wall {time.perf_counter() - t_phase:.1f} s on {label}", flush=True)
+
+
+def phase_multicard_defenses(daba: dict, label: str) -> None:
+    """Phase 14d's defenses through torchrun in the four-card DABA run's
+    directory: each rank finishes and prints its result's digest, rank 0
+    alone writes (under record/daba_smallcnn/defense/<name>). The digests
+    are printed, not required equal: each rank runs the defense whole."""
+    for name, argv, cut in DEFENSE_RUNS:
+        if name not in MULTICARD_DEFENSES:
+            continue
+        command, flags = argv[0], [*argv[1:], "--result", "daba_smallcnn"]
+        out = run_command(command, MULTICARD_RANKS, flags, {"PYTHONUNBUFFERED": "1"}, MULTICARD_ATTACK_TIMEOUT_S,
+                          run=daba["run"])
+        try:
+            check(out["rc"] == 0, f"{name}: torchrun exited {out['rc']} after {out['wall']:.1f} s")
+            if out["rc"] != 0:
+                print("\n".join(f"  | {line}" for line in out["lines"][-40:]), flush=True)
+                continue
+            results = rank_records(out["lines"], rf"rank (\d+)/\d+ on ([^\n]*?): {command} result sha256 "
+                                                 rf"([0-9a-f]{{64}}); kernel launches (\{{[^{{}}]*\}})")
+            check(sorted(results) == list(range(MULTICARD_RANKS))
+                  and all(m[2].startswith(f"cuda:{r},") for r, m in results.items()),
+                  f"{name}: every rank finished on its card ("
+                  + "; ".join(f"rank {r} {m[2]}" for r, m in sorted(results.items())) + ")")
+            digests = {r: m[3] for r, m in sorted(results.items())}
+            launched = {r: {k: v for k, v in json.loads(m[4]).items() if v} for r, m in sorted(results.items())}
+            writes = rank_writes(out, MULTICARD_RANKS)
+            out_dir = os.path.join(daba["run"], "record", "daba_smallcnn", "defense")
+            check(any(w.split(" ", 1)[1].startswith(out_dir) for w in writes[0])
+                  and not any(writes[r] for r in range(1, MULTICARD_RANKS)),
+                  f"{name}: rank 0 made {len(writes[0])} writes under the run's directory, "
+                  + ", ".join(f"rank {r} {len(writes[r])} {writes[r][:3]}" for r in range(1, MULTICARD_RANKS)))
+            print(f"  {name} ({' '.join(argv)}; {cut}): wall {out['wall']:.1f} s on {label}; the ranks' result "
+                  f"digests {len(set(digests.values()))} distinct ("
+                  + "; ".join(f"rank {r} {d[:16]}..." for r, d in digests.items())
+                  + f"), not required equal; launches a rank {launched}", flush=True)
+        finally:
+            shutil.rmtree(out["tmp"], ignore_errors=True)
+
+
 def phase_multicard(torch, kernels, record_dir: str) -> None:
     """Phase 14: data and tensor parallelism across four cards, one a rank,
     over NCCL; the caller has seen four cards. Each part runs though an
@@ -3219,7 +3502,8 @@ def phase_multicard(torch, kernels, record_dir: str) -> None:
     parts = (("14a(iii)-(iv)", lambda: phase_dp_step(torch, kernels, record_dir, MULTICARD_RANKS, cards=True)),
              ("14a(ii)", lambda: phase_dryrun_dp(torch)),
              ("14a(i), 14c", lambda: phase_tp(torch, record_dir, MULTICARD_TP_CASES, cards=True)),
-             ("14b", lambda: phase_multicard_cli(torch)))
+             ("14b", lambda: phase_multicard_cli(torch)),
+             ("14d", lambda: phase_multicard_attacks(torch, kernels)))
     for name, part in parts:
         try:
             part()

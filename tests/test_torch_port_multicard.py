@@ -35,6 +35,22 @@ gradient entry from JAX's in one process already (each feeds a max pool
 with no relu between, whose near-ties the two route apart); the ranks are
 as far, and every other tensor within 1e-5.
 
+(c) ``dryrun_multichip(4)``'s phase 3(a), in the same spawn: the poisoning
+prep row-sharded. The hook draws ``n_devices * 8`` clips of N(0, 0.1²) and
+indicators at p 0.4 from the same generator after phase 2's data, and holds
+``device_prep.make_sharded_prep_fn`` (MFCC, then BadNets' patch on the
+indicated rows) on 4 devices against the single-device program within 1e-6.
+In the port that prep is ``batched_mfcc_device`` then
+``poison/badnets.py::_patch_indicated``, and a rank's rows are
+``host_shard``'s. Each rank's rows must equal one process's within the
+hook's 1e-6 (they come out bit-equal), and the JAX package's sharded rows
+its single-device rows within 1e-6, as the hook runs them. Across the two
+packages, whose f32 MFCCs differ in their last digits (up to 7.5e-5 on these
+clips, above an elementwise 1e-6), the ranks' rows are held to
+JAX's sharded rows at the MFCC tolerance of tests/test_torch_port_mfcc.py
+(rtol 1e-4, atol 1e-3). Phase 3(b), a row-sharded TSBD unlearning step, has
+no counterpart in the port: no path of either package shards a defense.
+
 A rank imports this module to find its target, so JAX is imported inside
 the fixture only.
 """
@@ -70,6 +86,9 @@ PLACEMENT_CASES = {
 }
 N_ROWS, EVAL_BATCH = 4 * RANKS, 2 * RANKS  # dryrun_multichip(n): n_rows = 4n, eval batch 2n
 LR = 1e-4
+PREP_ROWS, PREP_CHUNK = 8 * RANKS, 8  # dryrun_multichip(n), phase 3: n_devices * 8 clips, chunk 8
+PREP_TOL = 1e-6
+MFCC_RTOL, MFCC_ATOL = 1e-4, 1e-3
 MODELS = {"smallcnn": lambda: SmallCNN(10, 3072, dropout_rates=(0.0, 0.0)),
           "largecnn": lambda: LargeCNN(10, 12288, dropout_rate=0.0)}
 
@@ -196,8 +215,24 @@ def _dryrun_rank(rank: int, tmp: str) -> None:
         out[name] = {"eval": ev, "eval_losses": batches[0][0], "train": tr, "train_sums": batches[1][1],
                      "state": {k: v.clone() for k, v in model.state_dict().items()},
                      "mu": dict(zip((n for n, _ in model.named_parameters()), opt.mu))}
+    wavs, inds = inputs["prep"]
+    rows = port_dist.host_shard(PREP_ROWS).indices()
+    out["prep"] = (rows, _badnets_prep(wavs[rows], inds[rows]))
     torch.save(out, os.path.join(tmp, f"dryrun{rank}.pt"))
     port_dist.destroy()
+
+
+def _badnets_prep(wavs: np.ndarray, inds: np.ndarray) -> np.ndarray:
+    """The port's fused poisoning prep of the hook's phase 3: MFCC of the
+    clips, BadNets' patch on the indicated rows."""
+    from audiobd_tpu_torch.configs import make_config
+    from audiobd_tpu_torch.data.speech_commands import batched_mfcc_device, mfcc_params
+    from audiobd_tpu_torch.poison.badnets import _patch_indicated, generate_trigger
+
+    cfg = make_config("badnets")
+    trigger = torch.from_numpy(generate_trigger(cfg.dsp.n_mfcc, 101, cfg.trigger_size))
+    feats = batched_mfcc_device(wavs, mfcc_params(cfg), CPU)
+    return _patch_indicated(feats, torch.from_numpy(inds.astype(np.int64)), trigger).numpy()
 
 
 def _rel(got, want) -> float:
@@ -267,6 +302,24 @@ def dryrun(tmp_path_factory):
                      "train_losses": np.asarray(t_losses), "train_sums": np.asarray(t_sums), "state": final,
                      "mu": dict(zip(names, adam["mu"])), "one_mu": dict(zip(names, opt.mu)),
                      "one_state": {k: v.clone() for k, v in one.state_dict().items()}}
+    # Phase 3(a): the hook's clips and indicators, drawn after phase 2's data.
+    from audiobd_tpu.data.speech_commands import mfcc_params as jax_mfcc_params
+    from audiobd_tpu.poison import device_prep
+    from audiobd_tpu.poison.badnets import generate_trigger as jax_generate_trigger
+
+    wavs = rng.normal(size=(PREP_ROWS, 16000)).astype(np.float32) * 0.1
+    inds = (rng.random(PREP_ROWS) < 0.4).astype(np.int32)
+    inputs["prep"] = (wavs, inds)
+    pcfg = jax_make_config("badnets")
+    trig = jnp.asarray(jax_generate_trigger(pcfg.dsp.n_mfcc, 101, pcfg.trigger_size, save_path=None))
+    block = device_prep.make_block_fn(jax_mfcc_params(pcfg), feat_fn=lambda f: jnp.where(trig != 0, trig, f))
+    ref["prep"] = {
+        "single": np.asarray(jax.jit(lambda w, i: device_prep.map_blocks(block, w, i, PREP_CHUNK))(
+            jnp.asarray(wavs), jnp.asarray(inds))),
+        "sharded": np.asarray(device_prep.make_sharded_prep_fn(block, mesh, chunk=PREP_CHUNK)(
+            jnp.asarray(wavs), jnp.asarray(inds))),
+        "one": _badnets_prep(wavs, inds),
+    }
     torch.save(inputs, os.path.join(tmp, "inputs.pt"))
     _spawn(_dryrun_rank, tmp)
     outs = [torch.load(os.path.join(tmp, f"dryrun{r}.pt"), weights_only=False) for r in range(RANKS)]
@@ -298,3 +351,22 @@ def test_four_ranks_hold_dryrun_multichip_phase2(dryrun, name):
     for out in outs[1:]:
         for key, value in out[name]["state"].items():
             assert torch.equal(value, outs[0][name]["state"][key]), key
+
+
+def test_four_ranks_hold_dryrun_multichip_phase3a(dryrun):
+    """Each rank's ``host_shard`` rows of the poisoned features equal one
+    process's within the hook's 1e-6, the JAX package's sharded prep equals
+    its single-device prep within 1e-6, and the ranks' rows sit at the MFCC
+    tolerance from JAX's sharded rows."""
+    ref, outs = dryrun
+    ref = ref["prep"]
+    assert ref["sharded"].shape == ref["one"].shape == (PREP_ROWS, 1, 101, 40)
+    np.testing.assert_allclose(ref["sharded"], ref["single"], atol=PREP_TOL, rtol=PREP_TOL)
+    covered = []
+    for r, out in enumerate(outs):
+        rows, feats = out["prep"]
+        assert len(rows) == PREP_ROWS // RANKS, r
+        covered.extend(rows)
+        np.testing.assert_allclose(feats, ref["one"][rows], atol=PREP_TOL, rtol=PREP_TOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(feats, ref["sharded"][rows], atol=MFCC_ATOL, rtol=MFCC_RTOL, err_msg=f"rank {r}")
+    assert covered == list(range(PREP_ROWS))
