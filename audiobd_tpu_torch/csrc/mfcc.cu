@@ -1,6 +1,7 @@
-// Waveform -> MFCC in one kernel, one thread block per clip, by one of two
-// paths that ops/mfcc.py::mfcc_path picks from n_fft alone, each a Stockham
-// FFT; where its buffers live is a choice by size (MODE, below).
+// Waveform -> MFCC in one kernel, one thread block (or one cluster of them)
+// per clip, by one of two paths that ops/mfcc.py::mfcc_path picks from n_fft
+// alone, each a Stockham FFT; where its buffers live is a choice by size
+// (MODE and the cluster route, below).
 //
 // Replaces: audiobd_tpu/ops/pallas_mfcc.py::fused_mfcc (the Pallas `_kernel`,
 // pallas_call at line 129). Same function on every path: centre-padded,
@@ -66,8 +67,9 @@
 //  * It does about 2 L log L / (N log N) ~ 4.5x the FFT work of a power-of-
 //    two frame of N points; the bound still counts the function's FFT at N.
 //
-// Where the buffers live (MODE, chosen on the host from the sizes,
-// ops/mfcc.py::mfcc_route), one stage loop for all three:
+// Where the buffers live (ops/mfcc.py::mfcc_route, from the sizes): MODE
+// 0-2 of mfcc_fft_kernel, one stage loop for all three, then the cluster
+// route, a kernel of its own:
 //  * 0, shared: twiddles staged in shared memory beside the groups' buffers;
 //    the FFT path keeps its window and the clip's dB tile there too, the
 //    chirp mode its dB tile in a device-memory scratch (read back, floored,
@@ -76,18 +78,48 @@
 //    2048 (83.3 KB), Bluestein L 2240 (95.5 KB).
 //  * 1, large: only the buffers, packed mel weights and ranges in shared
 //    memory; twiddles and window read through the read-only cache, the dB
-//    tile in device memory. Every transform up to MAX_SMEM_FFT = 8192 points
-//    (128 KB of buffers for one group of 512, one block an SM; at n_fft 2205
-//    two groups, 80 KB, two blocks an SM).
+//    tile in device memory. Every transform whose layout fits one block's
+//    227 KB (at n_fft 2205 two groups, 80 KB, two blocks an SM; n_fft 4097's
+//    L = 8232 one group of 512, 149.4 KB; 8192, 165 KB).
+//  * cluster (mfcc_cluster_kernel<CHIRP>), past one block: the transform of
+//    each frame pair split four-step style, L = l1 x l2, over a thread-block
+//    cluster of C CTAs (ops/mfcc.py::cluster_plan: the fewest, 2 to 8, that
+//    divide l1 and l2 and whose slices fit; n_fft 16384 as 128 x 128 and
+//    Bluestein n_fft 8193 at L 16464 = 98 x 168, both on 2 CTAs). Launched
+//    by cudaLaunchKernelEx with a cluster dimension, as many clusters as are
+//    resident, each looping over clips. CTA c reads its l2 / C columns
+//    straight from the PCM and runs their l1-point transforms (the same
+//    Stockham butterflies, interleaved: point p of column e at p * stride +
+//    e, an odd stride so a column's float2 fall in distinct bank pairs);
+//    after one barrier.cluster it reads its l1 / C rows of every column
+//    from the CTA that holds them through distributed shared memory
+//    (map_shared_rank), times W_L^{n2 k1}, and runs their l2-point
+//    transforms. The other reads across CTAs:
+//    - the Bluestein inverse starts from the forward transform's layout:
+//      its columns are the forward's rows, so it needs no exchange before
+//      its first step, and one, as above, before its second;
+//    - the two-frame separation reads Z[k] and Z[N - k] from whichever CTAs
+//      hold them (k = a + A b lives on CTA a / (A / C), A = l1, or l2 after
+//      the Bluestein inverse);
+//    - a CTA forms the power of the bins its mel bands read (ops/mfcc.py::
+//      cluster_bands), so a band whose bins straddle two CTAs' shares is
+//      formed whole by one, its bins' power formed by both;
+//    - the clip's top_db max: each CTA's, then the cluster's from the
+//      peers' slots after a barrier.cluster.
+//    Twiddles, window, chirp tables, ck, mel weights and the DCT are read
+//    through the read-only cache; the dB tile goes to device memory. Each
+//    band's sum is a warp's (its bins, hundreds at the top bands, over the
+//    lanes). 1024 threads a CTA, one CTA an SM.
 //  * 2, device: the buffers too in a device-memory scratch, 2 x nt float2 a
-//    block, for any larger transform (n_fft 4097, whose L = 8232 passes 8192,
-//    or 16384); the grid is as many blocks as are resident, each looping over
-//    clips, so the scratch stays L2-sized.
+//    block, and the mel weights read through the cache, for a transform no
+//    cluster of 8 holds (n_fft 131072); the grid is as many blocks as are
+//    resident, each looping over clips, so the scratch stays L2-sized.
 //
-// Occupancy: 512 threads a block, __launch_bounds__(512, 2) holds registers
-// to 64, so two blocks (1,024 threads) sit on an SM where shared memory
-// allows.
+// Occupancy: mfcc_fft_kernel has 512 threads a block, __launch_bounds__(512,
+// 2) holds registers to 64, so two blocks (1,024 threads) sit on an SM where
+// shared memory allows.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 #include <math_constants.h>
@@ -237,25 +269,32 @@ __device__ __forceinline__ void small_dft<8>(float2* v) {
 // butterfly j reads src[j + r*m], multiplies input r by
 // W_n^{(j mod L) r n / (L R)}, and writes output s to (j - j mod L) R + j mod L + s L.
 // TW_LDG: the twiddles are read through the read-only cache, not staged.
+// Butterfly j of that stage over elements `bs` apart (bs = 1 here; the
+// cluster route's interleaved transforms, below, space them a row apart).
+template <int R, bool TW_LDG>
+__device__ __forceinline__ void stockham_butterfly(const float2* __restrict__ src, float2* __restrict__ dst,
+                                                   const float2* __restrict__ tw, int m, int j, int length,
+                                                   int tw_step, int bs) {
+  const int k = j % length;
+  float2 v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = src[(j + r * m) * bs];
+  if (length > 1) {
+#pragma unroll
+    for (int r = 1; r < R; ++r) v[r] = cmul(v[r], TW_LDG ? __ldg(tw + k * r * tw_step) : tw[k * r * tw_step]);
+  }
+  small_dft<R>(v);
+  float2* d = dst + ((j - k) * R + k) * bs;
+#pragma unroll
+  for (int r = 0; r < R; ++r) d[r * length * bs] = v[r];
+}
+
 template <int R, bool TW_LDG>
 __device__ void fft_stage(const float2* __restrict__ src, float2* __restrict__ dst,
                           const float2* __restrict__ tw, int n, int length, int rank, int size) {
   const int m = n / R;
   const int tw_step = n / (length * R);
-  for (int j = rank; j < m; j += size) {
-    const int k = j % length;
-    float2 v[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = src[j + r * m];
-    if (length > 1) {
-#pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], TW_LDG ? __ldg(tw + k * r * tw_step) : tw[k * r * tw_step]);
-    }
-    small_dft<R>(v);
-    float2* d = dst + (j - k) * R + k;
-#pragma unroll
-    for (int r = 0; r < R; ++r) d[r * length] = v[r];
-  }
+  for (int j = rank; j < m; j += size) stockham_butterfly<R, TW_LDG>(src, dst, tw, m, j, length, tw_step, 1);
 }
 
 template <bool TW_LDG>
@@ -308,7 +347,6 @@ __device__ __forceinline__ float2* run_stages(FftPlan plan, float2* src, float2*
 }
 
 constexpr int MODE_SHARED = 0, MODE_LARGE = 1, MODE_DEVICE = 2;  // where the buffers live (header)
-constexpr int MAX_SMEM_FFT = 8192;                                // the largest transform in shared memory
 
 // CHIRP = false: the FFT path, transform size nt = n. CHIRP = true: the
 // Bluestein path, nt = L >= 2n - 1, with pre = hann * c, post = c and
@@ -349,8 +387,8 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_sam
   }
   float* win_s = tail;                                                // n (staged window)
   float* db_tile = DB_GLOBAL ? nullptr : win_s + n;                   // n_frames * n_mels (staged tile)
-  float* wts_s = DB_GLOBAL ? tail : db_tile + n_frames * n_mels;      // n_weights
-  int* rng_s = reinterpret_cast<int*>(wts_s + n_weights);             // 3 * n_mels
+  float* wts_s = DB_GLOBAL ? tail : db_tile + n_frames * n_mels;      // n_weights (not MODE_DEVICE)
+  int* rng_s = reinterpret_cast<int*>(wts_s + (MODE == MODE_DEVICE ? 0 : n_weights));  // 3 * n_mels
   const float2* tw = TW_LDG ? twiddles : tw_s;
   __shared__ float red_s[FFT_THREADS / 32];
 
@@ -361,7 +399,9 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_sam
   if constexpr (!DB_GLOBAL) {
     for (int e = tid; e < n; e += FFT_THREADS) win_s[e] = window[e];
   }
-  for (int e = tid; e < n_weights; e += FFT_THREADS) wts_s[e] = mel_weights[e];
+  if constexpr (MODE != MODE_DEVICE) {
+    for (int e = tid; e < n_weights; e += FFT_THREADS) wts_s[e] = mel_weights[e];
+  }
   for (int e = tid; e < 3 * n_mels; e += FFT_THREADS) rng_s[e] = mel_ranges[e];
   __syncthreads();
 
@@ -427,7 +467,8 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_sam
         const int first = rng_s[3 * mel], count = rng_s[3 * mel + 1], off = rng_s[3 * mel + 2];
         const float* row = pw + h * n_bins + first;
         float acc = 0.0f;
-        for (int q = 0; q < count; ++q) acc = fmaf(row[q], wts_s[off + q], acc);
+        for (int q = 0; q < count; ++q)
+          acc = fmaf(row[q], MODE == MODE_DEVICE ? __ldg(mel_weights + off + q) : wts_s[off + q], acc);
         const float db = 10.0f * log10f(fmaxf(acc, 1e-10f));
         db_s[(f0 + h) * n_mels + mel] = db;
         local_max = fmaxf(local_max, db);
@@ -484,28 +525,31 @@ MfccKernel pick_kernel(int chirp, int mode) {
 // Shared memory of one block, in bytes (ops/mfcc.py::smem_bytes mirrors it).
 size_t mfcc_smem_bytes(int mode, bool chirp, int n, int nt, int groups, int n_mels, int n_mfcc, int n_frames,
                        int n_weights) {
-  size_t bytes = sizeof(float) * (size_t)n_weights + sizeof(int) * 3 * (size_t)n_mels;
+  size_t bytes = sizeof(int) * 3 * (size_t)n_mels;
   if (mode == MODE_DEVICE) return bytes;
-  bytes += sizeof(float2) * (size_t)fft_region(nt, groups, n_mels, n_mfcc);
+  bytes += sizeof(float) * (size_t)n_weights + sizeof(float2) * (size_t)fft_region(nt, groups, n_mels, n_mfcc);
   if (mode == MODE_LARGE) return bytes;
   bytes += sizeof(float2) * (size_t)nt;
   if (!chirp) bytes += sizeof(float) * ((size_t)n + (size_t)n_frames * n_mels);
   return bytes;
 }
 
-int set_smem(MfccKernel kernel, size_t smem) {
+// The block's dynamic shared memory; with max_shared, all of the SM's
+// unified memory goes to shared memory rather than L1 (else CUDA picks the
+// split, which leaves L1 the rest).
+template <class Kernel>
+int set_smem(Kernel kernel, size_t smem, bool max_shared = true) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || !max_shared) return static_cast<int>(err);
   return static_cast<int>(
       cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                            static_cast<int>(cudaSharedmemCarveoutMaxShared)));
 }
 
-// The stage plan from the host's radices: their product must be nt, at most
-// MAX_SMEM_FFT unless the buffers live in device memory.
-int make_plan(const int* radices, int n_stages, int nt, int groups, int mode, FftPlan* plan) {
-  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)) ||
-      mode < MODE_SHARED || mode > MODE_DEVICE)
+// The stage plan from the host's radices: their product must be nt (whether
+// the buffers fit is the shared-memory attribute's to say).
+int make_plan(const int* radices, int n_stages, int nt, int groups, FftPlan* plan) {
+  if (n_stages < 1 || n_stages > MAX_STAGES || groups < 1 || groups > 8 || (groups & (groups - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   plan->n_stages = n_stages;
   long long product = 1;
@@ -515,8 +559,305 @@ int make_plan(const int* radices, int n_stages, int nt, int groups, int mode, Ff
     plan->radix[s] = r;
     product *= r;
   }
-  const bool fits = mode == MODE_DEVICE || nt <= MAX_SMEM_FFT;
-  return product == nt && fits ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return product == nt ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+
+// ---------------------------------------------------------------------------
+// Cluster route (header): mfcc_cluster_kernel<CHIRP> on clusters of C CTAs.
+
+constexpr int CLUSTER_THREADS = 1024;  // one CTA an SM at 64 registers a thread
+constexpr int MAX_CLUSTER = 8;         // the portable cluster size
+constexpr int CLUSTER_TAIL = 64;       // floats after the buffers: 32 warps' maxima, then the CTA's clip max
+
+// The cluster's features, one helper each (tests/test_torch_port_mfcc_cluster.py
+// swaps them for an emulation to run the kernel on the CPU).
+__device__ __forceinline__ int cta_rank() {
+  return static_cast<int>(cooperative_groups::this_cluster().block_rank());
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+template <class T>
+__device__ __forceinline__ T* peer(T* p, int rank) {  // p's place in CTA rank's shared memory
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// A slice's row stride in float2: odd, so the float2 of one column fall in
+// distinct bank pairs.
+__host__ __device__ __forceinline__ int row_stride(int width) { return width | 1; }
+
+// One buffer of a CTA, in float2: l1 rows of its l2 / C columns, or l2 rows
+// of its l1 / C rows, whichever layout is larger.
+__host__ __device__ __forceinline__ int cluster_buffer(int l1, int l2, int ctas) {
+  const int a = l1 * row_stride(l2 / ctas), b = l2 * row_stride(l1 / ctas);
+  return a > b ? a : b;
+}
+
+// One Stockham stage of a CTA's `batch` interleaved n-point transforms:
+// point p of transform e at p * bs + e, twiddle W_n^x = tw[x * big / n] from
+// the big-point table.
+template <int R>
+__device__ void cluster_stage(const float2* __restrict__ src, float2* __restrict__ dst,
+                              const float2* __restrict__ tw, int n, int big, int length, int batch, int bs) {
+  const int m = n / R;
+  const int tw_step = big / (length * R);
+  for (int t = threadIdx.x; t < m * batch; t += CLUSTER_THREADS) {
+    const int j = t / batch, e = t - j * batch;
+    stockham_butterfly<R, true>(src + e, dst + e, tw, m, j, length, tw_step, bs);
+  }
+}
+
+// The plan's stages over a CTA's interleaved transforms, one barrier a
+// stage; returns the buffer that holds the result.
+__device__ float2* cluster_stages(const FftPlan& plan, float2* src, float2* dst, const float2* __restrict__ tw,
+                                  int n, int big, int batch, int bs) {
+  int length = 1;
+  for (int s = 0; s < plan.n_stages; ++s) {
+    switch (plan.radix[s]) {
+      case 2: cluster_stage<2>(src, dst, tw, n, big, length, batch, bs); break;
+      case 3: cluster_stage<3>(src, dst, tw, n, big, length, batch, bs); break;
+      case 4: cluster_stage<4>(src, dst, tw, n, big, length, batch, bs); break;
+      case 5: cluster_stage<5>(src, dst, tw, n, big, length, batch, bs); break;
+      case 7: cluster_stage<7>(src, dst, tw, n, big, length, batch, bs); break;
+      default: cluster_stage<8>(src, dst, tw, n, big, length, batch, bs); break;
+    }
+    __syncthreads();
+    length *= plan.radix[s];
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+  return src;
+}
+
+// A transform of size L = s1 * s2 over the cluster, four-step style, with
+// q1 = s1 / C rows and q2 = s2 / C columns a CTA. In: x[s2 n1 + n2] for this
+// CTA's columns n2 = rank q2 + c, at in[n1 * row_stride(q2) + c]. Returns the
+// buffer holding X[k1 + s1 k2] for its rows k1 = rank q1 + r, at
+// [k2 * row_stride(q1) + r]; `other` is scratch. Step 1: the columns'
+// s1-point transforms; step 2: each CTA reads its rows of every column from
+// the CTA that holds it (distributed shared memory), times W_L^{n2 k1};
+// step 3: the rows' s2-point transforms.
+__device__ float2* four_step(float2* in, float2* other, const float2* __restrict__ tw, int s1, int s2,
+                             const FftPlan& f1, const FftPlan& f2, int ctas, int rank) {
+  const int big = s1 * s2, q1 = s1 / ctas, q2 = s2 / ctas, bs1 = row_stride(q1), bs2 = row_stride(q2);
+  float2* cols = cluster_stages(f1, in, other, tw, s1, big, q2, bs2);
+  float2* rows = cols == in ? other : in;
+  cluster_sync();  // every CTA's columns are transformed
+  for (int t = threadIdx.x; t < q1 * s2; t += CLUSTER_THREADS) {
+    const int r = t / s2, n2 = t - r * s2, q = n2 / q2, k1 = rank * q1 + r;
+    const float2* src = q == rank ? cols : peer(cols, q);
+    rows[n2 * bs1 + r] = cmul(src[k1 * bs2 + n2 - q * q2], __ldg(tw + n2 * k1));
+  }
+  cluster_sync();  // every CTA holds its rows: `cols` may be overwritten
+  return cluster_stages(f2, rows, cols, tw, s2, big, q1, bs1);
+}
+
+// Element k = a + A b of the spectrum, from the CTA rank a / qa that holds it
+// at [b * row_stride(qa) + a mod qa].
+__device__ __forceinline__ float2 spectrum_at(float2* spec, int k, int a_size, int qa, int rank) {
+  const int b = k / a_size, a = k - b * a_size, q = a / qa;
+  const float2* s = q == rank ? spec : peer(spec, q);
+  return s[b * row_stride(qa) + a - q * qa];
+}
+
+// CHIRP = false: the FFT path at L = n = l1 * l2; CHIRP = true: the Bluestein
+// path at L = l1 * l2 >= 2n - 1 (pre, post, ck as mfcc_fft_kernel's). f1, f2:
+// the stages of l1 and l2; ctas: C, dividing both. bands (C, 4): CTA c's mel
+// bands [first, end) and the bins [first, end) they read (ops/mfcc.py::
+// cluster_bands). Cluster g of the grid transforms clips g, g + clusters, ...
+// The dB tile goes to db_out, the MFCCs to out.
+template <bool CHIRP>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+mfcc_cluster_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_samples,
+                    const float2* __restrict__ twiddles,  // (L,) exp(-2 pi i k / L)
+                    const float* __restrict__ window,     // (n,) periodic Hann (FFT path)
+                    const float2* __restrict__ pre, const float2* __restrict__ post,
+                    const float2* __restrict__ ck,        // (L,) FFT_L(h) / L (chirp mode)
+                    const int* __restrict__ mel_ranges,   // (n_mels, 3): first bin, count, offset
+                    const float* __restrict__ mel_weights, const int* __restrict__ bands,
+                    const float* __restrict__ dct,        // (n_mels, n_mfcc)
+                    float* __restrict__ db_out,           // (batch, n_frames, n_mels)
+                    float* __restrict__ out,              // (batch, n_frames, n_mfcc)
+                    int n, int hop, int n_mels, int n_mfcc, int n_frames, int l1, int l2, FftPlan f1, FftPlan f2,
+                    int ctas, int reflect, float top_db, int use_top_db) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, rank = cta_rank(), clusters = gridDim.x / ctas;
+  const int q1 = l1 / ctas, q2 = l2 / ctas, bs1 = row_stride(q1), bs2 = row_stride(q2);
+  const int len = cluster_buffer(l1, l2, ctas);
+  float2* const buf0 = reinterpret_cast<float2*>(smem);
+  float2* const buf1 = buf0 + len;
+  float* const red_s = reinterpret_cast<float*>(buf1 + len);
+  const int mel0 = __ldg(bands + 4 * rank), n_band = __ldg(bands + 4 * rank + 1) - mel0;
+  const int bin0 = __ldg(bands + 4 * rank + 2), nb = __ldg(bands + 4 * rank + 3) - bin0;
+  const int a_size = CHIRP ? l2 : l1;  // the spectrum's split: k = a + a_size b, CTA a / (a_size / C)
+  const int pad = n / 2;
+
+  for (int clip = blockIdx.x / ctas; clip < batch; clip += clusters) {
+    const long long base = static_cast<long long>(clip) * n_samples;
+    float* db_clip = db_out + static_cast<long long>(clip) * n_frames * n_mels;
+    float local_max = -CUDART_INF_F;
+    for (int f0 = 0; f0 < n_frames; f0 += 2) {
+      // This CTA's columns n2 = rank q2 + c of the pair u[l2 n1 + n2]: frame
+      // f0 windowed in the real part, f0 + 1 in the imaginary, read from the PCM.
+      for (int t = tid; t < l1 * q2; t += CLUSTER_THREADS) {
+        const int n1 = t / q2, c = t - n1 * q2, i = l2 * n1 + rank * q2 + c;
+        float2 u = make_float2(0.0f, 0.0f);
+        if (CHIRP ? i < n : true) {
+          const int src = f0 * hop + i - pad;
+          const float a = padded_sample(wav, is_int16, base, n_samples, src, reflect);
+          const float b =
+              f0 + 1 < n_frames ? padded_sample(wav, is_int16, base, n_samples, src + hop, reflect) : 0.0f;
+          if constexpr (CHIRP) {
+            u = cmul(make_float2(a, b), __ldg(pre + i));
+          } else {
+            const float w = __ldg(window + i);
+            u = make_float2(a * w, b * w);
+          }
+        }
+        buf0[n1 * bs2 + c] = u;
+      }
+      __syncthreads();
+      float2* spec = four_step(buf0, buf1, twiddles, l1, l2, f1, f2, ctas, rank);
+      if constexpr (CHIRP) {
+        // V = conj(U H) on this CTA's rows k1 = rank q1 + r (k = k1 + l1 k2).
+        // The inverse is the forward transform of V at l2 x l1: its columns
+        // are these rows, so it starts with no exchange.
+        for (int t = tid; t < l2 * q1; t += CLUSTER_THREADS) {
+          const int k2 = t / q1, r = t - k2 * q1;
+          float2* e = spec + k2 * bs1 + r;
+          const float2 v = cmul(*e, __ldg(ck + rank * q1 + r + l1 * k2));
+          *e = make_float2(v.x, -v.y);
+        }
+        __syncthreads();
+        spec = four_step(spec, spec == buf0 ? buf1 : buf0, twiddles, l2, l1, f2, f1, ctas, rank);
+      }
+      cluster_sync();  // every CTA's part of the spectrum is final
+      // Power of bins bin0 .. bin0 + nb of both frames into the other buffer;
+      // Z[k] and Z[n - k] from the CTAs that hold them (chirp mode:
+      // Z_k = c_k conj(y_k)).
+      float* pw = reinterpret_cast<float*>(spec == buf0 ? buf1 : buf0);
+      for (int t = tid; t < nb; t += CLUSTER_THREADS) {
+        const int k = bin0 + t, kc = k == 0 ? 0 : n - k;
+        float2 z = spectrum_at(spec, k, a_size, a_size / ctas, rank);
+        float2 zc = spectrum_at(spec, kc, a_size, a_size / ctas, rank);
+        if constexpr (CHIRP) {
+          z = cmul(__ldg(post + k), make_float2(z.x, -z.y));
+          zc = cmul(__ldg(post + kc), make_float2(zc.x, -zc.y));
+        }
+        const float ar = 0.5f * (z.x + zc.x), ai = 0.5f * (z.y - zc.y);
+        const float br = 0.5f * (z.y + zc.y), bi = 0.5f * (zc.x - z.x);
+        pw[t] = ar * ar + ai * ai;
+        pw[nb + t] = br * br + bi * bi;
+      }
+      __syncthreads();
+      cluster_arrive();  // done reading the peers' spectra; their next pair waits for it
+      // A warp a (frame, band): its lanes over the band's bins (hundreds at
+      // the top bands past 8192 points), then a shuffle sum.
+      const int nf = min(2, n_frames - f0), lane = tid & 31;
+      for (int e = tid >> 5; e < nf * n_band; e += CLUSTER_THREADS / 32) {
+        const int h = e >= n_band, mel = mel0 + e - h * n_band;
+        const int first = __ldg(mel_ranges + 3 * mel), count = __ldg(mel_ranges + 3 * mel + 1);
+        const int off = __ldg(mel_ranges + 3 * mel + 2);
+        const float* row = pw + h * nb + first - bin0;
+        float acc = 0.0f;
+        for (int q = lane; q < count; q += 32) acc = fmaf(row[q], __ldg(mel_weights + off + q), acc);
+        for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if (lane == 0) {
+          const float db = 10.0f * log10f(fmaxf(acc, 1e-10f));
+          db_clip[(f0 + h) * n_mels + mel] = db;
+          local_max = fmaxf(local_max, db);
+        }
+      }
+      __syncthreads();  // the next pair's load rewrites the buffers
+      cluster_wait();
+    }
+
+    // top_db over the clip: each CTA's maximum, then the cluster's from the
+    // peers' slots (a cluster reduction).
+    const float cta_max = block_max<CLUSTER_THREADS>(local_max, red_s);
+    if (tid == 0) red_s[CLUSTER_THREADS / 32] = cta_max;
+    __threadfence();  // this CTA's dB rows, which the peers' DCT reads
+    cluster_sync();
+    float clip_max = cta_max;
+    for (int q = 0; q < ctas; ++q) clip_max = fmaxf(clip_max, *peer(red_s + CLUSTER_THREADS / 32, q));
+    const float floor_db = use_top_db ? clip_max - top_db : -CUDART_INF_F;
+
+    // DCT: thread (frame quad q, coefficient j) of the cluster's, frames 4q .. 4q + 3.
+    float* out_clip = out + static_cast<long long>(clip) * n_frames * n_mfcc;
+    const int quads = (n_frames + 3) / 4;
+    for (int e = rank * CLUSTER_THREADS + tid; e < quads * n_mfcc; e += ctas * CLUSTER_THREADS) {
+      const int q = e / n_mfcc, j = e - q * n_mfcc;
+      const float* rows[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rows[i] = db_clip + min(4 * q + i, n_frames - 1) * n_mels;
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int mel = 0; mel < n_mels; ++mel) {
+        const float d = __ldg(dct + mel * n_mfcc + j);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] = fmaf(fmaxf(rows[i][mel], floor_db), d, acc[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * q + i < n_frames) out_clip[(4 * q + i) * n_mfcc + j] = acc[i];
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still read its shared memory
+}
+
+// Shared memory of one CTA of the cluster route, in bytes
+// (ops/mfcc.py::cluster_smem_bytes mirrors it).
+size_t mfcc_cluster_smem_bytes(int l1, int l2, int ctas) {
+  return sizeof(float2) * 2 * (size_t)cluster_buffer(l1, l2, ctas) + sizeof(float) * CLUSTER_TAIL;
+}
+
+using ClusterKernel = decltype(&mfcc_cluster_kernel<false>);
+
+ClusterKernel cluster_kernel(int chirp) { return chirp ? mfcc_cluster_kernel<true> : mfcc_cluster_kernel<false>; }
+
+// The cluster route's plans and shared memory after checking them: l1, l2
+// from the radices, C in 2..MAX_CLUSTER dividing both.
+int cluster_setup(const int* radices1, int n_stages1, const int* radices2, int n_stages2, int ctas, int chirp,
+                  FftPlan* f1, FftPlan* f2, int* l1, int* l2, size_t* smem) {
+  if (ctas < 2 || ctas > MAX_CLUSTER || n_stages1 < 1 || n_stages1 > MAX_STAGES || n_stages2 < 1 ||
+      n_stages2 > MAX_STAGES)
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long p1 = 1, p2 = 1;
+  for (int s = 0; s < n_stages1; ++s) p1 *= (radices1[s] >= 2 && radices1[s] <= 8) ? radices1[s] : 0;
+  for (int s = 0; s < n_stages2; ++s) p2 *= (radices2[s] >= 2 && radices2[s] <= 8) ? radices2[s] : 0;
+  if (p1 == 0 || p2 == 0 || p1 % ctas || p2 % ctas) return static_cast<int>(cudaErrorInvalidValue);
+  *l1 = static_cast<int>(p1);
+  *l2 = static_cast<int>(p2);
+  int err = make_plan(radices1, n_stages1, *l1, 1, f1);
+  if (err == 0) err = make_plan(radices2, n_stages2, *l2, 1, f2);
+  if (err != 0) return err;
+  *smem = mfcc_cluster_smem_bytes(*l1, *l2, ctas);
+  // L1 keeps what shared memory leaves: the twiddles, weights and PCM are read through it.
+  return set_smem(cluster_kernel(chirp), *smem, false);
+}
+
+// A launch configuration of `clusters` clusters of C CTAs (attr: its one attribute).
+cudaLaunchConfig_t cluster_config(int clusters, int ctas, size_t smem, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * ctas, 1, 1);
+  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ctas;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
@@ -543,10 +884,11 @@ int mfcc_forward(const void* wav, int is_int16, int batch, int n_samples, const 
                  void* stream) {
   if (chirp ? nt < 2 * n_fft - 1 : nt != n_fft) return static_cast<int>(cudaErrorInvalidValue);
   if (grid < 1 || (mode != MODE_DEVICE && grid != batch)) return static_cast<int>(cudaErrorInvalidValue);
-  if ((db == nullptr && (chirp || mode != MODE_SHARED)) || (scratch == nullptr && mode == MODE_DEVICE))
+  if (mode < MODE_SHARED || mode > MODE_DEVICE || (db == nullptr && (chirp || mode != MODE_SHARED)) ||
+      (scratch == nullptr && mode == MODE_DEVICE))
     return static_cast<int>(cudaErrorInvalidValue);
   FftPlan plan;
-  int err = make_plan(radices, n_stages, nt, groups, mode, &plan);
+  int err = make_plan(radices, n_stages, nt, groups, &plan);
   if (err != 0) return err;
   const MfccKernel fn = pick_kernel(chirp, mode);
   const size_t smem = mfcc_smem_bytes(mode, chirp != 0, n_fft, nt, groups, n_mels, n_mfcc, n_frames, n_weights);
@@ -573,6 +915,57 @@ int mfcc_occupancy(int n_fft, int nt, int chirp, int mode, int groups, int n_mel
   const int err = set_smem(fn, smem);
   if (err != 0) return err;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, FFT_THREADS, smem));
+}
+
+// Kernel A's cluster route on `clusters` clusters of C = ctas CTAs of 1024
+// threads (ops/mfcc.py::cluster_occupancy: at most as many as are resident).
+// radices1/radices2: the stages of l1 and l2 (L = l1 * l2; C divides both).
+// FFT path (chirp 0): L = n_fft, window read, pre/post/kernel unused;
+// Bluestein path (chirp 1): L >= 2 n_fft - 1, pre, post (n_fft, 2) and kernel
+// (L, 2), window unused. bands (C, 4) from ops/mfcc.py::cluster_bands; db
+// (batch, n_frames, n_mels) scratch. A launch the card refuses returns its error.
+int mfcc_cluster_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles,
+                         const float* window, const float* pre, const float* post, const float* kernel,
+                         const int* mel_ranges, const float* mel_weights, const int* bands, const float* dct,
+                         float* db, float* out, int n_fft, int hop, int n_mels, int n_mfcc, int n_frames,
+                         const int* radices1, int n_stages1, const int* radices2, int n_stages2, int ctas,
+                         int clusters, int chirp, int reflect, float top_db, int use_top_db, void* stream) {
+  FftPlan f1, f2;
+  int l1, l2;
+  size_t smem;
+  int err = cluster_setup(radices1, n_stages1, radices2, n_stages2, ctas, chirp, &f1, &f2, &l1, &l2, &smem);
+  if (err != 0) return err;
+  const int size = l1 * l2;
+  if ((chirp ? size < 2 * n_fft - 1 : size != n_fft) || clusters < 1 || clusters > batch || db == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(clusters, ctas, smem, static_cast<cudaStream_t>(stream), &attr);
+  const float2* tw = reinterpret_cast<const float2*>(twiddles);
+  const float2* pre2 = reinterpret_cast<const float2*>(pre);
+  const float2* post2 = reinterpret_cast<const float2*>(post);
+  const float2* ck = reinterpret_cast<const float2*>(kernel);
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, cluster_kernel(chirp), wav, is_int16, batch, n_samples, tw,
+      window, pre2, post2, ck, mel_ranges, mel_weights, bands, dct, db, out, n_fft, hop, n_mels, n_mfcc, n_frames,
+      l1, l2, f1, f2, ctas, reflect, top_db, use_top_db));
+  if (err != 0) return err;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of the cluster route's kernel that can be resident at once (into
+// *clusters) and its shared memory a CTA in bytes (into *smem_bytes).
+int mfcc_cluster_occupancy(const int* radices1, int n_stages1, const int* radices2, int n_stages2, int ctas,
+                           int chirp, int* clusters, int* smem_bytes) {
+  FftPlan f1, f2;
+  int l1, l2;
+  size_t smem = 0;
+  const int err = cluster_setup(radices1, n_stages1, radices2, n_stages2, ctas, chirp, &f1, &f2, &l1, &l2, &smem);
+  *smem_bytes = static_cast<int>(smem);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, ctas, smem, nullptr, &attr);
+  const void* fn = reinterpret_cast<const void*>(cluster_kernel(chirp));
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, fn, &cfg));
 }
 
 }  // extern "C"

@@ -11,6 +11,7 @@ KERNELS = (
     mfcc.MFCC_BLUESTEIN_KERNEL,
     mfcc.MFCC_LARGE_KERNEL,
     mfcc.MFCC_DEVICE_KERNEL,
+    mfcc.MFCC_CLUSTER_KERNEL,
     conv1_bn_pool.BWD_PARAMS_KERNEL,
     conv1_bn_pool.BWD_PARAMS_EVAL_KERNEL,
     conv1_bn_pool.BWD_INPUT_KERNEL,

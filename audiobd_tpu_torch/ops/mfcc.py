@@ -19,12 +19,17 @@ the kernel's Stockham stages, on one of two paths chosen by ``n_fft`` alone
 Where the kernel keeps its buffers (``mfcc_route``) is a choice by size with
 a launch counter each: ``"mfcc_fft"`` and ``"mfcc_bluestein"``, everything
 in shared memory at two blocks an SM; ``"mfcc_fft_large"``, the buffers
-alone in shared memory, for transforms up to ``MAX_FFT``; and
-``"mfcc_fft_device"``, the buffers in a device-memory scratch, beyond it.
-A route that fails to build or launch raises; none stands in for another. On
-a CPU tensor the wrapper runs the plain version, ``dsp.mfcc`` of the
-dequantized waveform; ``mfcc_fft_plain`` and ``mfcc_bluestein_plain`` walk
-the kernel paths' plans in plain torch, for the tests.
+alone in one block's shared memory, wherever they fit its 227 KB (n_fft
+4097's L = 8232 included); ``"mfcc_fft_cluster"``, past that, the transform
+split over a thread-block cluster of C CTAs that read each other's shared
+memory (``cluster_plan``; n_fft 8193 and 16384); and ``"mfcc_fft_device"``,
+the buffers in a device-memory scratch, only where a cluster of 8 cannot hold
+them (n_fft 131072). A route that fails to build or launch raises; none
+stands in for another. On a CPU tensor the wrapper runs the plain version,
+``dsp.mfcc`` of the dequantized waveform; ``mfcc_fft_plain``,
+``mfcc_bluestein_plain`` and ``mfcc_cluster_plain`` walk the kernel paths'
+plans in plain torch, for the tests (``four_step_fft``: the cluster route's
+transform, slice by slice).
 """
 
 from __future__ import annotations
@@ -43,7 +48,6 @@ from audiobd_tpu_torch.dsp.stft import frame_signal, hann_window, num_frames
 from audiobd_tpu_torch.ops.build import MAX_SHARED_BYTES, CudaKernel, load_library, ptr
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
 
-MAX_FFT = 8192  # the largest transform whose buffers fit one block's shared memory (csrc/mfcc.cu)
 MAX_STAGES = 8  # the kernel's plan holds at most this many Stockham stages
 FFT_BUFFER_BYTES = 52 * 1024  # the FFT path's thread groups' ping-pong buffers (csrc/mfcc.cu's note)
 # The chirp mode keeps its dB tile in device memory, so its buffers may take
@@ -62,7 +66,12 @@ MFCC_FFT_KERNEL = CudaKernel("mfcc_fft", "mfcc.cu", "mfcc_forward", _ARGS)
 MFCC_BLUESTEIN_KERNEL = CudaKernel("mfcc_bluestein", "mfcc.cu", "mfcc_forward", _ARGS)
 MFCC_LARGE_KERNEL = CudaKernel("mfcc_fft_large", "mfcc.cu", "mfcc_forward", _ARGS)
 MFCC_DEVICE_KERNEL = CudaKernel("mfcc_fft_device", "mfcc.cu", "mfcc_forward", _ARGS)
-MODE_SHARED, MODE_LARGE, MODE_DEVICE = 0, 1, 2
+_CLUSTER_ARGS = [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 ctypes.POINTER(_I), _I, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _F, _I]
+MFCC_CLUSTER_KERNEL = CudaKernel("mfcc_fft_cluster", "mfcc.cu", "mfcc_cluster_forward", _CLUSTER_ARGS)
+MODE_SHARED, MODE_LARGE, MODE_DEVICE, MODE_CLUSTER = 0, 1, 2, 3
+MAX_CLUSTER = 8  # CTAs in a cluster: the portable maximum
+CLUSTER_TAIL = 64  # floats after a CTA's two buffers: its warps' maxima and its clip maximum (csrc/mfcc.cu)
 
 
 def fft_radices(n_fft: int, primes: tuple[int, ...] = (3, 5, 7)) -> tuple[int, ...] | None:
@@ -114,32 +123,92 @@ def smem_bytes(mode: int, chirp: bool, n_fft: int, size: int, groups: int, param
                n_frames: int) -> int:
     """Shared memory of one block of the kernel, in bytes, as
     csrc/mfcc.cu::mfcc_smem_bytes counts it."""
-    nbytes = 4 * mel_ranges(params)[1].size + 12 * params.n_mels
+    nbytes = 12 * params.n_mels
     if mode == MODE_DEVICE:
         return nbytes
-    nbytes += 8 * max(2 * groups * size, (params.n_mels * params.n_mfcc + 1) // 2)
+    nbytes += 4 * mel_ranges(params)[1].size + 8 * max(2 * groups * size, (params.n_mels * params.n_mfcc + 1) // 2)
     if mode == MODE_LARGE:
         return nbytes
     return nbytes + 8 * size + (0 if chirp else 4 * (n_fft + n_frames * params.n_mels))
 
 
+class ClusterPlan(NamedTuple):
+    size: int  # L = l1 · l2
+    ctas: int  # C, the CTAs of a cluster; divides l1 and l2
+    l1: int  # the first step's sub-transform size: a CTA transforms l2 / C columns of l1 points
+    l2: int  # the last step's: a CTA transforms l1 / C rows of l2 points
+
+
+def row_stride(width: int) -> int:
+    """A slice's row stride in complex values: odd, as csrc/mfcc.cu::row_stride
+    (the float2 of one column fall in distinct bank pairs)."""
+    return width | 1
+
+
+def cluster_smem_bytes(plan: ClusterPlan) -> int:
+    """Shared memory of one CTA of the cluster route, in bytes, as
+    csrc/mfcc.cu::mfcc_cluster_smem_bytes counts it: two buffers, each the
+    larger of a CTA's two slice layouts (l1 × its l2 / C columns, l2 × its
+    l1 / C rows), and the reduction slots."""
+    l1, l2, c = plan.l1, plan.l2, plan.ctas
+    return 16 * max(l1 * row_stride(l2 // c), l2 * row_stride(l1 // c)) + 4 * CLUSTER_TAIL
+
+
+@functools.lru_cache(maxsize=32)
+def cluster_plan(size: int) -> ClusterPlan | None:
+    """The cluster route's split of a transform of ``size`` points: the
+    fewest CTAs C (2 to ``MAX_CLUSTER``) for which a factor pair l1 · l2 =
+    size, both divisible by C and each with a Stockham plan, fits a CTA's
+    shared memory; among such pairs the most even, then the smallest. An
+    even split gives both steps many interleaved transforms, whose accesses
+    run along a row without bank conflicts (at n_fft 16384, 128 x 128 took
+    20% less than 2 x 8192, ``scripts/mfcc_fft_experiments.py``). C need
+    not be a power of two: 7⁵ splits only by 7. None when no cluster of
+    ``MAX_CLUSTER`` holds it."""
+    for ctas in range(2, MAX_CLUSTER + 1):
+        plans = [ClusterPlan(size, ctas, l1, size // l1) for l1 in range(ctas, size // ctas + 1, ctas)
+                 if size % l1 == 0 and (size // l1) % ctas == 0
+                 and fft_radices(l1) is not None and fft_radices(size // l1) is not None]
+        plans = [p for p in plans if cluster_smem_bytes(p) <= MAX_SHARED_BYTES]
+        if plans:
+            return min(plans, key=lambda p: (max(p.l1, p.l2) / min(p.l1, p.l2), cluster_smem_bytes(p), p.l1))
+    return None
+
+
+def cluster_bluestein_size(n_fft: int, primes: tuple[int, ...] = BLUESTEIN_PRIMES) -> int | None:
+    """The Bluestein size L of the cluster route for ``n_fft``: among the
+    products of 2 and ``primes`` from 2·n_fft − 1 to ``BLUESTEIN_SLACK``
+    times the smallest of them, one with a ``cluster_plan``: the fewest CTAs,
+    then the fewest Stockham stages, then the smallest. At n_fft 8193 that is
+    16464 = 2⁴·3·7³ on 2 CTAs, not ``bluestein_size``'s 16807 = 7⁵, which
+    splits only over 7 (twice as slow on an H100,
+    ``scripts/mfcc_fft_experiments.py``)."""
+    first = next(n for n in itertools.count(2 * n_fft - 1) if fft_radices(n, primes))
+    near = [n for n in range(first, int(BLUESTEIN_SLACK * first) + 1)
+            if fft_radices(n, primes) is not None and cluster_plan(n) is not None]
+    return min(near, key=lambda n: (cluster_plan(n).ctas, len(fft_radices(n, primes)), n), default=None)
+
+
 class MfccRoute(NamedTuple):
     path: str  # "fft" or "bluestein"
     size: int  # the transform size: n_fft, or the Bluestein L
-    mode: int  # where the buffers live: MODE_SHARED, MODE_LARGE or MODE_DEVICE
-    groups: int  # thread groups of the 512-thread block
+    mode: int  # where the buffers live: MODE_SHARED, MODE_LARGE, MODE_DEVICE or MODE_CLUSTER
+    groups: int  # thread groups of the 512-thread block (1: a CTA of the cluster route)
     smem: int  # shared memory of one block, bytes
     kernel: CudaKernel  # the route's launch counter
+    cluster: ClusterPlan | None = None  # MODE_CLUSTER's split
 
 
 def mfcc_route(params: MFCCParams, n_frames: int) -> MfccRoute:
     """The kernel's route for these settings and frame count: everything in
     shared memory (``MODE_SHARED``) where that layout fits two blocks an SM;
-    else the buffers alone in shared memory (``MODE_LARGE``) up to
-    ``MAX_FFT``; else the buffers in device memory (``MODE_DEVICE``).
-    ``MODE_LARGE`` serves every size up to ``MAX_FFT`` but is 6% slower on an
-    H100 at n_fft 400 and 10% at 1103 with the same groups
-    (``scripts/mfcc_fft_experiments.py``), so it is the second choice."""
+    else the buffers alone in one block's shared memory (``MODE_LARGE``)
+    wherever they fit its ``MAX_SHARED_BYTES``; else the transform over a
+    cluster's shared memory (``MODE_CLUSTER``, ``cluster_plan``); else the
+    buffers in device memory (``MODE_DEVICE``). ``MODE_LARGE`` serves the
+    smaller sizes too but is 6% slower on an H100 at n_fft 400 and 10% at
+    1103 with the same groups (``scripts/mfcc_fft_experiments.py``), so it
+    is the second choice."""
     path = mfcc_path(params.n_fft)
     chirp = path == "bluestein"
     size = bluestein_size(params.n_fft) if chirp else params.n_fft
@@ -147,13 +216,17 @@ def mfcc_route(params: MFCCParams, n_frames: int) -> MfccRoute:
         raise ValueError(f"n_fft {params.n_fft} has no transform size the kernel can plan")
     groups = fft_groups(size, BLUESTEIN_BUFFER_BYTES if chirp else FFT_BUFFER_BYTES)
     smem = smem_bytes(MODE_SHARED, chirp, params.n_fft, size, groups, params, n_frames)
-    if size <= MAX_FFT and smem <= TWO_BLOCKS_BYTES:
+    if smem <= TWO_BLOCKS_BYTES:
         return MfccRoute(path, size, MODE_SHARED, groups, smem,
                          MFCC_BLUESTEIN_KERNEL if chirp else MFCC_FFT_KERNEL)
     groups = fft_groups(size, LARGE_BUFFER_BYTES)
     smem = smem_bytes(MODE_LARGE, chirp, params.n_fft, size, groups, params, n_frames)
-    if size <= MAX_FFT and smem <= MAX_SHARED_BYTES:
+    if smem <= MAX_SHARED_BYTES:
         return MfccRoute(path, size, MODE_LARGE, groups, smem, MFCC_LARGE_KERNEL)
+    cluster_size = cluster_bluestein_size(params.n_fft) if chirp else size
+    plan = None if cluster_size is None else cluster_plan(cluster_size)
+    if plan is not None:
+        return MfccRoute(path, cluster_size, MODE_CLUSTER, 1, cluster_smem_bytes(plan), MFCC_CLUSTER_KERNEL, plan)
     return MfccRoute(path, size, MODE_DEVICE, 1, smem_bytes(MODE_DEVICE, chirp, params.n_fft, size, 1, params,
                                                             n_frames), MFCC_DEVICE_KERNEL)
 
@@ -231,6 +304,32 @@ def mel_ranges(params: MFCCParams) -> tuple[np.ndarray, np.ndarray]:
     return ranges, packed
 
 
+@functools.lru_cache(maxsize=8)
+def cluster_bands(params: MFCCParams, plan: ClusterPlan) -> np.ndarray:
+    """(C, 4) int32: CTA c's mel bands [first, end) and the bins [first, end)
+    they read. A band goes to the CTA whose share of the bins holds its
+    middle, so each CTA forms the power of about n_bins / C bins (a band
+    that straddles two shares is read whole by one CTA, its bins formed by
+    both) and its bands' dB values from them alone. The bins must fit the
+    buffer that takes the power of two frames."""
+    ranges, _ = mel_ranges(params)
+    n_bins = params.n_fft // 2 + 1
+    mid = np.maximum.accumulate(ranges[:, 0] + ranges[:, 1] // 2)
+    owner = np.minimum(mid * plan.ctas // n_bins, plan.ctas - 1)
+    table = np.zeros((plan.ctas, 4), np.int32)
+    for c in range(plan.ctas):
+        mels = np.flatnonzero(owner == c)
+        first = int(np.searchsorted(owner, c))
+        used = mels[ranges[mels, 1] > 0]
+        lo = int(ranges[used, 0].min()) if used.size else 0
+        hi = int((ranges[used, 0] + ranges[used, 1]).max()) if used.size else 0
+        table[c] = first, first + mels.size, lo, hi
+    room = (cluster_smem_bytes(plan) - 4 * CLUSTER_TAIL) // 16  # a buffer's complex values: 2 frames' floats
+    if (table[:, 3] - table[:, 2]).max() > room:
+        raise ValueError(f"n_fft {params.n_fft}: a CTA's bins pass its power buffer of {room}")
+    return table
+
+
 def fft_groups(n_fft: int, budget: int = FFT_BUFFER_BYTES) -> int:
     """Thread groups of the FFT kernel's 512-thread block, each transforming
     its own frame pairs: the largest power of two, at most 8 (64 threads a
@@ -258,6 +357,39 @@ def fft_occupancy(params: MFCCParams, n_samples: int, device: torch.device) -> t
     if smem.value != route.smem:
         raise RuntimeError(f"kernel A's shared memory {smem.value} B differs from the host's count {route.smem} B")
     return route, blocks.value
+
+
+def cluster_occupancy(params: MFCCParams, n_samples: int, device: torch.device) -> tuple[MfccRoute, int]:
+    """(the cluster route for clips of ``n_samples``, the clusters of its
+    kernel that can be resident at once), from the CUDA runtime on
+    ``device``; raises unless ``mfcc_route`` picks the cluster route, or if
+    the kernel's count of shared memory differs from the host's."""
+    route = mfcc_route(params, num_frames(n_samples, params.n_fft, params.hop_length))
+    if route.mode != MODE_CLUSTER:
+        raise ValueError(f"n_fft {params.n_fft} does not take the cluster route")
+    return route, _cluster_grid(route.cluster, route.path == "bluestein", route.smem, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _cluster_grid(plan: ClusterPlan, chirp: bool, smem: int, device: torch.device) -> int:
+    lib = load_library(MFCC_CLUSTER_KERNEL.source)
+    r1, r2 = _radix_array(plan.l1), _radix_array(plan.l2)
+    clusters, got = _I(), _I()
+    for code in (lib.use_device(device.index or 0), lib.mfcc_cluster_occupancy(
+            r1, len(r1), r2, len(r2), plan.ctas, int(chirp), ctypes.byref(clusters), ctypes.byref(got))):
+        if code:
+            raise RuntimeError(f"mfcc_cluster_occupancy failed with CUDA error {code}")
+    if got.value != smem:
+        raise RuntimeError(f"kernel A's cluster route takes {got.value} B of shared memory a CTA, the host "
+                           f"counts {smem} B")
+    if clusters.value < 1:
+        raise RuntimeError(f"no cluster of {plan.ctas} CTAs with {smem} B each can be resident")
+    return clusters.value
+
+
+def _radix_array(size: int):
+    radices = fft_radices(size)
+    return (_I * len(radices))(*radices)
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +436,71 @@ def bluestein_fft(z: torch.Tensor, plan: BluesteinPlan, pre: torch.Tensor | None
     return post * torch.conj(y[..., :n])
 
 
+def _stockham_along(x: torch.Tensor, size: int, table: torch.Tensor) -> torch.Tensor:
+    """``stockham_fft`` over the last axis (``size`` points) with the twiddles
+    the cluster kernel reads: W_size^j = table[j · L / size] of the L-point
+    ``table`` (L, 2) f32."""
+    sub = table[:: table.shape[0] // size].numpy()
+    return stockham_fft(x, FftPlan(fft_radices(size), sub, None))
+
+
+def _cluster_four_step(cols: torch.Tensor, s1: int, s2: int, ctas: int, table: torch.Tensor) -> torch.Tensor:
+    """The kernel's four_step over a cluster's slices: ``cols`` (..., C, s1,
+    s2 / C), CTA c's column n2 = c · q2 + j of x[s2 n1 + n2] at [c, n1, j] →
+    (..., C, s2, s1 / C), CTA c's row k1 = c · q1 + r of X[k1 + s1 k2] at
+    [c, k2, r]. Step 1 each CTA's columns; step 2 each CTA takes its rows of
+    every column from the CTA that holds it, times W_L^{n2 k1}; step 3 the rows."""
+    q1, q2 = s1 // ctas, s2 // ctas
+    tw = torch.complex(*table.to(cols.device).unbind(-1))
+    y = _stockham_along(cols.transpose(-1, -2), s1, table)  # (..., C, q2, s1): [c, j, k1]
+    n2 = torch.arange(s2, device=cols.device)
+    k1 = torch.arange(ctas, device=cols.device)[:, None] * q1 + torch.arange(q1, device=cols.device)  # (C, q1)
+    rows = y[..., n2[None, :, None] // q2, n2[None, :, None] % q2, k1[:, None, :]]  # (..., C, s2, q1)
+    rows = rows * tw[n2[None, :, None] * k1[:, None, :]]
+    return _stockham_along(rows.transpose(-1, -2), s2, table).transpose(-1, -2)  # [c, k2, r]
+
+
+def _cluster_natural(slices: torch.Tensor, a_size: int, n: int) -> torch.Tensor:
+    """Elements k < n of a transform held as the kernel's final slices
+    (..., C, L / a_size, a_size / C): k = a + a_size · b at [a // qa, b, a % qa]
+    (csrc/mfcc.cu::spectrum_at)."""
+    k = torch.arange(n, device=slices.device)
+    a, b = k % a_size, k // a_size
+    qa = slices.shape[-1]
+    return slices[..., a // qa, b, a % qa]
+
+
+def four_step_fft(z: torch.Tensor, plan: ClusterPlan, table: torch.Tensor | None = None) -> torch.Tensor:
+    """Complex DFT over the last axis (L = plan.size) of ``z`` as the cluster
+    route computes it: x cut into the C CTAs' slices of l2 / C columns
+    (x[l2 n1 + n2]), ``_cluster_four_step``, then read back in natural order
+    from the CTA that holds each element. ``table``: the (L, 2) twiddles,
+    fft_plan(L)'s f32 ones by default (float64 ones for a complex128 z)."""
+    table = torch.from_numpy(fft_plan(plan.size).twiddles) if table is None else table
+    c, l1, l2 = plan.ctas, plan.l1, plan.l2
+    cols = z.reshape(*z.shape[:-1], l1, c, l2 // c).movedim(-2, -3)  # [c, n1, j]
+    return _cluster_natural(_cluster_four_step(cols, l1, l2, c, table), l1, plan.size)
+
+
+def cluster_bluestein_fft(z: torch.Tensor, plan: BluesteinPlan, cplan: ClusterPlan, pre: torch.Tensor) -> torch.Tensor:
+    """``bluestein_fft``'s steps as the cluster route takes them: u = z·pre
+    zero-padded to L in the CTAs' column slices, U by ``_cluster_four_step``
+    (l1 × l2), V = conj(U·H) on each CTA's rows, and the inverse as the
+    forward transform of V at l2 × l1, whose columns are those rows; then
+    Z_k = c_k·conj(y_k) for k < N."""
+    n = z.shape[-1]
+    c, l1, l2 = cplan.ctas, cplan.l1, cplan.l2
+    table = torch.from_numpy(plan.fft.twiddles)
+    post, ck = (torch.complex(*torch.from_numpy(a).to(z.device).unbind(-1)) for a in (plan.post, plan.kernel))
+    u = torch.zeros((*z.shape[:-1], plan.size), dtype=z.dtype, device=z.device)
+    u[..., :n] = z * pre
+    cols = u.reshape(*u.shape[:-1], l1, c, l2 // c).movedim(-2, -3)
+    spec = _cluster_four_step(cols, l1, l2, c, table)  # [c, k2, r]: k = c·q1 + r + l1·k2
+    k = (torch.arange(c)[:, None, None] * (l1 // c) + torch.arange(l1 // c) + l1 * torch.arange(l2)[:, None])
+    y = _cluster_four_step(torch.conj(spec * ck[k.to(z.device)]), l2, l1, c, table)
+    return post * torch.conj(_cluster_natural(y, l2, n))
+
+
 def _packed_frames(wavs: torch.Tensor, params: MFCCParams, window: np.ndarray | None):
     """(frame pairs (..., ⌈F/2⌉, n_fft) complex: frame 2q real, 2q + 1
     imaginary, each times ``window`` if given; F, the frame count)."""
@@ -335,6 +532,22 @@ def mfcc_bluestein_plain(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor
     pairs, n_frames = _packed_frames(wavs, params, None)
     pre = torch.complex(*torch.from_numpy(plan.pre).to(pairs.device).unbind(-1))
     return _mfcc_from_pairs(bluestein_fft(pairs, plan, pre), n_frames, params)
+
+
+def mfcc_cluster_plain(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
+    """The cluster route's function in plain torch: frame pairs packed as on
+    the other paths, transformed by ``four_step_fft`` (FFT path) or
+    ``cluster_bluestein_fft`` on the route's ``cluster_plan``."""
+    chirp = mfcc_path(params.n_fft) == "bluestein"
+    size = cluster_bluestein_size(params.n_fft) if chirp else params.n_fft
+    cplan = cluster_plan(size)
+    if not chirp:
+        pairs, n_frames = _packed_frames(wavs, params, fft_plan(params.n_fft).window)
+        return _mfcc_from_pairs(four_step_fft(pairs, cplan), n_frames, params)
+    plan = bluestein_plan(params.n_fft, size)
+    pairs, n_frames = _packed_frames(wavs, params, None)
+    pre = torch.complex(*torch.from_numpy(plan.pre).to(pairs.device).unbind(-1))
+    return _mfcc_from_pairs(cluster_bluestein_fft(pairs, plan, cplan, pre), n_frames, params)
 
 
 def _mfcc_from_pairs(z: torch.Tensor, n_frames: int, params: MFCCParams) -> torch.Tensor:
@@ -385,11 +598,17 @@ def _bluestein_tables(params: MFCCParams, size: int, device: torch.device) -> tu
     )
 
 
+@functools.lru_cache(maxsize=8)
+def _cluster_band_table(params: MFCCParams, plan: ClusterPlan, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(cluster_bands(params, plan)).to(device)
+
+
 def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     """(B, T) float32 or int16 PCM → (B, n_frames, n_mfcc) float32, the
     function of ``dsp.mfcc`` (int16 is scaled by 2⁻¹⁵ first). On a CUDA
     tensor it launches the kernel on the route ``mfcc_route`` picks: the FFT
-    path or the chirp (Bluestein) mode, its buffers where the sizes allow."""
+    path or the chirp (Bluestein) mode, its buffers where the sizes allow
+    (a cluster of CTAs past one block's shared memory)."""
     if wavs.ndim != 2:
         raise ValueError(f"fused_mfcc expects (B, T), got {tuple(wavs.shape)}")
     if not wavs.is_cuda:
@@ -418,15 +637,29 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     else:
         twiddles, window, ranges, weights, dct = _fft_tables(params, wavs.device)
         pre = post = kernel = None
-    radices = fft_radices(route.size)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=wavs.device)  # noqa: E731
     db = None if route.mode == MODE_SHARED and not chirped else new(batch, n_frames, params.n_mels)
+    opt = lambda t: None if t is None else ptr(t)  # noqa: E731
+    if route.mode == MODE_CLUSTER:
+        plan = route.cluster
+        clusters = min(batch, _cluster_grid(plan, chirped, route.smem, wavs.device))
+        bands = _cluster_band_table(params, plan, wavs.device)
+        r1, r2 = _radix_array(plan.l1), _radix_array(plan.l2)
+        route.kernel(
+            wavs.device,
+            ptr(wavs), is_int16, batch, n_samples,
+            ptr(twiddles), opt(window), opt(pre), opt(post), opt(kernel), ptr(ranges), ptr(weights), ptr(bands),
+            ptr(dct), ptr(db), ptr(out),
+            params.n_fft, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
+            r1, len(r1), r2, len(r2), plan.ctas, clusters, int(chirped), reflect, top_db, use_top_db,
+        )
+        return out
+    radices = fft_radices(route.size)
     grid, scratch = batch, None
     if route.mode == MODE_DEVICE:
         # As many blocks as are resident (two an SM), each looping over clips.
         grid = min(batch, 2 * torch.cuda.get_device_properties(wavs.device).multi_processor_count)
         scratch = new(grid, 2 * route.groups * route.size, 2)
-    opt = lambda t: None if t is None else ptr(t)  # noqa: E731
     route.kernel(
         wavs.device,
         ptr(wavs), is_int16, batch, n_samples,

@@ -12,7 +12,9 @@ no result, without them. Phases, each printing its own lines:
      least time the card could take for the same work (bound): 1a kernel
      A's routes (the FFT path and the Bluestein path with everything in
      shared memory; the buffers alone in shared memory, n_fft 2205 by
-     radix-7 stages; the buffers in device memory, n_fft 4097; FlowMur's
+     radix-7 stages, and n_fft 4097 (L 8232); the transform over a
+     thread-block cluster's shared memory, n_fft 8193 (L 16464) and 16384,
+     2 CTAs each; the buffers in device memory, n_fft 131072; FlowMur's
      n_fft 2048, 13 coefficients; DABA's n_fft 2048 in librosa parity at its
      2048-clip chunk), 1b kernels B and C (both in train mode at
      the main path's shape, and B in eval mode there too, as the defenses'
@@ -287,8 +289,12 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     # (Ultrasonic's 44.1 kHz setting, prime) takes the Bluestein path, at the
     # 2048-clip chunk that Ultrasonic's prep will launch; n_fft 2205 (3²·5·7²)
     # the FFT path by radix-7 stages with its buffers alone in shared memory;
-    # n_fft 4097 (17·241, L = 8232) the Bluestein path in device memory, at
-    # 256 clips and at more clips than the route's grid has blocks.
+    # n_fft 4097 (17·241, L = 8232) the Bluestein path with its buffers alone
+    # in one block's shared memory, at 256 clips and at 301; n_fft 8193 (L =
+    # 16464) and 16384 the cluster route (clusters of 2 CTAs reading each
+    # other's shared memory), at 256 clips, in int16, and at
+    # more clips than clusters are resident; n_fft 131072, past a cluster of
+    # 8, the device-memory route.
     wav = torch.randn(2048, 16000, device="cuda", generator=gen) * 0.1
     tail = wav[:1568]
     pcm = torch.clamp(torch.round(wav[:256] * 32768.0), -32768, 32767).to(torch.int16)
@@ -298,16 +304,24 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     us = MFCCParams(sample_rate=44100, n_fft=1103, hop_length=441)
     wide = MFCCParams(sample_rate=44100, n_fft=2205, hop_length=441)
     deep = MFCCParams(sample_rate=44100, n_fft=4097, hop_length=441)
+    c8193 = MFCCParams(sample_rate=44100, n_fft=8193, hop_length=441)
+    c16384 = MFCCParams(sample_rate=44100, n_fft=16384, hop_length=441)
+    huge = MFCCParams(sample_rate=44100, n_fft=131072, hop_length=441)
     flow = MFCCParams(n_mfcc=13, n_fft=2048, hop_length=512)  # FlowMur's front end
     kernels = {k.name: k for k in (op.MFCC_FFT_KERNEL, op.MFCC_BLUESTEIN_KERNEL, op.MFCC_LARGE_KERNEL,
-                                   op.MFCC_DEVICE_KERNEL)}
+                                   op.MFCC_DEVICE_KERNEL, op.MFCC_CLUSTER_KERNEL)}
     worst = dict.fromkeys(kernels, 0.0)
     errs = {}
     daba_case = "librosa f32 (2048, 16000) n_fft 2048 hop 512, DABA's chunk"
     pcm44 = torch.clamp(torch.round(wav44[:64] * 32768.0), -32768, 32767).to(torch.int16)
-    # The device-memory route's grid is two blocks an SM, each looping over
-    # clips: 37 clips more make blocks take a second clip.
     loop = 2 * torch.cuda.get_device_properties(0).multi_processor_count + 37
+    # The cluster route's grid is as many clusters as are resident, each
+    # looping over clips: 37 clips more make clusters take a second clip.
+    resident = op.cluster_occupancy(c16384, 9000, torch.device("cuda"))[1]
+    long = torch.randn(8, 100000, device="cuda", generator=gen) * 0.1  # reflect padding needs > 65,536 samples
+    # Plain dsp.mfcc's DFT bases at n_fft 131072 would take 69 GB: that case
+    # is held to a float64 MFCC instead, and timed against mfcc_fft_plain.
+    big_case = "torchaudio f32 (8, 100000) n_fft 131072 hop 441, device memory"
     for name, w, params in (
         ("torchaudio f32 (2048, 16000), main-path chunk", wav, ta),
         ("torchaudio f32 (1568, 16000), main-path tail", tail, ta),
@@ -320,16 +334,22 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         ("torchaudio int16 (64, 44100) n_fft 1103 hop 441", pcm44, us),
         ("torchaudio f32 (2048, 44100) n_fft 2205 hop 441, radix 7", wav44, wide),
         ("torchaudio int16 (64, 44100) n_fft 2205 hop 441", pcm44, wide),
-        ("torchaudio f32 (256, 44100) n_fft 4097 hop 441, device memory", wav44[:256], deep),
-        (f"torchaudio f32 ({loop}, 9000) n_fft 4097 hop 441, device memory, blocks loop over clips",
+        ("torchaudio f32 (256, 44100) n_fft 4097 hop 441, buffers in one block's shared memory", wav44[:256], deep),
+        (f"torchaudio f32 ({loop}, 9000) n_fft 4097 hop 441, buffers in one block's shared memory",
          wav44[:loop, :9000], deep),
+        ("torchaudio f32 (256, 44100) n_fft 16384 hop 441, cluster", wav44[:256], c16384),
+        ("torchaudio f32 (256, 44100) n_fft 8193 hop 441, cluster (Bluestein, L 16464)", wav44[:256], c8193),
+        ("torchaudio int16 (64, 44100) n_fft 8193 hop 441, cluster", pcm44, c8193),
+        (f"torchaudio f32 ({resident + 37}, 9000) n_fft 16384 hop 441, cluster, {resident} clusters resident "
+         "loop over clips", wav44[:resident + 37, :9000], c16384),
+        (big_case, long, huge),
     ):
         path = op.mfcc_route(params, num_frames(w.shape[1], params.n_fft, params.hop_length)).kernel.name
         before = {p: k.launches for p, k in kernels.items()}
         got = op.fused_mfcc(w, params)
         torch.cuda.synchronize()
         ran = {p: k.launches - before[p] for p, k in kernels.items()}
-        ref = mfcc(dequantize_pcm(w), params)
+        ref = mfcc_float64(torch, w, params) if name == big_case else mfcc(dequantize_pcm(w), params)
         err, rel, ok = max_err(torch, got, ref, rtol, atol)
         worst[path] = max(worst[path], err)
         errs[name] = err
@@ -342,7 +362,9 @@ def phase_mfcc(torch, ctx) -> list[dict]:
     # the card's kernels and the plain version are each also held against a float64 MFCC.
     for w, params, label in ((wav, ta, "FFT kernel (2048, 16000)"),
                              (wav44, us, "Bluestein kernel (2048, 44100) n_fft 1103"),
-                             (wav44[:512], wide, "radix-7 kernel (512, 44100) n_fft 2205")):
+                             (wav44[:512], wide, "radix-7 kernel (512, 44100) n_fft 2205"),
+                             (wav44[:256], c16384, "cluster kernel (256, 44100) n_fft 16384"),
+                             (wav44[:256], c8193, "cluster kernel (256, 44100) n_fft 8193")):
         truth = mfcc_float64(torch, w, params)
         for name, got in ((label, op.fused_mfcc(w, params)), (f"plain dsp.mfcc at n_fft {params.n_fft}",
                                                                mfcc(w, params))):
@@ -351,7 +373,7 @@ def phase_mfcc(torch, ctx) -> list[dict]:
             del got
         del truth
 
-    def yardstick(w, params):
+    def yardstick(w, params, ref=None):
         mel_fb = torch.from_numpy(params.mel_fb()).cuda()
         dct = torch.from_numpy(params.dct()).cuda()
         window = torch.hann_window(params.n_fft, periodic=True, device="cuda")
@@ -361,27 +383,36 @@ def phase_mfcc(torch, ctx) -> list[dict]:
                               pad_mode=params.pad_mode, return_complex=True).abs().pow(2)
             return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb, top_db=params.top_db) @ dct
 
-        err_lib, _, ok_lib = max_err(torch, library(), mfcc(w, params), rtol, atol)
+        err_lib, _, ok_lib = max_err(torch, library(), mfcc(w, params) if ref is None else ref, rtol, atol)
         check(ok_lib, f"yardstick torch.stft+matmul at n_fft {params.n_fft} agrees: max abs err {err_lib:.3e}")
         return library
 
     rows = []
-    for path, w, params, label in (("mfcc_fft", wav, ta, "(2048, 16000) f32"),
-                                   ("mfcc_bluestein", wav44, us, "(2048, 44100) f32"),
-                                   ("mfcc_fft_large", wav44, wide, "(2048, 44100) f32"),
-                                   ("mfcc_fft_device", wav44[:256], deep, "(256, 44100) f32")):
+    # Each route timed; one row of the kernels line a route (n_fft 4097 and
+    # 8193 print their line only). At n_fft 131072 the plain version is
+    # mfcc_fft_plain, the device route's plan walked in torch.
+    for path, w, params, label, row in (("mfcc_fft", wav, ta, "(2048, 16000) f32", True),
+                                        ("mfcc_bluestein", wav44, us, "(2048, 44100) f32", True),
+                                        ("mfcc_fft_large", wav44, wide, "(2048, 44100) f32", True),
+                                        ("mfcc_fft_large", wav44[:256], deep, "(256, 44100) f32", False),
+                                        ("mfcc_fft_cluster", wav44[:256], c16384, "(256, 44100) f32", True),
+                                        ("mfcc_fft_cluster", wav44[:256], c8193, "(256, 44100) f32", False),
+                                        ("mfcc_fft_device", long, huge, "(8, 100000) f32", True)):
         kernel = kernels[path]
-        library = yardstick(w, params)
+        huge_case = params is huge
+        library = yardstick(w, params, mfcc_float64(torch, w, params) if huge_case else None)
         ms = time_ms(torch, lambda: op.fused_mfcc(w, params), 10)
-        plain_ms = time_ms(torch, lambda: mfcc(w, params), 5, warmup=1)
+        plain = op.mfcc_fft_plain if huge_case else mfcc
+        plain_ms = time_ms(torch, lambda: plain(w, params), 5, warmup=1)
         library_ms = time_ms(torch, library, 10)
         bms, by, flops, nbytes = mfcc_bound(w, params)
-        print(f"  MFCC {path} path {label} n_fft {params.n_fft}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.stft yardstick {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)", flush=True)
-        rows.append({"name": kernel.name, "route": "cuda", "source": "audiobd_tpu_torch/csrc/mfcc.cu",
-                     "replaces": "audiobd_tpu/ops/pallas_mfcc.py:129", "max_abs_err": worst[path], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms})
+        print(f"  MFCC {path} path {label} n_fft {params.n_fft}: kernel {ms:.4f} ms, plain "
+              f"{'mfcc_fft_plain ' if huge_case else ''}{plain_ms:.4f} ms, torch.stft yardstick {library_ms:.4f} "
+              f"ms, bound {bms:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        if row:
+            rows.append({"name": kernel.name, "route": "cuda", "source": "audiobd_tpu_torch/csrc/mfcc.cu",
+                         "replaces": "audiobd_tpu/ops/pallas_mfcc.py:129", "max_abs_err": worst[path], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": library_ms})
     narrow = wav44[:64]
     library = yardstick(narrow, wide)
     print(f"  MFCC mfcc_fft_large path (64, 44100) f32 n_fft 2205: kernel "
@@ -422,6 +453,12 @@ def phase_mfcc(torch, ctx) -> list[dict]:
               f"blocks ({blocks * 512} threads) per SM", flush=True)
         if two_blocks:
             check(blocks * 512 >= 1024, f"kernel A at n_fft {params.n_fft} keeps >= 1024 threads per SM")
+    for params in (c8193, c16384):
+        route, clusters = op.cluster_occupancy(params, 44100, torch.device("cuda"))
+        plan = route.cluster
+        print(f"  kernel A ({route.kernel.name}, {route.path} path) at n_fft {params.n_fft}, transform {route.size} "
+              f"= {plan.l1} x {plan.l2} over clusters of {plan.ctas} CTAs: {route.smem} B shared memory a CTA, "
+              f"{clusters} clusters resident ({clusters * plan.ctas} CTAs)", flush=True)
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
     ctx["flowmur_feats"] = op.fused_mfcc(wav[:256], flow)[:, None]
     ctx["ultrasonic_feats"] = op.fused_mfcc(wav44[:256], us)[:, None]  # (256, 1, 100, 40): n_fft 1103 is odd
@@ -1279,7 +1316,7 @@ def phase_main_path(torch, kernels, workdir: str) -> tuple[dict[str, int], float
     12b)."""
     launches, clips, _ = run_cli(torch, kernels, "phase 2: main path", [], workdir=workdir)
     check(launches["mfcc_fft"] > 0, f"MFCC kernel, FFT path, launched {launches['mfcc_fft']} times")
-    for name in ("mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device"):
+    for name in ("mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device", "mfcc_fft_cluster"):
         check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none on this path)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
@@ -1646,7 +1683,7 @@ def phase_ultrasonic(torch, kernels) -> dict[str, int]:
                 check(got.get("mfcc_bluestein", 0) == n and set(got) == {"mfcc_bluestein"},
                       f"kernel A's Bluestein route launched {got.get('mfcc_bluestein', 0)} times in the {stage} stage "
                       f"(expected {n}), no other kernel there ({got})")
-            others = [n for n in ("mfcc_fft", "mfcc_fft_large", "mfcc_fft_device") if launches[n]]
+            others = [n for n in ("mfcc_fft", "mfcc_fft_large", "mfcc_fft_device", "mfcc_fft_cluster") if launches[n]]
             check(not others, f"no other route of kernel A launched (launched: {others})")
             steps = run.result.epochs_ran * -(-len(ind["train"]) // BATCH)
             check(launches["conv1_bn_pool_bwd_params"] == steps,
@@ -3325,8 +3362,8 @@ MULTICARD_ATTACKS = (  # (command, flags, the one-card phase it repeats)
 )
 MULTICARD_DEFENSES = ("fp", "ft_reg", "tsbd_full", "correlation")  # DEFENSE_RUNS' names; tsbd_full: stages B-D
 MULTICARD_ATTACK_TIMEOUT_S = 300
-A_F_KERNELS = ("mfcc_fft", "mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device", "effects_ladder",
-               "effects_ladder_resonant", "effects_phaser")
+A_F_KERNELS = ("mfcc_fft", "mfcc_bluestein", "mfcc_fft_large", "mfcc_fft_device", "mfcc_fft_cluster",
+               "effects_ladder", "effects_ladder_resonant", "effects_phaser")
 STAGE = r"stage (\w+): wall ([0-9.]+) s, kernel launches (\{[^{}]*\})"
 SEARCHED = (r"rank (\d+)/\d+ on [^\n]*?: flowmur trigger search sha256 ([0-9a-f]{64}) on this rank, "
             r"([0-9a-f]{64}) after rank 0's broadcast")

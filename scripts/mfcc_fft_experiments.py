@@ -23,7 +23,13 @@ radix-7 FFT path with its buffers alone in shared memory:
   * thread groups (1, 2) and the order of the radices (3, 3, 5, 7, 7 or
     7, 7, 5, 3, 3);
   * the torch.stft + matmul yardstick.
-And n_fft 4097 (L = 8232 in device memory) at (256, 44100). Last, at the
+And n_fft 4097 (L = 8232, its buffers alone in one block's shared memory)
+at (256, 44100). The cluster route at (256, 44100), each beside its
+torch.stft yardstick: n_fft 16384 split as chosen (2 CTAs, 128 x 128),
+as 2 x 8192 on 2 CTAs (the split with the least shared memory) and as
+128 x 128 on 4 CTAs; n_fft 8193 at the chosen Bluestein size (16464 on 2
+CTAs), at 16800 (2 CTAs) and at bluestein_size's 16807 = 7^5, which only
+a cluster of 7 splits; each with the clusters resident. Last, at the
 two sizes whose layout fits everything in shared memory, n_fft 400 at
 (2048, 16000) and n_fft 1103 at (2048, 44100), the route as chosen
 (MODE_SHARED: twiddles, window and the FFT path's dB tile staged in shared
@@ -148,6 +154,34 @@ def main() -> int:
     print(f"n_fft 4097 (256, 44100), {route.kernel.name}, L {route.size}: "
           f"{time_ms(lambda: op.fused_mfcc(wav44[:256], deep), 10):.4f} ms ({blocks} blocks per SM); torch.stft "
           f"yardstick {yardstick(wav44[:256], deep):.4f} ms", flush=True)
+
+    chosen_plan, chosen_cluster_size = op.cluster_plan, op.cluster_bluestein_size
+    w256 = wav44[:256]
+
+    def cluster_line(label, params):
+        route, clusters = op.cluster_occupancy(params, 44100, torch.device("cuda"))
+        plan = route.cluster
+        print(f"{label} (256, 44100), L {route.size} = {plan.l1} x {plan.l2} on {plan.ctas} CTAs ({route.smem} B "
+              f"a CTA, {clusters} clusters resident): {time_ms(lambda: op.fused_mfcc(w256, params), 10):.4f} ms",
+              flush=True)
+
+    c16384 = MFCCParams(sample_rate=44100, n_fft=16384, hop_length=441)
+    c8193 = MFCCParams(sample_rate=44100, n_fft=8193, hop_length=441)
+    try:
+        cluster_line("n_fft 16384, as chosen", c16384)
+        for plan in (op.ClusterPlan(16384, 2, 2, 8192), op.ClusterPlan(16384, 4, 128, 128)):
+            op.cluster_plan = lambda size, plan=plan: plan if size == plan.size else chosen_plan(size)
+            cluster_line("n_fft 16384", c16384)
+        op.cluster_plan = chosen_plan
+        cluster_line("n_fft 8193, as chosen", c8193)
+        for size in (16800, 16807):
+            op.cluster_bluestein_size = lambda n_fft, primes=None, size=size: size
+            cluster_line("n_fft 8193", c8193)
+    finally:
+        op.cluster_plan, op.cluster_bluestein_size = chosen_plan, chosen_cluster_size
+    for params in (c16384, c8193):
+        print(f"torch.stft + matmul yardstick n_fft {params.n_fft} (256, 44100): {yardstick(w256, params):.4f} ms",
+              flush=True)
 
     chosen_route = op.mfcc_route
 

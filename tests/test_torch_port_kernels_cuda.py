@@ -8,10 +8,13 @@ without it (tests/conftest.py imports JAX, hence ``--noconftest``):
 
 Tolerances: MFCC rtol 1e-4, atol 1e-3 on every route of kernel A (the FFT
 path for n_fft of 2, 3, 5 and 7, radix 7 included; the Bluestein path for
-the rest; buffers in shared memory, in shared memory with the tables read
-through the cache, or in device memory past 8192 points;
+the rest; buffers in shared memory, in one block's shared memory with the
+tables read through the cache, over a thread-block cluster's shared memory
+past one block's, or in device memory past a cluster of 8;
 tests/test_pallas_mfcc.py's tolerance: f32 sums in another order, the FFT's
-rounding grows like log n). Block-1 backward rtol 1e-4, atol 1e-5: the kernels
+rounding grows like log n). Where plain dsp.mfcc's DFT bases would not fit
+the card (n_fft 65537 and 131072: 17 and 69 GB), against a float64 MFCC
+within atol 1e-3. Block-1 backward rtol 1e-4, atol 1e-5: the kernels
 and the plain version recompute y and z bit-identically and route every
 pool tie the same way, so only the order of the f32 sums differs. Block-2/3
 backward (kernels D, E): max abs error <= 1e-4 * max|ref| + 1e-6 per output,
@@ -82,7 +85,7 @@ def test_mfcc_kernel_matches_plain(cuda, setting, dtype):
 
 
 ROUTES = (op_mfcc.MFCC_FFT_KERNEL, op_mfcc.MFCC_BLUESTEIN_KERNEL, op_mfcc.MFCC_LARGE_KERNEL,
-          op_mfcc.MFCC_DEVICE_KERNEL)
+          op_mfcc.MFCC_DEVICE_KERNEL, op_mfcc.MFCC_CLUSTER_KERNEL)
 
 
 def _run_counted(wavs, params, route):
@@ -128,13 +131,14 @@ def test_mfcc_bluestein_path_other_sizes(cuda, kw, route):
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
 @pytest.mark.parametrize("n_fft,route,path", [
     (2205, "mfcc_fft_large", "fft"),  # 3² · 5 · 7²: radix-7 stages, two groups, buffers alone in shared memory
-    (4097, "mfcc_fft_device", "bluestein"),  # 17 · 241: L = 8232 passes 8192, buffers in device memory
-    (16384, "mfcc_fft_device", "fft"),  # 8⁴ · 4 in device memory
+    (4097, "mfcc_fft_large", "bluestein"),  # 17 · 241: L = 8232, 149,400 B of one block's shared memory
+    (16384, "mfcc_fft_cluster", "fft"),  # 8⁴ · 4 over a cluster of 2 CTAs
 ])
 def test_mfcc_dft_path_matches_plain(cuda, dtype, n_fft, route, path):
     """The routes that replaced the matrix DFT: n_fft 2205 as a direct
-    radix-7 FFT, and transforms past the shared-memory limit in device
-    memory, each checked for the kernel and mode it launched."""
+    radix-7 FFT, and transforms past the two-blocks layout in one block's
+    shared memory or over a cluster's, each checked for the kernel and mode
+    it launched."""
     wavs = _wavs44(cuda, dtype, seed=12)
     params = MFCCParams(sample_rate=44100, n_mfcc=40, n_fft=n_fft, hop_length=441)
     assert op_mfcc.mfcc_path(n_fft) == path
@@ -143,18 +147,51 @@ def test_mfcc_dft_path_matches_plain(cuda, dtype, n_fft, route, path):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("n_fft,path", [(4097, "bluestein"), (16384, "fft")])
+def _mfcc64(wavs, params):
+    """dsp.mfcc's function in float64 with torch.fft."""
+    from audiobd_tpu_torch.dsp.mel import amplitude_to_db
+    from audiobd_tpu_torch.dsp.stft import frame_signal, hann_window
+
+    frames = frame_signal(dequantize_pcm(wavs).double(), params.n_fft, params.hop_length, pad_mode=params.pad_mode)
+    window = torch.from_numpy(hann_window(params.n_fft)).to(wavs.device)
+    spec = torch.fft.rfft(frames * window, dim=-1).abs() ** 2
+    mel = spec @ torch.from_numpy(params.mel_fb()).to(wavs.device).double()
+    return amplitude_to_db(mel, top_db=params.top_db) @ torch.from_numpy(params.dct()).to(wavs.device).double()
+
+
+@pytest.mark.parametrize("n_fft,path", [(65537, "bluestein"), (131072, "fft")])
 def test_mfcc_device_route_loops_over_clips(cuda, n_fft, path):
-    """The device-memory route's grid holds two blocks an SM and each block
-    loops over clips: with 37 clips more than that, blocks reuse their
-    scratch, the dB tile's slot and the reduction buffer on a second clip."""
+    """The device-memory route, now only past a cluster of 8 CTAs (n_fft
+    65537's L = 134,456 and 131072): its grid holds two blocks an SM and each
+    block loops over clips: with 37 clips more than that, blocks reuse their
+    scratch, the dB tile's slot and the reduction buffer on a second clip.
+    Held against a float64 MFCC (plain dsp.mfcc's bases would take 17 and
+    69 GB)."""
     grid = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count
-    x = (np.random.default_rng(15).standard_normal((grid + 37, 9000)) * 0.1).astype(np.float32)
+    x = (np.random.default_rng(15).standard_normal((grid + 37, 70000)) * 0.1).astype(np.float32)
     wavs = torch.from_numpy(x).to(cuda)
-    params = MFCCParams(sample_rate=44100, n_fft=n_fft, hop_length=441)
+    params = MFCCParams(sample_rate=44100, n_fft=n_fft, hop_length=32768)
     assert op_mfcc.mfcc_path(n_fft) == path
     out = _run_counted(wavs, params, "mfcc_fft_device")
-    torch.testing.assert_close(out, mfcc_features(wavs, params)[:, 0], rtol=1e-4, atol=1e-3)
+    assert out.shape == (grid + 37, 3, 40)
+    assert float((out.double() - _mfcc64(wavs, params)).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("n_fft,path,ctas", [(8193, "bluestein", 2), (16384, "fft", 2)])
+def test_mfcc_cluster_route_matches_plain(cuda, dtype, n_fft, path, ctas):
+    """The cluster route at n_fft 8193 (L = 16464 = 2⁴·3·7³) and 16384, each on
+    2 CTAs, at (3, 44100), and at 37 clips more than the resident clusters,
+    each of which then loops over clips; held to plain dsp.mfcc and to a
+    float64 MFCC."""
+    params = MFCCParams(sample_rate=44100, n_mfcc=40, n_fft=n_fft, hop_length=441)
+    assert op_mfcc.mfcc_path(n_fft) == path
+    route, clusters = op_mfcc.cluster_occupancy(params, 44100, cuda)
+    assert route.cluster.ctas == ctas and clusters >= 1
+    for wavs in (_wavs44(cuda, dtype, seed=16), _wavs44(cuda, dtype, seed=17, n=clusters + 37)[:, :9000]):
+        out = _run_counted(wavs, params, "mfcc_fft_cluster")
+        torch.testing.assert_close(out, mfcc_features(dequantize_pcm(wavs), params)[:, 0], rtol=1e-4, atol=1e-3)
+        assert float((out.double() - _mfcc64(wavs, params)).abs().max()) <= 1e-3
 
 
 @pytest.mark.parametrize("kw,route", [
@@ -163,7 +200,7 @@ def test_mfcc_device_route_loops_over_clips(cuda, n_fft, path):
     (dict(n_fft=2048, hop_length=512, n_mfcc=13), "mfcc_fft"),  # FlowMur's setting
     (dict(n_fft=882, hop_length=160), "mfcc_fft"),  # 2 · 3² · 7²
     (dict(n_fft=343, hop_length=160, n_mels=40), "mfcc_fft"),  # 7³
-    (dict(n_fft=8192, hop_length=512), "mfcc_fft_large"),  # MAX_FFT: one group, 128 KB of buffers
+    (dict(n_fft=8192, hop_length=512), "mfcc_fft_large"),  # one group, 128 KB of buffers
 ])
 def test_mfcc_fft_path_other_plans(cuda, kw, route):
     x = (np.random.default_rng(13).standard_normal((3, 16000)) * 0.1).astype(np.float32)

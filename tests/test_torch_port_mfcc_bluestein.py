@@ -35,7 +35,7 @@ SIZES = {  # n_fft: (L, radices)
     882: (1792, (8, 8, 4, 7)),  # 2 · 3² · 7² (the FFT path's; its Bluestein tables still hold)
     97: (196, (4, 7, 7)),  # 200 = 8·5·5 ties on stages: the smaller wins
     2039: (4096, (8, 8, 8, 8)),  # prime; the largest L whose layout fits two blocks an SM
-    4097: (8232, (8, 3, 7, 7, 7)),  # 17 · 241: L past MAX_FFT, the device-memory route
+    4097: (8232, (8, 3, 7, 7, 7)),  # 17 · 241: L = 8232, buffers alone in one block's shared memory
 }
 
 
@@ -69,7 +69,9 @@ def test_bluestein_plan_tables(n_fft):
 def test_bluestein_size_rule(n_fft):
     """The smallest product of 2 and BLUESTEIN_PRIMES of at least 2N − 1, or
     one no more than BLUESTEIN_SLACK above it with fewer Stockham stages; a
-    size for every N (past MAX_FFT the buffers live in device memory)."""
+    size for every N (past one block's shared memory the transform is split
+    over a cluster of CTAs, and past a cluster of 8 the buffers live in
+    device memory)."""
     primes = op.BLUESTEIN_PRIMES
     size = op.bluestein_size(n_fft)
     first = next(n for n in range(2 * n_fft - 1, 8 * n_fft) if op.fft_radices(n, primes) is not None)

@@ -41,13 +41,13 @@ SETTINGS = {
     (1103, "bluestein", None),  # prime: Ultrasonic's 44.1 kHz setting
     (480, "fft", (8, 4, 3, 5)),
     (4096, "fft", (8, 8, 8, 8)),
-    (4097, "bluestein", None),  # 17 · 241: L = 8232 passes MAX_FFT, the device-memory route
-    (8192, "fft", (8, 8, 8, 8, 2)),  # MAX_FFT
+    (4097, "bluestein", None),  # 17 · 241: L = 8232, buffers alone in one block's shared memory
+    (8192, "fft", (8, 8, 8, 8, 2)),
     (882, "fft", (2, 3, 3, 7, 7)),  # 2 · 3² · 7²
     (2205, "fft", (3, 3, 5, 7, 7)),  # 3² · 5 · 7²: was the matrix DFT's
     (7, "fft", (7,)),
     (343, "fft", (7, 7, 7)),
-    (16384, "fft", (8, 8, 8, 8, 4)),  # past MAX_FFT: the device-memory route
+    (16384, "fft", (8, 8, 8, 8, 4)),  # past one block's shared memory: the cluster route
     (874, "bluestein", None),  # 2 · 19 · 23
 ])
 def test_path_chosen_by_n_fft(n_fft, path, radices):
@@ -67,17 +67,21 @@ def test_path_chosen_by_n_fft(n_fft, path, radices):
     (2205, 441, 44100, ("fft", 2205, op.MODE_LARGE, 2, "mfcc_fft_large")),
     (8192, 160, 16000, ("fft", 8192, op.MODE_LARGE, 1, "mfcc_fft_large")),
     (3001, 441, 44100, ("bluestein", 6125, op.MODE_LARGE, 1, "mfcc_fft_large")),
-    (4097, 441, 44100, ("bluestein", 8232, op.MODE_DEVICE, 1, "mfcc_fft_device")),
-    (16384, 441, 44100, ("fft", 16384, op.MODE_DEVICE, 1, "mfcc_fft_device")),
+    (4097, 441, 44100, ("bluestein", 8232, op.MODE_LARGE, 1, "mfcc_fft_large")),  # 149,400 B
+    (16384, 441, 44100, ("fft", 16384, op.MODE_CLUSTER, 1, "mfcc_fft_cluster")),  # 2 CTAs
+    (131072, 441, 100000, ("fft", 131072, op.MODE_DEVICE, 1, "mfcc_fft_device")),  # past a cluster of 8
 ])
 def test_route_chosen_by_size(n_fft, hop, n_samples, route):
     """Where the kernel keeps its buffers: everything in shared memory where
-    two blocks fit an SM, the buffers alone up to MAX_FFT, device memory
-    beyond; the host's count of shared memory within the card's limits."""
+    two blocks fit an SM, the buffers alone where they fit one block, a
+    cluster's shared memory where a cluster of at most 8 CTAs holds them,
+    device memory beyond; the host's count of shared memory within the
+    card's limits."""
     params = MFCCParams(sample_rate=n_samples, n_fft=n_fft, hop_length=hop)
     got = op.mfcc_route(params, num_frames(n_samples, n_fft, hop))
     assert (got.path, got.size, got.mode, got.groups, got.kernel.name) == route
     assert got.smem <= (op.TWO_BLOCKS_BYTES if got.mode == op.MODE_SHARED else op.MAX_SHARED_BYTES)
+    assert (got.cluster is not None) == (got.mode == op.MODE_CLUSTER)
 
 
 @pytest.mark.parametrize("n_fft", [400, 2048])
