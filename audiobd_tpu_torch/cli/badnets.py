@@ -5,7 +5,8 @@
 The reference CLI's flags (audiobd_tpu/cli/badnets.py:23-34), plus
 ``--device``. ``--resume`` restarts from ``record/<result>/torch_checkpoint/``
 (the model, the optimizer's state and the step); ``--profile_dir`` writes a
-torch.profiler trace of epochs 1-2 there.
+torch.profiler trace of epochs 1-2 there and the program's spans beside it,
+a pair on every rank (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def parse_arguments(argv: list[str] | None = None) -> argparse.Namespace:
     )
     parser.add_argument("--synthetic_per_class", type=int, default=50)
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler trace of epochs 1-2 here")
+                        help="write a torch.profiler trace of epochs 1-2 and its spans here, a pair a rank")
     parser.add_argument("--resume", action="store_true", help="resume from record/<result>/torch_checkpoint")
     return parser.parse_args(argv)
 

@@ -28,6 +28,11 @@ threefry has no torch twin.
 
 On the card the surrogate's block 1 is the fused op, so each search step's
 backward launches kernel C alone: the surrogate's parameters are frozen.
+
+Under a profiler session a search records its spans (utils/profiling.py):
+``search_call`` (``upload``; a ``search_epoch`` an epoch with ``plan``, a
+``search_step`` a batch and ``summary``; ``result``), each ``search_step``
+with ``deploy``, ``mfcc``, ``surrogate``, ``backward`` and ``adam``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from audiobd_tpu_torch.train.trainer import resolve_fused_conv, sha256_hex, trai
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import rank_label, resolve_device
 from audiobd_tpu_torch.utils.logging import save_npy
+from audiobd_tpu_torch.utils.profiling import span, to_device, to_host
 
 SURROGATE_LR = 1e-4  # reference utils/flowmur_generate_trigger.py:27
 SURROGATE_PATIENCE = 20
@@ -156,10 +162,14 @@ def trigger_loss(surrogate: nn.Module, trigger: torch.Tensor, wavs: torch.Tensor
                  params: MFCCParams, target: int, snr_db: float) -> torch.Tensor:
     """Mean cross-entropy toward ``target`` of the surrogate on the clips
     with the trigger deployed: deploy → clip to [-1, 1] → MFCC → logits."""
-    mixed = torch.clamp(deploy_trigger(wavs, trigger, positions, snr_db), -1.0, 1.0)
-    logits = surrogate(mfcc_features(mixed, params))
-    labels = torch.full((wavs.shape[0],), target, dtype=torch.int64, device=wavs.device)
-    return F.cross_entropy(logits.float(), labels)
+    with span("deploy"):
+        mixed = torch.clamp(deploy_trigger(wavs, trigger, positions, snr_db), -1.0, 1.0)
+    with span("mfcc"):
+        feats = mfcc_features(mixed, params)
+    with span("surrogate"):
+        logits = surrogate(feats)
+        labels = torch.full((wavs.shape[0],), target, dtype=torch.int64, device=wavs.device)
+        return F.cross_entropy(logits.float(), labels)
 
 
 def trigger_step(surrogate: nn.Module, opt: Adam, wavs: torch.Tensor, positions: torch.Tensor,
@@ -170,12 +180,14 @@ def trigger_step(surrogate: nn.Module, opt: Adam, wavs: torch.Tensor, positions:
     takes the sum. Returns the loss, detached."""
     trigger = opt.params[0]
     loss = trigger_loss(surrogate, trigger, wavs, positions, params, cfg.target_label, cfg.snr_db)
-    (grad,) = torch.autograd.grad(loss, trigger)
-    if grad_sum is not None:
-        grad = grad_sum.add_(grad)
-    opt.step([grad])
-    with torch.no_grad():
-        trigger.clamp_(-cfg.flowmur_clamp, cfg.flowmur_clamp)
+    with span("backward"):
+        (grad,) = torch.autograd.grad(loss, trigger)
+    with span("adam"):
+        if grad_sum is not None:
+            grad = grad_sum.add_(grad)
+        opt.step([grad])
+        with torch.no_grad():
+            trigger.clamp_(-cfg.flowmur_clamp, cfg.flowmur_clamp)
     return loss.detach()
 
 
@@ -228,39 +240,49 @@ def optimize_trigger(
     epochs = epochs or cfg.flowmur_opt_epochs
     params = mfcc_params(cfg)
     length = int(cfg.trigger_duration * cfg.dsp.sample_rate)
-    wavs = torch.from_numpy(np.ascontiguousarray(waveforms[:, 0, :], dtype=np.float32)).to(device)
-    n, t = wavs.shape
-    bs = min(batch_size or cfg.train.batch_size, n)  # small host pools must not over-slice
-    trigger = torch.full((length,), 0.1, dtype=torch.float32, device=device, requires_grad=True)
-    opt = Adam([trigger], cfg.flowmur_opt_lr)
-    accumulated = cfg.flowmur_update == "accumulated"
-    suffix = "" if restart == 0 else f"_r{restart}"
-    np_rng = rnd.np_rng(cfg.train.seed, "flowmur_trigger_shuffle" + suffix)
-    positions_gen = rnd.torch_generator(cfg.train.seed, "flowmur_positions" + suffix, device)
-    snap_dir = os.path.join(cfg.record_dir, "poisoning_record")
-    with _frozen(surrogate):
-        for epoch in range(1, epochs + 1):
-            batches = torch.from_numpy(trigger_batches(np_rng, n, bs)).to(device)
-            grad_sum = torch.zeros_like(trigger) if accumulated else None  # the sum resets each epoch
-            losses = torch.empty(batches.shape[0], dtype=torch.float32, device=device)
-            for i in range(batches.shape[0]):
-                positions = torch.randint(0, t - length + 1, (bs,), generator=positions_gen, device=device)
-                losses[i] = trigger_step(surrogate, opt, wavs[batches[i]], positions, params, cfg, grad_sum)
-            loss = float(losses.sum())  # the epoch's one host sync
-            if loss_history is not None:
-                loss_history.append(loss)
-            if verbose and (epoch % 25 == 0 or epoch == 1):
-                print(f"flowmur trigger epoch {epoch}: summed loss {loss:.4f}")
-            if save_snapshots and epoch % 100 == 0:
-                save_npy(os.path.join(snap_dir, f"sp_trigger{epoch}{suffix}.npy"),
-                         trigger.detach().cpu().numpy()[None, :])
-    found = trigger.detach().clone()
-    searched = sha256_hex(found)
-    shard_replicated([found])  # one trigger a run: rank 0's
-    if world_size() > 1:
-        print(f"{rank_label(device)}: flowmur trigger search{suffix} sha256 {searched} on this rank, "
-              f"{sha256_hex(found)} after rank 0's broadcast", flush=True)
-    return found.cpu().numpy()[None, :]
+    with span("search_call"):
+        with span("upload"):
+            wavs = to_device(np.ascontiguousarray(waveforms[:, 0, :], dtype=np.float32), device)
+        n, t = wavs.shape
+        bs = min(batch_size or cfg.train.batch_size, n)  # small host pools must not over-slice
+        trigger = torch.full((length,), 0.1, dtype=torch.float32, device=device, requires_grad=True)
+        opt = Adam([trigger], cfg.flowmur_opt_lr)
+        accumulated = cfg.flowmur_update == "accumulated"
+        suffix = "" if restart == 0 else f"_r{restart}"
+        np_rng = rnd.np_rng(cfg.train.seed, "flowmur_trigger_shuffle" + suffix)
+        positions_gen = rnd.torch_generator(cfg.train.seed, "flowmur_positions" + suffix, device)
+        snap_dir = os.path.join(cfg.record_dir, "poisoning_record")
+        with _frozen(surrogate):
+            for epoch in range(1, epochs + 1):
+                with span("search_epoch"):
+                    with span("plan"):
+                        batches = to_device(trigger_batches(np_rng, n, bs), device)
+                    grad_sum = torch.zeros_like(trigger) if accumulated else None  # the sum resets each epoch
+                    losses = torch.empty(batches.shape[0], dtype=torch.float32, device=device)
+                    for i in range(batches.shape[0]):
+                        with span("search_step"):
+                            positions = torch.randint(0, t - length + 1, (bs,), generator=positions_gen,
+                                                      device=device)
+                            losses[i] = trigger_step(surrogate, opt, wavs[batches[i]], positions, params, cfg,
+                                                     grad_sum)
+                    with span("summary"):
+                        loss = float(to_host(losses.sum()))
+                    if loss_history is not None:
+                        loss_history.append(loss)
+                    if verbose and (epoch % 25 == 0 or epoch == 1):
+                        print(f"flowmur trigger epoch {epoch}: summed loss {loss:.4f}")
+                    if save_snapshots and epoch % 100 == 0:
+                        save_npy(os.path.join(snap_dir, f"sp_trigger{epoch}{suffix}.npy"),
+                                 to_host(trigger.detach())[None, :])
+        with span("result"):
+            found = trigger.detach().clone()
+            searched = sha256_hex(to_host(found)) if world_size() > 1 else None
+            shard_replicated([found])  # one trigger a run: rank 0's
+            result = to_host(found)[None, :]
+            if searched is not None:
+                print(f"{rank_label(device)}: flowmur trigger search{suffix} sha256 {searched} on this rank, "
+                      f"{sha256_hex(result)} after rank 0's broadcast", flush=True)
+    return result
 
 
 @main_rank_only

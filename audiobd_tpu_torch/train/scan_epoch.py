@@ -2,9 +2,16 @@
 
 Every split lives on the device for the whole run. An epoch is a device
 loop over batches (gather by permuted indices → step); per-batch losses and
-metric sums stay on the device until the epoch ends, so there is one host
-sync per epoch. The batch order is the reference's: the same ``make_perm``
-on the same ``np_rng`` stream.
+metric sums stay on the device until the epoch ends, so the host waits for
+the card only at the epoch's edges: the plan's uploads and the summary's
+reads (``utils/profiling.py``'s ``host_syncs``). The batch order is the
+reference's: the same ``make_perm`` on the same ``np_rng`` stream.
+
+Under a profiler session each epoch records its spans: ``train_epoch``
+(``plan``; a ``train_step`` a batch with ``forward``, ``loss``,
+``backward``, ``optimizer`` and ``metrics``; ``summary``) or
+``eval_epoch`` (``plan``; an ``eval_step`` a batch with ``forward`` and
+``metrics``; ``summary``).
 
 The sharded engine (reference :198-446) runs the same loop on every rank
 of a mesh's data axis: each rank holds its row shard of every split,
@@ -24,6 +31,7 @@ import torch.distributed as dist
 from audiobd_tpu_torch.parallel.distributed import all_reduce_flat
 from audiobd_tpu_torch.parallel.mesh import Mesh
 from audiobd_tpu_torch.train.loop import ArraySet, cross_entropy, masked_mean, metric_sums
+from audiobd_tpu_torch.utils.profiling import span, to_device, to_host
 
 
 def pad_plan(n: int, batch_size: int) -> tuple[int, np.ndarray]:
@@ -67,34 +75,40 @@ class DeviceDataset:
         """(perm, mask) on the device, (n_batches, batch_size) each."""
         n_batches, mask = pad_plan(self.n, batch_size)
         perm = make_perm(np_rng, self.n, n_batches, batch_size)
-        return (
-            torch.from_numpy(perm.astype(np.int64)).to(self.device),
-            torch.from_numpy(mask).to(self.device),
-        )
+        return to_device(perm.astype(np.int64), self.device), to_device(mask, self.device)
 
 
 def _summary(losses: torch.Tensor, sums: torch.Tensor) -> tuple[float, np.ndarray]:
-    """The epoch's one host sync: mean of batch-mean losses and the sums."""
-    losses = losses.cpu().numpy()
-    return float(losses.mean()), sums.cpu().numpy()
+    """The epoch's host reads: mean of batch-mean losses and the sums."""
+    return float(to_host(losses).mean()), to_host(sums)
 
 
 def run_train_epoch(model, opt, dset: DeviceDataset, batch_size: int, np_rng) -> dict:
     """One training pass in train mode; ``opt`` is any optimizer of
     train/state.py (``opt.params``, ``opt.step(grads)``)."""
-    model.train()
-    perm, mask = dset.plan(batch_size, np_rng)
-    losses = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
-    sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
-    for i in range(perm.shape[0]):
-        idx, bmask = perm[i], mask[i]
-        labels = dset.labels[idx]
-        logits = model(dset.feats[idx])
-        loss = masked_mean(cross_entropy(logits, labels), bmask)
-        opt.step(torch.autograd.grad(loss, opt.params))
-        losses[i] = loss.detach()
-        sums += metric_sums(logits.detach(), labels, dset.indicators[idx], bmask)
-    loss, s = _summary(losses, sums)
+    with span("train_epoch"):
+        model.train()
+        with span("plan"):
+            perm, mask = dset.plan(batch_size, np_rng)
+        losses = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
+        sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
+        for i in range(perm.shape[0]):
+            with span("train_step"):
+                idx, bmask = perm[i], mask[i]
+                labels = dset.labels[idx]
+                with span("forward"):
+                    logits = model(dset.feats[idx])
+                with span("loss"):
+                    loss = masked_mean(cross_entropy(logits, labels), bmask)
+                with span("backward"):
+                    grads = torch.autograd.grad(loss, opt.params)
+                with span("optimizer"):
+                    opt.step(grads)
+                with span("metrics"):
+                    losses[i] = loss.detach()
+                    sums += metric_sums(logits.detach(), labels, dset.indicators[idx], bmask)
+        with span("summary"):
+            loss, s = _summary(losses, sums)
     return {
         "loss": loss,
         "mix_acc": 100.0 * s[0] / max(s[1], 1),
@@ -104,17 +118,23 @@ def run_train_epoch(model, opt, dset: DeviceDataset, batch_size: int, np_rng) ->
 
 @torch.no_grad()
 def run_eval_epoch(model, dset: DeviceDataset, batch_size: int) -> dict:
-    model.eval()
-    perm, mask = dset.plan(batch_size, None)
-    losses = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
-    sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
-    for i in range(perm.shape[0]):
-        idx, bmask = perm[i], mask[i]
-        labels = dset.labels[idx]
-        logits = model(dset.feats[idx])
-        losses[i] = masked_mean(cross_entropy(logits, labels), bmask)
-        sums += metric_sums(logits, labels, dset.indicators[idx], bmask)
-    loss, s = _summary(losses, sums)
+    with span("eval_epoch"):
+        model.eval()
+        with span("plan"):
+            perm, mask = dset.plan(batch_size, None)
+        losses = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
+        sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
+        for i in range(perm.shape[0]):
+            with span("eval_step"):
+                idx, bmask = perm[i], mask[i]
+                labels = dset.labels[idx]
+                with span("forward"):
+                    logits = model(dset.feats[idx])
+                with span("metrics"):
+                    losses[i] = masked_mean(cross_entropy(logits, labels), bmask)
+                    sums += metric_sums(logits, labels, dset.indicators[idx], bmask)
+        with span("summary"):
+            loss, s = _summary(losses, sums)
     return {
         "loss": loss,
         "acc": 100.0 * s[0] / max(s[1], 1),
@@ -218,18 +238,18 @@ class ShardedDeviceDataset(DeviceDataset):
         perm, mask, _ = make_sharded_perm(np_rng, self.n, self.d, batch_size)
         den = np.maximum(mask.sum(axis=(1, 2)), 1).astype(np.float32)
         return (
-            torch.from_numpy(perm[:, self.index].astype(np.int64)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(mask[:, self.index])).to(self.device),
+            to_device(perm[:, self.index].astype(np.int64), self.device),
+            to_device(np.ascontiguousarray(mask[:, self.index]), self.device),
             den,
         )
 
 
 def _reduced(nums: torch.Tensor, sums: torch.Tensor, den: np.ndarray, group) -> tuple[np.ndarray, np.ndarray]:
-    """The epoch's one collective and host sync: the ranks' loss numerators
+    """The epoch's one collective and host read: the ranks' loss numerators
     and metric sums, summed; returns (the batch losses, the sums)."""
     buf = torch.cat([nums.to(torch.float64), sums.to(torch.float64)])
     dist.all_reduce(buf, group=group)
-    buf = buf.cpu().numpy()
+    buf = to_host(buf)
     return buf[: len(nums)].astype(np.float32) / den, buf[len(nums):].astype(np.int64)
 
 
@@ -237,20 +257,30 @@ def run_train_epoch_sharded(model, opt, dset: ShardedDeviceDataset, batch_size: 
     """One training pass on this rank's shard; every rank calls it alike.
     A rank's loss is its rows' masked loss sum over the global batch's row
     count, so the sum of the ranks' gradients is the global batch's."""
-    model.train()
-    perm, mask, den = dset.shard_plan(batch_size, np_rng)
-    nums = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
-    sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
-    for i in range(perm.shape[0]):
-        idx, bmask = perm[i], mask[i]
-        labels = dset.labels[idx]
-        logits = model(dset.feats[idx])
-        num = (cross_entropy(logits, labels) * bmask.to(torch.float32)).sum()
-        grads = torch.autograd.grad(num / float(den[i]), opt.params)
-        opt.step(all_reduce_flat(list(grads), dset.group))
-        nums[i] = num.detach()
-        sums += metric_sums(logits.detach(), labels, dset.indicators[idx], bmask)
-    losses, s = _reduced(nums, sums, den, dset.group)
+    with span("train_epoch"):
+        model.train()
+        with span("plan"):
+            perm, mask, den = dset.shard_plan(batch_size, np_rng)
+        nums = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
+        sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
+        for i in range(perm.shape[0]):
+            with span("train_step"):
+                idx, bmask = perm[i], mask[i]
+                labels = dset.labels[idx]
+                with span("forward"):
+                    logits = model(dset.feats[idx])
+                with span("loss"):
+                    num = (cross_entropy(logits, labels) * bmask.to(torch.float32)).sum()
+                    loss = num / float(den[i])
+                with span("backward"):
+                    grads = torch.autograd.grad(loss, opt.params)
+                with span("optimizer"):
+                    opt.step(all_reduce_flat(list(grads), dset.group))
+                with span("metrics"):
+                    nums[i] = num.detach()
+                    sums += metric_sums(logits.detach(), labels, dset.indicators[idx], bmask)
+        with span("summary"):
+            losses, s = _reduced(nums, sums, den, dset.group)
     return {
         "loss": float(losses.mean()),
         "mix_acc": 100.0 * s[0] / max(s[1], 1),
@@ -260,17 +290,23 @@ def run_train_epoch_sharded(model, opt, dset: ShardedDeviceDataset, batch_size: 
 
 @torch.no_grad()
 def run_eval_sharded(model, dset: ShardedDeviceDataset, batch_size: int) -> dict:
-    model.eval()
-    perm, mask, den = dset.shard_plan(batch_size, None)
-    nums = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
-    sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
-    for i in range(perm.shape[0]):
-        idx, bmask = perm[i], mask[i]
-        labels = dset.labels[idx]
-        logits = model(dset.feats[idx])
-        nums[i] = (cross_entropy(logits, labels) * bmask.to(torch.float32)).sum()
-        sums += metric_sums(logits, labels, dset.indicators[idx], bmask)
-    losses, s = _reduced(nums, sums, den, dset.group)
+    with span("eval_epoch"):
+        model.eval()
+        with span("plan"):
+            perm, mask, den = dset.shard_plan(batch_size, None)
+        nums = torch.empty(perm.shape[0], dtype=torch.float32, device=dset.device)
+        sums = torch.zeros(4, dtype=torch.int64, device=dset.device)
+        for i in range(perm.shape[0]):
+            with span("eval_step"):
+                idx, bmask = perm[i], mask[i]
+                labels = dset.labels[idx]
+                with span("forward"):
+                    logits = model(dset.feats[idx])
+                with span("metrics"):
+                    nums[i] = (cross_entropy(logits, labels) * bmask.to(torch.float32)).sum()
+                    sums += metric_sums(logits, labels, dset.indicators[idx], bmask)
+        with span("summary"):
+            losses, s = _reduced(nums, sums, den, dset.group)
     return {
         "loss": float(losses.mean()),
         "acc": 100.0 * s[0] / max(s[1], 1),

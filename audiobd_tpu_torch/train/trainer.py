@@ -15,7 +15,8 @@ Under a group of more than one rank (``torchrun``; parallel/distributed.py)
 ``train_attack`` trains data-parallel on the sharded engine (reference
 trainer.py:207-250), BatchNorm synced over the mesh's data axis; every rank
 runs the same epochs and stops at the same one, and rank 0 alone writes
-the checkpoint, CSVs, PNGs and trace and prints the epoch lines.
+the checkpoint, CSVs and PNGs and prints the epoch lines; every rank writes
+its own trace.
 ``train_clean`` stays single-device work, each rank running it whole.
 """
 
@@ -51,7 +52,7 @@ from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import rank_label, resolve_device
 from audiobd_tpu_torch.utils.logging import save_attack_csvs
-from audiobd_tpu_torch.utils.profiling import annotate, trace
+from audiobd_tpu_torch.utils.profiling import span, trace
 
 
 @dataclass
@@ -247,10 +248,10 @@ def train_attack(
     epochs_ran = 0
     t_start = time.perf_counter()
     with contextlib.ExitStack() as profiler:
-        if profile_dir and main:
+        if profile_dir:
             profiler.enter_context(trace(profile_dir, device))
         for epoch in range(1, cfg.train.num_epochs + 1):
-            with annotate(f"epoch_{epoch}"):
+            with span("epoch"):
                 tr = train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
                 ev_clean = eval_epoch(model, d_clean, cfg.train.batch_size)
                 ev_bd = eval_epoch(model, d_bd, cfg.train.batch_size)

@@ -89,8 +89,8 @@ no result, without them. Phases, each printing its own lines:
      logged at its best epoch (within 0.05 points).
   11. last, the restart: phase 2's badnets run with --resume --num_epochs 1
      --profile_dir <tmp> on its record: "resumed from step N" with N = 63 x
-     phase 2's best epoch, B's launches, a trace naming epoch_1 and B's
-     kernel, Adam's state in torch_checkpoint/train_state.pt, and the
+     phase 2's best epoch, B's launches, rank 0's trace naming B's kernel
+     and its spans holding the epoch, Adam's state in torch_checkpoint/train_state.pt, and the
      checkpoint write's ms beside the epoch's wall (every CLI run prints its
      writes).
   12. data-parallel training, two ranks on the one card (gloo; NCCL refuses
@@ -2065,9 +2065,9 @@ def phase_restart(torch, kernels, workdir: str) -> dict[str, int]:
     """Phase 11, last: phase 2's badnets run again on its record with
     --resume --num_epochs 1 --profile_dir <tmp>: it must resume at 63 x the
     best epoch's steps, take one epoch through kernel B, write a trace that
-    names epoch_1 and B, and leave the optimizer's state in
-    torch_checkpoint/train_state.pt. Prints the checkpoint write's ms beside
-    the epoch's wall."""
+    names B with its spans beside it (the epoch, its steps), and leave the
+    optimizer's state in torch_checkpoint/train_state.pt. Prints the
+    checkpoint write's ms beside the epoch's wall."""
     import contextlib
     import io
 
@@ -2110,10 +2110,17 @@ def phase_restart(torch, kernels, workdir: str) -> dict[str, int]:
               f"at step {saved['step']} (expected {n + steps})")
         check(launches.get("conv1_bn_pool_bwd_params") == steps,
               f"kernel B launched {launches.get('conv1_bn_pool_bwd_params')} times in the resumed epoch")
-        traces = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".json")]
+        traces = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
         body = open(traces[0]).read() if len(traces) == 1 else ""
-        check('"epoch_1"' in body and "bwd_params_partial" in body,
-              f"one trace in --profile_dir ({len(body) / 1e6:.1f} MB) names epoch_1 and kernel B's bwd_params_partial")
+        check(body != "" and os.path.basename(traces[0]).startswith("rank0.") and "bwd_params_partial" in body,
+              f"one trace in --profile_dir ({len(body) / 1e6:.1f} MB), rank 0's, names kernel B's bwd_params_partial")
+        spans = []
+        if body:
+            with open(traces[0].replace(".pt.trace.json", ".spans.json")) as f:
+                spans = [e["name"] for e in json.load(f)["traceEvents"]]
+        check(spans.count("epoch") == 1 and spans.count("train_step") == steps,
+              f"its spans hold {spans.count('epoch')} epoch and {spans.count('train_step')} train steps "
+              f"(expected 1 and {steps})")
         epoch_ms = TRAIN_CLIPS / result.clips_per_sec * 1e3
         print(f"  checkpoint write: {', '.join(f'{w * 1e3:.2f}' for w in result.checkpoint_walls)} ms beside the "
               f"profiled epoch's {epoch_ms:.1f} ms", flush=True)

@@ -311,11 +311,23 @@ def test_profile_dir_traces_epochs_one_and_two(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     port_main(["badnets", "--synthetic", "--synthetic_per_class", "4", "--num_epochs", "3", "--batch_size", "16",
                "--device", "cpu", "--profile_dir", "prof", "--result", "prof_test"])
-    traces = [f for f in os.listdir("prof") if f.endswith(".json")]
-    assert len(traces) == 1
-    with open(os.path.join("prof", traces[0])) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"epoch_1", "epoch_2"} <= names and "epoch_3" not in names
+    files = sorted(os.listdir("prof"))
+    assert len(files) == 2 and files[0].startswith("rank0.") and files[0].endswith(".pt.trace.json")
+    assert files[1] == files[0].replace(".pt.trace.json", ".spans.json")
+
+    def load(name):
+        with open(os.path.join("prof", name)) as f:
+            return json.load(f)
+
+    trace, spans = map(load, files)
+    # The spans of epochs 1 and 2 (not 3), on the trace's time base: every
+    # convolution the trace holds starts inside one of them (1 ms of slack).
+    epochs = [e for e in spans["traceEvents"] if e["name"] == "epoch"]
+    assert len(epochs) == 2 and spans["baseTimeNanoseconds"] == trace.get("baseTimeNanoseconds", 0)
+    convs = [e["ts"] for e in trace["traceEvents"] if e.get("name") == "aten::conv2d"]
+    assert convs and all(any(e["ts"] - 1e3 <= t <= e["ts"] + e["dur"] + 1e3 for e in epochs) for t in convs)
+    children = [[c["name"] for c in spans["traceEvents"] if c["args"]["parent"] == e["args"]["index"]] for e in epochs]
+    assert children == [["train_epoch", "eval_epoch", "eval_epoch"]] * 2
 
 
 # ---------------------------------------------------------------------------
