@@ -55,6 +55,7 @@ from audiobd_tpu_torch.ops import conv1_bn_pool as fused
 from audiobd_tpu_torch.ops import conv2_bn_pool as fused2
 from audiobd_tpu_torch.parallel import tp
 from audiobd_tpu_torch.parallel.distributed import all_reduce_sum
+from audiobd_tpu_torch.utils import profiling
 
 BN_MOMENTUM = 0.9  # flax convention: the running average's decay
 BN_EPS = 1e-5
@@ -134,10 +135,97 @@ def dropout(x: torch.Tensor, p: float, training: bool, generator: torch.Generato
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+INPUT_GRAD, WEIGHT_GRAD = 0, 1  # a backward pass, by its index in aten.convolution_backward's outputs
+
+
+class _RowSlicedConv2d(torch.autograd.Function):
+    """``F.conv2d(x, weight, bias)`` (stride 1, no padding), whose backward
+    hands cuDNN one pass, ``INPUT_GRAD`` or ``WEIGHT_GRAD``, in slices of
+    ``rows`` rows: the input gradient joins the slices' with one ``cat``,
+    the weight gradient sums them in order. The forward, the other pass and
+    the bias gradient are the whole batch's."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, sliced, rows):
+        ctx.save_for_backward(x, weight)
+        ctx.sliced, ctx.rows, ctx.has_bias = sliced, rows, bias is not None
+        return F.conv2d(x, weight, bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+
+        def grad(i, gi, xi):
+            return torch.ops.aten.convolution_backward(gi, xi, weight, None, (1, 1), (0, 0), (1, 1), False, (0, 0),
+                                                       1, (i == INPUT_GRAD, i == WEIGHT_GRAD, False))[i]
+
+        def pass_(i):
+            if not ctx.needs_input_grad[i]:
+                return None
+            if i != ctx.sliced:
+                return grad(i, g, x)
+            parts = [grad(i, gi, xi) for gi, xi in zip(torch.split(g, ctx.rows), torch.split(x, ctx.rows))]
+            return torch.cat(parts) if i == INPUT_GRAD else sum(parts[1:], parts[0])
+
+        db = g.sum(dim=(0, 2, 3)) if ctx.has_bias and ctx.needs_input_grad[2] else None
+        return pass_(INPUT_GRAD), pass_(WEIGHT_GRAD), db, None, None
+
+
+# Where cuDNN's own choice for a whole batch loses to its choice for row
+# slices: the backward pass, the rows of a slice and the least rows a call
+# takes the route at, by (input channels, height, width, output channels)
+# of an f32 2x2 convolution at stride 1. The mechanism: past some rows, by
+# its plane and channels, cuDNN's heuristic sends one backward pass to an
+# FFT route, the weight gradient of 64 -> 64 channels at planes of 80 or
+# more by 13 to 20 (24 ms at 1,024 rows against 2.1 in 256-row slices), the
+# input gradient mostly at planes of 2 to 7 columns (FFT tiling, 2-7x the
+# slices' time); a slice under that point stays on implicit GEMM. The heuristic cannot be
+# asked, so the table holds what scripts/conv_route_times.py --planes
+# measured on an H100 (PERF.md): it swept a grid of planes that holds every
+# plane SmallCNN's and SmallLSTM's 2x2 convolutions see at the five attacks'
+# features, at 256 to 2,048 rows. Those it leaves out kept the whole call:
+# DABA's block 2 (31, 13) and every plane of block 1 (1 -> 64) and of
+# FlowMur's block 3 (16, 2) (no slice was faster), the forward (fastest
+# whole everywhere). The least rows are 512 or more, the fewest at which
+# the route was measured end to end; at 256 rows (the attacks' published
+# batch, a card's rows in data parallel) no call takes it.
+ROW_SLICES = {
+    (64, 100, 13, 64): (WEIGHT_GRAD, 256, 512),  # block 2 at (101, 40) features: BadNets, JingleBack
+    (64, 99, 13, 64): (WEIGHT_GRAD, 256, 512),  # block 2 at (100, 40): Ultrasonic
+    (64, 50, 7, 32): (INPUT_GRAD, 128, 512),  # block 3 at (101, 40) and (100, 40)
+    (64, 31, 4, 64): (INPUT_GRAD, 512, 1024),  # block 2 at (32, 13): FlowMur
+    (64, 16, 7, 32): (INPUT_GRAD, 512, 1024),  # block 3 at (32, 40): DABA
+}
+
+
+def row_slices(conv: nn.Conv2d, x_shape: tuple[int, ...], device_type: str, dtype: torch.dtype,
+               needs_grad: bool) -> tuple[int, int] | None:
+    """The backward pass ``conv`` hands cuDNN in row slices on an input of
+    ``x_shape``, and the rows of a slice; None where the call stays
+    ``conv(x)``: off CUDA, outside f32, where no gradient is taken, off a
+    2x2 stride-1 convolution of ``ROW_SLICES``, and under its least rows."""
+    if device_type != "cuda" or dtype != torch.float32 or not needs_grad:
+        return None
+    if (conv.kernel_size != (2, 2) or conv.stride != (1, 1) or conv.padding != (0, 0) or conv.dilation != (1, 1)
+            or conv.groups != 1):
+        return None
+    entry = ROW_SLICES.get((*x_shape[1:], conv.out_channels))
+    if entry is None or x_shape[0] < entry[2]:
+        return None
+    return entry[:2]
+
+
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``conv(x)`` in the compute ``dtype`` (flax nn.Conv's casts)."""
+    """``conv(x)`` in the compute ``dtype`` (flax nn.Conv's casts); where
+    ``row_slices`` names a pass, with that backward pass in row slices
+    (``profiling.sliced_convs`` counts each such call)."""
     if (shard := tp.shard_of(conv)) is not None:
         return tp.conv2d(conv, shard, x, dtype)
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad)
+    if (route := row_slices(conv, tuple(x.shape), x.device.type, dtype, needs_grad)) is not None:
+        profiling.sliced_convs += 1
+        return _RowSlicedConv2d.apply(x, conv.weight, conv.bias, *route)
     if dtype == torch.float32:
         return conv(x)
     y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None, conv.stride, conv.padding)

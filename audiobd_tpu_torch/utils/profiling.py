@@ -4,13 +4,13 @@
 * ``span(name)``: a named interval of the program. While a ``torch.profiler``
   session is active, each span records its name, its parent (the enclosing
   span on this thread), its host start and end by ``time.time_ns()`` (the
-  clock the profiler stamps its events with), the change in ``host_syncs``
-  and in the kernels' launches (``ops.KERNELS``) between entry and exit,
-  and, once CUDA is initialised, a timing event on the current stream at
-  entry and at exit: ``Span.device_ms`` is the stream's time between them,
-  idle included. A backward runs on autograd's device thread while the
-  calling thread waits inside its span, on the same stream, so the two
-  events bracket its kernels. While no session is active a span is one
+  clock the profiler stamps its events with), the change in ``host_syncs``,
+  in ``sliced_convs`` and in the kernels' launches (``ops.KERNELS``)
+  between entry and exit, and, once CUDA is initialised, a timing event on
+  the current stream at entry and at exit: ``Span.device_ms`` is the
+  stream's time between them, idle included. A backward runs on autograd's
+  device thread while the calling thread waits inside its span, on the
+  same stream, so the two events bracket its kernels. While no session is active a span is one
   shared no-op and records nothing. Spans stay in memory, the newest
   ``MAX_SPANS``, for ``recorded`` to read after the session.
 * ``host_syncs``: the points where the program makes the host wait for the
@@ -18,6 +18,9 @@
   host→device copy from pageable memory, which waits for the stream before
   it copies). They count on every device, so a CPU run shows the card's
   count.
+* ``sliced_convs``: the convolutions that take models/layers.py's row-slice
+  route (``conv2d``: a backward handed to cuDNN in row slices), counted at
+  the forward call.
 * ``trace(logdir, device)``: a ``torch.profiler`` session that writes its
   Chrome/TensorBoard trace (``rank<r>.<ns>.pt.trace.json``, host activity
   always, the card's kernels too when ``device`` is CUDA) and the session's
@@ -44,6 +47,7 @@ _SPANS: deque = deque(maxlen=MAX_SPANS)
 _LOCAL = threading.local()
 _OFF = contextlib.nullcontext()
 host_syncs = 0
+sliced_convs = 0
 
 
 class Span:
@@ -51,11 +55,12 @@ class Span:
     counters' deltas, and the timing events on the stream (None off CUDA).
     ``span`` makes them; ``recorded`` returns them once they have exited."""
 
-    __slots__ = ("name", "parent", "t0", "t1", "host_syncs", "launches", "start_event", "end_event")
+    __slots__ = ("name", "parent", "t0", "t1", "host_syncs", "sliced_convs", "launches", "start_event",
+                 "end_event")
 
     def __init__(self, name: str, parent: Span | None):
         self.name, self.parent = name, parent
-        self.t0 = self.t1 = self.host_syncs = self.launches = 0
+        self.t0 = self.t1 = self.host_syncs = self.sliced_convs = self.launches = 0
         self.start_event = self.end_event = None
 
     @property
@@ -70,7 +75,7 @@ class Span:
         return None if self.start_event is None else self.start_event.elapsed_time(self.end_event)
 
     def __enter__(self) -> Span:
-        self.host_syncs, self.launches = host_syncs, _launches()  # the counters at entry, until exit
+        self.host_syncs, self.sliced_convs, self.launches = host_syncs, sliced_convs, _launches()  # at entry
         self.t0 = time.time_ns()
         if torch.cuda.is_initialized():
             self.start_event = torch.cuda.Event(enable_timing=True)
@@ -84,7 +89,8 @@ class Span:
         if self.end_event is not None:
             self.end_event.record()
         self.t1 = time.time_ns()
-        self.host_syncs, self.launches = host_syncs - self.host_syncs, _launches() - self.launches
+        self.host_syncs, self.sliced_convs = host_syncs - self.host_syncs, sliced_convs - self.sliced_convs
+        self.launches = _launches() - self.launches
         _SPANS.append(self)
 
 
@@ -141,7 +147,7 @@ def _write_spans(path: str, spans: list[Span], base_ns: int) -> None:
     events = [{"ph": "X", "cat": "span", "name": s.name, "pid": "spans", "tid": 0, "ts": (s.t0 - base_ns) / 1e3,
                "dur": (s.t1 - s.t0) / 1e3,
                "args": {"index": i, "parent": index.get(id(s.parent)), "path": s.path, "host_syncs": s.host_syncs,
-                        "launches": s.launches, "device_ms": s.device_ms}}
+                        "sliced_convs": s.sliced_convs, "launches": s.launches, "device_ms": s.device_ms}}
               for i, s in enumerate(spans)]
     with open(path, "w") as f:
         json.dump({"baseTimeNanoseconds": base_ns, "displayTimeUnit": "ms", "traceEvents": events}, f)

@@ -8,9 +8,11 @@ span's timing events exist only there), prints the result line's per-layer
 metrics and ``correct``, then a table of every span path recorded under
 the profiler (the traced window and the unit before it): its count, its
 mean device milliseconds (the stream time between its timing events) and
-mean host milliseconds, the host syncs and kernel launches a span, and,
-for a span with children, the least and the median share of its device
-milliseconds that its children's cover.
+mean host milliseconds, the host syncs, the convolutions that took
+``models/layers.py``'s row-slice route (``sliced``: the counter
+``sliced_convs``) and the kernel launches a span, and, for a span with
+children, the least and the median share of its device milliseconds that
+its children's cover.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def main(argv=None) -> int:
     by_path = defaultdict(list)
     for s in spans:
         by_path[s.path].append(s)
-    print(f"{'span':<48} {'count':>6} {'device ms':>10} {'host ms':>9} {'syncs':>6} {'launches':>8} "
+    print(f"{'span':<48} {'count':>6} {'device ms':>10} {'host ms':>9} {'syncs':>6} {'sliced':>6} {'launches':>8} "
           f"{'children cover (least, median)':>31}")
     for path, group in sorted(by_path.items()):
         cover = [children_ms[id(s)] / s.device_ms for s in group if id(s) in children_ms and s.device_ms > 0]
@@ -64,6 +66,7 @@ def main(argv=None) -> int:
         mean = lambda f: statistics.mean(f(s) for s in group)  # noqa: E731
         print(f"{path:<48} {len(group):>6} {mean(lambda s: s.device_ms):>10.4f} "
               f"{mean(lambda s: (s.t1 - s.t0) / 1e6):>9.4f} {mean(lambda s: s.host_syncs):>6.3f} "
+              f"{mean(lambda s: s.sliced_convs):>6.3f} "
               f"{mean(lambda s: s.launches):>8.3f} {cover_text:>31}")
     return 0 if out["correct"] else 1
 

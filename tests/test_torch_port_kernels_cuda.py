@@ -34,6 +34,12 @@ dx is a bf16 sum of bf16-rounded taps, each tap an f32 sum over the
 channels in another order than the plain version's, so a tap can round the
 other way: dx within 2 bf16 ulps of max|dx| (2**-6 * max|dx|).
 
+The row-slice route of models/layers.py::conv2d at each plane of its table
+(1,024 rows): the forward is the
+whole-batch cuDNN call itself (torch.equal); the gradients within
+1e-4 * max|ref| + 1e-6 of the unsliced cuDNN call and of a float64 one, the
+bound kernels D and E are held to (sums of ~10^6 terms in another order).
+
 Kernel F (the effects' recursions) against its plain loop on the card:
 exactly equal (torch.equal). Every route forms every product and sum in the
 JAX step's order without FMA and calls the same tanhf; the k = 0 ladder
@@ -46,12 +52,14 @@ import pytest
 import torch
 
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
+from audiobd_tpu_torch.models import layers
 from audiobd_tpu_torch.ops import conv1_bn_pool as op
 from audiobd_tpu_torch.ops import conv2_bn_pool as op2
 from audiobd_tpu_torch.ops import effects as op_fx
 from audiobd_tpu_torch.ops import mfcc as op_mfcc
 from audiobd_tpu_torch.ops.mfcc import fused_mfcc
 from audiobd_tpu_torch.poison.device_prep import dequantize_pcm
+from audiobd_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 F_KERNELS = (op_fx.LADDER_KERNEL, op_fx.LADDER_RESONANT_KERNEL, op_fx.PHASER_KERNEL)
@@ -466,6 +474,40 @@ def test_block2_autograd_on_card_matches_cpu(cuda):
 
     for a, e in zip(run(cuda), run(torch.device("cpu"))):
         torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("x_shape,c_out,frozen,route", [
+    ((1024, 64, 100, 13), 64, False, (layers.WEIGHT_GRAD, 256)),  # the train cell's block 2
+    ((1024, 64, 50, 7), 32, False, (layers.INPUT_GRAD, 128)),  # its block 3
+    ((1024, 64, 31, 4), 64, True, (layers.INPUT_GRAD, 512)),  # the search cell's frozen surrogate, block 2
+    ((1024, 64, 99, 13), 64, False, (layers.WEIGHT_GRAD, 256)),  # Ultrasonic's block 2
+    ((1024, 64, 16, 7), 32, False, (layers.INPUT_GRAD, 512)),  # DABA's block 3
+])
+def test_row_slice_route_matches_whole_batch_cudnn(cuda, x_shape, c_out, frozen, route):
+    gen = torch.Generator().manual_seed(x_shape[2])
+    conv = torch.nn.Conv2d(x_shape[1], c_out, 2)
+    layers.init_uniform_(conv, gen)
+    conv = conv.to(cuda).requires_grad_(not frozen)
+    x = torch.randn(x_shape, generator=gen).to(cuda).requires_grad_()
+    g = torch.randn((x_shape[0], c_out, x_shape[2] - 1, x_shape[3] - 1), generator=gen).to(cuda)
+    leaves = [x] if frozen else [x, conv.weight, conv.bias]
+    assert layers.row_slices(conv, x_shape, "cuda", torch.float32, True) == route
+
+    before = profiling.sliced_convs
+    y = layers.conv2d(conv, x, torch.float32)
+    assert profiling.sliced_convs == before + 1
+    assert y.grad_fn.name() == "_RowSlicedConv2dBackward"
+    got = torch.autograd.grad(y, leaves, g)
+    y_ref = torch.nn.functional.conv2d(x, conv.weight, conv.bias)
+    ref = torch.autograd.grad(y_ref, leaves, g)
+    x64, w64, b64 = (t.detach().double().requires_grad_() for t in (x, conv.weight, conv.bias))
+    ref64 = torch.autograd.grad(torch.nn.functional.conv2d(x64, w64, b64), [x64, w64, b64][:len(leaves)], g.double())
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ref)
+    for name, a, e, e64 in zip(("dx", "dweight", "dbias"), got, ref, ref64):
+        for against in (e.double(), e64):
+            err = float((a.double() - against).abs().max())
+            assert err <= 1e-4 * float(against.abs().max()) + 1e-6, (name, err)
 
 
 @pytest.mark.parametrize("shape,pool_padding", [

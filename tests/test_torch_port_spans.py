@@ -6,7 +6,11 @@ its parent, with the host syncs each site makes; the spans' host clock is
 the profiler's (each ``forward`` span holds the starts of its own aten
 operators). With no session nothing is recorded, and the results are
 bit-identical with the session on and off. Two gloo ranks record the
-sharded epochs' tree.
+sharded epochs' tree. A train step at a shape where models/layers.py's
+row-slice route engages (the rule told the CPU is CUDA, its slices cut to
+a few rows) records its two routed convolutions (blocks 2 and 3) in
+``sliced_convs``; under the least rows, or in an eval step (no gradient),
+none.
 """
 
 import os
@@ -19,6 +23,7 @@ import torch.multiprocessing as mp
 from torch.profiler import ProfilerActivity, profile
 
 from audiobd_tpu_torch.configs import make_config
+from audiobd_tpu_torch.models import layers
 from audiobd_tpu_torch.parallel import distributed as port_dist
 from audiobd_tpu_torch.parallel.mesh import make_mesh
 from audiobd_tpu_torch.poison import flowmur
@@ -92,7 +97,7 @@ def _rows(spans) -> list[dict]:
     """Spans as picklable rows, each with its parent's row index."""
     index = {id(s): i for i, s in enumerate(spans)}
     return [{"name": s.name, "parent": index.get(id(s.parent)), "t0": s.t0, "t1": s.t1, "host_syncs": s.host_syncs,
-             "device_ms": s.device_ms} for s in spans]
+             "sliced_convs": s.sliced_convs, "device_ms": s.device_ms} for s in spans]
 
 
 def _tree(rows: list[dict], i: int) -> tuple:
@@ -210,3 +215,21 @@ def test_results_are_bit_identical_with_the_profiler_on(case):
         out_off, out_on = list(out_off.values()), list(out_on.values())
     assert all(np.array_equal(a, b) for a, b in zip(out_off, out_on, strict=True))
     assert all(torch.equal(a, b) for a, b in zip(params_off, params_on, strict=True))
+
+
+@pytest.mark.parametrize("case,slice_rows,expected", [("train", 2, 2), ("train", BATCH, 0), ("eval", 2, 0)])
+def test_step_counts_sliced_convs(monkeypatch, case, slice_rows, expected):
+    real = layers.row_slices
+    monkeypatch.setattr(layers, "row_slices", lambda conv, shape, device, dtype, needs: real(conv, shape, "cuda",
+                                                                                             dtype, needs))
+    monkeypatch.setattr(layers, "ROW_SLICES", {(64, 100, 13, 64): (layers.WEIGHT_GRAD, slice_rows, 2 * slice_rows),
+                                               (64, 50, 7, 32): (layers.INPUT_GRAD, slice_rows, 2 * slice_rows)})
+    cfg = make_config("badnets", device="cpu", batch_size=BATCH)
+    model = build_attack_model(cfg, CPU)
+    data = scan_epoch.DeviceDataset(_data(9, BATCH), CPU)  # one batch
+    if case == "train":
+        opt = make_optimizer(cfg, model.parameters())
+        _, rows, _ = _profiled(lambda: scan_epoch.run_train_epoch(model, opt, data, BATCH, np.random.default_rng(35)))
+    else:
+        _, rows, _ = _profiled(lambda: scan_epoch.run_eval_epoch(model, data, BATCH))
+    assert [r["sliced_convs"] for r in rows if r["name"] == f"{case}_step"] == [expected]
