@@ -151,15 +151,25 @@ class AttackConfig:
     def record_dir(self) -> str:
         return f"record/{self.result}"
 
+    @property
+    def features(self) -> str:
+        """The input the model takes, as the model declares it
+        (``models.zoo.model_features``): "mfcc", or "logmel" for AST."""
+        from audiobd_tpu_torch.models.zoo import model_features
+
+        return model_features(str(self.model))
+
 
 # The reference's per-attack DSP + model-shape table (attack_config.txt:1-23;
 # audiobd_tpu/configs.py:205-246).
+# BadNets alone also trains AST (models/zoo.py::AST) on 128-band log-mel
+# frames: its feature size is AST's input_tdim, the 128 frames it pads to.
 ATTACK_PRESETS: dict[str, dict[str, Any]] = {
     "badnets": {
         "dsp": dict(sample_rate=16000, n_mfcc=40, n_fft=400, hop_length=160, parity="torchaudio"),
         "linear_features": {
             "smallcnn": 3072, "largecnn": 12288, "smalllstm": 128,
-            "lstmwithattention": 101, "rnn": 40, "resnet": 384,
+            "lstmwithattention": 101, "rnn": 40, "resnet": 384, "ast": 128,
         },
         "result": "badnets_smallcnn",
     },
@@ -199,8 +209,12 @@ ATTACK_PRESETS: dict[str, dict[str, Any]] = {
 
 
 def linear_features_for(attack: str, model: str) -> int:
-    """Flatten/seq size the model constructor needs for this attack's shapes."""
-    return ATTACK_PRESETS[attack]["linear_features"][model.lower()]
+    """Flatten/seq size the model constructor needs for this attack's shapes;
+    a model missing from the attack's table is one the attack does not train."""
+    table = ATTACK_PRESETS[attack]["linear_features"]
+    if model.lower() not in table:
+        raise ValueError(f"{attack} does not train --model {model}; it trains {', '.join(table)}")
+    return table[model.lower()]
 
 
 def make_config(attack: str, **overrides: Any) -> AttackConfig:
@@ -287,13 +301,17 @@ def _is_config_key(key: str) -> bool:
 
 def config_from_args(attack: str, args: argparse.Namespace, **extra: Any) -> AttackConfig:
     """Config keys from argparse (CLI-only flags like --synthetic are
-    ignored here and handled by the entry script itself)."""
+    ignored here and handled by the entry script itself). A model the attack
+    does not train is refused here, before any prep."""
     cli = {
         k: v for k, v in vars(args).items()
         if k != "config" and v is not None and _is_config_key(k)
     }
     cli.update({k: v for k, v in extra.items() if v is not None})
     if getattr(args, "config", None):
-        return config_from_yaml(args.config, attack=attack, **cli)
-    return make_config(attack, **cli)
+        cfg = config_from_yaml(args.config, attack=attack, **cli)
+    else:
+        cfg = make_config(attack, **cli)
+    linear_features_for(attack, str(cfg.model))
+    return cfg
 

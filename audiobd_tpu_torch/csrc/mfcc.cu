@@ -10,6 +10,8 @@
 // its products at Precision.HIGHEST). Input is int16 PCM (scaled by 2^-15 on
 // load, exactly as dequantize_pcm does) or f32; reflect or constant centre
 // padding is index arithmetic, with no padded copy in device memory.
+// The log-mel mode (AST's input) is every route with a null DCT table: it
+// stops at the floored dB values and writes the (frames x mels) tile.
 //
 // What bounds it on the H100: f32 operations. At the BadNets shape (16 kHz,
 // 1 s clips, n_fft 400, hop 160, 101 frames, 201 bins, 128 mels, 40 MFCCs)
@@ -354,6 +356,7 @@ constexpr int MODE_SHARED = 0, MODE_LARGE = 1, MODE_DEVICE = 2;  // where the bu
 // the header's. db_out (batch, n_frames, n_mels) takes the dB tile unless
 // the FFT path keeps it in shared memory (MODE_SHARED); scratch holds the
 // buffers in MODE_DEVICE, 2 * groups * nt float2 for each block of the grid.
+// A null dct is the log-mel mode (n_mfcc 0): out takes the floored dB tile.
 // Block b transforms clips b, b + gridDim.x, ...
 template <bool CHIRP, int MODE>
 __global__ void __launch_bounds__(FFT_THREADS, 2)
@@ -365,10 +368,10 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_sam
                 const float2* __restrict__ ck,        // (nt,) FFT_L(h) / L (chirp mode)
                 const int* __restrict__ mel_ranges,   // (n_mels, 3): first bin, count, offset
                 const float* __restrict__ mel_weights, int n_weights,
-                const float* __restrict__ dct,        // (n_mels, n_mfcc)
+                const float* __restrict__ dct,        // (n_mels, n_mfcc), or null (log-mel)
                 float* __restrict__ db_out,           // (batch, n_frames, n_mels) scratch
                 float2* __restrict__ scratch,         // (gridDim.x, 2 * groups * nt) (MODE_DEVICE)
-                float* __restrict__ out,              // (batch, n_frames, n_mfcc)
+                float* __restrict__ out,              // (batch, n_frames, n_mfcc or n_mels)
                 int n, int nt, int hop, int n_mels, int n_mfcc, int n_frames, int groups, FftPlan plan,
                 int reflect, float top_db, int use_top_db) {
   constexpr bool TW_LDG = MODE != MODE_SHARED;
@@ -478,6 +481,12 @@ mfcc_fft_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_sam
     __syncthreads();  // every group is done with the buffers
 
     const float floor_db = use_top_db ? block_max<FFT_THREADS>(local_max, red_s) - top_db : -CUDART_INF_F;
+    if (dct == nullptr) {  // the log-mel mode: the floored dB tile is the output
+      float* out_clip = out + static_cast<long long>(clip) * n_frames * n_mels;
+      for (int e = tid; e < n_frames * n_mels; e += FFT_THREADS) out_clip[e] = fmaxf(db_s[e], floor_db);
+      __syncthreads();  // the next clip rewrites the buffers and the dB tile
+      continue;
+    }
     const float* dct_t = dct;
     if constexpr (MODE != MODE_DEVICE) {
       float* dct_s = reinterpret_cast<float*>(bufs);
@@ -674,7 +683,8 @@ __device__ __forceinline__ float2 spectrum_at(float2* spec, int k, int a_size, i
 // the stages of l1 and l2; ctas: C, dividing both. bands (C, 4): CTA c's mel
 // bands [first, end) and the bins [first, end) they read (ops/mfcc.py::
 // cluster_bands). Cluster g of the grid transforms clips g, g + clusters, ...
-// The dB tile goes to db_out, the MFCCs to out.
+// The dB tile goes to db_out, the MFCCs to out (the floored tile itself
+// where dct is null, the log-mel mode).
 template <bool CHIRP>
 __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 mfcc_cluster_kernel(const void* __restrict__ wav, int is_int16, int batch, int n_samples,
@@ -684,9 +694,9 @@ mfcc_cluster_kernel(const void* __restrict__ wav, int is_int16, int batch, int n
                     const float2* __restrict__ ck,        // (L,) FFT_L(h) / L (chirp mode)
                     const int* __restrict__ mel_ranges,   // (n_mels, 3): first bin, count, offset
                     const float* __restrict__ mel_weights, const int* __restrict__ bands,
-                    const float* __restrict__ dct,        // (n_mels, n_mfcc)
+                    const float* __restrict__ dct,        // (n_mels, n_mfcc), or null (log-mel)
                     float* __restrict__ db_out,           // (batch, n_frames, n_mels)
-                    float* __restrict__ out,              // (batch, n_frames, n_mfcc)
+                    float* __restrict__ out,              // (batch, n_frames, n_mfcc or n_mels)
                     int n, int hop, int n_mels, int n_mfcc, int n_frames, int l1, int l2, FftPlan f1, FftPlan f2,
                     int ctas, int reflect, float top_db, int use_top_db) {
   extern __shared__ __align__(16) float smem[];
@@ -790,6 +800,12 @@ mfcc_cluster_kernel(const void* __restrict__ wav, int is_int16, int batch, int n
     float clip_max = cta_max;
     for (int q = 0; q < ctas; ++q) clip_max = fmaxf(clip_max, *peer(red_s + CLUSTER_THREADS / 32, q));
     const float floor_db = use_top_db ? clip_max - top_db : -CUDART_INF_F;
+    if (dct == nullptr) {  // the log-mel mode: the floored dB tile is the output
+      float* out_clip = out + static_cast<long long>(clip) * n_frames * n_mels;
+      for (int e = rank * CLUSTER_THREADS + tid; e < n_frames * n_mels; e += ctas * CLUSTER_THREADS)
+        out_clip[e] = fmaxf(db_clip[e], floor_db);
+      continue;
+    }
 
     // DCT: thread (frame quad q, coefficient j) of the cluster's, frames 4q .. 4q + 3.
     float* out_clip = out + static_cast<long long>(clip) * n_frames * n_mfcc;
@@ -875,7 +891,8 @@ int use_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
 // n_stages radices in {2, 3, 4, 5, 7, 8} whose product is nt; groups: thread
 // groups per block (1, 2, 4 or 8: named barriers 1-8); mode: where the
 // buffers live (MODE_*). db (batch, n_frames, n_mels) unless mode 0 on the
-// FFT path; scratch (grid, 2 * groups * nt, 2) in mode 2.
+// FFT path; scratch (grid, 2 * groups * nt, 2) in mode 2. A null dct with
+// n_mfcc 0 is the log-mel mode: out (batch, n_frames, n_mels).
 int mfcc_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles, const float* window,
                  const float* pre, const float* post, const float* kernel, const int* mel_ranges,
                  const float* mel_weights, int n_weights, const float* dct, float* db, float* scratch, float* out,
@@ -923,7 +940,8 @@ int mfcc_occupancy(int n_fft, int nt, int chirp, int mode, int groups, int n_mel
 // FFT path (chirp 0): L = n_fft, window read, pre/post/kernel unused;
 // Bluestein path (chirp 1): L >= 2 n_fft - 1, pre, post (n_fft, 2) and kernel
 // (L, 2), window unused. bands (C, 4) from ops/mfcc.py::cluster_bands; db
-// (batch, n_frames, n_mels) scratch. A launch the card refuses returns its error.
+// (batch, n_frames, n_mels) scratch; a null dct is the log-mel mode. A launch
+// the card refuses returns its error.
 int mfcc_cluster_forward(const void* wav, int is_int16, int batch, int n_samples, const float* twiddles,
                          const float* window, const float* pre, const float* post, const float* kernel,
                          const int* mel_ranges, const float* mel_weights, const int* bands, const float* dct,

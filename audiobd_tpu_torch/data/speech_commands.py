@@ -7,10 +7,12 @@ walk ``<data_path>/<label>/*.wav``, keep clips of at least 1 s at the
 attack's rate (the length filter is what standardizes clips, SURVEY §6b.1),
 truncate to 1 s, MFCC, split 80/20 as sklearn's ``train_test_split(...,
 random_state=35)`` does, and cache six npys under
-``record/<result>/<dataset>/clean/``. PCM16 files at the attack's rate are
-decoded to int16 by the native decoder and sent to the device as int16;
-other formats at that rate take its f32 decode; files at another rate are
-read whole and resampled on the device, in batches by rate.
+``record/<result>/<dataset>/clean/`` (``clean_logmel/`` for AST's log-mel
+features, normalised by the training split's statistics first:
+``normalize_features``). PCM16 files at the attack's rate are decoded to int16 by the native
+decoder and sent to the device as int16; other formats at that rate take its
+f32 decode; files at another rate are read whole and resampled on the
+device, in batches by rate.
 """
 
 from __future__ import annotations
@@ -69,12 +71,26 @@ def mfcc_params(cfg: AttackConfig) -> MFCCParams:
         hop_length=cfg.dsp.hop_length,
         n_mels=cfg.dsp.n_mels,
         parity=cfg.dsp.parity,
+        features=cfg.features,
     )
+
+
+def normalize_features(cfg: AttackConfig, train: torch.Tensor, test: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The splits as the model takes them: MFCCs as they are; log-mel frames
+    as AST normalises them, (x − μ) / (2σ), with μ and σ the mean and the
+    (population) standard deviation of every value of the training split,
+    taken in float64 (AST fixes them per dataset)."""
+    if cfg.features != "logmel":
+        return train, test
+    x = train.double()
+    mu, sigma = float(x.mean()), float(x.std(correction=0))
+    return (train - mu) / (2.0 * sigma), (test - mu) / (2.0 * sigma)
 
 
 def batched_mfcc_device(wavs, params: MFCCParams, device: torch.device, chunk: int = 2048) -> torch.Tensor:
     """(N, 1, T) or (N, T) f32 or int16 PCM, host numpy or a tensor →
-    (N, 1, frames, n_mfcc) on ``device``: the MFCC kernel on CUDA, its plain
+    (N, 1, frames, n_out) on ``device`` (n_mfcc, or n_mels in the log-mel
+    mode): the MFCC kernel on CUDA, its plain
     version on the CPU, one chunk of clips per launch. Integer PCM goes to
     the device as is (half the bytes of f32) and is scaled on load."""
     if isinstance(wavs, torch.Tensor):
@@ -103,7 +119,11 @@ def split_indices(n: int, test_size: float = 0.2, seed: int = 35) -> tuple[np.nd
 
 
 def clean_dir(cfg: AttackConfig) -> str:
-    return os.path.join(cfg.record_dir, cfg.dataset, "clean")
+    """The clean cache: ``clean/`` for MFCCs, ``clean_<features>/`` for
+    another input (AST's ``clean_logmel/``), so that runs of models that take
+    different features under one ``--result`` never read each other's."""
+    name = "clean" if cfg.features == "mfcc" else f"clean_{cfg.features}"
+    return os.path.join(cfg.record_dir, cfg.dataset, name)
 
 
 @main_rank_only
@@ -246,8 +266,8 @@ def prepare_clean_dataset(cfg: AttackConfig, data_path: str | None = None, save:
         all_mfcc.index_copy_(0, torch.as_tensor(idx, device=device), feats)
     del pool32, pools
     idx_train, idx_test = split_indices(n_total)
-    train_dev = all_mfcc[torch.from_numpy(idx_train).to(device)]
-    test_dev = all_mfcc[torch.from_numpy(idx_test).to(device)]
+    train_dev, test_dev = normalize_features(cfg, all_mfcc[torch.from_numpy(idx_train).to(device)],
+                                             all_mfcc[torch.from_numpy(idx_test).to(device)])
     del all_mfcc
     sync_device(device)
     walls["mfcc"] = time.perf_counter() - t0
@@ -291,8 +311,8 @@ def make_synthetic_clean_data(cfg: AttackConfig, n_per_class: int = 30, seed: in
     all_label = np.asarray(labels, dtype=np.int64)
     all_mfcc = batched_mfcc_device(all_wav, mfcc_params(cfg), device)
     idx_train, idx_test = split_indices(len(all_label))
-    train_dev = all_mfcc[torch.from_numpy(idx_train).to(device)]
-    test_dev = all_mfcc[torch.from_numpy(idx_test).to(device)]
+    train_dev, test_dev = normalize_features(cfg, all_mfcc[torch.from_numpy(idx_train).to(device)],
+                                             all_mfcc[torch.from_numpy(idx_test).to(device)])
     return CleanData(
         all_wav[idx_train], all_wav[idx_test],
         train_dev.cpu().numpy(), test_dev.cpu().numpy(),

@@ -35,6 +35,7 @@ import torch
 
 from audiobd_tpu_torch.configs import AttackConfig
 from audiobd_tpu_torch.models import build_model
+from audiobd_tpu_torch.models.zoo import model_features
 from audiobd_tpu_torch.models.convert import flax_kernel_path
 from audiobd_tpu_torch.train.checkpoint import load_checkpoint
 from audiobd_tpu_torch.train.loop import ArraySet, cross_entropy, masked_mean
@@ -92,9 +93,15 @@ def on_device(data: DefenseData, device: torch.device) -> DefenseData:
 def load_bd_model(cfg: AttackConfig):
     """(model on ``cfg.device``, the checkpoint's state on that device,
     model_spec): the attacked model rebuilt from the port's checkpoint, f32,
-    block 1 fused by ``resolve_fused_conv``."""
+    block 1 fused by ``resolve_fused_conv``. The defenses and ``infer`` read
+    MFCC features, and refuse a model that takes others (AST's log-mel;
+    ROADMAP.md queue 6)."""
     device = resolve_device(cfg.device)
     state_dict, spec = load_checkpoint(cfg.record_dir)
+    for model in (cfg.model, spec["model"]):
+        if model_features(str(model)) != "mfcc":
+            raise ValueError(f"the defenses and infer read MFCC features; {model} takes "
+                             f"{model_features(str(model))} (ROADMAP.md queue 6)")
     model = build_model(spec["model"], spec["num_classes"], spec["feature_size"], device, cfg.train.seed,
                         n_mfcc=spec.get("n_mfcc"), fused=resolve_fused_conv(cfg, device))
     model.load_state_dict(state_dict)

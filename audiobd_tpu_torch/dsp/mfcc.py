@@ -2,6 +2,9 @@
 
     frames → @ windowed-DFT bases → |.|² → @ mel fb → dB → @ DCT
 
+``features="logmel"`` stops before the DCT: the floored dB values of the
+n_mels bands, AST's input (models/zoo.py::AST).
+
 Differentiable end to end (FlowMur's trigger synthesis backprops through
 it), and the plain version that the MFCC kernel (ops/mfcc.py) is held
 against.
@@ -17,6 +20,8 @@ import torch
 from audiobd_tpu_torch.dsp import mel as _mel
 from audiobd_tpu_torch.dsp import stft as _stft
 
+FEATURES = ("mfcc", "logmel")
+
 
 @dataclass(frozen=True)
 class MFCCParams:
@@ -27,6 +32,22 @@ class MFCCParams:
     n_mels: int = 128
     parity: str = "torchaudio"  # or "librosa"
     top_db: float | None = 80.0
+    features: str = "mfcc"  # or "logmel": no DCT, n_mels values a frame
+
+    def __post_init__(self):
+        if self.features not in FEATURES:
+            raise ValueError(f"features must be one of {FEATURES}, got {self.features!r}")
+
+    @property
+    def n_dct(self) -> int:
+        """The DCT's columns: n_mfcc, or 0 in the log-mel mode, which stops
+        before the DCT."""
+        return 0 if self.features == "logmel" else self.n_mfcc
+
+    @property
+    def n_out(self) -> int:
+        """Values a frame: n_mfcc, or n_mels in the log-mel mode."""
+        return self.n_dct or self.n_mels
 
     @property
     def pad_mode(self) -> str:
@@ -58,17 +79,18 @@ def _device_tables(params: MFCCParams, device: torch.device) -> tuple[torch.Tens
 
 
 def mfcc(x: torch.Tensor, params: MFCCParams) -> torch.Tensor:
-    """MFCC of float ``x`` (..., T) → (..., n_frames, n_mfcc), time-major."""
+    """MFCC of float ``x`` (..., T) → (..., n_frames, n_out), time-major
+    (the dB values themselves in the log-mel mode)."""
     spec = _stft.power_spectrogram(
         x, params.n_fft, params.hop_length, center=True, pad_mode=params.pad_mode
     )
     fb, dct = _device_tables(params, x.device)
     db = _mel.amplitude_to_db(torch.matmul(spec, fb), top_db=params.top_db)
-    return torch.matmul(db, dct)
+    return torch.matmul(db, dct) if params.n_dct else db
 
 
 def mfcc_features(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
-    """Batched model-input features: (B, T) or (B, 1, T) → (B, 1, frames, n_mfcc),
+    """Batched model-input features: (B, T) or (B, 1, T) → (B, 1, frames, n_out),
     the framework's NCHW feature layout."""
     if wavs.ndim >= 3 and wavs.shape[-2] == 1:
         wavs = wavs.squeeze(-2)

@@ -19,6 +19,14 @@ sequence). Two things differ and are written out here:
     and drift from the reference at every step).
 Dropout takes a generator too, since ``F.dropout`` cannot.
 
+AST's pieces (models/zoo.py::AST; timm's ViT block, which AST builds on):
+LayerNorm, multi-head self-attention and the erf-GELU MLP. Attention runs
+through ``F.scaled_dot_product_attention`` on the backend ``scaled_attention``
+pins (``ATTENTION_BACKEND``); the ``attention`` span holds that call alone
+and the ``mlp`` span fc1 → GELU → fc2 (utils/profiling.py). ``init_tree_``
+draws the patch embedding's tokens N(0, 0.02²), timm's ``trunc_normal_(std=.02)``,
+whose cut at ±2 lies 100 standard deviations out.
+
 Sync-BN: a BatchNorm given a process ``group`` (its data axis) takes the
 means of its batch mean and E[x²] over the group's ranks in training, as
 flax's BatchNorm with ``axis_name`` pmeans them; the local batches are
@@ -38,8 +46,9 @@ rounds its input and weight to bf16, rounds the product, then adds the bf16
 bias (a second rounding); relu, max-pooling and dropout run in bf16;
 BatchNorm takes its statistics and normalizes in f32 and returns bf16; an
 LSTM runs on bf16 copies of its weights and a bf16 input, the whole
-recurrence in bf16 (``torch.func.functional_call``). The parameters and
-running statistics stay f32.
+recurrence in bf16 (``torch.func.functional_call``); LayerNorm, as BatchNorm,
+normalizes in f32 and returns bf16; attention and GELU run in bf16. The
+parameters and running statistics stay f32.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from audiobd_tpu_torch.ops import conv1_bn_pool as fused
 from audiobd_tpu_torch.ops import conv2_bn_pool as fused2
@@ -59,6 +69,16 @@ from audiobd_tpu_torch.utils import profiling
 
 BN_MOMENTUM = 0.9  # flax convention: the running average's decay
 BN_EPS = 1e-5
+LN_EPS = 1e-6  # timm's ViT blocks and final norm (AST's); its mlp_head keeps torch's 1e-5
+TOKEN_STD = 0.02
+# The backend of every attention call. The math backend computes
+# softmax(q kᵀ / √d_h) v as the plain reference does, two batched cuBLAS GEMMs
+# around a softmax, f32 with TF32 off (utils/device.py), so its rounding
+# follows the reference's and the benchmark's comparison holds it close. The
+# memory-efficient kernel (f32 on the card too, and faster) rounds otherwise:
+# Adam turns that into larger gaps of the first steps' losses than the
+# comparison's limits were set from (PERF.md §7).
+ATTENTION_BACKEND = SDPBackend.MATH
 
 
 def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:
@@ -82,13 +102,20 @@ def init_lstm_(module: nn.LSTM, generator: torch.Generator) -> None:
 
 
 def init_tree_(model: nn.Module, generator: torch.Generator) -> None:
-    """Every conv, dense and LSTM of ``model`` in module order; BatchNorm
-    keeps γ = 1, β = 0."""
+    """Every conv, dense and LSTM of ``model`` in module order, and the
+    patch embedding's tokens (N(0, 0.02²)); BatchNorm keeps γ = 1, β = 0 and
+    LayerNorm is set to them."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             init_uniform_(m, generator)
         elif isinstance(m, nn.LSTM):
             init_lstm_(m, generator)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+        elif isinstance(m, PatchEmbedding):
+            with torch.no_grad():
+                for p in (m.cls_token, m.dist_token, m.pos_embed):
+                    p.copy_(torch.empty(p.shape).normal_(0.0, TOKEN_STD, generator=generator))
 
 
 class BatchNorm2d(nn.Module):
@@ -294,3 +321,73 @@ def conv_bn_pool_block2(conv: nn.Conv2d, bn: BatchNorm2d, x: torch.Tensor, fused
                                         compute_dtype=dtype)
     bn.update_running(mu, torch.clamp(var, min=0.0))
     return out
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``ln(x)`` with its statistics and affine in f32 whatever x's dtype;
+    the result in the compute ``dtype``."""
+    if dtype == torch.float32:
+        return ln(x)
+    return F.layer_norm(x.to(torch.float32), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(dtype)
+
+
+def scaled_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q kᵀ / √d_h) v over (B, H, T, d_h), on ``ATTENTION_BACKEND``."""
+    with sdpa_kernel(ATTENTION_BACKEND):
+        return F.scaled_dot_product_attention(q, k, v)
+
+
+class PatchEmbedding(nn.Module):
+    """AST's input: a conv of ``patch`` x ``patch`` at ``stride`` from one
+    channel to ``dim`` (timm's PatchEmbed), its (f, t) grid flattened f-major,
+    a cls and a distillation token in front, a learned position for each of
+    the ``tokens`` (grid + 2)."""
+
+    def __init__(self, dim: int, patch: int, stride: int, tokens: int):
+        super().__init__()
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.dist_token = nn.Parameter(torch.zeros(1, 1, dim))
+        self.pos_embed = nn.Parameter(torch.zeros(1, tokens, dim))
+        self.proj = nn.Conv2d(1, dim, patch, stride=stride)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """(B, 1, F, T) → (B, tokens, dim) in ``dtype``."""
+        x = conv2d(self.proj, x, dtype).flatten(2).transpose(1, 2)
+        b = x.shape[0]
+        x = torch.cat([self.cls_token.to(dtype).expand(b, -1, -1), self.dist_token.to(dtype).expand(b, -1, -1), x],
+                      dim=1)
+        return x + self.pos_embed.to(dtype)
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention: qkv with bias, ``heads`` heads of dim /
+    heads, ``scaled_attention``, the output projection."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        if dim % heads:
+            raise ValueError(f"width {dim} does not split into {heads} heads")
+        self.heads = heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        b, t, c = x.shape
+        q, k, v = linear(self.qkv, x, dtype).reshape(b, t, 3, self.heads, c // self.heads).permute(2, 0, 3, 1, 4)
+        with profiling.span("attention"):
+            profiling.attention_calls += 1
+            o = scaled_attention(q, k, v)
+        return linear(self.proj, o.transpose(1, 2).reshape(b, t, c), dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 → erf-GELU → fc2."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        with profiling.span("mlp"):
+            return linear(self.fc2, F.gelu(linear(self.fc1, x, dtype)), dtype)

@@ -1,8 +1,11 @@
-"""The six keyword-spotting models (port of audiobd_tpu/models/zoo.py;
-reference utils/models.py): SmallCNN, LargeCNN, SmallLSTM,
-LSTMWithAttention, RNN and ResNet.
+"""The seven keyword-spotting models: the reference's six (port of
+audiobd_tpu/models/zoo.py; reference utils/models.py), SmallCNN, LargeCNN,
+SmallLSTM, LSTMWithAttention, RNN and ResNet, and AST, the Audio Spectrogram
+Transformer (Gong, Chung and Glass, Interspeech 2021, arXiv:2104.01778;
+github.com/YuanGongND/ast, ``src/models/ast_models.py::ASTModel``), which
+BadNets alone trains, on log-mel frames.
 
-Input NCHW MFCC features (B, 1, frames, n_mfcc), raw logits out (the
+Input NCHW features (B, 1, frames, n_mfcc; n_mels for AST), raw logits out (the
 reference's log_softmax is a no-op under cross-entropy). ``compute_dtype``
 (torch.float32 or torch.bfloat16, the reference's ``dtype``) is the dtype
 of the activations and the logits; the parameters stay f32 (models/layers.py
@@ -23,9 +26,14 @@ from audiobd_tpu_torch.models.layers import (
     BatchNorm2d,
     conv2d,
     conv_bn_pool_block1,
+    LN_EPS,
+    Attention,
+    Mlp,
+    PatchEmbedding,
     conv_bn_pool_block2,
     dropout,
     init_tree_,
+    layer_norm,
     linear,
     lstm,
 )
@@ -33,12 +41,15 @@ from audiobd_tpu_torch.utils.random import torch_generator
 
 
 class _Model(nn.Module):
-    """What the six models share: the compute dtype, the dropout generator,
+    """What the seven models share: the compute dtype, the dropout generator,
     and weights drawn by ``init_tree_``. ``final_layer`` names the final
     classifier, whose input the reference sows as ``features``
-    (audiobd_tpu/models/zoo.py:87, 118, 164, 201, 219, 281)."""
+    (audiobd_tpu/models/zoo.py:87, 118, 164, 201, 219, 281). ``features``
+    names the input the model takes (``dsp.mfcc.FEATURES``), which the prep
+    computes (``model_features``)."""
 
     final_layer = "fc2"
+    features = "mfcc"
 
     def __init__(self, compute_dtype: torch.dtype):
         super().__init__()
@@ -311,6 +322,76 @@ class ResNet(_Model):
         return linear(self.fc, x, dt)
 
 
+class TransformerBlock(nn.Module):
+    """timm's pre-LN ViT block, as AST's: x + Attn(LN(x)), then
+    x + MLP(LN(x)), LayerNorm eps 1e-6, no dropout and no drop-path."""
+
+    def __init__(self, dim: int, heads: int, mlp_dim: int, compute_dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.attn = Attention(dim, heads)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.mlp = Mlp(dim, mlp_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = x + self.attn(layer_norm(self.norm1, x, dt), dt)
+        return x + self.mlp(layer_norm(self.norm2, x, dt), dt)
+
+
+# AST's published widths (ASTModel with timm's deit_base_distilled_patch16_384,
+# egs/speechcommands/run_sc.sh): patch 16 at stride 10 on both axes, 12 blocks
+# of 768 with 12 heads and an MLP of 3,072. 85,376,266 parameters at ten
+# classes and 128 x 128 input, 146 tokens.
+AST_WIDTHS = dict(patch=16, stride=10, dim=768, depth=12, heads=12, mlp_dim=3072)
+
+
+class AST(_Model):
+    """The Audio Spectrogram Transformer: (B, 1, frames, n_mels) log-mel
+    frames, zero frames appended up to ``input_tdim`` (frames past it cut, as
+    AST's loader does), transposed to (n_mels, input_tdim), the patch
+    embedding with its cls and distillation tokens and learned positions,
+    ``depth`` pre-LN blocks, the final LayerNorm, (x[:, 0] + x[:, 1]) / 2,
+    then ``mlp_head``: LayerNorm (eps 1e-5) → Linear.
+
+    Departures from AST, for the framework's BadNets run: weights from the
+    seed (``init_tree_``; ImageNet's are not in the repo); the framework's
+    10-class synthetic Speech Commands (AST: v2, 35 classes); the attack's
+    cross-entropy and Adam at AST's lr 2.5e-4, without mixup, SpecAugment or
+    a schedule; log-mel in dB from the framework's STFT (n_fft 400, hop 160,
+    Hann, centred, 101 frames; ``dsp/mfcc.py``'s log-mel mode), not Kaldi's
+    fbank; μ and σ from the training split in the prep
+    (``data/speech_commands.py::normalize_features``), where AST fixes them a
+    dataset; the padded frames are 0 after normalisation (AST pads before)."""
+
+    final_layer = "head"
+    features = "logmel"
+
+    def __init__(self, num_classes: int, input_fdim: int = 128, input_tdim: int = 128, patch: int = 16,
+                 stride: int = 10, dim: int = 768, depth: int = 12, heads: int = 12, mlp_dim: int = 3072,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(compute_dtype)
+        grid = ((input_fdim - patch) // stride + 1) * ((input_tdim - patch) // stride + 1)
+        self.embed = PatchEmbedding(dim, patch, stride, grid + 2)
+        self.blocks = nn.ModuleList(TransformerBlock(dim, heads, mlp_dim, compute_dtype) for _ in range(depth))
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.head_norm = nn.LayerNorm(dim)
+        self.head = nn.Linear(dim, num_classes)
+        self.input_fdim, self.input_tdim = input_fdim, input_tdim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if x.shape[-1] != self.input_fdim:
+            raise ValueError(f"ast mel bands {x.shape[-1]} != configured {self.input_fdim}")
+        x = F.pad(x, (0, 0, 0, self.input_tdim - x.shape[-2])).transpose(-1, -2)  # (B, 1, n_mels, input_tdim)
+        x = self.embed(x, dt)
+        for block in self.blocks:
+            x = block(x)
+        x = layer_norm(self.norm, x, dt)
+        return linear(self.head, layer_norm(self.head_norm, (x[:, 0] + x[:, 1]) / 2, dt), dt)
+
+
 @contextlib.contextmanager
 def final_layer_inputs(model: nn.Module):
     """Yields a list that gets the input of ``model``'s final classifier,
@@ -333,9 +414,11 @@ def build_model(name: str, num_classes: int, feature_size: int, device: torch.de
     it, with weights drawn from ``torch_generator(seed, init_stream)`` and
     dropout from ``torch_generator(seed, dropout_stream, device)``.
     ``feature_size`` is the attack's flatten size, LSTM features or sequence
-    length (``configs.linear_features_for``); LSTMWithAttention and RNN also
-    take ``n_mfcc``. ``fused`` is block 1's flag; the fused flags apply to
-    SmallCNN and SmallLSTM and are ignored elsewhere."""
+    length (``configs.linear_features_for``; AST's input_tdim). ``n_mfcc`` is
+    the features' values a frame (``MFCCParams.n_out``): LSTMWithAttention's
+    and RNN's coefficients, AST's mel bands (its input_fdim); AST takes
+    ``AST_WIDTHS`` besides. ``fused`` is block 1's flag; the fused flags
+    apply to SmallCNN and SmallLSTM and are ignored elsewhere."""
     name = name.lower()
     if name in ("smallcnn", "smalllstm"):
         cls = SmallCNN if name == "smallcnn" else SmallLSTM
@@ -348,9 +431,25 @@ def build_model(name: str, num_classes: int, feature_size: int, device: torch.de
             raise ValueError(f"{name} needs n_mfcc")
         model = (LSTMWithAttention(num_classes, n_mfcc, feature_size, compute_dtype=compute_dtype)
                  if name == "lstmwithattention" else RNN(num_classes, n_mfcc, compute_dtype=compute_dtype))
+    elif name == "ast":
+        if n_mfcc is None:
+            raise ValueError("ast needs its mel bands, the features' values a frame (n_mfcc)")
+        model = AST(num_classes, input_fdim=n_mfcc, input_tdim=feature_size, compute_dtype=compute_dtype,
+                    **AST_WIDTHS)
     else:
         raise ValueError(f"Unknown model {name}")
     model.reset_parameters(torch_generator(seed, init_stream))
     model.to(device)
     model.dropout_generator = torch_generator(seed, dropout_stream, device)
     return model
+
+
+MODELS = {cls.__name__.lower(): cls for cls in (SmallCNN, LargeCNN, SmallLSTM, LSTMWithAttention, RNN, ResNet, AST)}
+
+
+def model_features(name: str) -> str:
+    """The input model ``name`` takes: "mfcc", or "logmel" (AST)."""
+    cls = MODELS.get(name.lower())
+    if cls is None:
+        raise ValueError(f"Unknown model {name}")
+    return cls.features

@@ -25,7 +25,9 @@ split over a thread-block cluster of C CTAs that read each other's shared
 memory (``cluster_plan``; n_fft 8193 and 16384); and ``"mfcc_fft_device"``,
 the buffers in a device-memory scratch, only where a cluster of 8 cannot hold
 them (n_fft 131072). A route that fails to build or launch raises; none
-stands in for another. On a CPU tensor the wrapper runs the plain version,
+stands in for another. In the log-mel mode (``params.features``) every route
+stops before the DCT and writes the floored dB values of the n_mels bands.
+On a CPU tensor the wrapper runs the plain version,
 ``dsp.mfcc`` of the dequantized waveform; ``mfcc_fft_plain``,
 ``mfcc_bluestein_plain`` and ``mfcc_cluster_plain`` walk the kernel paths'
 plans in plain torch, for the tests (``four_step_fft``: the cluster route's
@@ -126,7 +128,7 @@ def smem_bytes(mode: int, chirp: bool, n_fft: int, size: int, groups: int, param
     nbytes = 12 * params.n_mels
     if mode == MODE_DEVICE:
         return nbytes
-    nbytes += 4 * mel_ranges(params)[1].size + 8 * max(2 * groups * size, (params.n_mels * params.n_mfcc + 1) // 2)
+    nbytes += 4 * mel_ranges(params)[1].size + 8 * max(2 * groups * size, (params.n_mels * params.n_dct + 1) // 2)
     if mode == MODE_LARGE:
         return nbytes
     return nbytes + 8 * size + (0 if chirp else 4 * (n_fft + n_frames * params.n_mels))
@@ -351,7 +353,7 @@ def fft_occupancy(params: MFCCParams, n_samples: int, device: torch.device) -> t
     blocks, smem = _I(), _I()
     for code in (lib.use_device(device.index or 0), lib.mfcc_occupancy(
             params.n_fft, route.size, int(route.path == "bluestein"), route.mode, route.groups, params.n_mels,
-            params.n_mfcc, n_frames, mel_ranges(params)[1].size, ctypes.byref(blocks), ctypes.byref(smem))):
+            params.n_dct, n_frames, mel_ranges(params)[1].size, ctypes.byref(blocks), ctypes.byref(smem))):
         if code:
             raise RuntimeError(f"mfcc_occupancy failed with CUDA error {code}")
     if smem.value != route.smem:
@@ -551,8 +553,9 @@ def mfcc_cluster_plain(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
 
 
 def _mfcc_from_pairs(z: torch.Tensor, n_frames: int, params: MFCCParams) -> torch.Tensor:
-    """Spectra of packed frame pairs (..., ⌈F/2⌉, n_fft) → (..., F, n_mfcc):
-    separate, power, mel over each band's range, dB with top_db, DCT."""
+    """Spectra of packed frame pairs (..., ⌈F/2⌉, n_fft) → (..., F, n_out):
+    separate, power, mel over each band's range, dB with top_db, DCT (not in
+    the log-mel mode)."""
     zc = torch.conj(z[..., (-torch.arange(params.n_fft, device=z.device)) % params.n_fft])
     a, b = (z + zc) / 2, (z - zc) / 2j
     n_bins = params.n_fft // 2 + 1
@@ -568,7 +571,7 @@ def _mfcc_from_pairs(z: torch.Tensor, n_frames: int, params: MFCCParams) -> torc
         dim=-1,
     )
     db = _mel.amplitude_to_db(mel, top_db=params.top_db)
-    return db @ torch.from_numpy(params.dct()).to(z.device)
+    return db @ torch.from_numpy(params.dct()).to(z.device) if params.n_dct else db
 
 
 # ---------------------------------------------------------------------------
@@ -604,11 +607,12 @@ def _cluster_band_table(params: MFCCParams, plan: ClusterPlan, device: torch.dev
 
 
 def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
-    """(B, T) float32 or int16 PCM → (B, n_frames, n_mfcc) float32, the
+    """(B, T) float32 or int16 PCM → (B, n_frames, n_out) float32, the
     function of ``dsp.mfcc`` (int16 is scaled by 2⁻¹⁵ first). On a CUDA
     tensor it launches the kernel on the route ``mfcc_route`` picks: the FFT
     path or the chirp (Bluestein) mode, its buffers where the sizes allow
-    (a cluster of CTAs past one block's shared memory)."""
+    (a cluster of CTAs past one block's shared memory). The log-mel mode
+    hands the kernel no DCT table: it writes the floored dB tile."""
     if wavs.ndim != 2:
         raise ValueError(f"fused_mfcc expects (B, T), got {tuple(wavs.shape)}")
     if not wavs.is_cuda:
@@ -623,7 +627,7 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     if n_frames < 1:
         raise ValueError(f"{n_samples} samples give no frame at n_fft {params.n_fft}")
     wavs = wavs.contiguous()
-    out = torch.empty((batch, n_frames, params.n_mfcc), dtype=torch.float32, device=wavs.device)
+    out = torch.empty((batch, n_frames, params.n_out), dtype=torch.float32, device=wavs.device)
     if batch == 0:
         return out
     is_int16 = int(wavs.dtype == torch.int16)
@@ -637,6 +641,8 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
     else:
         twiddles, window, ranges, weights, dct = _fft_tables(params, wavs.device)
         pre = post = kernel = None
+    if not params.n_dct:
+        dct = None
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=wavs.device)  # noqa: E731
     db = None if route.mode == MODE_SHARED and not chirped else new(batch, n_frames, params.n_mels)
     opt = lambda t: None if t is None else ptr(t)  # noqa: E731
@@ -649,8 +655,8 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
             wavs.device,
             ptr(wavs), is_int16, batch, n_samples,
             ptr(twiddles), opt(window), opt(pre), opt(post), opt(kernel), ptr(ranges), ptr(weights), ptr(bands),
-            ptr(dct), ptr(db), ptr(out),
-            params.n_fft, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
+            opt(dct), ptr(db), ptr(out),
+            params.n_fft, params.hop_length, params.n_mels, params.n_dct, n_frames,
             r1, len(r1), r2, len(r2), plan.ctas, clusters, int(chirped), reflect, top_db, use_top_db,
         )
         return out
@@ -664,8 +670,8 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
         wavs.device,
         ptr(wavs), is_int16, batch, n_samples,
         ptr(twiddles), opt(window), opt(pre), opt(post), opt(kernel), ptr(ranges), ptr(weights), weights.numel(),
-        ptr(dct), opt(db), opt(scratch), ptr(out),
-        params.n_fft, route.size, params.hop_length, params.n_mels, params.n_mfcc, n_frames,
+        opt(dct), opt(db), opt(scratch), ptr(out),
+        params.n_fft, route.size, params.hop_length, params.n_mels, params.n_dct, n_frames,
         route.groups, grid, (_I * len(radices))(*radices), len(radices), int(chirped), route.mode,
         reflect, top_db, use_top_db,
     )
@@ -673,7 +679,7 @@ def fused_mfcc(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
 
 
 def fused_mfcc_features(wavs: torch.Tensor, params: MFCCParams) -> torch.Tensor:
-    """(B, T) or (B, 1, T) → (B, 1, frames, n_mfcc), the model-input layout."""
+    """(B, T) or (B, 1, T) → (B, 1, frames, n_out), the model-input layout."""
     if wavs.ndim == 3 and wavs.shape[-2] == 1:
         wavs = wavs.squeeze(-2)
     return fused_mfcc(wavs, params)[:, None]

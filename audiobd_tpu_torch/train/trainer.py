@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
+from audiobd_tpu_torch.data.speech_commands import mfcc_params
 from audiobd_tpu_torch.models import build_model
 from audiobd_tpu_torch.ops import KERNELS
 from audiobd_tpu_torch.parallel.distributed import agreed, is_main, world_size
@@ -101,7 +102,7 @@ def build_attack_model(cfg: AttackConfig, device: torch.device, **streams: str):
     ``dropout_stream`` (models.build_model)."""
     return build_model(
         cfg.model, cfg.num_classes, linear_features_for(cfg.name, cfg.model), device,
-        cfg.train.seed, n_mfcc=cfg.dsp.n_mfcc, fused=resolve_fused_conv(cfg, device),
+        cfg.train.seed, n_mfcc=mfcc_params(cfg).n_out, fused=resolve_fused_conv(cfg, device),
         fused_block2=resolve_fused_block2(cfg), fused_block3=resolve_fused_block2(cfg, "fused_block3"),
         compute_dtype=resolve_compute_dtype(cfg), **streams,
     )
@@ -221,7 +222,7 @@ def train_attack(
         "model": cfg.model,
         "num_classes": cfg.num_classes,
         "feature_size": linear_features_for(cfg.name, cfg.model),
-        "n_mfcc": cfg.dsp.n_mfcc,
+        "n_mfcc": mfcc_params(cfg).n_out,
         "dataset": cfg.dataset,
         "batch_size": cfg.train.batch_size,
     }

@@ -5,7 +5,7 @@
   session is active, each span records its name, its parent (the enclosing
   span on this thread), its host start and end by ``time.time_ns()`` (the
   clock the profiler stamps its events with), the change in ``host_syncs``,
-  in ``sliced_convs`` and in the kernels' launches (``ops.KERNELS``)
+  in ``sliced_convs``, in ``attention_calls`` and in the kernels' launches (``ops.KERNELS``)
   between entry and exit, and, once CUDA is initialised, a timing event on
   the current stream at entry and at exit: ``Span.device_ms`` is the
   stream's time between them, idle included. A backward runs on autograd's
@@ -21,6 +21,9 @@
 * ``sliced_convs``: the convolutions that take models/layers.py's row-slice
   route (``conv2d``: a backward handed to cuDNN in row slices), counted at
   the forward call.
+* ``attention_calls``: the self-attention calls of models/layers.py's
+  ``Attention`` (AST: 12 a forward), each inside an ``attention`` span; the
+  MLP's fc1 → GELU → fc2 is an ``mlp`` span.
 * ``trace(logdir, device)``: a ``torch.profiler`` session that writes its
   Chrome/TensorBoard trace (``rank<r>.<ns>.pt.trace.json``, host activity
   always, the card's kernels too when ``device`` is CUDA) and the session's
@@ -48,6 +51,7 @@ _LOCAL = threading.local()
 _OFF = contextlib.nullcontext()
 host_syncs = 0
 sliced_convs = 0
+attention_calls = 0
 
 
 class Span:
@@ -55,12 +59,12 @@ class Span:
     counters' deltas, and the timing events on the stream (None off CUDA).
     ``span`` makes them; ``recorded`` returns them once they have exited."""
 
-    __slots__ = ("name", "parent", "t0", "t1", "host_syncs", "sliced_convs", "launches", "start_event",
-                 "end_event")
+    __slots__ = ("name", "parent", "t0", "t1", "host_syncs", "sliced_convs", "attention_calls", "launches",
+                 "start_event", "end_event")
 
     def __init__(self, name: str, parent: Span | None):
         self.name, self.parent = name, parent
-        self.t0 = self.t1 = self.host_syncs = self.sliced_convs = self.launches = 0
+        self.t0 = self.t1 = self.host_syncs = self.sliced_convs = self.attention_calls = self.launches = 0
         self.start_event = self.end_event = None
 
     @property
@@ -76,6 +80,7 @@ class Span:
 
     def __enter__(self) -> Span:
         self.host_syncs, self.sliced_convs, self.launches = host_syncs, sliced_convs, _launches()  # at entry
+        self.attention_calls = attention_calls
         self.t0 = time.time_ns()
         if torch.cuda.is_initialized():
             self.start_event = torch.cuda.Event(enable_timing=True)
@@ -90,6 +95,7 @@ class Span:
             self.end_event.record()
         self.t1 = time.time_ns()
         self.host_syncs, self.sliced_convs = host_syncs - self.host_syncs, sliced_convs - self.sliced_convs
+        self.attention_calls = attention_calls - self.attention_calls
         self.launches = _launches() - self.launches
         _SPANS.append(self)
 
@@ -147,7 +153,8 @@ def _write_spans(path: str, spans: list[Span], base_ns: int) -> None:
     events = [{"ph": "X", "cat": "span", "name": s.name, "pid": "spans", "tid": 0, "ts": (s.t0 - base_ns) / 1e3,
                "dur": (s.t1 - s.t0) / 1e3,
                "args": {"index": i, "parent": index.get(id(s.parent)), "path": s.path, "host_syncs": s.host_syncs,
-                        "sliced_convs": s.sliced_convs, "launches": s.launches, "device_ms": s.device_ms}}
+                        "sliced_convs": s.sliced_convs, "attention_calls": s.attention_calls, "launches": s.launches,
+                        "device_ms": s.device_ms}}
               for i, s in enumerate(spans)]
     with open(path, "w") as f:
         json.dump({"baseTimeNanoseconds": base_ns, "displayTimeUnit": "ms", "traceEvents": events}, f)

@@ -16,7 +16,8 @@ no result, without them. Phases, each printing its own lines:
      thread-block cluster's shared memory, n_fft 8193 (L 16464) and 16384,
      2 CTAs each; the buffers in device memory, n_fft 131072; FlowMur's
      n_fft 2048, 13 coefficients; DABA's n_fft 2048 in librosa parity at its
-     2048-clip chunk), 1b kernels B and C (both in train mode at
+     2048-clip chunk; its log-mel mode, AST's input, at the main path's
+     chunk), 1b kernels B and C (both in train mode at
      the main path's shape, and B in eval mode there too, as the defenses'
      SAM and unlearning steps launch it, on a row of its own; at FlowMur's
      (256, 1, 32, 13) B in train mode, as its surrogates and victim train,
@@ -242,8 +243,8 @@ def mfcc_bound(wav, params) -> tuple[float, str, float, float]:
     power (3 per bin); the mel product over the filterbank's nonzeros only
     (2 each: the triangles overlap at most pairwise, so the dense product
     would count ~65x too much); the dB scale and top_db floor (3 per mel);
-    the dense DCT (2·n_mels·n_mfcc). Bytes: the PCM read, the MFCCs written,
-    the mel and DCT tables read.
+    the dense DCT (2·n_mels·n_mfcc; none in the log-mel mode). Bytes: the
+    PCM read, the MFCCs (the dB values) written, the mel and DCT tables read.
     """
     from audiobd_tpu_torch.dsp.stft import num_frames
 
@@ -251,11 +252,12 @@ def mfcc_bound(wav, params) -> tuple[float, str, float, float]:
     frames = num_frames(n_samples, params.n_fft, params.hop_length)
     n, bins = params.n_fft, params.n_fft // 2 + 1
     mel = params.mel_fb()
+    dct = params.n_mels * params.n_dct
     per_frame = (n + 2.5 * n * math.log2(n) + 3 * bins + 2 * int((mel != 0).sum())
-                 + 3 * params.n_mels + 2 * params.n_mels * params.n_mfcc)
+                 + 3 * params.n_mels + 2 * dct)
     flops = batch * frames * per_frame
-    nbytes = (wav.numel() * wav.element_size() + 4 * batch * frames * params.n_mfcc
-              + 4 * (mel.size + params.n_mels * params.n_mfcc))
+    nbytes = (wav.numel() * wav.element_size() + 4 * batch * frames * params.n_out
+              + 4 * (mel.size + dct))
     ms, by = bound(flops, nbytes)
     return ms, by, flops, nbytes
 
@@ -459,11 +461,59 @@ def phase_mfcc(torch, ctx) -> list[dict]:
         print(f"  kernel A ({route.kernel.name}, {route.path} path) at n_fft {params.n_fft}, transform {route.size} "
               f"= {plan.l1} x {plan.l2} over clusters of {plan.ctas} CTAs: {route.smem} B shared memory a CTA, "
               f"{clusters} clusters resident ({clusters * plan.ctas} CTAs)", flush=True)
+    phase_logmel(torch, wav)
     ctx["feats"] = op.fused_mfcc(wav[:256], ta)[:, None]
     ctx["flowmur_feats"] = op.fused_mfcc(wav[:256], flow)[:, None]
     ctx["ultrasonic_feats"] = op.fused_mfcc(wav44[:256], us)[:, None]  # (256, 1, 100, 40): n_fft 1103 is odd
     ctx["daba_feats"] = op.fused_mfcc(wav[:256], lib)[:, None]  # (256, 1, 32, 40)
     return rows
+
+
+def phase_logmel(torch, wav) -> None:
+    """Kernel A's log-mel mode (AST's input: the mel and dB stages without
+    the DCT, 128 values a frame) at the main path's 2048-clip chunk ``wav``
+    (2048, 16000) f32: against plain dsp.mfcc in the same mode and a float64
+    log-mel, then timed as 1a times each route, against torch.stft + the
+    mel product + dB."""
+    from audiobd_tpu_torch.dsp import MFCCParams, mfcc
+    from audiobd_tpu_torch.dsp.mel import amplitude_to_db
+    from audiobd_tpu_torch.dsp.stft import frame_signal, hann_window
+    from audiobd_tpu_torch.ops import mfcc as op
+
+    rtol, atol = 1e-4, 1e-3
+    params = MFCCParams(features="logmel")
+    kernel = op.MFCC_FFT_KERNEL
+    before = kernel.launches
+    got = op.fused_mfcc(wav, params)
+    torch.cuda.synchronize()
+    ref = mfcc(wav, params)
+    err, rel, ok = max_err(torch, got, ref, rtol, atol)
+    check(ok and tuple(got.shape) == (wav.shape[0], 101, 128) and kernel.launches == before + 1,
+          f"log-mel (2048, 16000) f32 n_fft 400 [mfcc_fft path]: shape {tuple(got.shape)} max abs err {err:.3e} "
+          f"(rel to max {rel:.3e})")
+    frames = frame_signal(wav.double(), params.n_fft, params.hop_length, pad_mode=params.pad_mode)
+    spec = torch.fft.rfft(frames * torch.from_numpy(hann_window(params.n_fft)).cuda(), dim=-1).abs() ** 2
+    truth = amplitude_to_db(spec @ torch.from_numpy(params.mel_fb()).cuda().double(), top_db=params.top_db)
+    del frames, spec
+    for label, f32 in (("kernel", got), ("plain dsp.mfcc", ref)):
+        err64, rel64, ok64 = max_err(torch, f32, truth, rtol, atol)
+        check(ok64, f"log-mel {label} against a float64 log-mel: max abs err {err64:.3e} (rel to max {rel64:.3e})")
+    del truth, got, ref
+    mel_fb = torch.from_numpy(params.mel_fb()).cuda()
+    window = torch.hann_window(params.n_fft, periodic=True, device="cuda")
+
+    def library():
+        spec = torch.stft(wav, params.n_fft, params.hop_length, window=window, center=True,
+                          pad_mode=params.pad_mode, return_complex=True).abs().pow(2)
+        return amplitude_to_db(spec.transpose(-1, -2) @ mel_fb, top_db=params.top_db)
+
+    ms = time_ms(torch, lambda: op.fused_mfcc(wav, params), 10)
+    plain_ms = time_ms(torch, lambda: mfcc(wav, params), 5, warmup=1)
+    library_ms = time_ms(torch, library, 10)
+    bms, by, flops, nbytes = mfcc_bound(wav, params)
+    print(f"  log-mel mfcc_fft path (2048, 16000) f32 n_fft 400, 128 mels (AST): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.stft yardstick {library_ms:.4f} ms, bound {bms:.4f} ms ({by}: "
+          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
 
 
 def phase_conv1(torch, ctx) -> list[dict]:

@@ -1,5 +1,6 @@
 """The port stands alone: no JAX, no JAX-ecosystem packages, nothing of
-audiobd_tpu; and its entry point refuses to fall back to the CPU unasked."""
+audiobd_tpu; AST's plain reference imports nothing of the port either; and
+the port's entry point refuses to fall back to the CPU unasked."""
 
 import ast
 import os
@@ -37,6 +38,15 @@ def _imported_tops(path):
 def test_no_forbidden_imports(path):
     bad = FORBIDDEN.intersection(_imported_tops(path))
     assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
+
+
+def test_reference_imports_nothing_of_the_port_or_of_jax():
+    """reference/ast_kws.py, AST's plain reference, is plain torch: no port
+    module and nothing of JAX."""
+    path = os.path.join(REPO, "reference", "ast_kws.py")
+    tops = set(_imported_tops(path))
+    assert not tops & (FORBIDDEN | {"audiobd_tpu_torch", "reference", "benchmark"}), sorted(tops)
+    assert tops <= {"__future__", "contextlib", "functools", "math", "numpy", "torch"}, sorted(tops)
 
 
 def test_importing_every_module_loads_no_jax():

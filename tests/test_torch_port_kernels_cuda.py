@@ -6,7 +6,8 @@ without it (tests/conftest.py imports JAX, hence ``--noconftest``):
 
     python -m pytest --noconftest tests/test_torch_port_kernels_cuda.py -q -m cuda
 
-Tolerances: MFCC rtol 1e-4, atol 1e-3 on every route of kernel A (the FFT
+Tolerances: MFCC rtol 1e-4, atol 1e-3 on every route of kernel A, in its
+log-mel mode too (the FFT
 path for n_fft of 2, 3, 5 and 7, radix 7 included; the Bluestein path for
 the rest; buffers in shared memory, in one block's shared memory with the
 tables read through the cache, over a thread-block cluster's shared memory
@@ -39,6 +40,12 @@ The row-slice route of models/layers.py::conv2d at each plane of its table
 whole-batch cuDNN call itself (torch.equal); the gradients within
 1e-4 * max|ref| + 1e-6 of the unsliced cuDNN call and of a float64 one, the
 bound kernels D and E are held to (sums of ~10^6 terms in another order).
+
+AST's attention (models/layers.py::scaled_attention, SDPA's math backend)
+at AST's tokens and heads, forward and backward, against float64 with TF32
+off, as the program runs: o, dq, dk and dv within 1e-5 of their largest
+entry, f32's reach (measured 5.7e-7 to 9.4e-7 on an H100; TF32's products
+err by ~1e-3).
 
 Kernel F (the effects' recursions) against its plain loop on the card:
 exactly equal (torch.equal). Every route forms every product and sum in the
@@ -89,6 +96,27 @@ def test_mfcc_kernel_matches_plain(cuda, setting, dtype):
     wavs = torch.from_numpy(x).to(cuda)
     out = _run_counted(wavs, params, "mfcc_fft")
     ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("kw, route", [
+    (dict(sample_rate=16000, n_fft=400, hop_length=160), "mfcc_fft"),  # AST's input: the main path's route
+    (dict(sample_rate=44100, n_fft=1103, hop_length=441), "mfcc_bluestein"),
+    (dict(sample_rate=44100, n_fft=2205, hop_length=441), "mfcc_fft_large"),
+    (dict(sample_rate=44100, n_fft=16384, hop_length=441), "mfcc_fft_cluster"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_mfcc_kernel_logmel_mode_matches_plain(cuda, kw, route, dtype):
+    """The log-mel mode (no DCT table: the floored dB tile out) on each route
+    that keeps its dB tile apart: shared memory, device memory, a cluster."""
+    x = (np.random.default_rng(13).standard_normal((3, kw["sample_rate"])) * 0.1).astype(np.float32)
+    if dtype == "int16":
+        x = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+    params = MFCCParams(n_mels=128, features="logmel", **kw)
+    wavs = torch.from_numpy(x).to(cuda)
+    out = _run_counted(wavs, params, route)
+    ref = mfcc_features(dequantize_pcm(wavs), params)[:, 0]
+    assert out.shape == ref.shape and out.shape[-1] == 128
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-3)
 
 
@@ -716,3 +744,17 @@ def test_effects_pipeline_refuses_a_launch_it_cannot_run(cuda):
         op_fx.PHASER_KERNEL(cuda, op_fx.ptr(x), op_fx.ptr(a), op_fx.ptr(y), 2, 62, 6, 0.5, 0.5,
                             op_fx.phaser_shared_bytes(6))
     assert [k.launches for k in F_KERNELS] == before
+
+
+def test_attention_is_f32_on_the_card(cuda):
+    """The pinned backend computes at f32's accuracy with TF32 off."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(8, 12, 146, 64, device=cuda, generator=g) for _ in range(4))
+    qd, kd, vd = (t.double().requires_grad_(True) for t in (q, k, v))
+    o64 = torch.softmax(qd @ kd.transpose(-1, -2) / 8.0, -1) @ vd
+    want = (o64.detach(), *torch.autograd.grad(o64, (qd, kd, vd), do.double()))
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = layers.scaled_attention(qq, kk, vv)
+    got = (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), do))
+    for a, b in zip(got, want):
+        assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max())
