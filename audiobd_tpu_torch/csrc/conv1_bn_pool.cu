@@ -92,6 +92,42 @@
 //    nothing reads h. Train mode forms dy = relu'*(A - r*Bc + [winner]*
 //    scale*g) with A = mu*inv*h2 - h1, Bc = inv*h2 per channel, h1 and h2
 //    from kernel B. The bias tap gets no cotangent.
+//
+// Forward (kernel G): replaces no Pallas kernel. The reference's forward is
+// stock XLA (conv, relu, the batch statistics, normalise, reduce_window),
+// and the port ran it as eager torch: cuDNN's conv, then ~11 elementwise
+// passes over the pre-pool activation r (B, C, H', W-1), 1.02 GB at 1,024
+// clips of (101, 40), each written and read again. G keeps the numbers of
+// that chain bit for bit and takes away its passes. Both of its passes
+// read x and recompute r in cuDNN's order (conv_tap_fma: the products
+// accumulated by fused multiply-adds in tap order, then the bias added as
+// torch adds it), so r is the plain chain's r:
+//  * fwd_relu_square (conv1_bn_pool_fwd_relu), train mode only: r =
+//    relu(y) and r*r, one element a thread, for torch's two means. The
+//    batch statistics stay torch's reductions over the stored r and r*r:
+//    the benchmark's train cell holds the first steps to the reference's
+//    rounding, and another order of those sums moves the first gradient
+//    past its limits. Where the chain took the conv, the bias add, the
+//    clamp and r*r, this pass writes r and r*r once.
+//  * fwd_pool (conv1_bn_pool_fwd), both modes: nothing is stored. A block
+//    stages a span of a clip's 2x4 patches as kernel B does, warp w takes
+//    FWD_CHANNELS channels at a time (taps, mu, inv, gamma, beta in
+//    registers), its lanes walk the span, recompute r and write out[m] = the
+//    max over window m (r's elements 3m .. 3m+2) of z = ((r - mu)*inv)*gamma
+//    + beta; a warp's 32 positions of one channel are 128 contiguous bytes
+//    of out. mu and inv are the batch statistics in train mode, the running
+//    ones in eval mode; the chain wrote and read z four times and
+//    max-pooled it.
+// Each step rounds as the chain's torch op rounds it (__fadd_rn, __fsub_rn,
+// __fmul_rn; relu and the max propagate NaN as clamp and max_pool2d do; a
+// later phase wins the max only when greater). What bounds G: bytes. At
+// 1,024 clips fwd_relu_square writes 2.04 GB (0.61 ms at 3.35 TB/s) and
+// fwd_pool reads x (16.5 MB) and writes out (341 MB, 0.11 ms); fwd_pool's
+// ~16 f32 instructions a (position, channel, phase), 255.6 M of them, take
+// ~0.15 ms. The block's own bound, x read twice and out written once, is
+// the 0.11 ms; the stored r and r*r, which torch's means read, are what
+// the train mode pays over it. f32 only: the bf16 compute dtype keeps the
+// plain chain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +144,9 @@ constexpr int PARAMS_UNROLL = 4;     // positions a lane takes a pass, their g l
 constexpr int INPUT_THREADS = 256;   // kernel C
 constexpr int INPUT_WARPS = INPUT_THREADS / 32;
 constexpr int INPUT_UNROLL = 4;      // channels a thread takes a pass, their g loads issued together
+constexpr int FWD_THREADS = 256;     // kernel G
+constexpr int FWD_WARPS = FWD_THREADS / 32;
+constexpr int FWD_CHANNELS = 4;      // channels a warp of kernel G's fwd_pool takes a pass, taps in registers
 
 // v rounded to the compute type CT and held in f32: the identity for f32,
 // round to nearest even for bf16, as _phase_rz's astype does.
@@ -160,6 +199,28 @@ __device__ __forceinline__ void load_patch(const XT* __restrict__ x, int H, int 
 #pragma unroll
   for (int k = 0; k < 4; ++k) { a[k] = load_x<XT, CT>(r0 + k); d[k] = load_x<XT, CT>(r1 + k); }
 }
+
+// y as cuDNN's implicit-GEMM convolution and torch's bias add form it: the
+// four products accumulated by fused multiply-adds in tap order, the bias
+// added after, rounded once. Kernel G, so that its r is the plain chain's.
+__device__ __forceinline__ float conv_tap_fma(const float w[5], float p0, float p1, float p2, float p3) {
+  float acc = __fmul_rn(w[0], p0);
+  acc = __fmaf_rn(w[1], p1, acc);
+  acc = __fmaf_rn(w[2], p2, acc);
+  acc = __fmaf_rn(w[3], p3, acc);
+  return __fadd_rn(acc, w[4]);
+}
+
+// z = ((r - mu)*inv)*gamma + beta, each step rounded: _norm_pool's order.
+__device__ __forceinline__ float normalise(float r, float mu, float inv, float gamma, float beta) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(r, mu), inv), gamma), beta);
+}
+
+// relu as torch.clamp(y, min=0) takes it: NaN stays NaN.
+__device__ __forceinline__ float relu(float y) { return isnan(y) ? y : fmaxf(y, 0.0f); }
+
+// The running max of a window as max_pool2d takes it.
+__device__ __forceinline__ float pool_max(float m, float z) { return z > m || isnan(z) ? z : m; }
 
 // Recomputes the window for one channel from its patch (a: row i, d: row
 // i+1) and taps w (w[4] the bias), both already in the compute type.
@@ -233,6 +294,23 @@ __device__ __forceinline__ void params_pair(const float4 top, const float4 botto
   }
 }
 
+// Stages the 2x4 patches of a span of a clip's pooled positions [first,
+// first + n) in shared memory, rounded to the compute type, position-major
+// as two float4 planes: top[e] row i, columns 3j'..3j'+3 of position first
+// + e; bottom[e] row i+1. xb is the clip's (H, W) plane. Kernels B and G.
+template <typename XT, typename CT>
+__device__ __forceinline__ void stage_patches(const XT* __restrict__ xb, int W, int Wp, int first, int n,
+                                              float4* top, float4* bottom) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int q = first + e, i = q / Wp;
+    const XT* r0 = xb + i * W + 3 * (q - i * Wp);
+    top[e] = make_float4(load_x<XT, CT>(r0), load_x<XT, CT>(r0 + 1), load_x<XT, CT>(r0 + 2),
+                         load_x<XT, CT>(r0 + 3));
+    bottom[e] = make_float4(load_x<XT, CT>(r0 + W), load_x<XT, CT>(r0 + W + 1), load_x<XT, CT>(r0 + W + 2),
+                            load_x<XT, CT>(r0 + W + 3));
+  }
+}
+
 // Kernel B, pass 1. Block (clip b, chunk of its positions, slice of
 // PARAMS_THREADS / 32 channels): a clip's plane of pooled positions is cut
 // into `chunks` equal spans, so that a span's patches fit shared memory at
@@ -265,15 +343,7 @@ bwd_params_partial(const XT* __restrict__ x, const CT* __restrict__ g,
   const int span = (plane + chunks - 1) / chunks;
   const int first = (blockIdx.x - b * chunks) * span, n = min(span, plane - first);
   float4* bottom = top + span;
-  const XT* xb = x + static_cast<size_t>(b) * H * W;
-  for (int e = threadIdx.x; e < n; e += PARAMS_THREADS) {
-    const int q = first + e, i = q / Wp;
-    const XT* r0 = xb + i * W + 3 * (q - i * Wp);
-    top[e] = make_float4(load_x<XT, CT>(r0), load_x<XT, CT>(r0 + 1), load_x<XT, CT>(r0 + 2),
-                         load_x<XT, CT>(r0 + 3));
-    bottom[e] = make_float4(load_x<XT, CT>(r0 + W), load_x<XT, CT>(r0 + W + 1), load_x<XT, CT>(r0 + W + 2),
-                            load_x<XT, CT>(r0 + W + 3));
-  }
+  stage_patches<XT, CT>(x + static_cast<size_t>(b) * H * W, W, Wp, first, n, top, bottom);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -525,6 +595,77 @@ int launch_input(const XT* x, const CT* g, const float* w5, const float* mu, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel G, train mode, first pass. Block q takes row q = b*C + c of r's
+// (B*C, (H-1)*(W-1)) rows, one element a thread: r = relu(y), r2 = r*r.
+__global__ void __launch_bounds__(FWD_THREADS)
+fwd_relu_square(const float* __restrict__ x, const float* __restrict__ weight, const float* __restrict__ bias,
+                float* __restrict__ r, float* __restrict__ r2, int H, int W, int C) {
+  const int b = blockIdx.x / C, c = blockIdx.x - b * C;
+  float w[5];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) w[t] = __ldg(weight + 4 * c + t);
+  w[4] = __ldg(bias + c);
+  const float* xb = x + static_cast<size_t>(b) * H * W;
+  const int Wc = W - 1, plane = (H - 1) * Wc;
+  const size_t row = static_cast<size_t>(blockIdx.x) * plane;
+  for (int e = threadIdx.x; e < plane; e += FWD_THREADS) {
+    const int i = e / Wc;
+    const float* p = xb + i * W + (e - i * Wc);
+    const float v = relu(conv_tap_fma(w, __ldg(p), __ldg(p + 1), __ldg(p + W), __ldg(p + W + 1)));
+    r[row + e] = v;
+    r2[row + e] = __fmul_rn(v, v);
+  }
+}
+
+// Kernel G, the pool pass. Block (clip b, chunk of its positions), the span cut
+// as kernel B cuts it; warp w takes channels [c0, c0 + FWD_CHANNELS) for c0
+// = w * FWD_CHANNELS, w * FWD_CHANNELS + FWD_WARPS * FWD_CHANNELS, ... and
+// its lanes walk the span.
+__global__ void __launch_bounds__(FWD_THREADS)
+fwd_pool(const float* __restrict__ x, const float* __restrict__ weight, const float* __restrict__ bias,
+         const float* __restrict__ gamma, const float* __restrict__ beta, const float* __restrict__ mu_p,
+         const float* __restrict__ inv_p, float* __restrict__ out, int H, int W, int C, int chunks) {
+  extern __shared__ float4 top[];
+  const int b = blockIdx.x / chunks;
+  const int Wp = (W - 1) / 3, plane = (H - 1) * Wp;
+  const int span = (plane + chunks - 1) / chunks;
+  const int first = (blockIdx.x - b * chunks) * span, n = min(span, plane - first);
+  float4* bottom = top + span;
+  stage_patches<float, float>(x + static_cast<size_t>(b) * H * W, W, Wp, first, n, top, bottom);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int c0 = (threadIdx.x >> 5) * FWD_CHANNELS; c0 < C; c0 += FWD_WARPS * FWD_CHANNELS) {
+    float w[FWD_CHANNELS][5], mu[FWD_CHANNELS], inv[FWD_CHANNELS], ga[FWD_CHANNELS], be[FWD_CHANNELS];
+#pragma unroll
+    for (int k = 0; k < FWD_CHANNELS; ++k) {
+      const int c = min(c0 + k, C - 1);  // a channel past C repeats the last; it is not written
+#pragma unroll
+      for (int t = 0; t < 4; ++t) w[k][t] = __ldg(weight + 4 * c + t);
+      w[k][4] = __ldg(bias + c);
+      mu[k] = __ldg(mu_p + c);
+      inv[k] = __ldg(inv_p + c);
+      ga[k] = __ldg(gamma + c);
+      be[k] = __ldg(beta + c);
+    }
+    const int kn = min(FWD_CHANNELS, C - c0);
+    float* oc = out + (static_cast<size_t>(b) * C + c0) * plane + first;
+    for (int p = lane; p < n; p += 32) {
+      const float4 a = top[p], d = bottom[p];
+#pragma unroll
+      for (int k = 0; k < FWD_CHANNELS; ++k) {
+        if (k >= kn) break;  // the same for the whole warp
+        const float r0 = relu(conv_tap_fma(w[k], a.x, a.y, d.x, d.y));
+        const float r1 = relu(conv_tap_fma(w[k], a.y, a.z, d.y, d.z));
+        const float r2 = relu(conv_tap_fma(w[k], a.z, a.w, d.z, d.w));
+        float v = normalise(r0, mu[k], inv[k], ga[k], be[k]);
+        v = pool_max(v, normalise(r1, mu[k], inv[k], ga[k], be[k]));
+        oc[static_cast<size_t>(k) * plane + p] = pool_max(v, normalise(r2, mu[k], inv[k], ga[k], be[k]));
+      }
+    }
+  }
+}
+
 // Kernel B in the compute type CT, x in XT.
 template <typename XT, typename CT>
 int params_entry(const XT* x, const CT* g, const float* w5, const float* mu, const float* inv, const float* scale,
@@ -579,6 +720,32 @@ int conv1_bn_pool_bwd_input(const float* x, const float* g, const float* w5, con
                             const float* h, float* dx, int B, int H, int W, int C, int spans, int rows,
                             int groups, int train_bn, void* stream) {
   return input_entry(x, g, w5, mu, inv, scale, shift, h, dx, B, H, W, C, spans, rows, groups, train_bn, stream);
+}
+
+// Kernel G, train mode (f32), first pass: x (B, H, W), weight (C, 4) (the
+// 2x2 taps row-major), bias (C); r, r2 (B, C, H-1, W-1) out.
+int conv1_bn_pool_fwd_relu(const float* x, const float* weight, const float* bias, float* r, float* r2, int B,
+                           int H, int W, int C, void* stream) {
+  if (static_cast<long long>(B) * C * (H - 1) * (W - 1) == 0) return 0;
+  fwd_relu_square<<<B * C, FWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, weight, bias, r, r2, H, W, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel G's pool pass (f32), both modes: x (B, H, W), weight (C, 4), bias,
+// gamma, beta, mu, inv (C); out (B, C, H-1, (W-1)/3); each clip's positions
+// in `chunks` spans.
+int conv1_bn_pool_fwd(const float* x, const float* weight, const float* bias, const float* gamma,
+                      const float* beta, const float* mu, const float* inv, float* out, int B, int H, int W, int C,
+                      int chunks, void* stream) {
+  const int plane = (H - 1) * ((W - 1) / 3);
+  if (static_cast<long long>(B) * plane == 0) return 0;
+  if (chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sizeof(float4)) * 2 * ((plane + chunks - 1) / chunks);
+  cudaError_t err = cudaFuncSetAttribute(fwd_pool, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fwd_pool<<<B * chunks, FWD_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(x, weight, bias, gamma, beta, mu,
+                                                                                 inv, out, H, W, C, chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Kernel B in bf16: g bf16; x bf16 (x_bf16) or f32; the rest as above.

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels and their wrappers.
 
 KERNELS lists every kernel of the port with its launch counter (kernel B in
-f32 twice: its train and eval modes count apart; kernel F's three routes, the
-ladder at k = 0, the resonant ladder and the phaser, apart too)."""
+f32 twice, its train and eval modes apart; kernel G's train-mode first pass,
+and its pool pass twice, train and eval mode apart; kernel F's three routes,
+the ladder at k = 0, the resonant ladder and the phaser, apart too)."""
 
 from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, effects, mfcc
 
@@ -15,6 +16,9 @@ KERNELS = (
     conv1_bn_pool.BWD_PARAMS_KERNEL,
     conv1_bn_pool.BWD_PARAMS_EVAL_KERNEL,
     conv1_bn_pool.BWD_INPUT_KERNEL,
+    conv1_bn_pool.FWD_RELU_KERNEL,
+    conv1_bn_pool.FWD_KERNEL,
+    conv1_bn_pool.FWD_EVAL_KERNEL,
     conv2_bn_pool.BWD_PARAMS_KERNEL,
     conv2_bn_pool.BWD_INPUT_KERNEL,
     conv1_bn_pool.BWD_PARAMS_BF16_KERNEL,

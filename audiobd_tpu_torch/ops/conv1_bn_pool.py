@@ -1,14 +1,24 @@
-"""maxpool_{1,3}(BN(relu(conv2x2_{1→C}(x)))) with a hand-written CUDA backward.
+"""maxpool_{1,3}(BN(relu(conv2x2_{1→C}(x)))) with hand-written CUDA kernels (G forward, B and C backward).
 
 Port of audiobd_tpu/ops/fused_conv_block.py::conv1_bn_pool, the first
-SmallCNN block. The forward is plain torch (conv2d, relu, batch statistics
-with the fast variance E[r²] − μ², normalize, max_pool2d), as the reference's
-forward is stock XLA. The backward never materializes the pre-pool
-activation: kernel B (``conv1_bn_pool_bwd_params``) recomputes each pool
-window from x and accumulates the parameter gradients when some parameter
-needs one; kernel C (``conv1_bn_pool_bwd_input``) forms dx when x requires
-a gradient (FlowMur's trigger search through a frozen eval-mode surrogate
-runs C alone). The math and the first-match tie rule are described in
+SmallCNN block. The reference's forward is stock XLA (conv, relu, batch
+statistics with the fast variance E[r²] − μ², normalize, max-pool). On a
+CPU tensor, and in bf16, the port's forward is the plain chain
+(``_conv_relu``, the statistics, ``_norm_pool``). On a CUDA tensor in f32
+kernel G takes the chain's passes over the pre-pool activation r, with the
+plain chain's numbers bit for bit: it forms r from x as cuDNN's conv and
+torch's bias add form it. In train mode its first pass writes r and r·r
+(``conv1_bn_pool_fwd_relu``) for torch's means, which stay the batch
+statistics; its pool pass normalises r and takes the (1, 3) max from x,
+r never stored, with the batch statistics in train mode
+(``conv1_bn_pool_fwd``) and the running ones in eval mode
+(``conv1_bn_pool_fwd_eval``). The backward never
+materializes the pre-pool activation either: kernel B
+(``conv1_bn_pool_bwd_params``) recomputes each pool window from x and
+accumulates the parameter gradients when some parameter needs one; kernel
+C (``conv1_bn_pool_bwd_input``) forms dx when x requires a gradient
+(FlowMur's trigger search through a frozen eval-mode surrogate runs C
+alone). The math and the first-match tie rule are described in
 ``csrc/conv1_bn_pool.cu``.
 
 Layout is the port's NCHW: x (B, 1, H, W), weight (C, 1, 2, 2), out
@@ -64,6 +74,14 @@ BWD_INPUT_BF16_KERNEL = CudaKernel(
     "conv1_bn_pool_bwd_input_bf16", "conv1_bn_pool.cu", "conv1_bn_pool_bwd_input_bf16",
     [_P] * 9 + [_I] * 9,
 )
+# Kernel G, the forward in f32: train mode's first pass (r and r·r from x),
+# and the pool pass from x, one entry point whose train mode (the batch
+# statistics) and eval mode (the running ones) count apart.
+FWD_RELU_KERNEL = CudaKernel(
+    "conv1_bn_pool_fwd_relu", "conv1_bn_pool.cu", "conv1_bn_pool_fwd_relu", [_P] * 5 + [_I] * 4,
+)
+FWD_KERNEL = CudaKernel("conv1_bn_pool_fwd", "conv1_bn_pool.cu", "conv1_bn_pool_fwd", [_P] * 8 + [_I] * 5)
+FWD_EVAL_KERNEL = CudaKernel("conv1_bn_pool_fwd_eval", "conv1_bn_pool.cu", "conv1_bn_pool_fwd", [_P] * 8 + [_I] * 5)
 # Kernel C keeps a span's dp tile (4 taps x conv rows x (W-1) floats, the
 # halo row included) in shared memory; a clip whose tile is larger is cut
 # into equal spans of conv rows. The main path's clip (62,400 B) is one span.
@@ -271,6 +289,67 @@ def conv1_bn_pool_bwd_input(x, g, w5, mu, inv, scale, shift, h12=None, *, train_
     return dx
 
 
+def _check_forward(x, weight, bias, **vecs) -> None:
+    """Kernel G's contract: x (B, 1, H, W) with (W-1) % 3 == 0, weight (C,
+    1, 2, 2), bias and each of ``vecs`` (C,), all float32, contiguous and on
+    x's CUDA device. Raises naming the first tensor that breaks it, checked
+    in that order (shape, dtype, layout, device)."""
+    if not supports(x):
+        raise ValueError(f"conv1_bn_pool_fwd needs x (B, 1, H, W) with (W-1) % 3 == 0, got {tuple(x.shape)}")
+    c = weight.shape[0]
+    named = [("x", x, tuple(x.shape)), ("weight", weight, (c, 1, 2, 2)), ("bias", bias, (c,))]
+    named += [(name, v, (c,)) for name, v in vecs.items()]
+    for name, t, shape in named:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"conv1_bn_pool_fwd: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    for name, t, _ in named:
+        if t.dtype != torch.float32:
+            raise ValueError(f"conv1_bn_pool_fwd takes float32 tensors, got {name} in {t.dtype}")
+    for name, t, _ in named:
+        if not t.is_contiguous():
+            raise ValueError(f"conv1_bn_pool_fwd takes contiguous tensors ({name})")
+    for name, t, _ in named:
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"conv1_bn_pool_fwd takes tensors on x's CUDA device ({name} on {t.device})")
+
+
+def conv1_bn_pool_fwd_relu(x, weight, bias) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G's train-mode first pass, one launch: (r, r·r), r (B, C, H-1,
+    W-1) = relu(conv2x2(x) + bias) as cuDNN's convolution, torch's bias add
+    and clamp form it, for torch's means."""
+    _check_forward(x, weight, bias)
+    b, _, h, w = x.shape
+    c = weight.shape[0]
+    r = torch.empty((b, c, h - 1, w - 1), dtype=torch.float32, device=x.device)
+    r2 = torch.empty_like(r)
+    FWD_RELU_KERNEL(x.device, ptr(x), ptr(weight), ptr(bias), ptr(r), ptr(r2), b, h, w, c)
+    return r, r2
+
+
+def conv1_bn_pool_fwd(x, weight, bias, gamma, beta, mu, inv, *, train_bn: bool) -> torch.Tensor:
+    """Kernel G's pool pass, one launch: out (B, C, H-1, (W-1)//3) of the
+    whole block from x, r formed as the first pass forms it and never
+    stored, normalised by ``mu`` and ``inv`` (train mode: the batch
+    statistics; eval mode: the running mean and rsqrt(running variance +
+    eps)) with each step rounded as ``_norm_pool``'s torch ops round it. The
+    two modes count apart."""
+    _check_forward(x, weight, bias, gamma=gamma, beta=beta, mu=mu, inv=inv)
+    b, _, h, w = x.shape
+    c = weight.shape[0]
+    chunks = -(-(h - 1) * ((w - 1) // 3) // PARAMS_SPAN)
+    out = torch.empty((b, c, h - 1, (w - 1) // 3), dtype=torch.float32, device=x.device)
+    (FWD_KERNEL if train_bn else FWD_EVAL_KERNEL)(
+        x.device, ptr(x), ptr(weight), ptr(bias), ptr(gamma), ptr(beta), ptr(mu), ptr(inv), ptr(out),
+        b, h, w, c, chunks)
+    return out
+
+
+def uses_forward_kernel(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Whether the block's forward runs kernel G: f32 compute on a CUDA
+    tensor. CPU tensors and the bf16 compute dtype take the plain chain."""
+    return x.is_cuda and dtype == torch.float32
+
+
 def conv1_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, train_bn, need_dx, need_params=True):
     """(dx or None, dweight, dbias, dgamma, dbeta), the last four None
     unless ``need_params``: the kernels on CUDA tensors, the plain version
@@ -297,7 +376,7 @@ def conv1_bn_pool_backward(x, g, weight, bias, mu, inv, scale, shift, *, train_b
 
 
 # ---------------------------------------------------------------------------
-# forward (plain torch) and autograd
+# plain forward and autograd
 
 
 def _conv_relu(x, weight, bias, dtype=torch.float32):
@@ -321,11 +400,20 @@ def _norm_pool(r, gamma, beta, mu, inv, dtype=torch.float32):
 class _TrainBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, gamma, beta, dtype):
-        r = _conv_relu(x, weight, bias, dtype)
+        kernel = uses_forward_kernel(x, dtype)
+        if kernel:
+            r, r2 = conv1_bn_pool_fwd_relu(x.contiguous(), weight, bias)
+        else:
+            r = _conv_relu(x, weight, bias, dtype)
+            r2 = r * r
         mu = r.mean(dim=(0, 2, 3))
-        var = (r * r).mean(dim=(0, 2, 3)) - mu * mu
+        var = r2.mean(dim=(0, 2, 3)) - mu * mu
         inv = torch.rsqrt(var + EPS)
-        out = _norm_pool(r, gamma, beta, mu, inv, dtype)
+        if kernel:
+            del r, r2
+            out = conv1_bn_pool_fwd(x.contiguous(), weight, bias, gamma, beta, mu, inv, train_bn=True)
+        else:
+            out = _norm_pool(r, gamma, beta, mu, inv, dtype)
         scale = gamma * inv
         shift = beta - mu * scale
         ctx.save_for_backward(x, weight, bias, mu, inv, scale, shift)
@@ -346,9 +434,11 @@ class _TrainBlock(torch.autograd.Function):
 class _EvalBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, gamma, beta, running_mean, running_var, dtype):
-        r = _conv_relu(x, weight, bias, dtype)
         inv = torch.rsqrt(running_var + EPS)
-        out = _norm_pool(r, gamma, beta, running_mean, inv, dtype)
+        if uses_forward_kernel(x, dtype):
+            out = conv1_bn_pool_fwd(x.contiguous(), weight, bias, gamma, beta, running_mean, inv, train_bn=False)
+        else:
+            out = _norm_pool(_conv_relu(x, weight, bias, dtype), gamma, beta, running_mean, inv, dtype)
         scale = gamma * inv
         shift = beta - running_mean * scale
         ctx.save_for_backward(x, weight, bias, running_mean, inv, scale, shift)
@@ -367,7 +457,8 @@ class _EvalBlock(torch.autograd.Function):
 
 def conv1_bn_pool(x, weight, bias, gamma, beta, *, train: bool, running_mean=None, running_var=None,
                   compute_dtype: torch.dtype = torch.float32):
-    """maxpool_{1,3}(BN(relu(conv2x2(x)))) with the kernel backward.
+    """maxpool_{1,3}(BN(relu(conv2x2(x)))) with the kernel backward (and, on CUDA
+    in f32, kernel G's forward).
 
     Training mode normalizes with the batch statistics and returns
     (out, batch_mean, batch_var), the variance biased (E[r²] − μ², flax's

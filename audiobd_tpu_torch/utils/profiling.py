@@ -5,7 +5,8 @@
   session is active, each span records its name, its parent (the enclosing
   span on this thread), its host start and end by ``time.time_ns()`` (the
   clock the profiler stamps its events with), the change in ``host_syncs``,
-  in ``sliced_convs``, in ``attention_calls`` and in the kernels' launches (``ops.KERNELS``)
+  in ``sliced_convs``, in ``attention_calls`` and in the kernels' launches (``ops.KERNELS``:
+  their sum, ``launches``, and each kernel's that launched, ``kernels``)
   between entry and exit, and, once CUDA is initialised, a timing event on
   the current stream at entry and at exit: ``Span.device_ms`` is the
   stream's time between them, idle included. A backward runs on autograd's
@@ -60,11 +61,12 @@ class Span:
     ``span`` makes them; ``recorded`` returns them once they have exited."""
 
     __slots__ = ("name", "parent", "t0", "t1", "host_syncs", "sliced_convs", "attention_calls", "launches",
-                 "start_event", "end_event")
+                 "kernels", "start_event", "end_event")
 
     def __init__(self, name: str, parent: Span | None):
         self.name, self.parent = name, parent
         self.t0 = self.t1 = self.host_syncs = self.sliced_convs = self.attention_calls = self.launches = 0
+        self.kernels: dict[str, int] = {}
         self.start_event = self.end_event = None
 
     @property
@@ -79,7 +81,7 @@ class Span:
         return None if self.start_event is None else self.start_event.elapsed_time(self.end_event)
 
     def __enter__(self) -> Span:
-        self.host_syncs, self.sliced_convs, self.launches = host_syncs, sliced_convs, _launches()  # at entry
+        self.host_syncs, self.sliced_convs, self.kernels = host_syncs, sliced_convs, _launches()  # at entry
         self.attention_calls = attention_calls
         self.t0 = time.time_ns()
         if torch.cuda.is_initialized():
@@ -96,14 +98,16 @@ class Span:
         self.t1 = time.time_ns()
         self.host_syncs, self.sliced_convs = host_syncs - self.host_syncs, sliced_convs - self.sliced_convs
         self.attention_calls = attention_calls - self.attention_calls
-        self.launches = _launches() - self.launches
+        now = _launches()
+        self.kernels = {name: n - self.kernels[name] for name, n in now.items() if n != self.kernels[name]}
+        self.launches = sum(self.kernels.values())
         _SPANS.append(self)
 
 
-def _launches() -> int:
+def _launches() -> dict[str, int]:
     from audiobd_tpu_torch.ops import KERNELS
 
-    return sum(k.launches for k in KERNELS)
+    return {k.name: k.launches for k in KERNELS}
 
 
 def _stack() -> list:
@@ -154,6 +158,7 @@ def _write_spans(path: str, spans: list[Span], base_ns: int) -> None:
                "dur": (s.t1 - s.t0) / 1e3,
                "args": {"index": i, "parent": index.get(id(s.parent)), "path": s.path, "host_syncs": s.host_syncs,
                         "sliced_convs": s.sliced_convs, "attention_calls": s.attention_calls, "launches": s.launches,
+                        "kernels": s.kernels,
                         "device_ms": s.device_ms}}
               for i, s in enumerate(spans)]
     with open(path, "w") as f:

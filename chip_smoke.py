@@ -22,7 +22,11 @@ no result, without them. Phases, each printing its own lines:
      SAM and unlearning steps launch it, on a row of its own; at FlowMur's
      (256, 1, 32, 13) B in train mode, as its surrogates and victim train,
      and C in eval mode, as its search runs; B in train mode at Ultrasonic's
-     (256, 1, 100, 40) and DABA's (256, 1, 32, 40)),
+     (256, 1, 100, 40) and DABA's (256, 1, 32, 40)); kernel G, block 1's
+     forward (its train-mode first pass and its pool pass, train and eval
+     mode, each from x) at the main path's shape and the benchmark's 1,024
+     rows, equal to the plain chain, beside its plain version and its bytes
+     bound, and the whole train-mode forward beside the block's bound,
      1c kernels D and E (E on the routing a D call wrote),
      1d kernel F's three routes (the ladder at k = 0 and the phaser of
      JingleBack's style 5, and the resonant ladder) held exactly equal to
@@ -650,6 +654,7 @@ def phase_conv1(torch, ctx) -> list[dict]:
     print(f"  B params bwd, eval mode, main path's shape x {tuple(x.shape)} (the defenses' SAM and unlearning "
           f"steps): kernel {ms_be:.4f} ms, plain {plain_be:.4f} ms, autograd yardstick (cuDNN, running statistics) "
           f"{lib_be:.4f} ms, bound {bbe:.4f} ms ({bybe}); {n_win_active_e} active winners", flush=True)
+    fwd = block1_forward(torch, x)
     flow = flowmur_block1(torch, ctx["flowmur_feats"].contiguous(), compare)
     ultra = block1_train(torch, ctx["ultrasonic_feats"].contiguous(), compare, "Ultrasonic", 3072, seed=4)
     daba = block1_train(torch, ctx["daba_feats"].contiguous(), compare, "DABA", 896, seed=5, device_time=True)
@@ -664,12 +669,96 @@ def phase_conv1(torch, ctx) -> list[dict]:
         {"name": "conv1_bn_pool_bwd_params_eval", "route": "cuda", "source": src,
          "replaces": "audiobd_tpu/ops/fused_conv_block.py:226", "max_abs_err": err_be, "ms": ms_be,
          "plain_ms": plain_be, "bound_ms": bbe, "bound_by": bybe, "library_ms": lib_be},
+        *fwd,
         # C's caller is FlowMur's trigger search: the row is its eval-mode shape.
         {"name": "conv1_bn_pool_bwd_input", "route": "cuda", "source": src,
          "replaces": "audiobd_tpu/ops/fused_conv_block.py:243", "max_abs_err": max(err_c, flow["err"]),
          "ms": flow["ms"], "plain_ms": flow["plain_ms"], "bound_ms": flow["bound_ms"], "bound_by": flow["bound_by"],
          "library_ms": flow["library_ms"]},
     ]
+
+
+def block1_forward(torch, x) -> list[dict]:
+    """Kernel G, block 1's forward, at the main path's x (256, 1, 101, 40)
+    and at the benchmark's 1,024 rows, against the plain chain (cuDNN's conv
+    and bias add, torch's means, ``_norm_pool``'s torch ops), which it must
+    equal bit for bit: train mode's first pass (r and r·r from x), and the
+    pool pass from x with the chain's batch statistics (train mode) and with
+    running statistics (eval mode). Times: each pass (CUDA events, and
+    device time under the profiler) beside its plain version (the conv, bias
+    add, clamp and r·r; ``_norm_pool`` on r; the eval chain) and its bytes
+    bound (x read once, its outputs written once); and the whole train-mode
+    forward (G's two passes and torch's means), with G and as the chain,
+    beside the block's bound (x read twice, out written once). The rows of
+    the ``kernels`` line are the main path's shape: the train row is the
+    whole train-mode forward against the block's bound, the eval row the
+    pool pass against its own."""
+    from audiobd_tpu_torch.models import build_model
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op
+
+    model = build_model("smallcnn", 10, 3072, torch.device("cuda"), seed=35, fused=True)
+    w, b = model.conv1.weight.detach(), model.conv1.bias.detach()
+    gamma = torch.linspace(-1.05, 1.45, 64, device="cuda")  # γ < 0 on some channels: the pool takes the low r
+    beta = torch.linspace(-0.2, 0.3, 64, device="cuda")
+    rmean = torch.linspace(0.1, 0.4, 64, device="cuda")
+    rinv = torch.rsqrt(torch.linspace(0.6, 1.4, 64, device="cuda") + op.EPS)
+    src = "audiobd_tpu_torch/csrc/conv1_bn_pool.cu"
+    print("  kernel G (block 1's forward) vs the plain chain; tolerance: equal (torch.equal)", flush=True)
+    rows = []
+    for xx in (x, x.repeat(4, 1, 1, 1)):
+        r = op._conv_relu(xx, w, b)
+        mu = r.mean(dim=(0, 2, 3))
+        inv = torch.rsqrt((r * r).mean(dim=(0, 2, 3)) - mu * mu + op.EPS)
+        kernels = {"relu": lambda: op.conv1_bn_pool_fwd_relu(xx, w, b),  # noqa: E731
+                   "train": lambda: op.conv1_bn_pool_fwd(xx, w, b, gamma, beta, mu, inv, train_bn=True),  # noqa: E731
+                   "eval": lambda: op.conv1_bn_pool_fwd(xx, w, b, gamma, beta, rmean, rinv, train_bn=False)}  # noqa: E731
+        plains = {"relu": lambda: (lambda rr: (rr, rr * rr))(op._conv_relu(xx, w, b)),  # noqa: E731
+                  "train": lambda: op._norm_pool(r, gamma, beta, mu, inv),  # noqa: E731
+                  "eval": lambda: op._norm_pool(op._conv_relu(xx, w, b), gamma, beta, rmean, rinv)}  # noqa: E731
+        out_bytes = 4 * xx.shape[0] * 64 * (xx.shape[2] - 1) * ((xx.shape[3] - 1) // 3)
+        x_bytes = 4 * xx.numel()
+        moved = {"relu": x_bytes + 8 * r.numel(), "train": x_bytes + out_bytes, "eval": x_bytes + out_bytes}
+        what = {"relu": "the conv, bias add, clamp and r*r; x read once, r and r*r written once",
+                "train": "_norm_pool on r; x read once, out written once",
+                "eval": "the eval chain; x read once, out written once"}
+        timed = {}
+        for mode in ("relu", "train", "eval"):
+            got, want = kernels[mode](), plains[mode]()
+            pairs = list(zip(got, want)) if mode == "relu" else [(got, want)]
+            err = max(max_err(torch, a, e, 0.0, 0.0)[0] for a, e in pairs)
+            check(all(torch.equal(a, e) for a, e in pairs), f"G {mode} x {tuple(xx.shape)}: equal to the plain chain "
+                  f"(max abs err {err:.3e})")
+            del got, want, pairs
+            ms, dev = time_ms(torch, kernels[mode], 20), device_ms(torch, kernels[mode], 20)
+            plain_ms = time_ms(torch, plains[mode], 10)
+            bms, by = bound(0.0, moved[mode])
+            timed[mode] = (ms, plain_ms, bms, err)
+            print(f"  G {mode} x {tuple(xx.shape)}: kernel {ms:.4f} ms (device {dev:.4f}), plain ({what[mode]}) "
+                  f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), {100 * bms / dev:.1f}% of it", flush=True)
+        del r
+        op_train = lambda: op.conv1_bn_pool(xx, w, b, gamma, beta, train=True)  # noqa: E731
+
+        def chain_train():
+            rr = op._conv_relu(xx, w, b)
+            m = rr.mean(dim=(0, 2, 3))
+            return op._norm_pool(rr, gamma, beta, m, torch.rsqrt((rr * rr).mean(dim=(0, 2, 3)) - m * m + op.EPS))
+
+        block_ms, chain_ms = time_ms(torch, op_train, 10), time_ms(torch, chain_train, 10)
+        block_bound, _ = bound(0.0, 2 * x_bytes + out_bytes)
+        print(f"  block 1's train-mode forward x {tuple(xx.shape)}: with G {block_ms:.4f} ms (its passes "
+              f"{timed['relu'][0] + timed['train'][0]:.4f}, torch's means the rest), the plain chain {chain_ms:.4f} ms, "
+              f"the block's bound {block_bound:.4f} ms (x read twice, out written once), "
+              f"{100 * block_bound / block_ms:.1f}% of it", flush=True)
+        if xx is x:
+            rows += [{"name": "conv1_bn_pool_fwd", "route": "cuda", "source": src,
+                      "replaces": "none (the reference's forward is stock XLA)",
+                      "max_abs_err": max(timed["relu"][3], timed["train"][3]), "ms": block_ms, "plain_ms": chain_ms,
+                      "bound_ms": block_bound, "bound_by": "bytes", "library_ms": chain_ms},
+                     {"name": "conv1_bn_pool_fwd_eval", "route": "cuda", "source": src,
+                      "replaces": "none (the reference's forward is stock XLA)", "max_abs_err": timed["eval"][3],
+                      "ms": timed["eval"][0], "plain_ms": timed["eval"][1], "bound_ms": timed["eval"][2],
+                      "bound_by": "bytes", "library_ms": timed["eval"][1]}]
+    return rows
 
 
 def block1_train(torch, x, compare, label: str, linear_features: int, seed: int, device_time: bool = False) -> dict:
@@ -1370,6 +1459,10 @@ def phase_main_path(torch, kernels, workdir: str) -> tuple[dict[str, int], float
         check(launches[name] == 0, f"MFCC kernel {name} launched {launches[name]} times (none on this path)")
     check(launches["conv1_bn_pool_bwd_params"] > 0,
           f"block-1 backward kernel launched {launches['conv1_bn_pool_bwd_params']} times")
+    g_relu, g_train, g_eval = (launches[f"conv1_bn_pool_fwd{m}"] for m in ("_relu", "", "_eval"))
+    check(g_relu == g_train == launches["conv1_bn_pool_bwd_params"] and g_eval > 0,
+          f"block-1 forward kernel G's train-mode passes launched {g_relu} and {g_train} times (one a train step, as "
+          f"B: {launches['conv1_bn_pool_bwd_params']}), its eval mode {g_eval} times")
     acc = _csv_rows(os.path.join(workdir, "record", "chip_smoke", "acc_result.csv"))[-1]
     return launches, clips, (float(acc[2]), float(acc[3]))
 
@@ -2068,10 +2161,9 @@ def phase_serving(torch, kernels, workdir: str) -> dict[str, int]:
               f"{walls['read']:.4f} s, resample {walls['resample']:.4f} s, MFCC {walls['mfcc']:.4f} s, forward "
               f"{walls['forward']:.4f} s; {n_clips / stages:.1f} clips/s over the four stages", flush=True)
         print(f"  launches: {launches}", flush=True)
-        want_a = -(-n_clips // 2048)
-        check(launches.get("mfcc_fft") == want_a and set(launches) == {"mfcc_fft"},
-              f"infer launched kernel A's FFT route {launches.get('mfcc_fft')} times ({want_a} chunks of 2,048) "
-              "and no other kernel")
+        want = {"mfcc_fft": -(-n_clips // 2048), "conv1_bn_pool_fwd_eval": -(-n_clips // BATCH)}
+        check(launches == want, f"infer launched {launches}: kernel A's FFT route once a chunk of 2,048 and kernel "
+              f"G's eval mode once a batch of {BATCH}, no other kernel (expected {want})")
         check(len(rows) == n_clips and probs.shape == (n_clips, 10) and bool(np.isfinite(probs).all())
               and float(np.abs(probs.sum(-1) - 1.0).max()) < 1e-5
               and all(r["label"] == r["top"][0]["label"] for r in rows),
@@ -2661,7 +2753,9 @@ def rank_records(lines: list[str], pattern: str) -> dict[int, re.Match]:
 # A rank's line at the end of train_attack (train/trainer.py::replica_line).
 REPLICA = (r"rank (\d+)/\d+ on (.*?): parameters sha256 ([0-9a-f]{64}); kernel launches (\{[^{}]*\}); "
            r"bd_train sha256 ([0-9a-f]{64})")
-MAIN_PATH_LAUNCHES = {"mfcc_fft": 10, "conv1_bn_pool_bwd_params": 0}  # a rank of the main path: A 10, B none
+# A rank of the main path: A 10; B and G none (sync-BN takes the unfused chain).
+MAIN_PATH_LAUNCHES = {"mfcc_fft": 10, "conv1_bn_pool_bwd_params": 0, "conv1_bn_pool_fwd_relu": 0,
+                      "conv1_bn_pool_fwd": 0, "conv1_bn_pool_fwd_eval": 0}
 
 
 def check_rank_run(out: dict, n_ranks: int, acc_ref: tuple[float, float], ref_name: str, cards: bool = False,

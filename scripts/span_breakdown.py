@@ -12,7 +12,8 @@ mean host milliseconds, the host syncs, the convolutions that took
 ``models/layers.py``'s row-slice route (``sliced``: the counter
 ``sliced_convs``) and the kernel launches a span, and, for a span with
 children, the least and the median share of its device milliseconds that
-its children's cover.
+its children's cover; then each path's launches a span by kernel (the
+counters of ``audiobd_tpu_torch.ops.KERNELS``).
 """
 
 from __future__ import annotations
@@ -68,6 +69,12 @@ def main(argv=None) -> int:
               f"{mean(lambda s: (s.t1 - s.t0) / 1e6):>9.4f} {mean(lambda s: s.host_syncs):>6.3f} "
               f"{mean(lambda s: s.sliced_convs):>6.3f} "
               f"{mean(lambda s: s.launches):>8.3f} {cover_text:>31}")
+    print("launches a span by kernel:")
+    for path, group in sorted(by_path.items()):
+        names = sorted({name for s in group for name in s.kernels})
+        if names:
+            print(f"  {path:<46} " + ", ".join(
+                f"{name} {statistics.mean(s.kernels.get(name, 0) for s in group):.3f}" for name in names))
     return 0 if out["correct"] else 1
 
 

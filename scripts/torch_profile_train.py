@@ -4,7 +4,7 @@
     python3 scripts/torch_profile_train.py [--model smallcnn|smalllstm]
         [--fused_block2 auto|on|off] [--fused_block3 auto|on|off]
         [--per_class 2000] [--batch_size 256] [--compute_dtype float32|bfloat16]
-        [--trace PATH] [--flowmur | --defense]
+        [--trace PATH] [--flowmur | --defense] [--block1]
 
 Builds the main path's data on the card (synthetic clips → MFCC kernel →
 BadNets patch), runs one warm-up epoch of training (SmallCNN by default;
@@ -25,6 +25,12 @@ eval mode; each step is poison/flowmur.py::trigger_step (deploy → plain matmul
 STFT → MFCC → surrogate → backward through kernel C → Adam). It also sums
 the device time by kind: cuBLAS matrix products (the STFT's), cuDNN
 convolutions (the surrogate's blocks 2-3), kernel C, the rest.
+
+``--block1`` also times block 1's forward (``ConvStack.block1``: the fused
+op, kernel G on the card) inside the epoch: the stream's milliseconds between
+CUDA events around each call, by train steps and eval batches, over the
+unprofiled epoch, and the device kernels of each call's subtree under the
+profiler, by name.
 
 ``--defense`` times the two kinds of defense epoch on the 5% val split of
 the synthetic set (800 clips at the default size, 4 steps at batch 256),
@@ -80,6 +86,8 @@ def main() -> int:
     parser.add_argument("--defense", action="store_true",
                         help="time the defenses' SAM and fine-tune epochs with block 1 fused and unfused")
     parser.add_argument("--compute_dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    parser.add_argument("--block1", action="store_true",
+                        help="time block 1's forward inside the epoch's train steps and eval batches")
     args = parser.parse_args()
 
     cfg = make_config("flowmur" if args.flowmur else "badnets", batch_size=args.batch_size, model=args.model,
@@ -112,10 +120,17 @@ def main() -> int:
 
     epoch()  # warm-up: cuDNN algorithm choice, allocator, kernel binding
     torch.cuda.synchronize()
+    block1_calls = watch_block1(torch) if args.block1 else None
     t0 = time.perf_counter()
     epoch()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
+    if block1_calls is not None:
+        for mode, events in sorted(block1_calls.items()):
+            ms = [a.elapsed_time(b) for a, b in events]
+            print(f"block 1's forward in {mode}: {len(ms)} calls, stream ms a call mean {sum(ms) / len(ms):.4f}, "
+                  f"min {min(ms):.4f}, max {max(ms):.4f} (CUDA events around ConvStack.block1)")
+        block1_calls.clear()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -123,7 +138,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(BLOCK1_RANGE)]  # the ranges' device-side copies are no kernels
     if not kernels:
         print("torch.profiler recorded no device kernels: no breakdown", file=sys.stderr)
         return 1
@@ -162,10 +178,64 @@ def main() -> int:
         print("device time by kind:")
         for kind, (us, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
             print(f"  {us / 1e3:9.3f} ms {100 * us / total:5.1f}% {count:6d}x  {kind}")
+    if args.block1:
+        block1_kernels(torch, prof)
     if args.trace:
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
     return 0
+
+
+BLOCK1_RANGE = "block1.forward."
+
+
+def watch_block1(torch) -> dict:
+    """Wraps ``ConvStack.block1`` from here on: each call inside a
+    ``record_function`` range named by the model's mode, and, while the
+    returned dict is not None, a CUDA event pair appended to it under that
+    mode."""
+    from audiobd_tpu_torch.models.zoo import ConvStack
+
+    calls: dict[str, list] = defaultdict(list)
+    inner = ConvStack.block1
+
+    def block1(self, x):
+        mode = "train steps" if self.training else "eval batches"
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.profiler.record_function(BLOCK1_RANGE + ("train" if self.training else "eval")):
+            start.record()
+            out = inner(self, x)
+            end.record()
+        calls[mode].append((start, end))
+        return out
+
+    ConvStack.block1 = block1
+    return calls
+
+
+def block1_kernels(torch, prof) -> None:
+    """The device kernels launched inside each ``watch_block1`` range of the
+    profiled epoch, by mode and name: milliseconds and launches a call."""
+    def kernels(e):
+        found = list(e.kernels)
+        for child in e.cpu_children:
+            found += kernels(child)
+        return found
+
+    ranges = [e for e in prof.events()
+              if e.name.startswith(BLOCK1_RANGE) and e.device_type == torch.autograd.DeviceType.CPU]
+    for mode in sorted({e.name for e in ranges}):
+        calls = [e for e in ranges if e.name == mode]
+        by_name: dict[str, list] = defaultdict(lambda: [0.0, 0])
+        for e in calls:
+            for k in kernels(e):
+                by_name[k.name][0] += k.duration
+                by_name[k.name][1] += 1
+        total = sum(v[0] for v in by_name.values()) / len(calls) / 1e3
+        print(f"{mode}: {len(calls)} calls; device ms a call {total:.4f} over "
+              f"{sum(v[1] for v in by_name.values()) / len(calls):.2f} kernels a call:")
+        for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {us / len(calls) / 1e3:9.4f} ms {count / len(calls):5.2f}x  {name[:110]}")
 
 
 def busy_us(kernels) -> float:

@@ -17,8 +17,15 @@ rounding grows like log n). Where plain dsp.mfcc's DFT bases would not fit
 the card (n_fft 65537 and 131072: 17 and 69 GB), against a float64 MFCC
 within atol 1e-3. Block-1 backward rtol 1e-4, atol 1e-5: the kernels
 and the plain version recompute y and z bit-identically and route every
-pool tie the same way, so only the order of the f32 sums differs. Block-2/3
-backward (kernels D, E): max abs error <= 1e-4 * max|ref| + 1e-6 per output,
+pool tie the same way, so only the order of the f32 sums differs.
+Block-1 forward (kernel G) against the plain chain (cuDNN's conv and bias
+add, torch's means, ``_norm_pool``'s torch ops) on the card: equal
+(torch.equal). Both of G's passes form r from x as cuDNN's convolution
+accumulates it (fused multiply-adds in tap order) and the bias as torch
+adds it; train mode's first pass writes r and r·r for torch's means, and
+the pool pass normalises with the given statistics, each step rounded as
+the torch ops round it. Block-2/3 backward
+(kernels D, E): max abs error <= 1e-4 * max|ref| + 1e-6 per output,
 the same reasoning over sums of up to ~10^4 terms per entry (D's parameter
 sums in 3xTF32 on the tensor cores, each product exact, f32 accumulation). D's routing: the
 same zero/sign pattern as the plain routing (both form y in one fixed order)
@@ -57,6 +64,7 @@ torch.equal compares values.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from audiobd_tpu_torch.dsp import MFCCParams, mfcc_features
 from audiobd_tpu_torch.models import layers
@@ -447,6 +455,130 @@ def test_block1_kernels_on_card_statistics_match_plain(cuda):
                                           train_bn=True, need_dx=True)
     for name, a, e in zip(("dx", "dweight", "dbias", "dgamma", "dbeta"), got, ref):
         torch.testing.assert_close(a.cpu(), e, rtol=1e-4, atol=1e-5, msg=name)
+
+
+# Kernel G at the planes block 1 sees: BadNets and JingleBack (101, 40),
+# Ultrasonic (100, 40), FlowMur (32, 13), DABA (32, 40); the attacks'
+# published batch of 256, the cells' 1,024 and a tail batch.
+FORWARD_PLANES = {"badnets": (101, 40), "ultrasonic": (100, 40), "flowmur": (32, 13), "daba": (32, 40)}
+FORWARD_ROWS = (256, 1024, 37)
+FORWARD_COUNTERS = (op.FWD_RELU_KERNEL, op.FWD_KERNEL, op.FWD_EVAL_KERNEL)
+
+
+def _forward_inputs(rows, plane, seed, device):
+    """x like MFCC features (tens of dB); C = 64 channels whose biases leave
+    some relu zeros (exact pool ties), γ[0] < 0."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    gamma = 1.0 + 0.3 * rng.normal(size=64)
+    gamma[0] = -abs(gamma[0])
+    return (t(rng.normal(size=(rows, 1, *plane)) * 25.0 - 8.0), t(rng.uniform(-0.5, 0.5, size=(64, 1, 2, 2))),
+            t(rng.uniform(-0.5, 0.5, size=64)), t(gamma), t(0.1 * rng.normal(size=64)))
+
+
+def _counted_forward(fn, *args):
+    """fn(*args) and the launches it added to G's counters (train mode's two
+    passes, eval mode)."""
+    before = [k.launches for k in FORWARD_COUNTERS]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, tuple(k.launches - b for k, b in zip(FORWARD_COUNTERS, before))
+
+
+@pytest.mark.parametrize("rows", FORWARD_ROWS)
+@pytest.mark.parametrize("plane", sorted(FORWARD_PLANES))
+def test_forward_kernel_train_mode_equals_plain_chain(cuda, plane, rows):
+    x, weight, bias, gamma, beta = _forward_inputs(rows, FORWARD_PLANES[plane], rows + len(plane), cuda)
+    (r, r2), launched = _counted_forward(op.conv1_bn_pool_fwd_relu, x, weight, bias)
+    assert launched == (1, 0, 0)
+    assert torch.equal(r, op._conv_relu(x, weight, bias)) and torch.equal(r2, r * r)
+    mu = r.mean(dim=(0, 2, 3))
+    inv = torch.rsqrt(r2.mean(dim=(0, 2, 3)) - mu * mu + op.EPS)
+    out, launched = _counted_forward(
+        lambda: op.conv1_bn_pool_fwd(x, weight, bias, gamma, beta, mu, inv, train_bn=True))
+    assert launched == (0, 1, 0)
+    assert torch.equal(out, op._norm_pool(r, gamma, beta, mu, inv))
+
+
+@pytest.mark.parametrize("rows", FORWARD_ROWS)
+@pytest.mark.parametrize("plane", sorted(FORWARD_PLANES))
+def test_forward_kernel_eval_mode_equals_plain_chain(cuda, plane, rows):
+    x, weight, bias, gamma, beta = _forward_inputs(rows, FORWARD_PLANES[plane], rows + len(plane) + 1, cuda)
+    rmean = torch.linspace(0.5, 4.0, 64, device=cuda)
+    inv = torch.rsqrt(torch.linspace(2.0, 60.0, 64, device=cuda) + op.EPS)
+    out, launched = _counted_forward(
+        lambda: op.conv1_bn_pool_fwd(x, weight, bias, gamma, beta, rmean, inv, train_bn=False))
+    assert launched == (0, 0, 1)
+    assert torch.equal(out, op._norm_pool(op._conv_relu(x, weight, bias), gamma, beta, rmean, inv))
+
+
+@pytest.mark.parametrize("plane", sorted(FORWARD_PLANES))
+def test_forward_kernel_eval_mode_r_is_cudnns(cuda, plane):
+    """With μ 0, inv 1, β 0 and γ ±1, z is ±r exactly, so the pooled output
+    is each window's largest and smallest r: both equal to the r of cuDNN's
+    convolution and torch's bias add."""
+    x, weight, bias, _, _ = _forward_inputs(256, FORWARD_PLANES[plane], 5, cuda)
+    r = op._conv_relu(x, weight, bias)
+    windows = r.reshape(*r.shape[:3], r.shape[3] // 3, 3)
+    zeros, ones = torch.zeros(64, device=cuda), torch.ones(64, device=cuda)
+    top = op.conv1_bn_pool_fwd(x, weight, bias, ones, zeros, zeros, ones, train_bn=False)
+    bottom = op.conv1_bn_pool_fwd(x, weight, bias, -ones, zeros, zeros, ones, train_bn=False)
+    assert torch.equal(top, windows.amax(dim=-1)) and torch.equal(-bottom, windows.amin(dim=-1))
+
+
+def test_forward_kernel_refuses_what_it_cannot_take(cuda):
+    x, weight, bias, gamma, beta = _forward_inputs(4, (101, 40), 1, cuda)
+    vecs = (gamma, beta, gamma.abs(), gamma.abs())
+    pool = {
+        "\\(W-1\\) % 3": (x[..., :-1].contiguous(), weight, bias, *vecs),
+        "float32": (x.double(), weight, bias, *vecs),
+        "contiguous": (torch.empty(4, 1, 40, 101, device=cuda).transpose(2, 3), weight, bias, *vecs),
+        "device": (x, weight.cpu(), bias, *vecs),
+        "inv has shape": (x, weight, bias, gamma, beta, gamma, gamma[:5]),
+    }
+    refusals = {
+        op.conv1_bn_pool_fwd_relu: {
+            "\\(B, 1, H, W\\)": (x[0], weight, bias),
+            "float32": (x, weight, bias.double()),
+            "contiguous": (x, weight.transpose(2, 3), bias),
+            "device": (x, weight, bias.cpu()),
+            "bias has shape": (x, weight, bias[:5]),
+        },
+        lambda *a: op.conv1_bn_pool_fwd(*a, train_bn=True): pool,
+        lambda *a: op.conv1_bn_pool_fwd(*a, train_bn=False): pool,
+    }
+    before = [k.launches for k in FORWARD_COUNTERS]
+    for fn, cases in refusals.items():
+        for match, args in cases.items():
+            with pytest.raises(ValueError, match=match):
+                fn(*args)
+    assert [k.launches for k in FORWARD_COUNTERS] == before
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_block1_forward_on_card_takes_kernel_g_in_f32_only(cuda, train):
+    """The op on the card: f32 launches G once a call (its train or eval
+    counter) and gives the plain chain's output, statistics included, bit
+    for bit; the bf16 compute dtype launches no G."""
+    x, weight, bias, gamma, beta = _forward_inputs(16, (101, 40), 7, cuda)
+    rmean, rvar = torch.linspace(0.5, 4.0, 64, device=cuda), torch.linspace(2.0, 60.0, 64, device=cuda)
+    stats = {} if train else dict(running_mean=rmean, running_var=rvar)
+
+    def call(dtype):
+        got = op.conv1_bn_pool(x, weight, bias, gamma, beta, train=train, compute_dtype=dtype, **stats)
+        return got if train else (got,)
+
+    for dtype, g_launches in ((torch.float32, (1, 1, 0) if train else (0, 0, 1)), (torch.bfloat16, (0, 0, 0))):
+        got, launched = _counted_forward(call, dtype)
+        assert launched == g_launches
+        r = op._conv_relu(x, weight, bias, dtype)
+        if train:
+            mu = r.mean(dim=(0, 2, 3))
+            var = (r * r).mean(dim=(0, 2, 3)) - mu * mu
+            want = (op._norm_pool(r, gamma, beta, mu, torch.rsqrt(var + op.EPS), dtype), mu, var)
+        else:
+            want = (op._norm_pool(r, gamma, beta, rmean, torch.rsqrt(rvar + op.EPS), dtype),)
+        assert all(torch.equal(a, e) for a, e in zip(got, want, strict=True))
 
 
 def _block2_inputs(shape, pool_padding, seed):

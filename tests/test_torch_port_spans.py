@@ -10,7 +10,8 @@ sharded epochs' tree. A train step at a shape where models/layers.py's
 row-slice route engages (the rule told the CPU is CUDA, its slices cut to
 a few rows) records its two routed convolutions (blocks 2 and 3) in
 ``sliced_convs``; under the least rows, or in an eval step (no gradient),
-none.
+none. A span records each kernel's launches inside it by name (``kernels``)
+and their sum (``launches``).
 """
 
 import os
@@ -233,3 +234,21 @@ def test_step_counts_sliced_convs(monkeypatch, case, slice_rows, expected):
     else:
         _, rows, _ = _profiled(lambda: scan_epoch.run_eval_epoch(model, data, BATCH))
     assert [r["sliced_convs"] for r in rows if r["name"] == f"{case}_step"] == [expected]
+
+
+def test_span_counts_each_kernels_launches():
+    """Launch counters moved inside a span (as a wrapper's call moves its
+    own) show in its ``kernels`` by name and in ``launches``; a counter
+    that did not move is left out."""
+    from audiobd_tpu_torch.ops import conv1_bn_pool as op
+
+    def launches():
+        with profiling.span("train_step"):
+            with profiling.span("forward"):
+                op.FWD_KERNEL.launches += 1
+            op.BWD_PARAMS_KERNEL.launches += 2
+
+    _profiled(launches)
+    forward, step = profiling.recorded()[-2:]
+    assert (forward.name, forward.kernels, forward.launches) == ("forward", {"conv1_bn_pool_fwd": 1}, 1)
+    assert (step.kernels, step.launches) == ({"conv1_bn_pool_fwd": 1, "conv1_bn_pool_bwd_params": 2}, 3)
