@@ -12,7 +12,7 @@ import os
 
 import numpy as np
 
-from audiobd_tpu_torch.ops import KERNELS
+from audiobd_tpu_torch.ops import launches
 from audiobd_tpu_torch.parallel.distributed import world_size
 from audiobd_tpu_torch.train.checkpoint import checkpoint_dir
 from audiobd_tpu_torch.utils.device import rank_label
@@ -54,6 +54,5 @@ def report_rank(command: str, result, device) -> None:
         value = getattr(result, f.name)
         digest.update(f.name.encode())
         digest.update(value.tobytes() if isinstance(value, np.ndarray) else repr(value).encode())
-    launches = {k.name: k.launches for k in KERNELS}
     print(f"{rank_label(device)}: {command} result sha256 {digest.hexdigest()}; kernel launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"{json.dumps(launches())}", flush=True)

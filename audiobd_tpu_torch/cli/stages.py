@@ -7,7 +7,7 @@ import time
 
 import torch
 
-from audiobd_tpu_torch.ops import KERNELS
+from audiobd_tpu_torch.ops import launches
 
 
 class Stages:
@@ -21,12 +21,12 @@ class Stages:
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        before = {k.name: k.launches for k in KERNELS}
+        before = launches()
         t0 = time.perf_counter()
         yield
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
-        launches = {k.name: k.launches - before[k.name] for k in KERNELS if k.launches > before[k.name]}
-        self.records[name] = {"wall_s": wall, "launches": launches}
-        print(f"stage {name}: wall {wall:.3f} s, kernel launches {launches}")
+        made = {k: n - before[k] for k, n in launches().items() if n > before[k]}
+        self.records[name] = {"wall_s": wall, "launches": made}
+        print(f"stage {name}: wall {wall:.3f} s, kernel launches {made}")

@@ -79,6 +79,11 @@ TOKEN_STD = 0.02
 # Adam turns that into larger gaps of the first steps' losses than the
 # comparison's limits were set from (PERF.md §7).
 ATTENTION_BACKEND = SDPBackend.MATH
+# This module's counters, made here so that every span records them, zero
+# where they do not move: the convolutions that take the row-slice route,
+# and AST's self-attention calls.
+profiling.count("sliced_convs", 0)
+profiling.count("attention_calls", 0)
 
 
 def init_uniform_(module: nn.Module, generator: torch.Generator) -> None:
@@ -246,12 +251,12 @@ def row_slices(conv: nn.Conv2d, x_shape: tuple[int, ...], device_type: str, dtyp
 def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``conv(x)`` in the compute ``dtype`` (flax nn.Conv's casts); where
     ``row_slices`` names a pass, with that backward pass in row slices
-    (``profiling.sliced_convs`` counts each such call)."""
+    (the counter ``sliced_convs`` counts each such call)."""
     if (shard := tp.shard_of(conv)) is not None:
         return tp.conv2d(conv, shard, x, dtype)
     needs_grad = torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad)
     if (route := row_slices(conv, tuple(x.shape), x.device.type, dtype, needs_grad)) is not None:
-        profiling.sliced_convs += 1
+        profiling.count("sliced_convs")
         return _RowSlicedConv2d.apply(x, conv.weight, conv.bias, *route)
     if dtype == torch.float32:
         return conv(x)
@@ -375,7 +380,7 @@ class Attention(nn.Module):
         b, t, c = x.shape
         q, k, v = linear(self.qkv, x, dtype).reshape(b, t, 3, self.heads, c // self.heads).permute(2, 0, 3, 1, 4)
         with profiling.span("attention"):
-            profiling.attention_calls += 1
+            profiling.count("attention_calls")
             o = scaled_attention(q, k, v)
         return linear(self.proj, o.transpose(1, 2).reshape(b, t, c), dtype)
 

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels and their wrappers.
 
-KERNELS lists every kernel of the port with its launch counter (kernel B in
+KERNELS lists every kernel of the port (kernel B in
 f32 twice, its train and eval modes apart; kernel G's train-mode first pass,
 and its pool pass twice, train and eval mode apart; kernel F's three routes,
-the ladder at k = 0, the resonant ladder and the phaser, apart too)."""
+the ladder at k = 0, the resonant ladder and the phaser, apart too);
+``launches`` reads their launch counters."""
 
 from audiobd_tpu_torch.ops import conv1_bn_pool, conv2_bn_pool, effects, mfcc
 
@@ -29,3 +30,8 @@ KERNELS = (
     effects.LADDER_RESONANT_KERNEL,
     effects.PHASER_KERNEL,
 )
+
+
+def launches() -> dict[str, int]:
+    """Each kernel's launches so far, by name, in KERNELS's order."""
+    return {k.name: k.launches for k in KERNELS}

@@ -22,6 +22,8 @@ from pathlib import Path
 
 import torch
 
+from audiobd_tpu_torch.utils import profiling
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -100,17 +102,27 @@ class CudaKernel:
 
     The entry point takes device pointers and the current CUDA stream,
     allocates nothing, and returns ``cudaGetLastError()``; a non-zero code
-    raises here. ``launches`` goes up by one per successful call."""
+    raises here. Each successful call counts one on the counter
+    ``profiling.KERNEL + name``, which ``launches`` reads."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list):
         self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
+        self.counter = profiling.KERNEL + name
+        profiling.count(self.counter, 0)
         self._fn = None
         self._error_string = None
         self._use_device = None
+
+    @property
+    def launches(self) -> int:
+        return profiling.counts()[self.counter]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        profiling.count(self.counter, n - self.launches)
 
     def _bind(self):
         lib = load_library(self.source)
@@ -138,7 +150,7 @@ class CudaKernel:
         # The library has its own CUDA runtime: point it at the tensors' card.
         self._check(self._use_device(index))
         self._check(self._fn(*args, torch.cuda.current_stream(device).cuda_stream))
-        self.launches += 1
+        profiling.count(self.counter)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -12,8 +12,9 @@ up the model, the optimizer's state and the step from that checkpoint;
 supervised loop with val-loss early stopping, on the same epoch engine.
 
 Under a group of more than one rank (``torchrun``; parallel/distributed.py)
-``train_attack`` trains data-parallel on the sharded engine (reference
-trainer.py:207-250), BatchNorm synced over the mesh's data axis; every rank
+``train_attack`` trains data-parallel (reference trainer.py:207-250) on the
+same epoch engine, each rank on its shard of every split, BatchNorm synced
+over the mesh's data axis; every rank
 runs the same epochs and stops at the same one, and rank 0 alone writes
 the checkpoint, CSVs and PNGs and prints the epoch lines; every rank writes
 its own trace.
@@ -36,19 +37,12 @@ import torch
 from audiobd_tpu_torch.configs import AttackConfig, linear_features_for
 from audiobd_tpu_torch.data.speech_commands import mfcc_params
 from audiobd_tpu_torch.models import build_model
-from audiobd_tpu_torch.ops import KERNELS
+from audiobd_tpu_torch.ops import launches
 from audiobd_tpu_torch.parallel.distributed import agreed, is_main, world_size
 from audiobd_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_replicated
 from audiobd_tpu_torch.train.checkpoint import checkpoint_dir, load_checkpoint, load_train_state, save_checkpoint
 from audiobd_tpu_torch.train.loop import ArraySet, EarlyStopping
-from audiobd_tpu_torch.train.scan_epoch import (
-    DeviceDataset,
-    ShardedDeviceDataset,
-    run_eval_epoch,
-    run_eval_sharded,
-    run_train_epoch,
-    run_train_epoch_sharded,
-)
+from audiobd_tpu_torch.train.scan_epoch import DeviceDataset, run_eval_epoch, run_train_epoch
 from audiobd_tpu_torch.train.state import SGD, Adam
 from audiobd_tpu_torch.utils import random as rnd
 from audiobd_tpu_torch.utils.device import rank_label, resolve_device
@@ -210,11 +204,7 @@ def train_attack(
         step = int(counts[0])
         if hasattr(opt, "count"):
             opt.count = int(counts[1])
-        d_train, d_clean, d_bd = (ShardedDeviceDataset(s, mesh, device) for s in (bd_train, clean_test, bd_test))
-        train_epoch, eval_epoch = run_train_epoch_sharded, run_eval_sharded
-    else:
-        d_train, d_clean, d_bd = (DeviceDataset(s, device) for s in (bd_train, clean_test, bd_test))
-        train_epoch, eval_epoch = run_train_epoch, run_eval_epoch
+    d_train, d_clean, d_bd = (DeviceDataset(s, device, mesh) for s in (bd_train, clean_test, bd_test))
     steps_per_epoch = d_train.n_batches(cfg.train.batch_size)
 
     model_spec = {
@@ -253,9 +243,9 @@ def train_attack(
             profiler.enter_context(trace(profile_dir, device))
         for epoch in range(1, cfg.train.num_epochs + 1):
             with span("epoch"):
-                tr = train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
-                ev_clean = eval_epoch(model, d_clean, cfg.train.batch_size)
-                ev_bd = eval_epoch(model, d_bd, cfg.train.batch_size)
+                tr = run_train_epoch(model, opt, d_train, cfg.train.batch_size, np_rng)
+                ev_clean = run_eval_epoch(model, d_clean, cfg.train.batch_size)
+                ev_bd = run_eval_epoch(model, d_bd, cfg.train.batch_size)
             if epoch >= 2:
                 profiler.close()  # two epochs of trace, as the reference
             step += steps_per_epoch
@@ -294,8 +284,9 @@ def train_attack(
 
 
 def _check_shardable(mesh: Mesh, batch_size: int, *splits: ArraySet) -> None:
-    """The sharded engine's conditions; where the reference would fall back
-    to its per-batch path (trainer.py:216-220), this raises."""
+    """The conditions of sharding every split over the data axis; where the
+    reference would fall back to its per-batch path (trainer.py:216-220),
+    this raises."""
     n_data = mesh.shape["data"]
     if batch_size % n_data:
         raise ValueError(f"batch size {batch_size} does not split over {n_data} data shards")
@@ -330,8 +321,7 @@ def replica_line(model: torch.nn.Module, bd_train: ArraySet) -> str:
     for name, t in model.state_dict().items():
         digest.update(name.encode())
         digest.update(t.detach().cpu().contiguous().numpy().tobytes())
-    launches = {k.name: k.launches for k in KERNELS}
-    return (f"parameters sha256 {digest.hexdigest()}; kernel launches {json.dumps(launches)}; "
+    return (f"parameters sha256 {digest.hexdigest()}; kernel launches {json.dumps(launches())}; "
             f"bd_train sha256 {sha256_hex(bd_train.feats, bd_train.labels, bd_train.indicators)}")
 
 

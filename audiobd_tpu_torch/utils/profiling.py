@@ -1,35 +1,37 @@
 """Tracing of the port: spans and counters on the profiler's clock
 (port of audiobd_tpu/utils/profiling.py's ``trace``).
 
+* ``count(name, n=1)``: the port's counters, one registry of named
+  integers, each made at zero on its first count; ``counts()`` is a
+  snapshot of them all. A counter's site is its only mention:
+  ``host_syncs`` here, ``sliced_convs`` and ``attention_calls`` in
+  models/layers.py, each kernel's launches (``KERNEL`` + its name) in
+  ops/build.py's ``CudaKernel``.
 * ``span(name)``: a named interval of the program. While a ``torch.profiler``
   session is active, each span records its name, its parent (the enclosing
   span on this thread), its host start and end by ``time.time_ns()`` (the
-  clock the profiler stamps its events with), the change in ``host_syncs``,
-  in ``sliced_convs``, in ``attention_calls`` and in the kernels' launches (``ops.KERNELS``:
-  their sum, ``launches``, and each kernel's that launched, ``kernels``)
-  between entry and exit, and, once CUDA is initialised, a timing event on
-  the current stream at entry and at exit: ``Span.device_ms`` is the
-  stream's time between them, idle included. A backward runs on autograd's
-  device thread while the calling thread waits inside its span, on the
-  same stream, so the two events bracket its kernels. While no session is active a span is one
-  shared no-op and records nothing. Spans stay in memory, the newest
+  clock the profiler stamps its events with), the change in every counter
+  between entry and exit (``counts``; the kernels' share as ``kernels``, each
+  kernel's that launched, and ``launches``, their sum), and, once CUDA is
+  initialised, a timing event on the current stream at entry and at exit:
+  ``Span.device_ms`` is the stream's time between them, idle included. A
+  backward runs on autograd's device thread while the calling thread waits
+  inside its span, on the same stream, so the two events bracket its
+  kernels. While no session is active a span is one shared no-op and
+  records nothing. Spans stay in memory, the newest
   ``MAX_SPANS``, for ``recorded`` to read after the session.
 * ``host_syncs``: the points where the program makes the host wait for the
   card, counted by ``to_host`` (a device→host read) and ``to_device`` (a
   host→device copy from pageable memory, which waits for the stream before
   it copies). They count on every device, so a CPU run shows the card's
   count.
-* ``sliced_convs``: the convolutions that take models/layers.py's row-slice
-  route (``conv2d``: a backward handed to cuDNN in row slices), counted at
-  the forward call.
-* ``attention_calls``: the self-attention calls of models/layers.py's
-  ``Attention`` (AST: 12 a forward), each inside an ``attention`` span; the
-  MLP's fc1 → GELU → fc2 is an ``mlp`` span.
 * ``trace(logdir, device)``: a ``torch.profiler`` session that writes its
   Chrome/TensorBoard trace (``rank<r>.<ns>.pt.trace.json``, host activity
   always, the card's kernels too when ``device`` is CUDA) and the session's
   spans beside it (``rank<r>.<ns>.spans.json``, Chrome trace events on the
-  trace's time base, ``baseTimeNanoseconds``), on every rank.
+  trace's time base, ``baseTimeNanoseconds``; each event's ``args`` hold
+  every counter but the kernels' by name, then ``launches`` and
+  ``kernels``), on every rank.
 """
 
 from __future__ import annotations
@@ -40,33 +42,46 @@ import os
 import re
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 
 import numpy as np
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
 MAX_SPANS = 1 << 16
+KERNEL = "kernel:"  # the prefix of a kernel's launch counter
 _SPANS: deque = deque(maxlen=MAX_SPANS)
 _LOCAL = threading.local()
 _OFF = contextlib.nullcontext()
-host_syncs = 0
-sliced_convs = 0
-attention_calls = 0
+_COUNTS: dict[str, int] = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (made at zero on its first count;
+    ``n`` 0 makes it, so every span records it from then on)."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counts() -> dict[str, int]:
+    """Every counter's value now."""
+    return dict(_COUNTS)
+
+
+count("host_syncs", 0)
 
 
 class Span:
     """One span, entered as a context manager: host times in ns, the
-    counters' deltas, and the timing events on the stream (None off CUDA).
-    ``span`` makes them; ``recorded`` returns them once they have exited."""
+    counters' changes (``counts``, those that moved; a counter that did not
+    reads 0), and the timing events on the stream (None off CUDA). ``span``
+    makes them; ``recorded`` returns them once they have exited."""
 
-    __slots__ = ("name", "parent", "t0", "t1", "host_syncs", "sliced_convs", "attention_calls", "launches",
-                 "kernels", "start_event", "end_event")
+    __slots__ = ("name", "parent", "t0", "t1", "counts", "start_event", "end_event")
 
     def __init__(self, name: str, parent: Span | None):
         self.name, self.parent = name, parent
-        self.t0 = self.t1 = self.host_syncs = self.sliced_convs = self.attention_calls = self.launches = 0
-        self.kernels: dict[str, int] = {}
+        self.t0 = self.t1 = 0
+        self.counts: Counter = Counter()
         self.start_event = self.end_event = None
 
     @property
@@ -80,9 +95,25 @@ class Span:
         stream has passed the exit (after a synchronisation)."""
         return None if self.start_event is None else self.start_event.elapsed_time(self.end_event)
 
+    @property
+    def host_syncs(self) -> int:
+        return self.counts["host_syncs"]
+
+    @host_syncs.setter
+    def host_syncs(self, n: int) -> None:
+        self.counts["host_syncs"] = n
+
+    @property
+    def kernels(self) -> dict[str, int]:
+        """Each kernel's launches in the span, of the kernels that launched."""
+        return {name[len(KERNEL):]: n for name, n in self.counts.items() if name.startswith(KERNEL)}
+
+    @property
+    def launches(self) -> int:
+        return sum(self.kernels.values())
+
     def __enter__(self) -> Span:
-        self.host_syncs, self.sliced_convs, self.kernels = host_syncs, sliced_convs, _launches()  # at entry
-        self.attention_calls = attention_calls
+        self.counts = Counter(_COUNTS)  # at entry
         self.t0 = time.time_ns()
         if torch.cuda.is_initialized():
             self.start_event = torch.cuda.Event(enable_timing=True)
@@ -96,18 +127,9 @@ class Span:
         if self.end_event is not None:
             self.end_event.record()
         self.t1 = time.time_ns()
-        self.host_syncs, self.sliced_convs = host_syncs - self.host_syncs, sliced_convs - self.sliced_convs
-        self.attention_calls = attention_calls - self.attention_calls
-        now = _launches()
-        self.kernels = {name: n - self.kernels[name] for name, n in now.items() if n != self.kernels[name]}
-        self.launches = sum(self.kernels.values())
+        entry = self.counts
+        self.counts = Counter({name: n - entry[name] for name, n in _COUNTS.items() if n != entry[name]})
         _SPANS.append(self)
-
-
-def _launches() -> dict[str, int]:
-    from audiobd_tpu_torch.ops import KERNELS
-
-    return {k.name: k.launches for k in KERNELS}
 
 
 def _stack() -> list:
@@ -136,29 +158,27 @@ def recorded(within: list[tuple[int, int]] | None = None) -> list[Span]:
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """``t`` as a NumPy array: a device→host read, one host sync."""
-    global host_syncs
-    host_syncs += 1
+    count("host_syncs")
     return t.cpu().numpy()
 
 
 def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """``array`` copied to ``device`` from pageable host memory, one host
     sync."""
-    global host_syncs
-    host_syncs += 1
+    count("host_syncs")
     return torch.from_numpy(array).to(device)
 
 
 def _write_spans(path: str, spans: list[Span], base_ns: int) -> None:
     """``spans`` as Chrome trace events (µs since ``base_ns``); each
     event's ``args`` hold its index, its parent's index, its path, its
-    counters' deltas and its device milliseconds."""
+    counters' changes and its device milliseconds."""
     index = {id(s): i for i, s in enumerate(spans)}
+    names = [name for name in _COUNTS if not name.startswith(KERNEL)]
     events = [{"ph": "X", "cat": "span", "name": s.name, "pid": "spans", "tid": 0, "ts": (s.t0 - base_ns) / 1e3,
                "dur": (s.t1 - s.t0) / 1e3,
-               "args": {"index": i, "parent": index.get(id(s.parent)), "path": s.path, "host_syncs": s.host_syncs,
-                        "sliced_convs": s.sliced_convs, "attention_calls": s.attention_calls, "launches": s.launches,
-                        "kernels": s.kernels,
+               "args": {"index": i, "parent": index.get(id(s.parent)), "path": s.path,
+                        **{name: s.counts[name] for name in names}, "launches": s.launches, "kernels": s.kernels,
                         "device_ms": s.device_ms}}
               for i, s in enumerate(spans)]
     with open(path, "w") as f:

@@ -13,7 +13,7 @@ mean host milliseconds, the host syncs, the convolutions that took
 ``sliced_convs``) and the kernel launches a span, and, for a span with
 children, the least and the median share of its device milliseconds that
 its children's cover; then each path's launches a span by kernel (the
-counters of ``audiobd_tpu_torch.ops.KERNELS``).
+kernels' counters in ``utils/profiling.py``'s registry).
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ def main(argv=None) -> int:
         mean = lambda f: statistics.mean(f(s) for s in group)  # noqa: E731
         print(f"{path:<48} {len(group):>6} {mean(lambda s: s.device_ms):>10.4f} "
               f"{mean(lambda s: (s.t1 - s.t0) / 1e6):>9.4f} {mean(lambda s: s.host_syncs):>6.3f} "
-              f"{mean(lambda s: s.sliced_convs):>6.3f} "
+              f"{mean(lambda s: s.counts['sliced_convs']):>6.3f} "
               f"{mean(lambda s: s.launches):>8.3f} {cover_text:>31}")
     print("launches a span by kernel:")
     for path, group in sorted(by_path.items()):

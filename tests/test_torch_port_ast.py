@@ -1,5 +1,5 @@
-"""AST (models/zoo.py::AST) against the plain reference, reference/ast_kws.py,
-on the CPU, and its place on the BadNets path.
+"""AST (models/zoo.py::AST) against the plain reference, benchmark/reference/ast.py
+(read here, never edited), on the CPU, and its place on the BadNets path.
 
 At a small size (2 blocks of width 64, 4 heads of 16, an MLP of 128, a 32 x 24
 input of 32 mel bands and 24 frames, patch 8 at stride 6: 17 tokens) on seeded
@@ -42,7 +42,7 @@ from audiobd_tpu_torch.train import scan_epoch
 from audiobd_tpu_torch.train.loop import ArraySet
 from audiobd_tpu_torch.train.state import Adam
 from audiobd_tpu_torch.utils import profiling
-from reference import ast_kws
+from benchmark.reference import ast as ast_ref
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(patch=8, stride=6, dim=64, depth=2, heads=4, mlp_dim=128)
@@ -65,7 +65,7 @@ def _weights(seed: int, widths: dict, n_mels: int, classes: int = 10) -> dict:
     LayerNorm's scale and shift drawn off 1 and 0 so that they count."""
     gen = torch.Generator().manual_seed(seed)
     out = {}
-    for key, shape, kind, fan_in in ast_kws.spec(classes, n_mels, {**widths, "input_tdim": TDIM}):
+    for key, shape, kind, fan_in in ast_ref.spec(classes, n_mels, {**widths, "input_tdim": TDIM}):
         u = torch.rand(shape, generator=gen) * 2.0 - 1.0
         out[key] = u / math.sqrt(fan_in) if kind == "uniform" else (1.0 if kind == "ones" else 0.0) + 0.1 * u
     return out
@@ -83,8 +83,10 @@ def _batch(seed: int, n: int = 6):
     return x, torch.from_numpy(rng.integers(0, 10, n))
 
 
-def test_reference_copies_are_the_same_file():
-    assert (REPO / "reference" / "ast_kws.py").read_bytes() == (REPO / "benchmark" / "reference" / "ast.py").read_bytes()
+def test_the_reference_is_the_benchmarks():
+    """The module these tests hold the port against is the one the
+    benchmark's AST cell holds it against."""
+    assert Path(ast_ref.__file__).resolve() == REPO / "benchmark" / "reference" / "ast.py"
 
 
 @pytest.mark.parametrize("train", [True, False])
@@ -93,7 +95,7 @@ def test_logits_match_the_reference(train):
     model = _port(state).train(train)
     x, _ = _batch(2)
     widths = {**SMALL, "input_tdim": TDIM}
-    torch.testing.assert_close(model(x), ast_kws.forward(state, x, widths), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(model(x), ast_ref.forward(state, x, widths), rtol=1e-5, atol=1e-5)
 
 
 def test_gradients_match_the_reference_leaf_by_leaf():
@@ -103,9 +105,9 @@ def test_gradients_match_the_reference_leaf_by_leaf():
     loss = torch.nn.functional.cross_entropy(model(x), y)
     grads = dict(zip([k for k, _ in model.named_parameters()], torch.autograd.grad(loss, list(model.parameters()))))
     leaves = {k: v.clone().requires_grad_(True) for k, v in state.items()}
-    ref_loss = torch.nn.functional.cross_entropy(ast_kws.forward(leaves, x, {**SMALL, "input_tdim": TDIM}), y)
+    ref_loss = torch.nn.functional.cross_entropy(ast_ref.forward(leaves, x, {**SMALL, "input_tdim": TDIM}), y)
     ref = dict(zip(leaves, torch.autograd.grad(ref_loss, list(leaves.values()))))
-    assert list(grads) == ast_kws.param_keys(state) and len(grads) == 5 + 12 * 2 + 6
+    assert list(grads) == ast_ref.param_keys(state) and len(grads) == 5 + 12 * 2 + 6
     for k, g in grads.items():
         assert float((g - ref[k]).abs().max()) <= 1e-4 * float(ref[k].abs().max()) + 1e-6, k
 
@@ -120,10 +122,10 @@ def test_three_adam_steps_match_the_reference():
         loss = torch.nn.functional.cross_entropy(model(x), y)
         opt.step(torch.autograd.grad(loss, opt.params))
         losses.append(float(loss.detach()))
-    ref = ast_kws.train_steps(state, batches, LR, {**SMALL, "input_tdim": TDIM})
+    ref = ast_ref.train_steps(state, batches, LR, {**SMALL, "input_tdim": TDIM})
     np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
     d = SMALL["dim"]
-    for (k, p), r in zip(model.named_parameters(), (ref["state"][k] for k in ast_kws.param_keys(state))):
+    for (k, p), r in zip(model.named_parameters(), (ref["state"][k] for k in ast_ref.param_keys(state))):
         p, r = p.detach(), r.clone()
         if k.endswith("attn.qkv.bias"):
             # The key bias adds q·b to a row's every score, which softmax
@@ -145,7 +147,7 @@ def test_published_configuration_on_the_meta_device():
     assert tokens.shape == (2, 146, 768) and logits.shape == (2, 10)
     params = list(model.named_parameters())
     assert len(params) == 155 and sum(p.numel() for _, p in params) == 85_376_266
-    spec = ast_kws.spec(10, 128, {**zoo.AST_WIDTHS, "input_tdim": 128})
+    spec = ast_ref.spec(10, 128, {**zoo.AST_WIDTHS, "input_tdim": 128})
     assert [(k, tuple(p.shape)) for k, p in params] == [(k, s) for k, s, _, _ in spec]
 
 
@@ -181,7 +183,7 @@ def test_logmel_is_the_mfcc_db_stage():
     assert got.shape == (3, 101, 128) and params.n_out == 128 and MFCCParams().n_out == 40
     torch.testing.assert_close(got, db, rtol=0, atol=0)
     torch.testing.assert_close(mfcc(wavs, MFCCParams()), got @ torch.from_numpy(params.dct()), rtol=0, atol=0)
-    torch.testing.assert_close(ast_kws.logmel(wavs, 16000, 400, 160, 128), got, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(ast_ref.logmel(wavs, 16000, 400, 160, 128), got, rtol=1e-4, atol=1e-3)
     with pytest.raises(ValueError, match="features"):
         MFCCParams(features="fbank")
 
@@ -207,7 +209,7 @@ def test_normalize_features_is_asts():
     train, test = torch.randn(8, 1, 101, 128) * 7.0 - 30.0, torch.randn(3, 1, 101, 128) * 7.0 - 30.0
     ntrain, ntest = normalize_features(cfg, train, test)
     assert abs(float(ntrain.double().mean())) < 1e-6 and abs(float(ntrain.double().std(correction=0)) - 0.5) < 1e-6
-    rtrain, rtest = ast_kws.normalize(train, test)
+    rtrain, rtest = ast_ref.normalize(train, test)
     assert torch.equal(ntrain, rtrain) and torch.equal(ntest, rtest)
     mcfg = make_config("badnets", device="cpu")
     assert normalize_features(mcfg, train, test) == (train, test)
@@ -242,24 +244,24 @@ def test_attention_spans_and_counter_on_a_cpu_forward():
     widths = {**TINY, "depth": 12}
     model = zoo.AST(10, 128, 128, **widths)
     data = ArraySet(np.zeros((4, 1, 101, 128), np.float32), np.arange(4) % 10)
-    before = profiling.attention_calls
+    before = profiling.counts()["attention_calls"]
     t0 = time.time_ns()
     with profile(activities=[ProfilerActivity.CPU]):
         scan_epoch.run_eval_epoch(model, scan_epoch.DeviceDataset(data, torch.device("cpu")), 4)
     spans = [s for s in profiling.recorded() if s.t0 >= t0]
-    assert profiling.attention_calls - before == 12
+    assert profiling.counts()["attention_calls"] - before == 12
     steps = [s for s in spans if s.name == "eval_step"]
     assert len(steps) == 1
     forward = [s for s in spans if s.name == "forward" and s.parent is steps[0]]
-    assert len(forward) == 1 and forward[0].attention_calls == 12
+    assert len(forward) == 1 and forward[0].counts["attention_calls"] == 12
     for name in ("attention", "mlp"):
         mine = [s for s in spans if s.name == name]
         assert len(mine) == 12 and all(s.parent is forward[0] for s in mine)
         assert {s.path for s in mine} == {f"eval_epoch/eval_step/forward/{name}"}
         assert all(forward[0].t0 <= s.t0 <= s.t1 <= forward[0].t1 for s in mine)
-    assert sum(s.attention_calls for s in spans if s.name == "attention") == 12
+    assert sum(s.counts["attention_calls"] for s in spans if s.name == "attention") == 12
     model(torch.zeros(2, 1, 101, 128))  # no session: counted, not recorded
-    assert profiling.attention_calls - before == 24
+    assert profiling.counts()["attention_calls"] - before == 24
 
 
 def test_badnets_cli_trains_ast(tmp_path, monkeypatch):

@@ -115,9 +115,9 @@ def test_shape_rule_keeps_other_geometries(kw):
 def test_conv2d_off_cuda_is_todays_call(dtype):
     conv = _conv(64, 64)
     x = torch.randn((4, 64, 100, 13), generator=torch.Generator().manual_seed(1), requires_grad=True)
-    before = profiling.sliced_convs
+    before = profiling.counts()["sliced_convs"]
     y = layers.conv2d(conv, x, dtype)
-    assert profiling.sliced_convs == before
+    assert profiling.counts()["sliced_convs"] == before
     assert y.grad_fn.name() == ("ConvolutionBackward0" if dtype == torch.float32 else "AddBackward0")
     if dtype == torch.float32:
         assert torch.equal(y, conv(x))
@@ -137,12 +137,12 @@ def test_conv2d_counts_each_routed_call(monkeypatch):
     _rule_on_the_cpu(monkeypatch)
     conv = _conv(64, 64)
     x = torch.randn((5, 64, 100, 13), generator=torch.Generator().manual_seed(2), requires_grad=True)
-    before = profiling.sliced_convs
+    before = profiling.counts()["sliced_convs"]
     y = layers.conv2d(conv, x, torch.float32)
     y2 = layers.conv2d(conv, x, torch.float32)
     with torch.no_grad():
         layers.conv2d(conv, x, torch.float32)  # no gradient: today's call
-    assert profiling.sliced_convs - before == 2
+    assert profiling.counts()["sliced_convs"] - before == 2
     assert y.grad_fn.name() == "_RowSlicedConv2dBackward"
     assert torch.equal(y, conv(x)) and torch.equal(y2, y)
 
@@ -154,6 +154,6 @@ def test_tensor_parallel_conv_keeps_its_branch(monkeypatch):
     monkeypatch.setattr(layers.tp, "conv2d", lambda conv, shard, x, dtype: calls.append(shard) or conv(x))
     conv = _conv(64, 64)
     x = torch.randn((5, 64, 100, 13), generator=torch.Generator().manual_seed(2), requires_grad=True)
-    before = profiling.sliced_convs
+    before = profiling.counts()["sliced_convs"]
     layers.conv2d(conv, x, torch.float32)
-    assert calls == ["shard"] and profiling.sliced_convs == before
+    assert calls == ["shard"] and profiling.counts()["sliced_convs"] == before

@@ -41,12 +41,22 @@ def test_no_forbidden_imports(path):
 
 
 def test_reference_imports_nothing_of_the_port_or_of_jax():
-    """reference/ast_kws.py, AST's plain reference, is plain torch: no port
-    module and nothing of JAX."""
-    path = os.path.join(REPO, "reference", "ast_kws.py")
+    """benchmark/reference/ast.py, AST's plain reference, is plain torch: no
+    port module and nothing of JAX."""
+    path = os.path.join(REPO, "benchmark", "reference", "ast.py")
     tops = set(_imported_tops(path))
     assert not tops & (FORBIDDEN | {"audiobd_tpu_torch", "reference", "benchmark"}), sorted(tops)
     assert tops <= {"__future__", "contextlib", "functools", "math", "numpy", "torch"}, sorted(tops)
+
+
+def test_profiling_imports_nothing_of_the_kernels():
+    """utils/profiling.py, the counters' registry, sits below ops/: the
+    kernels count their launches in it, and it names none of them."""
+    path = os.path.join(REPO, "audiobd_tpu_torch", "utils", "profiling.py")
+    tree = ast.parse(open(path).read(), path)
+    names = {alias.name for node in ast.walk(tree) if isinstance(node, ast.Import) for alias in node.names}
+    names |= {node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom) and node.module}
+    assert not {n for n in names if n.split(".")[:2] == ["audiobd_tpu_torch", "ops"]}, sorted(names)
 
 
 def test_importing_every_module_loads_no_jax():

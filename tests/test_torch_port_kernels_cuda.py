@@ -54,6 +54,13 @@ off, as the program runs: o, dq, dk and dv within 1e-5 of their largest
 entry, f32's reach (measured 5.7e-7 to 9.4e-7 on an H100; TF32's products
 err by ~1e-3).
 
+The epoch engine on one rank (train/scan_epoch.py) against the
+single-device loop of tests/test_torch_port_scan_epoch.py on the card, with
+cuDNN's deterministic algorithms: bit for bit (torch.equal), each batch
+loss, each step's gradients, the state after the epoch and the returned
+dict; a loss divided by a Python scalar (a product with its reciprocal on
+CUDA) would show here.
+
 Kernel F (the effects' recursions) against its plain loop on the card:
 exactly equal (torch.equal). Every route forms every product and sum in the
 JAX step's order without FMA and calls the same tanhf; the k = 0 ladder
@@ -653,9 +660,9 @@ def test_row_slice_route_matches_whole_batch_cudnn(cuda, x_shape, c_out, frozen,
     leaves = [x] if frozen else [x, conv.weight, conv.bias]
     assert layers.row_slices(conv, x_shape, "cuda", torch.float32, True) == route
 
-    before = profiling.sliced_convs
+    before = profiling.counts()["sliced_convs"]
     y = layers.conv2d(conv, x, torch.float32)
-    assert profiling.sliced_convs == before + 1
+    assert profiling.counts()["sliced_convs"] == before + 1
     assert y.grad_fn.name() == "_RowSlicedConv2dBackward"
     got = torch.autograd.grad(y, leaves, g)
     y_ref = torch.nn.functional.conv2d(x, conv.weight, conv.bias)
@@ -890,3 +897,12 @@ def test_attention_is_f32_on_the_card(cuda):
     got = (o.detach(), *torch.autograd.grad(o, (qq, kk, vv), do))
     for a, b in zip(got, want):
         assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["train", "eval"])
+def test_one_rank_epoch_is_the_single_device_loop_on_the_card(cuda, kind, monkeypatch):
+    from test_torch_port_scan_epoch import assert_bit_identical, one_rank_epochs
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    assert_bit_identical(*one_rank_epochs(kind, cuda))

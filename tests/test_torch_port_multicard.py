@@ -204,14 +204,14 @@ def _dryrun_rank(rank: int, tmp: str) -> None:
         model.sync_batchnorm(mesh.data_group)
         dset = port_scan.ShardedDeviceDataset(data, mesh, CPU)
         batches = []
-        reduced = port_scan._reduced
-        port_scan._reduced = lambda *a: batches.append(reduced(*a)) or batches[-1]
+        summary = port_scan._summary
+        port_scan._summary = lambda *a: batches.append(summary(*a)) or batches[-1]
         try:
             ev = port_scan.run_eval_sharded(model, dset, EVAL_BATCH)
             opt = Adam(model.parameters(), LR)
             tr = port_scan.run_train_epoch_sharded(model, opt, dset, N_ROWS, None)
         finally:
-            port_scan._reduced = reduced
+            port_scan._summary = summary
         out[name] = {"eval": ev, "eval_losses": batches[0][0], "train": tr, "train_sums": batches[1][1],
                      "state": {k: v.clone() for k, v in model.state_dict().items()},
                      "mu": dict(zip((n for n, _ in model.named_parameters()), opt.mu))}

@@ -102,7 +102,7 @@ def _rank_main(rank: int, tmp: str) -> None:
 
     # (b), (c): the sharded eval on the initial weights, then a train epoch.
     batches = []
-    port_scan._reduced = _spy(port_scan._reduced, batches)
+    port_scan._summary = _spy(port_scan._summary, batches)
     model = _port_model(inputs["state"])
     model.sync_batchnorm(mesh.data_group)
     opt = Adam(model.parameters(), LR)

@@ -11,9 +11,11 @@ row-slice route engages (the rule told the CPU is CUDA, its slices cut to
 a few rows) records its two routed convolutions (blocks 2 and 3) in
 ``sliced_convs``; under the least rows, or in an eval step (no gradient),
 none. A span records each kernel's launches inside it by name (``kernels``)
-and their sum (``launches``).
+and their sum (``launches``), and the change of any counter that ``count``
+alone names, which ``spans.json`` writes beside the rest.
 """
 
+import json
 import os
 import time
 
@@ -98,7 +100,7 @@ def _rows(spans) -> list[dict]:
     """Spans as picklable rows, each with its parent's row index."""
     index = {id(s): i for i, s in enumerate(spans)}
     return [{"name": s.name, "parent": index.get(id(s.parent)), "t0": s.t0, "t1": s.t1, "host_syncs": s.host_syncs,
-             "sliced_convs": s.sliced_convs, "device_ms": s.device_ms} for s in spans]
+             "sliced_convs": s.counts["sliced_convs"], "device_ms": s.device_ms} for s in spans]
 
 
 def _tree(rows: list[dict], i: int) -> tuple:
@@ -120,10 +122,10 @@ def _expected(case: str) -> tuple:
     return "eval_epoch", [leaf("plan"), *[step] * STEPS[case], leaf("summary")]
 
 
-# Host syncs of a root span: the plan's two uploads and the summary's reads
-# (two on one process, one after the ranks' all-reduce); a search's upload,
+# Host syncs of a root span: an epoch's plan upload and its summary read
+# (after the ranks' all-reduce where there are ranks); a search's upload,
 # its result, and each epoch's plan and summary.
-HOST_SYNCS = {"train": 4, "eval": 4, "search": 2 * EPOCHS + 2, "train_sharded": 3, "eval_sharded": 3}
+HOST_SYNCS = {"train": 2, "eval": 2, "search": 2 * EPOCHS + 2, "train_sharded": 2, "eval_sharded": 2}
 
 
 def _check_tree(rows: list[dict], case: str) -> None:
@@ -179,11 +181,11 @@ def ranks(tmp_path_factory):
 
 
 def test_nothing_is_recorded_without_a_profiler():
-    before, syncs = len(profiling.recorded()), profiling.host_syncs
+    before, syncs = len(profiling.recorded()), profiling.counts()["host_syncs"]
     assert profiling.span("train_step") is profiling.span("forward")  # one shared no-op
     _run("train")
     assert len(profiling.recorded()) == before
-    assert profiling.host_syncs - syncs == HOST_SYNCS["train"]  # the counter counts either way
+    assert profiling.counts()["host_syncs"] - syncs == HOST_SYNCS["train"]  # the counter counts either way
 
 
 @pytest.mark.parametrize("case", ["train", "eval", "search"])
@@ -245,10 +247,37 @@ def test_span_counts_each_kernels_launches():
     def launches():
         with profiling.span("train_step"):
             with profiling.span("forward"):
-                op.FWD_KERNEL.launches += 1
-            op.BWD_PARAMS_KERNEL.launches += 2
+                profiling.count(op.FWD_KERNEL.counter)
+            profiling.count(op.BWD_PARAMS_KERNEL.counter, 2)
 
+    before = op.FWD_KERNEL.launches
     _profiled(launches)
     forward, step = profiling.recorded()[-2:]
     assert (forward.name, forward.kernels, forward.launches) == ("forward", {"conv1_bn_pool_fwd": 1}, 1)
     assert (step.kernels, step.launches) == ({"conv1_bn_pool_fwd": 1, "conv1_bn_pool_bwd_params": 2}, 3)
+    assert op.FWD_KERNEL.launches == before + 1
+
+
+def test_a_counter_made_by_count_alone_is_recorded_and_written(tmp_path):
+    """A counter that only ``count`` names, first counted inside a span,
+    shows in that span's and its parent's changes and in the args of every
+    event of ``spans.json``, zero where it did not move, beside the keys
+    every event has."""
+    name = "test_registry_counter"
+
+    def run():
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                profiling.count(name, 3)
+            with profiling.span("other"):
+                pass
+
+    with profiling.trace(str(tmp_path), CPU):
+        run()
+    inner, other, outer = profiling.recorded()[-3:]
+    assert (inner.counts[name], other.counts[name], outer.counts[name]) == (3, 0, 3)
+    [path] = tmp_path.glob("rank0.*.spans.json")
+    events = {e["name"]: e["args"] for e in json.loads(path.read_text())["traceEvents"]}
+    assert {k: events[k][name] for k in ("inner", "other", "outer")} == {"inner": 3, "other": 0, "outer": 3}
+    assert all({"index", "parent", "path", "host_syncs", "sliced_convs", "attention_calls", "launches", "kernels",
+                "device_ms"} <= args.keys() for args in events.values())
